@@ -1,0 +1,6 @@
+"""Wake-word classifier models (torch.nn). Only res8 is ported so far."""
+
+from howl_tpu_torch.models import cnn  # noqa: F401 — populate the registry
+from howl_tpu_torch.models.base import MODEL_REGISTRY, ModelSpec, create_model, model_spec, register_model
+
+__all__ = ["MODEL_REGISTRY", "ModelSpec", "create_model", "model_spec", "register_model"]
