@@ -1,26 +1,47 @@
 """Smoke run of the PyTorch + CUDA port (howl_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile DIR]
 
 Needs one CUDA device and nvcc; exits non-zero, printing no result, without
 them. In order it:
 
   1. prints the card's ``nvidia-smi`` name and power limit;
-  2. builds the hand-written kernels from ``howl_tpu_torch/csrc`` (nvcc,
-     sm_90a) and prints the build time;
+  2. builds the hand-written kernels from ``howl_tpu_torch/csrc`` (one nvcc
+     per source, all at once, sm_90a) and prints the build time;
   3. holds the log-mel frontend kernel against its plain PyTorch version at
-     the main path's shape, B=512 x 128,000 samples, 40 mels, in every
+     the serving path's shape, B=512 x 128,000 samples, 40 mels, in every
      precision grade with float32 and bf16 output, plus one "fm" case;
   4. holds the res8 stem kernel against its plain version on (512, 641, 40)
      mels in bf16 and float32;
-  5. drives the main path: ``StreamingEngine.infer_batch`` with a res8 made
-     from seeded numpy weights, in bf16, on 512 clips of 8 s. The kernels'
-     launch counts are zeroed just before and read just after; both must
-     have grown. Its decisions must equal the float32 engine's on the same
-     card, on a batch where some clips fire and some do not. Then it times
-     a batch (CUDA events, after warm-up) and prints the realtime factor;
-  6. prints one JSON line with each kernel's launches, error and times
+  5. holds the noise-bank mix kernel against its plain version, bit for
+     bit, at the train step's shape (1024 x 8,000 samples from a (512,
+     32,000) bank, draws from the step's own sampler), on a narrow bank of
+     width 5,000 (sample-exact starts) and at a ragged window of 7,919;
+  6. drives the serving path: ``StreamingEngine.infer_batch`` with a res8
+     made from seeded numpy weights, in bf16, on 512 clips of 8 s. The
+     frontend and stem kernels' launch counts are zeroed just before and
+     read just after; both must have grown. Its decisions must equal the
+     float32 engine's on the same card, on a batch where some clips fire
+     and some do not. Then it times a batch (CUDA events, after warm-up)
+     and prints the realtime factor;
+  7. holds one float32 train step with the bank on the card against the
+     same step on the CPU (batch 16, the same variables and draws);
+  8. drives the training path: ``make_classification_train_step`` at the
+     JAX train bench's width (res8 45 maps, batch 1024 x 8,000 samples,
+     bf16 compute over float32 masters, VTLP, augmentation, a (512, 32,000)
+     noise bank with replace_prob 0.1, AdamW), from seeded numpy variables
+     carried across by ``compat``, on tones whose band sets the label. The
+     mix kernel's count is zeroed before 30 steps and must equal 30 after;
+     the loss must be finite and fall; every parameter, conv0 included,
+     must get a nonzero gradient; the BatchNorm running stats must move;
+     a float32 step must run and be finite. Then it times the bf16 step
+     with and without the bank, in turns, and the float32 step (CUDA
+     events, 20 steps after warm-up) and prints examples per second;
+  9. prints one JSON line with each kernel's launches, error and times
      beside its plain version's, then the device line last.
+
+``--profile DIR`` adds a stage breakdown and a ``torch.profiler`` kernel
+table of the bf16 noise-bank train step, written to ``DIR/train_profile.txt``.
 
 Float32 matrix products and convolutions run in full float32 here (TF32 off)
 so the plain versions are float32 references.
@@ -41,6 +62,13 @@ CLIP_SECONDS = 8.0
 SAMPLE_RATE = 16000
 N_MELS = 40
 SEED = 0
+# the JAX train bench's configuration (bench.py: bench_train_step)
+TRAIN_BATCH = 1024
+TRAIN_WINDOW = 8000
+BANK_SHAPE = (512, 32000)
+REPLACE_PROB = 0.1
+TRAIN_STEPS = 30
+TIMED_STEPS = 20
 
 
 def _cuda_ms(fn, iters: int) -> float:
@@ -140,6 +168,42 @@ def check_stem(mel_bf16, taps) -> dict:
             kernel_ms, plain_ms = _ab_ms(lambda: res8_stem_plain(mel, w), lambda: res8_stem_cuda(mel, w), iters=10)
             record = {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms}
             print(f"K2 main-path case: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms per batch")
+    return record
+
+
+def check_noise_mix(dev) -> dict:
+    """Kernel vs plain noise-bank mix, bit for bit, at the train step's shape,
+    on a narrow bank and at a ragged window; returns the train step's record."""
+    import torch
+
+    from howl_tpu_torch.ops import augment as aug
+    from howl_tpu_torch.ops.augment_cuda import mix_noise_bank_cuda, mix_noise_bank_plain
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    record = None
+    cases = (("train-step", BANK_SHAPE, TRAIN_WINDOW), ("narrow-bank", (BANK_SHAPE[0], 5000), TRAIN_WINDOW),
+             ("ragged-window", BANK_SHAPE, 7919))
+    for name, bank_shape, n in cases:
+        bank = aug.prepare_noise_bank(torch.randn(bank_shape, generator=gen, device=dev) * 0.05, n)
+        audio = torch.randn((TRAIN_BATCH, n), generator=gen, device=dev) * 0.1
+        d = aug.draw_mix_noise_bank(gen, TRAIN_BATCH, bank, aug.AugmentConfig(), REPLACE_PROB)
+        args = (audio, bank.extended, d.rows, d.offs, d.alpha)
+        got = mix_noise_bank_cuda(*args)
+        ref = mix_noise_bank_plain(*args)
+        torch.cuda.synchronize()
+        bitwise = torch.equal(got.view(torch.int32), ref.view(torch.int32))
+        err = float((got - ref).abs().max())
+        kernel_ms, plain_ms = _ab_ms(lambda: mix_noise_bank_plain(*args), lambda: mix_noise_bank_cuda(*args), iters=20)
+        print(
+            f"K3 {name:13s} audio {tuple(audio.shape)} bank {bank_shape}: bitwise={bitwise} max_abs_err={err:.3e} "
+            f"(alpha 0 rows {int((d.alpha == 0).sum())}, replaced {int(d.replaced.sum())}); "
+            f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms"
+        )
+        if not bitwise:
+            raise AssertionError(f"K3 {name}: the kernel is not bitwise equal to its plain version")
+        if record is None:
+            record = {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms}
+        del bank, audio, got, ref
     return record
 
 
@@ -252,6 +316,244 @@ def drive_main_path(dev, batch: int, clip_seconds: float) -> dict:
     return {"launches": launches, "batch_ms": batch_ms, "realtime_factor": rtf}
 
 
+def train_audio(rng: np.random.Generator, batch: int, samples: int):
+    """Tones in three frequency bands take labels 0-2 and quiet noise takes
+    label 3: data whose labels a res8 learns within a few steps."""
+    labels = rng.integers(0, 4, batch)
+    t = np.arange(samples) / SAMPLE_RATE
+    bands = np.array([(200.0, 500.0), (800.0, 1600.0), (2500.0, 5000.0)])
+    lo, hi = bands[np.minimum(labels, 2)].T
+    freqs = rng.uniform(lo, hi)[:, None]
+    tones = 0.5 * np.sin(2 * np.pi * freqs * t[None, :] + rng.uniform(0.0, 2 * np.pi, (batch, 1)))
+    noise = rng.standard_normal((batch, samples))
+    audio = np.where(labels[:, None] < 3, tones + 0.02 * noise, 0.002 * noise)
+    return audio.astype(np.float32), labels
+
+
+def _train_setup(dev):
+    """The slice's configuration: seeded numpy res8 variables, tone data, a
+    seeded (512, 32000) bank on the card, ZMUV fit on the data."""
+    import torch
+
+    from howl_tpu_torch.models import create_model
+    from howl_tpu_torch.ops.augment import AugmentConfig
+    from howl_tpu_torch.ops.frontend import FrontendConfig
+    from howl_tpu_torch.ops.zmuv import fit_zmuv
+    from howl_tpu_torch.training.state import create_train_state
+    from howl_tpu_torch.training.step import StepConfig
+
+    rng = np.random.default_rng(SEED + 3)
+    variables = res8_numpy_variables(rng, 4)
+    audio, labels = train_audio(rng, TRAIN_BATCH, TRAIN_WINDOW)
+    audio, labels = torch.from_numpy(audio).to(dev), torch.from_numpy(labels).to(dev)
+    bank = torch.randn(BANK_SHAPE, generator=torch.Generator(device=dev).manual_seed(SEED + 4), device=dev) * 0.05
+    frontend = FrontendConfig(n_mels=N_MELS)
+    zmuv = fit_zmuv([audio[:256]], frontend)
+    cfg = StepConfig(
+        frontend, zmuv.mean, zmuv.std, augment=AugmentConfig(), use_vtlp=True, replace_prob=REPLACE_PROB,
+        negative_label=3, use_deltas=False,
+    )
+
+    def state_for(dtype):
+        model = create_model("res8", num_labels=4, dtype=dtype)
+        return model, create_train_state(
+            model, 0.01, lr_decay=0.99, steps_per_epoch=100, variables=variables, device=dev
+        )
+
+    return audio, labels, bank, cfg, state_for
+
+
+def _examples_per_sec(step, state, audio, labels) -> tuple[float, float]:
+    """(examples/s, ms per step) over TIMED_STEPS steps after 3 of warm-up."""
+    import torch
+
+    for _ in range(3):
+        step(state, audio, labels, None, SEED)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(TIMED_STEPS):
+        step(state, audio, labels, None, SEED)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / TIMED_STEPS
+    return audio.shape[0] / (ms / 1000.0), ms
+
+
+def _to(draws, dev):
+    """A step's draws (nested named tuples of tensors) on ``dev``."""
+    import torch
+
+    if isinstance(draws, torch.Tensor):
+        return draws.to(dev)
+    if isinstance(draws, tuple):
+        return type(draws)(*(_to(d, dev) for d in draws))
+    return draws
+
+
+def check_train_step_against_cpu(dev) -> None:
+    """One float32 train step with the bank on the card and on the CPU, from
+    the same variables, data and draws: the loss within 1e-4 relative and
+    every gradient within 1e-3 relative L2 (cuDNN and the CPU sum in other
+    orders)."""
+    import torch
+
+    from howl_tpu_torch.models import create_model
+    from howl_tpu_torch.ops.augment import AugmentConfig, prepare_noise_bank
+    from howl_tpu_torch.ops.frontend import FrontendConfig
+    from howl_tpu_torch.training.state import create_train_state
+    from howl_tpu_torch.training.step import StepConfig, draw_step, make_classification_train_step
+
+    rng = np.random.default_rng(SEED + 5)
+    variables = res8_numpy_variables(rng, 4)
+    audio, labels = (torch.from_numpy(x) for x in train_audio(rng, 16, TRAIN_WINDOW))
+    bank = torch.from_numpy((rng.standard_normal((4, 9000)) * 0.05).astype(np.float32))
+    cfg = StepConfig(FrontendConfig(n_mels=N_MELS), -0.5, 2.0, augment=AugmentConfig(), replace_prob=0.3,
+                     negative_label=3, use_deltas=False)
+    draws = draw_step(torch.Generator().manual_seed(SEED), cfg, 16, TRAIN_WINDOW, prepare_noise_bank(bank, TRAIN_WINDOW))
+    out = {}
+    for where in ("cpu", dev):
+        model = create_model("res8", num_labels=4)
+        state = create_train_state(model, 0.01, variables=variables, device=where)
+        step = make_classification_train_step(model, cfg, bank.to(where))
+        _, metrics = step(state, audio.to(where), labels.to(where), None, SEED, draws=_to(draws, where))
+        out[str(where)] = (float(metrics["loss"]), {k: p.grad.cpu() for k, p in model.named_parameters()})
+    (cpu_loss, cpu_grads), (loss, grads) = out["cpu"], out[str(dev)]
+    grad_err = max(float((grads[k] - g).norm() / g.norm()) for k, g in cpu_grads.items())
+    print(f"float32 train step, card vs CPU on the same draws (batch 16): loss {loss:.6f} vs {cpu_loss:.6f}, "
+          f"largest relative gradient error {grad_err:.3e}")
+    if not (abs(loss - cpu_loss) <= 1e-4 * abs(cpu_loss) and grad_err <= 1e-3):
+        raise AssertionError("the train step on the card disagrees with the CPU reference")
+
+
+def drive_train_path(dev) -> dict:
+    import torch
+
+    from howl_tpu_torch.ops.augment_cuda import mix_noise_bank_cuda
+    from howl_tpu_torch.ops.stem_cuda import res8_stem_cuda
+    from howl_tpu_torch.training.state import param_count
+    from howl_tpu_torch.training.step import make_classification_eval_step, make_classification_train_step
+
+    audio, labels, bank, cfg, state_for = _train_setup(dev)
+    model, state = state_for(torch.bfloat16)
+    print(f"train step: res8 {param_count(state)} params, batch {tuple(audio.shape)}, zmuv {cfg.zmuv_mean:.4f} / {cfg.zmuv_std:.4f}")
+    noise_step = make_classification_train_step(model, cfg, bank)
+    stats0 = {k: v.clone() for k, v in model.state_dict().items() if "running" in k}
+    grad_seen = dict.fromkeys((name for name, _ in model.named_parameters()), False)
+    losses = []
+    k2_before = res8_stem_cuda.launches
+    mix_noise_bank_cuda.launches = 0
+    for _ in range(TRAIN_STEPS):
+        state, metrics = noise_step(state, audio, labels, None, SEED)
+        losses.append(float(metrics["loss"]))
+        for name, p in model.named_parameters():
+            grad_seen[name] |= bool(p.grad is not None and bool((p.grad != 0).any()))
+    torch.cuda.synchronize()
+    k3 = mix_noise_bank_cuda.launches
+    print(f"train path launches: noise-bank mix kernel {k3} in {TRAIN_STEPS} steps; stem kernel {res8_stem_cuda.launches - k2_before}")
+    print("bf16 losses: " + " ".join(f"{x:.4f}" for x in losses))
+    if k3 != TRAIN_STEPS:
+        raise AssertionError(f"the mix kernel launched {k3} times in {TRAIN_STEPS} steps")
+    if res8_stem_cuda.launches != k2_before:
+        raise AssertionError("a train step went through the stem kernel, which has no backward")
+    if not np.isfinite(losses).all():
+        raise AssertionError("a train step's loss is not finite")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not last < first:
+        raise AssertionError(f"the loss did not fall: first 5 steps {first:.4f}, last 5 {last:.4f}")
+    if not all(grad_seen.values()):
+        raise AssertionError(f"parameters that never got a nonzero gradient: {[k for k, v in grad_seen.items() if not v]}")
+    moved = {k: bool((model.state_dict()[k] != v).any()) for k, v in stats0.items()}
+    if not all(moved.values()):
+        raise AssertionError(f"BatchNorm running stats that did not move: {[k for k, v in moved.items() if not v]}")
+    logits = make_classification_eval_step(model, cfg)(state, audio)
+    if tuple(logits.shape) != (TRAIN_BATCH, 4) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"eval logits of shape {tuple(logits.shape)}, finite={bool(torch.isfinite(logits).all())}")
+    eval_acc = float((logits.argmax(-1) == labels).float().mean())
+    print(f"loss mean of the first 5 steps {first:.4f}, of the last 5 {last:.4f}; all {len(grad_seen)} parameters got "
+          f"gradients (conv0 included); running stats moved; eval accuracy on the batch {eval_acc:.4f}")
+
+    f32_model, f32_state = state_for(None)
+    f32_state, metrics = make_classification_train_step(f32_model, cfg, bank)(f32_state, audio, labels, None, SEED)
+    f32_loss = float(metrics["loss"])
+    print(f"float32 step with the bank: loss {f32_loss:.4f}")
+    if not np.isfinite(f32_loss):
+        raise AssertionError("the float32 step's loss is not finite")
+
+    # with and without the bank in turns (bank, none, none, bank), so the
+    # two rates share the card's state; each rate is the mean of its turns
+    steps = {"train_noise_examples_per_sec": noise_step,
+             "train_examples_per_sec": make_classification_train_step(model, cfg)}
+    turns = {key: [] for key in steps}
+    for key in (*steps, *reversed(steps)):
+        turns[key].append(_examples_per_sec(steps[key], state, audio, labels))
+    turns["train_examples_per_sec_f32"] = [
+        _examples_per_sec(make_classification_train_step(f32_model, cfg), f32_state, audio, labels)
+    ]
+    rates = {}
+    for key, runs in turns.items():
+        rates[key] = float(np.mean([rate for rate, _ in runs]))
+        ms = ", ".join(f"{m:.3f}" for _, m in runs)
+        print(f"{key}: {rates[key]:.1f} (ms per step of {TRAIN_BATCH} in each turn of {TIMED_STEPS} steps: {ms})")
+    return {"k3_launches": k3, "losses": losses, "eval_accuracy": eval_acc, **rates}
+
+
+def profile_train_step(dev, out_dir) -> None:
+    """Stage times (CUDA events) of the bf16 noise-bank train step, and a
+    torch.profiler kernel table over 5 steps, into ``out_dir``."""
+    import torch
+
+    from howl_tpu_torch.ops import augment as aug
+    from howl_tpu_torch.training import step as st
+    from howl_tpu_torch.training.objectives import frame_ce_loss
+
+    audio, labels, bank, cfg, state_for = _train_setup(dev)
+    model, state = state_for(torch.bfloat16)
+    noise_step = st.make_classification_train_step(model, cfg, bank)
+    prep = noise_step.prepared_for(TRAIN_WINDOW, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    draws = st.draw_step(gen, cfg, TRAIN_BATCH, TRAIN_WINDOW, prep)
+    mixed, _ = aug.apply_augment_audio(audio, draws.augment, cfg.augment, prep)
+    feats = aug.apply_spec_augment(st.featurize(mixed, cfg, draws.vtlp_alpha), draws.spec)
+    model.train()
+
+    def fwd_bwd():
+        state.optimizer.zero_grad(set_to_none=True)
+        frame_ce_loss(model(feats), labels).backward()
+
+    fwd_bwd()
+    stages = {
+        "draws": lambda: st.draw_step(gen, cfg, TRAIN_BATCH, TRAIN_WINDOW, prep),
+        "noise-bank mix (K3)": lambda: aug.apply_mix_noise_bank(audio, prep, draws.augment.mix),
+        "augment chain (mix, shift, white, salt-pepper)": lambda: aug.apply_augment_audio(audio, draws.augment, cfg.augment, prep),
+        "featurize (VTLP log-mel, ZMUV)": lambda: st.featurize(mixed, cfg, draws.vtlp_alpha),
+        "spec augment": lambda: aug.apply_spec_augment(feats, draws.spec),
+        "res8 forward + loss + backward": fwd_bwd,
+        "AdamW update": state.optimizer.step,
+        "whole step": lambda: noise_step(state, audio, labels, None, SEED),
+    }
+    lines = [f"bf16 noise-bank train step, batch {TRAIN_BATCH} x {TRAIN_WINDOW}; stage ms (CUDA events, 3 x 10 calls)"]
+    for name, fn in stages.items():
+        times = [_cuda_ms(fn, 10) for _ in range(3)]
+        lines.append(f"  {name}: " + ", ".join(f"{t:.3f}" for t in times))
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            noise_step(state, audio, labels, None, SEED)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1000
+    events = prof.key_averages()
+    busy_us = sum(getattr(e, "self_device_time_total", 0) for e in events if e.device_type == torch.autograd.DeviceType.CUDA)
+    lines.append(f"profiled 5 steps: wall {wall_ms:.3f} ms, device busy {busy_us / 1000:.3f} ms, "
+                 f"idle share {1 - busy_us / 1000 / wall_ms:.3f}")
+    lines.append(events.table(sort_by="self_device_time_total", row_limit=30, max_name_column_width=70))
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "train_profile.txt").write_text("\n".join(lines) + "\n")
+    print("\n".join(lines[:10]))
+
+
 def main() -> int:
     import torch
 
@@ -286,7 +588,14 @@ def main() -> int:
     taps = torch.randn((3, 3, 45), generator=gen, device=dev) / 3.0
     k2 = check_stem(k1.pop("mel"), taps)
     del audio
+    k3 = check_noise_mix(dev)
     main_path = drive_main_path(dev, BATCH, CLIP_SECONDS)
+    check_train_step_against_cpu(dev)
+    train_path = drive_train_path(dev)
+    if "--profile" in sys.argv[1:]:
+        from pathlib import Path
+
+        profile_train_step(dev, Path(sys.argv[sys.argv.index("--profile") + 1]))
 
     kernels = [
         {
@@ -296,6 +605,10 @@ def main() -> int:
         {
             "name": "res8_stem", "route": "cuda", "source": "howl_tpu_torch/csrc/stem.cu",
             "replaces": "howl_tpu/ops/stem_pallas.py:89", "launches": main_path["launches"]["k2"], **k2,
+        },
+        {
+            "name": "noise_bank_mix", "route": "cuda", "source": "howl_tpu_torch/csrc/augment.cu",
+            "replaces": "howl_tpu/ops/augment_pallas.py:43", "launches": train_path["k3_launches"], **k3,
         },
     ]
     print(json.dumps({"kernels": kernels}))

@@ -108,6 +108,7 @@ class StreamingEngine:
         # reference strides with drop_incomplete=True
         self.window_samples = int(cfg.max_window_size_ms / 1000 * cfg.sample_rate)
         self.model = copy.deepcopy(model).to(device=self.device, dtype=compute_dtype or torch.float32).eval()
+        self.model.dtype = None  # the weights' dtype, compute_dtype, governs scoring
         self.variables = variables
         self._geom_cache: dict = {}
 

@@ -1,10 +1,13 @@
 """Build the hand-written CUDA kernels in ``csrc/`` and load them with ctypes.
 
-Every ``csrc/*.cu`` file is compiled by one ``nvcc`` call into a shared
-library with a plain C interface:
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all
+started together, and the objects are linked into one shared library with a
+plain C interface:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o _build/libhowl_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \\
+         -c csrc/<name>.cu -o <name>.o                        (one per source)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
+         -o _build/libhowl_kernels_<hash>.so *.o
 
 The library name carries a hash of the sources, so an edited kernel is never
 served from a stale build. Nothing is built when a module is imported: the
@@ -19,15 +22,16 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 # argtypes of every C entry point: each pointer and the stream is a
 # c_void_p (ctypes would otherwise pass a Python int as a 32-bit int and cut
@@ -42,6 +46,8 @@ SIGNATURES = {
     ),
     # mel, taps, out, B, T, n_mels, ch, pool_t, pool_f, in_bf16, stream
     "howl_res8_stem_forward": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # audio, bank, rows, offs, alpha, out, B, n, n_rows, w_cols, stream
+    "howl_mix_noise_bank_forward": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -75,23 +81,41 @@ def library_path() -> Path:
     return BUILD_DIR / f"libhowl_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _failure(cmd, returncode, stdout, stderr) -> str:
+    return f"nvcc failed ({returncode}): {' '.join(map(str, cmd))}\n{stdout}\n{stderr}"
+
+
 def build() -> Path:
-    """Compile ``csrc/*.cu`` unless a build of these exact sources exists.
-    Raises RuntimeError with nvcc's output when the compile fails."""
+    """Compile ``csrc/*.cu`` unless a build of these exact sources exists:
+    one ``nvcc`` per source, all at once, then one link. Raises
+    RuntimeError with nvcc's output when a compile or the link fails."""
     out = library_path()
     if out.exists():
         return out
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    obj_dir = Path(tempfile.mkdtemp(prefix="objs.", dir=BUILD_DIR))
+    try:
+        jobs = []
+        for src in _sources():
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj_dir / f"{src.stem}.o")]
+            jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        failures = []
+        for cmd, proc in jobs:  # wait for every compile, failed or not
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                failures.append(_failure(cmd, proc.returncode, stdout, stderr))
+        if failures:
+            raise RuntimeError("\n".join(failures))
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *sorted(obj_dir.glob("*.o"))]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(_failure(cmd, proc.returncode, proc.stdout, proc.stderr))
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    finally:
+        shutil.rmtree(obj_dir, ignore_errors=True)
     return out
 
 
@@ -114,3 +138,12 @@ def check_launch(status: int, what: str) -> None:
     """Raise if the C entry's ``cudaGetLastError()`` after the launch was not 0."""
     if status != 0:
         raise RuntimeError(f"{what} kernel launch failed: cudaError_t {status}")
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise if grad mode is on and any input requires grad: the kernels have
+    no backward, so a gradient would silently stop at them."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} has no backward: call it under torch.no_grad() or on inputs that do not require grad"
+        )

@@ -11,10 +11,16 @@ matrix products, power, then the mel product and the log: the twin of the
 JAX chain's ``_mel_core`` in its f32 grade (``precision=None``) and its
 ``"bf16"`` grade (operands rounded to bf16, f32 accumulation). The fused
 kernel of this chain lives in ``frontend_cuda.py``.
+
+The train step's featurizer uses the rest: ``log_mel_spectrogram_vtlp``,
+whose VTLP filterbank is built in torch from a warp that may be a device
+tensor (so a random warp per batch never syncs the host), and
+``stack_deltas``/``compute_deltas`` for ``stacked=True``.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -118,24 +124,109 @@ def center_pad(audio: torch.Tensor, config: FrontendConfig) -> torch.Tensor:
     return torch.nn.functional.pad(audio[:, None], (pad, pad), mode="reflect")[:, 0]
 
 
-def log_mel_spectrogram(audio: torch.Tensor, config: FrontendConfig = FrontendConfig(), precision=None):
-    """(B, samples) float32 -> (B, n_mels, frames) log-mel spectrogram.
+def vtlp_filterbank(
+    n_freqs: int,
+    n_mels: int,
+    sample_rate: int,
+    alpha,
+    f_min: float = 0.0,
+    f_max: float = None,
+    f_hi: float = 4800.0,
+) -> torch.Tensor:
+    """VTLP-warped (n_freqs, n_mels) float32 filterbank, built in torch from
+    the warp ``alpha`` (a float or a 0-d tensor, whose device it takes), with
+    the JAX package's breakpoint algebra: mel breakpoints below the
+    crossover scale by alpha; above it they compress linearly so the Nyquist
+    endpoint is kept."""
+    f_max = f_max if f_max is not None else sample_rate / 2.0
+    s2 = sample_rate / 2.0
+    alpha = torch.as_tensor(alpha, dtype=torch.float32)
+    dev = alpha.device
+    all_freqs = torch.linspace(0.0, sample_rate // 2, n_freqs, device=dev)
+    m_pts = torch.linspace(float(hz_to_mel(f_min)), float(hz_to_mel(f_max)), n_mels + 2, device=dev)
+    f_pts = 700.0 * (10.0 ** (m_pts / 2595.0) - 1.0)
+    alpha_1 = torch.clamp(alpha, max=1.0)
+    cutoff = f_hi * alpha_1 / alpha
+    low = f_pts * alpha
+    high = s2 - ((s2 - f_hi * alpha_1) / (s2 - cutoff)) * (s2 - f_pts)
+    f_pts = torch.where(f_pts <= cutoff, low, high)
+    f_diff = f_pts[1:] - f_pts[:-1]
+    slopes = f_pts[None, :] - all_freqs[:, None]
+    down = -slopes[:, :-2] / f_diff[:-1]
+    up = slopes[:, 2:] / f_diff[1:]
+    return torch.clamp(torch.minimum(down, up), min=0.0)
 
-    ``precision=None`` computes in float32 throughout. ``"bf16"`` rounds the
-    audio, the DFT basis, the power and the filterbank to bf16 and
-    accumulates in float32, as the JAX chain's 1-pass mode does.
-    """
+
+def compute_deltas(x: torch.Tensor, win_length: int = 5) -> torch.Tensor:
+    """Regression deltas over the last (time) axis, torchaudio ComputeDeltas
+    semantics: replicate padding, N = (win_length - 1) // 2, denominator
+    2 * sum(n^2)."""
+    n = (win_length - 1) // 2
+    denom = 2.0 * sum(i * i for i in range(1, n + 1))
+    t = x.shape[-1]
+    padded = torch.cat([x[..., :1].expand(*x.shape[:-1], n), x, x[..., -1:].expand(*x.shape[:-1], n)], dim=-1)
+    out = torch.zeros_like(x)
+    for i in range(1, n + 1):
+        out = out + i * (padded[..., n + i : n + i + t] - padded[..., n - i : n - i + t])
+    return out / denom
+
+
+def stack_deltas(log_mels: torch.Tensor) -> torch.Tensor:
+    """(B, n_mels, T) -> (B, 3, n_mels, T): log-mels, deltas, accels."""
+    deltas = compute_deltas(log_mels)
+    return torch.stack((log_mels, deltas, compute_deltas(deltas)), dim=1)
+
+
+@functools.lru_cache(maxsize=16)
+def _dft_basis(n_fft: int, n_bins: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(windowed_dft_matrix(n_fft, n_bins)).to(device)
+
+
+@functools.lru_cache(maxsize=16)
+def _mel_basis(config: FrontendConfig, device: torch.device) -> torch.Tensor:
+    fb = mel_filterbank(config.n_freqs, config.n_mels, config.sample_rate, config.f_min, config.f_max)
+    return torch.from_numpy(fb).to(device)
+
+
+def _mel_core(audio: torch.Tensor, fb: torch.Tensor, config: FrontendConfig, precision) -> torch.Tensor:
+    """Frames, windowed DFT as two matrix products, power, mel product, log;
+    ``fb`` is the (n_freqs, n_mels) filterbank on the audio's device."""
     if precision not in (None, "bf16"):
         raise ValueError(f"unsupported frontend precision {precision!r}: expected None or 'bf16'")
     rnd = round_bf16 if precision == "bf16" else (lambda x: x)
-    dev = audio.device
     audio = rnd(audio.to(torch.float32))
     frames = center_pad(audio, config).unfold(-1, config.n_fft, config.hop_length)  # (B, T, n_fft)
     n_bins = nyquist_crop_bins(config)
-    w = rnd(torch.from_numpy(windowed_dft_matrix(config.n_fft, n_bins)).to(dev))
-    fb = mel_filterbank(config.n_freqs, config.n_mels, config.sample_rate, config.f_min, config.f_max)
-    fb = rnd(torch.from_numpy(fb[:n_bins]).to(dev))
+    w = rnd(_dft_basis(config.n_fft, n_bins, audio.device))
     re = frames @ w[:, :n_bins]
     im = frames @ w[:, n_bins:]
-    mel = rnd(re * re + im * im) @ fb  # (B, T, n_mels)
+    mel = rnd(re * re + im * im) @ rnd(fb[:n_bins])  # (B, T, n_mels)
     return torch.log(mel + config.log_offset).transpose(-1, -2)
+
+
+def log_mel_spectrogram(
+    audio: torch.Tensor, config: FrontendConfig = FrontendConfig(), precision=None, stacked: bool = False
+):
+    """(B, samples) float32 -> (B, n_mels, frames) log-mel spectrogram, or
+    (B, 3, n_mels, frames) with delta and accel channels for ``stacked=True``.
+
+    ``precision=None`` computes in float32 throughout (the JAX chain's
+    HIGHEST and, on this card with TF32 off, its HIGH). ``"bf16"`` rounds
+    the audio, the DFT basis, the power and the filterbank to bf16 and
+    accumulates in float32, as the JAX chain's 1-pass mode does.
+    """
+    out = _mel_core(audio, _mel_basis(config, audio.device), config, precision)
+    return stack_deltas(out) if stacked else out
+
+
+def log_mel_spectrogram_vtlp(
+    audio: torch.Tensor, alpha, config: FrontendConfig = FrontendConfig(), precision=None, stacked: bool = False
+):
+    """The VTLP-augmented log-mel spectrogram: the filterbank warped by
+    ``alpha`` (a float or a 0-d tensor on the audio's device)."""
+    fb = vtlp_filterbank(
+        config.n_freqs, config.n_mels, config.sample_rate, torch.as_tensor(alpha, device=audio.device),
+        config.f_min, config.f_max,
+    )
+    out = _mel_core(audio, fb, config, precision)
+    return stack_deltas(out) if stacked else out

@@ -174,8 +174,10 @@ def log_mel_spectrogram_cuda(
     ``layout="fm"`` or (B, frames, n_mels) for ``"tm"``, in ``out_dtype``.
 
     On a CPU tensor this is :func:`log_mel_spectrogram_plain`. On a CUDA
-    tensor it launches ``howl_logmel_forward`` or raises.
+    tensor it launches ``howl_logmel_forward`` or raises. The kernel has no
+    backward: audio that requires grad raises while grad mode is on.
     """
+    _build.refuse_grad("log_mel_spectrogram_cuda", audio)
     if audio.device.type == "cpu":
         return log_mel_spectrogram_plain(audio, config, zmuv_mean, zmuv_std, precision, out_dtype, layout)
     if audio.device.type != "cuda":

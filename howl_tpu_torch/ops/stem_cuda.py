@@ -76,8 +76,11 @@ def res8_stem_cuda(mel_tm: torch.Tensor, taps: torch.Tensor, pool=(3, 4)) -> tor
     n_mels // pool_f, ch) pooled stem activations in the mels' dtype.
 
     On a CPU tensor this is :func:`res8_stem_plain`. On a CUDA tensor it
-    launches ``howl_res8_stem_forward`` or raises.
+    launches ``howl_res8_stem_forward`` or raises. The kernel has no
+    backward, so inputs that require grad raise on every device while grad
+    mode is on; a trained stem runs ``Res8``'s differentiable conv chain.
     """
+    _build.refuse_grad("res8_stem_cuda", mel_tm, taps)
     if mel_tm.device.type == "cpu":
         return res8_stem_plain(mel_tm, taps, pool)
     if mel_tm.device.type != "cuda":

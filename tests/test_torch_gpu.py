@@ -7,14 +7,18 @@ not installed; the repo's conftest.py imports jax, so run it without:
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -p no:cacheprovider
 
 Shapes are small and cover geometries the main path does not use (80 mels,
-n_fft 400 / hop 160, center=False, a ragged last frame tile). Tolerances are
-tests/test_torch_frontend.py's and tests/test_torch_stem.py's.
+n_fft 400 / hop 160, center=False, a ragged last frame tile; batches of 1, 7
+and 1025, ragged windows and narrow banks for the noise-bank mix).
+Tolerances are tests/test_torch_frontend.py's and tests/test_torch_stem.py's;
+the noise-bank mix is held to its plain version bit for bit.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from howl_tpu_torch.ops import augment as aug
+from howl_tpu_torch.ops.augment_cuda import mix_noise_bank_cuda, mix_noise_bank_plain
 from howl_tpu_torch.ops.frontend import FrontendConfig, round_bf16
 from howl_tpu_torch.ops.frontend_cuda import log_mel_spectrogram_cuda, log_mel_spectrogram_plain
 from howl_tpu_torch.ops.stem_cuda import res8_stem_cuda, res8_stem_plain
@@ -107,3 +111,86 @@ def test_engine_on_cuda_matches_cpu(cuda):
     ]
     assert outs[1]["probs"].device.type == "cuda"
     torch.testing.assert_close(outs[1]["probs"].cpu(), outs[0]["probs"], rtol=0, atol=1e-4)
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize(
+    "b,n,bank_w",
+    [(1, 8000, 10240), (7, 8000, 10240), (1025, 8000, 10240), (5, 16, 10240), (5, 1000, 10240),
+     (5, 7919, 10240), (33, 8000, 5000), (9, 7919, 3000)],
+    ids=["b1", "b7", "b1025", "n16", "n1000", "n7919", "narrow-bank", "bank-shorter-than-window"],
+)
+def test_mix_kernel_matches_plain_bitwise(cuda, b, n, bank_w):
+    gen = torch.Generator(device=cuda).manual_seed(b * n)
+    bank = aug.prepare_noise_bank(torch.randn((8, bank_w), generator=gen, device=cuda) * 0.1, n)
+    audio = torch.randn((b, n), generator=gen, device=cuda) * 0.3
+    d = aug.draw_mix_noise_bank(gen, b, bank, aug.AugmentConfig(), replace_prob=0.3)
+    before = mix_noise_bank_cuda.launches
+    got = mix_noise_bank_cuda(audio, bank.extended, d.rows, d.offs, d.alpha)
+    want = mix_noise_bank_plain(audio, bank.extended, d.rows, d.offs, d.alpha)
+    torch.cuda.synchronize()
+    assert mix_noise_bank_cuda.launches == before + 1
+    assert torch.equal(_bits(got), _bits(want))
+
+
+def test_mix_kernel_zero_and_one_alpha_rows_are_exact(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    ext = torch.randn((3, 12000), generator=gen, device=cuda)
+    audio = torch.randn((4, 7919), generator=gen, device=cuda)
+    audio[0, :9] = -0.0
+    audio[3, 100:200] = -0.0
+    rows = torch.tensor([0, 1, 2, 2], device=cuda)
+    offs = torch.tensor([3, 4000, 17, 0], device=cuda)
+    alpha = torch.tensor([0.0, 1.0, 0.13, 0.0], device=cuda)
+    got = mix_noise_bank_cuda(audio, ext, rows, offs, alpha)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got[[0, 3]]), _bits(audio[[0, 3]]))  # -0.0 kept
+    assert torch.equal(_bits(got[1]), _bits(ext[1, 4000 : 4000 + 7919]))
+    assert torch.equal(_bits(got), _bits(mix_noise_bank_plain(audio, ext, rows, offs, alpha)))
+
+
+def test_mix_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    ext = torch.zeros((2, 3000), device=cuda)
+    rows = offs = torch.zeros(4, dtype=torch.long, device=cuda)
+    alpha = torch.zeros(4, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        mix_noise_bank_cuda(torch.zeros((1000, 4), device=cuda).t(), ext, rows, offs, alpha)
+    with pytest.raises(ValueError, match="int64"):
+        mix_noise_bank_cuda(torch.zeros((4, 1000), device=cuda), ext, rows.int(), offs, alpha)
+    with pytest.raises(ValueError, match="bank on"):
+        mix_noise_bank_cuda(torch.zeros((4, 1000), device=cuda), ext.cpu(), rows, offs, alpha)
+
+
+def _to(draws, device):
+    if isinstance(draws, torch.Tensor):
+        return draws.to(device)
+    if isinstance(draws, tuple):
+        return type(draws)(*(_to(d, device) for d in draws))
+    return draws
+
+
+def test_train_step_on_cuda_launches_the_mix_kernel_and_matches_cpu(cuda):
+    from howl_tpu_torch.models import create_model
+    from howl_tpu_torch.training.state import create_train_state
+    from howl_tpu_torch.training.step import StepConfig, draw_step, make_classification_train_step
+
+    rng = np.random.default_rng(0)
+    audio = torch.from_numpy((rng.standard_normal((16, 8000)) * 0.1).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, 4, 16))
+    bank = (rng.standard_normal((4, 9000)) * 0.05).astype(np.float32)
+    cfg = StepConfig(FrontendConfig(n_mels=40), 2.05, 1.0, augment=aug.AugmentConfig(), replace_prob=0.2,
+                     negative_label=3, use_deltas=False)
+    draws = draw_step(torch.Generator().manual_seed(1), cfg, 16, 8000, aug.prepare_noise_bank(bank, 8000))
+    losses = {}
+    for dev in ("cpu", cuda):
+        model = create_model("res8", num_labels=4)
+        state = create_train_state(model, 0.01, generator=torch.Generator().manual_seed(0), device=dev)
+        step = make_classification_train_step(model, cfg, torch.from_numpy(bank).to(dev))
+        before = mix_noise_bank_cuda.launches
+        _, metrics = step(state, audio.to(dev), labels.to(dev), None, 0, draws=_to(draws, dev))
+        losses[str(dev)] = float(metrics["loss"])
+        assert mix_noise_bank_cuda.launches == before + (dev != "cpu")
+    assert abs(losses["cpu"] - losses[str(cuda)]) <= 1e-4 * abs(losses["cpu"])

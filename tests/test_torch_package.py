@@ -44,7 +44,7 @@ def test_imports_without_jax_or_flax():
         [sys.executable, "-c", _NO_JAX], cwd=REPO, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 12  # every module of the slice was imported
+    assert int(proc.stdout.strip()) >= 20  # every module of both slices, training included, was imported
 
 
 def test_cuda_engine_without_cuda_raises():
@@ -60,6 +60,7 @@ def test_cuda_engine_without_cuda_raises():
 
 
 def test_wrappers_refuse_devices_they_have_no_route_for():
+    from howl_tpu_torch.ops.augment_cuda import mix_noise_bank_cuda
     from howl_tpu_torch.ops.frontend_cuda import log_mel_spectrogram_cuda
     from howl_tpu_torch.ops.stem_cuda import res8_stem_cuda
 
@@ -67,6 +68,12 @@ def test_wrappers_refuse_devices_they_have_no_route_for():
         log_mel_spectrogram_cuda(torch.zeros((1, 4000), device="meta"))
     with pytest.raises(ValueError, match="CPU or CUDA"):
         res8_stem_cuda(torch.zeros((1, 9, 40), device="meta"), torch.zeros((3, 3, 45), device="meta"))
+    meta = dict(device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        mix_noise_bank_cuda(
+            torch.zeros((2, 100), **meta), torch.zeros((3, 300), **meta), torch.zeros(2, dtype=torch.long, **meta),
+            torch.zeros(2, dtype=torch.long, **meta), torch.zeros(2, **meta),
+        )
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
@@ -80,7 +87,7 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 def test_ctypes_signatures_match_the_cuda_sources():
     sources = {p.name: p.read_text() for p in _build.CSRC.glob("*.cu")}
-    assert set(sources) == {"frontend.cu", "stem.cu"}
+    assert set(sources) == {"frontend.cu", "stem.cu", "augment.cu"}
     entries = {}
     for text in sources.values():
         for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text):
@@ -93,5 +100,10 @@ def test_ctypes_signatures_match_the_cuda_sources():
             ctype = param.rsplit(" ", 1)[0]
             want = {"void*": _build._P, "const void*": _build._P, "int": _build._I, "float": _build._F}[ctype]
             assert argtype is want, (name, param)
+    # audio, bank, rows, offs, alpha, out, B, n, n_rows, w_cols, stream
+    assert entries["howl_mix_noise_bank_forward"] == [
+        "const void* audio", "const void* bank", "const void* rows", "const void* offs", "const void* alpha",
+        "void* out", "int B", "int n", "int n_rows", "int w_cols", "void* stream",
+    ]
     # sm_90a, the target wgmma and setmaxnreg exist for
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
