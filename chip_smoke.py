@@ -17,16 +17,23 @@ them. In order it:
      bit, at the train step's shape (1024 x 8,000 samples from a (512,
      32,000) bank, draws from the step's own sampler), on a narrow bank of
      width 5,000 (sample-exact starts) and at a ragged window of 7,919;
-  6. drives the serving path: ``StreamingEngine.infer_batch`` with a res8
+  6. drives the trunk-kernel study
+     (``howl_tpu_torch.tools.bench_trunk_kernel_micro``) at 512 x 8 s in
+     bf16 and prints its seven legs' times; the trunk proto (T1) and stem
+     fold (T2) kernels' launch counts are zeroed just before and read just
+     after, and both must have grown. Then it holds T1, both variants,
+     and T2, bf16 and float32 output, against their plain versions on the
+     study's inputs and times T2 alone;
+  7. drives the serving path: ``StreamingEngine.infer_batch`` with a res8
      made from seeded numpy weights, in bf16, on 512 clips of 8 s. The
      frontend and stem kernels' launch counts are zeroed just before and
      read just after; both must have grown. Its decisions must equal the
      float32 engine's on the same card, on a batch where some clips fire
      and some do not. Then it times a batch (CUDA events, after warm-up)
      and prints the realtime factor;
-  7. holds one float32 train step with the bank on the card against the
+  8. holds one float32 train step with the bank on the card against the
      same step on the CPU (batch 16, the same variables and draws);
-  8. drives the training path: ``make_classification_train_step`` at the
+  9. drives the training path: ``make_classification_train_step`` at the
      JAX train bench's width (res8 45 maps, batch 1024 x 8,000 samples,
      bf16 compute over float32 masters, VTLP, augmentation, a (512, 32,000)
      noise bank with replace_prob 0.1, AdamW), from seeded numpy variables
@@ -37,7 +44,7 @@ them. In order it:
      a float32 step must run and be finite. Then it times the bf16 step
      with and without the bank, in turns, and the float32 step (CUDA
      events, 20 steps after warm-up) and prints examples per second;
-  9. prints one JSON line with each kernel's launches, error and times
+ 10. prints one JSON line with each kernel's launches, error and times
      beside its plain version's, then the device line last.
 
 ``--profile DIR`` adds a stage breakdown and a ``torch.profiler`` kernel
@@ -69,6 +76,7 @@ BANK_SHAPE = (512, 32000)
 REPLACE_PROB = 0.1
 TRAIN_STEPS = 30
 TIMED_STEPS = 20
+STUDY_ITERS = 16  # calls per timed repeat of each leg of the trunk-kernel study
 
 
 def _cuda_ms(fn, iters: int) -> float:
@@ -205,6 +213,67 @@ def check_noise_mix(dev) -> dict:
             record = {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms}
         del bank, audio, got, ref
     return record
+
+
+def drive_trunk_study(dev) -> dict:
+    """The trunk-kernel study's path: ``bench_trunk_kernel_micro.run`` at
+    512 x 8 s in bf16, with T1's and T2's launch counts zeroed just before
+    and read just after; then each kernel held against its plain version on
+    the study's own inputs. Returns the kernels' records."""
+    import torch
+
+    from howl_tpu_torch.tools import bench_trunk_kernel_micro as study
+    from howl_tpu_torch.tools.trunk_kernels import (
+        stem_fold_cuda, stem_fold_plain, stem_prep, trunk_proto_cuda, trunk_proto_plain,
+    )
+
+    trunk_proto_cuda.launches = 0
+    stem_fold_cuda.launches = 0
+    legs, inp = study.run(BATCH, CLIP_SECONDS, STUDY_ITERS, SEED, dev)
+    torch.cuda.synchronize()
+    launches = {"t1": trunk_proto_cuda.launches, "t2": stem_fold_cuda.launches}
+    print(f"study path launches: trunk proto kernel {launches['t1']}, stem fold kernel {launches['t2']}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the study's path was not launched: {launches}")
+
+    # the bounds of tests/test_torch_trunk_micro.py: T1 2e-3 of the output's
+    # largest magnitude (bf16 x and res after every layer, sums in other
+    # orders); T2 1e-5 of it in float32, one bf16 ulp of it in bf16
+    g = inp.geom
+    t1_err = 0.0
+    for variant, ws, full_build in (("full-build", inp.ws_full, True), ("gemm-only", inp.ws_gemm, False)):
+        ops = (inp.x_pm, ws, inp.pool_t, inp.bn_scale, inp.bn_shift, g.pos, full_build)
+        got, ref = trunk_proto_cuda(*ops), trunk_proto_plain(*ops)
+        torch.cuda.synchronize()
+        err, top = float((got - ref).abs().max()), float(ref.abs().max())
+        finite = bool(torch.isfinite(got).all())
+        print(f"T1 {variant:10s} {tuple(inp.x_pm.shape)} -> {tuple(got.shape)}: max_abs_err={err:.3e} "
+              f"tol={2e-3 * top:.3e} finite={finite}")
+        if got.shape != ref.shape or not (finite and err <= 2e-3 * top):
+            raise AssertionError(f"T1 {variant} disagrees with its plain version")
+        t1_err = max(t1_err, err)
+        del got, ref
+    xpre = stem_prep(inp.mel).contiguous()
+    t2 = None
+    for dtype in (torch.bfloat16, torch.float32):
+        got, ref = stem_fold_cuda(xpre, inp.w0fold, dtype), stem_fold_plain(xpre, inp.w0fold, dtype)
+        torch.cuda.synchronize()
+        err = float((got.float() - ref.float()).abs().max())
+        tol = _bf16_ulp(ref) if dtype == torch.bfloat16 else 1e-5 * float(ref.abs().max())
+        finite = bool(torch.isfinite(got.float()).all())
+        print(f"T2 {str(dtype)[6:]:8s} {tuple(xpre.shape)} -> {tuple(got.shape)}: max_abs_err={err:.3e} "
+              f"tol={tol:.3e} finite={finite}")
+        if got.shape != ref.shape or got.dtype != dtype or not (finite and err <= tol):
+            raise AssertionError(f"T2 {dtype} disagrees with its plain version")
+        if dtype == torch.bfloat16:
+            kernel_ms, plain_ms = _ab_ms(lambda: stem_fold_plain(xpre, inp.w0fold, dtype),
+                                         lambda: stem_fold_cuda(xpre, inp.w0fold, dtype), iters=10)
+            t2 = {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms}
+            print(f"T2 alone, bf16: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms per batch")
+        del got, ref
+    leg3 = legs["cuda fused 6-layer proto + pool gemm"]
+    t1 = {"max_abs_err": t1_err, "ms": float(np.mean(leg3["ms"])), "plain_ms": float(np.mean(leg3["plain_ms"]))}
+    return {"launches": launches, "t1": t1, "t2": t2}
 
 
 def res8_numpy_variables(rng: np.random.Generator, num_labels: int, maps: int = 45) -> dict:
@@ -589,6 +658,7 @@ def main() -> int:
     k2 = check_stem(k1.pop("mel"), taps)
     del audio
     k3 = check_noise_mix(dev)
+    study = drive_trunk_study(dev)
     main_path = drive_main_path(dev, BATCH, CLIP_SECONDS)
     check_train_step_against_cpu(dev)
     train_path = drive_train_path(dev)
@@ -609,6 +679,14 @@ def main() -> int:
         {
             "name": "noise_bank_mix", "route": "cuda", "source": "howl_tpu_torch/csrc/augment.cu",
             "replaces": "howl_tpu/ops/augment_pallas.py:43", "launches": train_path["k3_launches"], **k3,
+        },
+        {
+            "name": "trunk_proto", "route": "cuda", "source": "howl_tpu_torch/csrc/trunk_proto.cu",
+            "replaces": "tools/bench_trunk_kernel_micro.py:242", "launches": study["launches"]["t1"], **study["t1"],
+        },
+        {
+            "name": "stem_fold_proto", "route": "cuda", "source": "howl_tpu_torch/csrc/stem_fold.cu",
+            "replaces": "tools/bench_trunk_kernel_micro.py:377", "launches": study["launches"]["t2"], **study["t2"],
         },
     ]
     print(json.dumps({"kernels": kernels}))

@@ -48,6 +48,10 @@ SIGNATURES = {
     "howl_res8_stem_forward": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # audio, bank, rows, offs, alpha, out, B, n, n_rows, w_cols, stream
     "howl_mix_noise_bank_forward": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, ws, pool_t, scale, shift, out, B, pos, pos_pad, n_win_pad, full_build, stream
+    "howl_trunk_proto_forward": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # xpre, w0fold, out, B, q_rows, out_bf16, stream
+    "howl_stem_fold_forward": (_P, _P, _P, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

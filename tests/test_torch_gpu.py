@@ -194,3 +194,84 @@ def test_train_step_on_cuda_launches_the_mix_kernel_and_matches_cpu(cuda):
         losses[str(dev)] = float(metrics["loss"])
         assert mix_noise_bank_cuda.launches == before + (dev != "cpu")
     assert abs(losses["cpu"] - losses[str(cuda)]) <= 1e-4 * abs(losses["cpu"])
+
+
+def _trunk_operands(cuda, b, clip_seconds):
+    from howl_tpu_torch.tools import trunk_kernels as tk
+
+    geom = tk.trunk_geometry(clip_seconds)
+    rng = np.random.default_rng(b)
+    x = torch.from_numpy(rng.standard_normal((b, geom.pos_pad, 48)).astype(np.float32) * 0.5)  # nonzero tail
+    ws = torch.from_numpy(rng.standard_normal((6, 432, 48)).astype(np.float32) * 0.05)
+    pool_t = torch.from_numpy(tk.build_pool_matrix(geom).T.copy())
+    scale = torch.from_numpy(rng.uniform(0.8, 1.0, (8, 48)).astype(np.float32))
+    shift = torch.from_numpy(rng.uniform(-0.05, 0.05, (8, 48)).astype(np.float32))
+    ops = [t.to(cuda) for t in (x.bfloat16(), ws.bfloat16(), pool_t.bfloat16(), scale, shift)]
+    return geom, ops
+
+
+@pytest.mark.parametrize("full_build", [True, False], ids=["full-build", "gemm-only"])
+@pytest.mark.parametrize("clip_seconds", [2.0, 8.0])
+@pytest.mark.parametrize("b", [1, 7, 512])
+def test_trunk_proto_kernel_matches_plain(cuda, b, clip_seconds, full_build):
+    """Within 2e-3 of the output's largest magnitude, the bound of
+    tests/test_torch_trunk_micro.py: bf16 x and res after every layer, sums
+    in other orders."""
+    from howl_tpu_torch.tools.trunk_kernels import trunk_proto_cuda, trunk_proto_plain
+
+    geom, ops = _trunk_operands(cuda, b, clip_seconds)
+    before = trunk_proto_cuda.launches
+    got = trunk_proto_cuda(*ops, geom.pos, full_build)
+    want = trunk_proto_plain(*ops, geom.pos, full_build)
+    torch.cuda.synchronize()
+    assert trunk_proto_cuda.launches == before + 1
+    assert got.shape == want.shape == (b, 128, 48) and got.dtype == torch.float32
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 2e-3 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b", [1, 3, 512])
+def test_stem_fold_kernel_matches_plain(cuda, b, out_dtype):
+    from howl_tpu_torch.tools.trunk_kernels import stem_fold_cuda, stem_fold_plain, stem_prep
+
+    rng = np.random.default_rng(b)
+    mel = torch.from_numpy(rng.standard_normal((b, 641, 40)).astype(np.float32) * 0.5).to(cuda).bfloat16()
+    w0fold = torch.from_numpy(rng.standard_normal((120, 2048)).astype(np.float32) * 0.1).to(cuda).bfloat16()
+    xpre = stem_prep(mel).contiguous()
+    before = stem_fold_cuda.launches
+    got = stem_fold_cuda(xpre, w0fold, out_dtype)
+    want = stem_fold_plain(xpre, w0fold, out_dtype)
+    torch.cuda.synchronize()
+    assert stem_fold_cuda.launches == before + 1
+    assert got.shape == want.shape == (b, 224, 512) and got.dtype == out_dtype
+    top = float(want.float().abs().max())
+    tol = 1e-5 * top if out_dtype == torch.float32 else _bf16_ulp(want)
+    assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+def test_trunk_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from howl_tpu_torch.tools.trunk_kernels import stem_fold_cuda, trunk_proto_cuda
+
+    geom, (x, ws, pool_t, scale, shift) = _trunk_operands(cuda, 2, 2.0)
+    with pytest.raises(RuntimeError, match="no backward"):
+        trunk_proto_cuda(x, ws.float().requires_grad_().bfloat16(), pool_t, scale, shift, geom.pos)
+    with pytest.raises(ValueError, match="bf16 activations"):
+        trunk_proto_cuda(x.float(), ws, pool_t, scale, shift, geom.pos)
+    with pytest.raises(ValueError, match="pool_t"):
+        trunk_proto_cuda(x, ws, pool_t.float(), scale, shift, geom.pos)
+    with pytest.raises(ValueError, match="operand on"):
+        trunk_proto_cuda(x, ws.cpu(), pool_t, scale, shift, geom.pos)
+    with pytest.raises(ValueError, match="contiguous"):
+        trunk_proto_cuda(x, ws, pool_t, scale.t().contiguous().t(), shift, geom.pos)
+    with pytest.raises(ValueError, match="n_win_pad"):
+        trunk_proto_cuda(x, ws, torch.zeros((144, geom.pos_pad), dtype=torch.bfloat16, device=cuda), scale, shift,
+                         geom.pos)
+    xpre = torch.zeros((1, 3, 224, 120), dtype=torch.bfloat16, device=cuda)
+    w0fold = torch.zeros((120, 2048), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        stem_fold_cuda(xpre.float().requires_grad_().bfloat16(), w0fold)
+    with pytest.raises(ValueError, match="w0fold"):
+        stem_fold_cuda(xpre, w0fold[:, :1024])
+    with pytest.raises(ValueError, match="contiguous"):
+        stem_fold_cuda(xpre.transpose(2, 3).contiguous().transpose(2, 3), w0fold)
