@@ -24,16 +24,28 @@ them. In order it:
      after, and both must have grown. Then it holds T1, both variants,
      and T2, bf16 and float32 output, against their plain versions on the
      study's inputs and times T2 alone;
-  7. drives the serving path: ``StreamingEngine.infer_batch`` with a res8
+  7. drives the frontend cost study
+     (``howl_tpu_torch.tools.bench_pallas_micro``) at 512 x 8 s and prints
+     its six legs and three library legs; the stream (M1), GEMM (M2) and
+     polyphase (M3) kernels' launch counts are zeroed just before and read
+     just after, and each must have grown; three products must take over
+     1.5 times one product's time, since two of them are thrown away and a
+     compiler might drop them. Then it holds M1 (bit for bit),
+     M2 and M3 (one and three products) against their plain versions on the
+     study's inputs with a nonzero scalar, and runs
+     ``howl_tpu_torch.tools.validate_pallas_precision``: the frontend kernel
+     at every grade against the float64 goldens, the "f32" grade inside the
+     golden tests' bounds;
+  8. drives the serving path: ``StreamingEngine.infer_batch`` with a res8
      made from seeded numpy weights, in bf16, on 512 clips of 8 s. The
      frontend and stem kernels' launch counts are zeroed just before and
      read just after; both must have grown. Its decisions must equal the
      float32 engine's on the same card, on a batch where some clips fire
      and some do not. Then it times a batch (CUDA events, after warm-up)
      and prints the realtime factor;
-  8. holds one float32 train step with the bank on the card against the
+  9. holds one float32 train step with the bank on the card against the
      same step on the CPU (batch 16, the same variables and draws);
-  9. drives the training path: ``make_classification_train_step`` at the
+ 10. drives the training path: ``make_classification_train_step`` at the
      JAX train bench's width (res8 45 maps, batch 1024 x 8,000 samples,
      bf16 compute over float32 masters, VTLP, augmentation, a (512, 32,000)
      noise bank with replace_prob 0.1, AdamW), from seeded numpy variables
@@ -44,8 +56,13 @@ them. In order it:
      a float32 step must run and be finite. Then it times the bf16 step
      with and without the bank, in turns, and the float32 step (CUDA
      events, 20 steps after warm-up) and prints examples per second;
- 10. prints one JSON line with each kernel's launches, error and times
-     beside its plain version's, then the device line last.
+ 11. prints one JSON line with each kernel's launches, error and times
+     beside its plain version's and its bound on this card (the larger of
+     its bytes over 3.35 TB/s and its operations over the peak rate of
+     their type, both counted from this run's shapes: what the function
+     needs, beside which M1-M3 carry a staged bound for the work the study
+     defines) and the one PyTorch call of the same function where there is
+     one, then the device line last.
 
 ``--profile DIR`` adds a stage breakdown and a ``torch.profiler`` kernel
 table of the bf16 noise-bank train step, written to ``DIR/train_profile.txt``.
@@ -76,7 +93,25 @@ BANK_SHAPE = (512, 32000)
 REPLACE_PROB = 0.1
 TRAIN_STEPS = 30
 TIMED_STEPS = 20
-STUDY_ITERS = 16  # calls per timed repeat of each leg of the trunk-kernel study
+STUDY_ITERS = 16  # calls per timed repeat of each leg of the two kernel studies
+MICRO_S = 0.25  # the nonzero scalar of the frontend cost study's comparisons
+# published peaks of one H100 SXM at its full power limit (NVIDIA's data sheet)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_BF16_FLOPS = 989e12  # dense, tensor cores, float32 accumulate
+PEAK_F32_FLOPS = 67e12  # CUDA cores
+
+
+def _bound(n_bytes: float, ops: float, peak_flops: float) -> dict:
+    """The least time the card could take: every input byte read once and
+    every output byte written once over the memory rate, or the operations
+    over the peak rate of their type, whichever is larger."""
+    by_bytes, by_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, ops / peak_flops * 1e3
+    return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": int(n_bytes), "operations": int(ops), "library_ms": None}
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def _cuda_ms(fn, iters: int) -> float:
@@ -145,8 +180,14 @@ def check_frontend(audio, cfg, zmuv) -> dict:
                 lambda: log_mel_spectrogram_cuda(audio, cfg, mean, std, **kw),
                 iters=5,
             )
-            record = {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms, "mel": got}
-            print(f"K1 main-path case: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms per batch")
+            # bf16 operands, float32 sums: the DFT as (frames, n_fft) @ (n_fft, 2 bins), power, the mel product
+            frames, n_bins = got.shape[0] * got.shape[1], cfg.n_fft // 2
+            ops = frames * (2 * cfg.n_fft * 2 * n_bins + 3 * n_bins + 2 * n_bins * cfg.n_mels)
+            w_fb_bytes = 4 * (cfg.n_fft * 2 * n_bins + n_bins * cfg.n_mels)
+            record = {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms, "mel": got,
+                      **_bound(_nbytes(audio, got) + w_fb_bytes, ops, PEAK_BF16_FLOPS)}
+            print(f"K1 main-path case: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms per batch; "
+                  f"bound {record['bound_ms']:.4f} ms by {record['bound_by']}")
     return record
 
 
@@ -174,8 +215,11 @@ def check_stem(mel_bf16, taps) -> dict:
             raise AssertionError(f"K2 {dtype} disagrees with its plain version")
         if dtype == torch.bfloat16:
             kernel_ms, plain_ms = _ab_ms(lambda: res8_stem_plain(mel, w), lambda: res8_stem_cuda(mel, w), iters=10)
-            record = {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms}
-            print(f"K2 main-path case: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms per batch")
+            ops = mel.numel() * taps.shape[2] * 9 * 2 + got.numel() * 12  # conv0 at full resolution, the pool's sums
+            record = {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+                      **_bound(_nbytes(mel, w, got), ops, PEAK_BF16_FLOPS)}
+            print(f"K2 main-path case: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms per batch; "
+                  f"bound {record['bound_ms']:.4f} ms by {record['bound_by']}")
     return record
 
 
@@ -210,7 +254,12 @@ def check_noise_mix(dev) -> dict:
         if not bitwise:
             raise AssertionError(f"K3 {name}: the kernel is not bitwise equal to its plain version")
         if record is None:
-            record = {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms}
+            # rows with alpha 0 copy the audio and read no noise window: count the windows this run's draws need
+            mixed_rows = int((d.alpha != 0).sum())
+            n_bytes = _nbytes(audio, got, d.rows, d.offs, d.alpha) + mixed_rows * n * 4
+            record = {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+                      **_bound(n_bytes, 4 * audio.numel(), PEAK_F32_FLOPS)}
+            print(f"K3 train-step case: bound {record['bound_ms']:.4f} ms by {record['bound_by']} ({n_bytes} bytes)")
         del bank, audio, got, ref
     return record
 
@@ -268,12 +317,158 @@ def drive_trunk_study(dev) -> dict:
         if dtype == torch.bfloat16:
             kernel_ms, plain_ms = _ab_ms(lambda: stem_fold_plain(xpre, inp.w0fold, dtype),
                                          lambda: stem_fold_cuda(xpre, inp.w0fold, dtype), iters=10)
-            t2 = {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms}
-            print(f"T2 alone, bf16: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms per batch")
+            ops = xpre.numel() * inp.w0fold.shape[1] * 2  # three planes of (q_rows, 120) @ (120, 2048)
+            t2 = {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+                  **_bound(_nbytes(xpre, inp.w0fold, got), ops, PEAK_BF16_FLOPS)}
+            print(f"T2 alone, bf16: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms per batch; "
+                  f"bound {t2['bound_ms']:.4f} ms by {t2['bound_by']}")
         del got, ref
     leg3 = legs["cuda fused 6-layer proto + pool gemm"]
-    t1 = {"max_abs_err": t1_err, "ms": float(np.mean(leg3["ms"])), "plain_ms": float(np.mean(leg3["plain_ms"]))}
+    # six layers of (pos_pad, 432) @ (432, 48) and the pool product (n_win_pad, pos_pad) @ (pos_pad, 48), per clip
+    b, pos_pad, ch = inp.x_pm.shape
+    ops = b * 2 * ch * pos_pad * (6 * inp.ws_full.shape[1] + inp.pool_t.shape[0])
+    n_bytes = _nbytes(inp.x_pm, inp.ws_full, inp.pool_t, inp.bn_scale, inp.bn_shift) + b * inp.pool_t.shape[0] * ch * 4
+    t1 = {"max_abs_err": t1_err, "ms": float(np.mean(leg3["ms"])), "plain_ms": float(np.mean(leg3["plain_ms"])),
+          **_bound(n_bytes, ops, PEAK_BF16_FLOPS)}
+    print(f"T1 bound {t1['bound_ms']:.4f} ms by {t1['bound_by']}")
     return {"launches": launches, "t1": t1, "t2": t2}
+
+
+def print_sass_counts(library) -> None:
+    """Count the tensor-core (HMMA) and cp.async (LDGSTS) opcodes that
+    the compiler left in each of the frontend study's kernels, from
+    ``cuobjdump -sass`` of the built library: the study's kernels compute
+    results that nobody reads, and this shows the work is still there."""
+    import re
+    import shutil
+    from pathlib import Path
+
+    from howl_tpu_torch.ops import _build
+
+    tool = shutil.which("cuobjdump") or str(Path(_build._nvcc()).with_name("cuobjdump"))
+    if not Path(tool).exists():  # a diagnostic: the check is the time of three products beside one's
+        print("cuobjdump not found: SASS opcode counts not printed")
+        return
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True, check=True, timeout=300).stdout
+    for name, body in re.findall(r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)", sass, flags=re.S):
+        if "micro_" in name:
+            kernel = re.findall(r"micro_[a-z]+_kernel", name)[-1]
+            print(f"SASS of {kernel}: {len(re.findall(r'HMMA', body))} HMMA, {len(re.findall(r'LDGSTS', body))} LDGSTS")
+
+
+def drive_frontend_study(dev) -> dict:
+    """The frontend cost study's path: ``bench_pallas_micro.run`` at 512 x
+    8 s, with M1's, M2's and M3's launch counts zeroed just before and read
+    just after; then each kernel held against its plain version on the
+    study's own inputs with a nonzero scalar; then the frontend kernel's
+    grades against the float64 goldens. Returns the kernels' records."""
+    import torch
+
+    from howl_tpu_torch.tools import bench_pallas_micro as study
+    from howl_tpu_torch.tools import validate_pallas_precision
+    from howl_tpu_torch.tools.frontend_micro_kernels import (
+        OUT_COLS as out_cols, gemm_cuda, gemm_plain, poly_cuda, poly_plain, stream_cuda, stream_plain,
+    )
+
+    wrappers = {"m1": stream_cuda, "m2": gemm_cuda, "m3": poly_cuda}
+    for fn in wrappers.values():
+        fn.launches = 0
+    legs, inp = study.run(BATCH, CLIP_SECONDS, STUDY_ITERS, SEED, dev)
+    torch.cuda.synchronize()
+    launches = {key: fn.launches for key, fn in wrappers.items()}
+    print(f"frontend study path launches: stream kernel {launches['m1']}, gemm kernel {launches['m2']}, "
+          f"polyphase kernel {launches['m3']}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the frontend study's path was not launched: {launches}")
+    ms = {name: float(np.mean(rec["ms"])) for name, rec in legs.items()}
+    plain = {name: float(np.mean(rec["plain_ms"])) for name, rec in legs.items() if rec["plain_ms"]}
+    stream, gemm1, gemm3, poly1, poly3, _, lib_stream = list(legs)[:7]
+    print(f"what a product adds: gemm1 - stream {ms[gemm1] - ms[stream]:.3f} ms, (gemm3 - gemm1) / 2 "
+          f"{(ms[gemm3] - ms[gemm1]) / 2:.3f} ms, (x3 - x1) / 2 {(ms[poly3] - ms[poly1]) / 2:.3f} ms; "
+          f"x1 - gemm1 {ms[poly1] - ms[gemm1]:.3f} ms")
+    # two of the three products are thrown away; a compiler that dropped them would make the legs equal
+    if not (ms[gemm3] > 1.5 * ms[gemm1] and ms[poly3] > 1.5 * ms[poly1]):
+        raise AssertionError("three products take under 1.5 x one product's time: the discarded passes did not run")
+
+    x, w, h, g = inp.frames, inp.w, inp.h, inp.geom
+    got, ref = stream_cuda(x, MICRO_S), stream_plain(x, MICRO_S)
+    torch.cuda.synchronize()
+    bitwise = got.dtype == ref.dtype and got.shape == ref.shape and torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    m1_err = float((got - ref).abs().max())
+    print(f"M1 {tuple(x.shape)} -> {tuple(got.shape)}: bitwise={bitwise} max_abs_err={m1_err:.3e} "
+          f"finite={bool(torch.isfinite(got).all())}")
+    if not bitwise:
+        raise AssertionError("M1: the stream kernel is not bitwise equal to its plain version")
+    out_bytes = _nbytes(got)
+    del got, ref
+
+    # the bound of tests/test_torch_pallas_micro.py: 1e-5 of the output's
+    # largest magnitude, for the order of the float32 sums over K = 512
+    errs = {"m2": 0.0, "m3": 0.0}
+    for key, name, kernel, ref_fn, args in (
+        ("m2", "M2", gemm_cuda, gemm_plain, (x, w, MICRO_S)), ("m3", "M3", poly_cuda, poly_plain, (h, w, MICRO_S, g.t_pad)),
+    ):
+        for n_dots in (1, 3):
+            got, ref = kernel(*args, n_dots), ref_fn(*args, n_dots)
+            torch.cuda.synchronize()
+            err, top = float((got - ref).abs().max()), float(ref.abs().max())
+            finite = bool(torch.isfinite(got).all())
+            print(f"{name} n_dots={n_dots} {tuple(args[0].shape)} -> {tuple(got.shape)} {str(got.dtype)[6:]}: "
+                  f"max_abs_err={err:.3e} tol={1e-5 * top:.3e} finite={finite}")
+            if got.shape != ref.shape or got.dtype != torch.float32 or not (finite and err <= 1e-5 * top):
+                raise AssertionError(f"{name} with n_dots={n_dots} disagrees with its plain version")
+            errs[key] = max(errs[key], err)
+            del got, ref
+
+    # The bound is the function's own: M1 reads the 128 columns it returns; M2 reads every frame row and W's 128
+    # stored columns and adds n_dots products of that width; M3 reads the hop rows a clip's t_pad frames span,
+    # and only its last pass reaches the output. The staged bound counts what the study defines as a leg's
+    # work instead: every byte of a block staged, the whole 512-wide product, every pass.
+    rows_m3 = g.batch * g.t_pad
+    h_bytes = g.batch * (g.t_pad + g.n_sub - 1) * g.hop * 4
+    dot_ops, w_cols = 2 * g.n_fft * out_cols, _nbytes(w) * out_cols // g.n_fft
+    full_ops = 2 * g.n_fft * g.n_fft
+    bounds = {
+        "m1": _bound(2 * out_bytes, x.shape[0] * out_cols, PEAK_F32_FLOPS),
+        "m2": _bound(_nbytes(x) + w_cols + out_bytes, x.shape[0] * dot_ops, PEAK_BF16_FLOPS),
+        "m2x3": _bound(_nbytes(x) + w_cols + out_bytes, 3 * x.shape[0] * dot_ops, PEAK_BF16_FLOPS),
+        "m3": _bound(h_bytes + w_cols + rows_m3 * out_cols * 4, rows_m3 * dot_ops, PEAK_BF16_FLOPS),
+    }
+    bounds["m3x3"] = bounds["m3"]
+    staged = {
+        "m1": _bound(_nbytes(x) + out_bytes, x.shape[0] * out_cols, PEAK_F32_FLOPS),
+        "m2": _bound(_nbytes(x, w) + out_bytes, x.shape[0] * full_ops, PEAK_BF16_FLOPS),
+        "m2x3": _bound(_nbytes(x, w) + out_bytes, 3 * x.shape[0] * full_ops, PEAK_BF16_FLOPS),
+        "m3": _bound(h_bytes + _nbytes(w) + rows_m3 * out_cols * 4, rows_m3 * full_ops, PEAK_BF16_FLOPS),
+        "m3x3": _bound(h_bytes + _nbytes(w) + rows_m3 * out_cols * 4, 3 * rows_m3 * full_ops, PEAK_BF16_FLOPS),
+    }
+    for key, name in (("m1", stream), ("m2", gemm1), ("m2x3", gemm3), ("m3", poly1), ("m3x3", poly3)):
+        bd, st = bounds[key], staged[key]
+        print(f"{name}: {ms[name]:.3f} ms, bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
+              f"({bd['bytes']} bytes, {bd['operations']} operations): {bd['bound_ms'] / ms[name]:.3f} of the bound's rate; "
+              f"staged bound {st['bound_ms']:.4f} ms by {st['bound_by']} ({st['bytes']} bytes, {st['operations']} "
+              f"operations): {st['bound_ms'] / ms[name]:.3f}")
+    print(f"M1 beside the one PyTorch call of its function, x[:, :{out_cols}] + s: {ms[stream]:.3f} ms against {ms[lib_stream]:.3f} ms")
+    del inp, x, h
+
+    print("frontend kernel grades against the float64 goldens (no ZMUV):")
+    for rec in validate_pallas_precision.run(dev):
+        # tests/test_torch_frontend.py's bounds for the float32 grade
+        if rec["grade"] == "f32" and not (rec["above_floor_max"] < 3e-3 and rec["global_max"] < 0.02):
+            raise AssertionError(f"K1's f32 grade misses the golden bounds: {rec}")
+
+    def record(key, name, name3=None):
+        out = {"max_abs_err": errs.get(key, m1_err), "ms": ms[name], "plain_ms": plain[name], **bounds[key],
+               "staged_bound_ms": staged[key]["bound_ms"], "staged_bound_by": staged[key]["bound_by"]}
+        if name3:
+            out.update(ms_n_dots3=ms[name3], plain_ms_n_dots3=plain[name3], bound_ms_n_dots3=bounds[key + "x3"]["bound_ms"],
+                       bound_by_n_dots3=bounds[key + "x3"]["bound_by"],
+                       staged_bound_ms_n_dots3=staged[key + "x3"]["bound_ms"])
+        return out
+
+    # M1's function is one PyTorch call, timed as the study's first library leg; M2 and M3 are chains of calls
+    return {"launches": launches, "m1": {**record("m1", stream), "library_ms": ms[lib_stream]},
+            "m2": record("m2", gemm1, gemm3), "m3": record("m3", poly1, poly3)}
 
 
 def res8_numpy_variables(rng: np.random.Generator, num_labels: int, maps: int = 45) -> dict:
@@ -643,6 +838,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.kernel_library()
     print(f"built {_build.library_path().name} in {time.perf_counter() - t0:.1f} s")
+    print_sass_counts(_build.library_path())
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     samples = int(CLIP_SECONDS * SAMPLE_RATE)
@@ -659,6 +855,7 @@ def main() -> int:
     del audio
     k3 = check_noise_mix(dev)
     study = drive_trunk_study(dev)
+    micro = drive_frontend_study(dev)
     main_path = drive_main_path(dev, BATCH, CLIP_SECONDS)
     check_train_step_against_cpu(dev)
     train_path = drive_train_path(dev)
@@ -687,6 +884,18 @@ def main() -> int:
         {
             "name": "stem_fold_proto", "route": "cuda", "source": "howl_tpu_torch/csrc/stem_fold.cu",
             "replaces": "tools/bench_trunk_kernel_micro.py:377", "launches": study["launches"]["t2"], **study["t2"],
+        },
+        {
+            "name": "micro_stream", "route": "cuda", "source": "howl_tpu_torch/csrc/micro_stream.cu",
+            "replaces": "tools/bench_pallas_micro.py:84", "launches": micro["launches"]["m1"], **micro["m1"],
+        },
+        {
+            "name": "micro_gemm", "route": "cuda", "source": "howl_tpu_torch/csrc/micro_gemm.cu",
+            "replaces": "tools/bench_pallas_micro.py:87", "launches": micro["launches"]["m2"], **micro["m2"],
+        },
+        {
+            "name": "micro_poly", "route": "cuda", "source": "howl_tpu_torch/csrc/micro_poly.cu",
+            "replaces": "tools/bench_pallas_micro.py:144", "launches": micro["launches"]["m3"], **micro["m3"],
         },
     ]
     print(json.dumps({"kernels": kernels}))

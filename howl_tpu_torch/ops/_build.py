@@ -52,6 +52,12 @@ SIGNATURES = {
     "howl_trunk_proto_forward": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # xpre, w0fold, out, B, q_rows, out_bf16, stream
     "howl_stem_fold_forward": (_P, _P, _P, _I, _I, _I, _P),
+    # x, out, total, s, stream
+    "howl_micro_stream_forward": (_P, _P, _I, _F, _P),
+    # x, w, out, total, s, n_dots, keep, stream
+    "howl_micro_gemm_forward": (_P, _P, _P, _I, _F, _I, _I, _P),
+    # h, w, out, B, rows, t_pad, s, n_dots, keep, stream
+    "howl_micro_poly_forward": (_P, _P, _P, _I, _I, _I, _F, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -124,6 +124,33 @@ def center_pad(audio: torch.Tensor, config: FrontendConfig) -> torch.Tensor:
     return torch.nn.functional.pad(audio[:, None], (pad, pad), mode="reflect")[:, 0]
 
 
+def frame_signal(audio: torch.Tensor, config: FrontendConfig) -> torch.Tensor:
+    """(..., samples) -> (..., frames, n_fft), materialised: the center
+    reflect-pad when ``config.center``, then frame i = samples [i * hop,
+    i * hop + n_fft), built as the JAX package builds it: overlapping row
+    slices of the (rows, hop) view plus a remainder slice, concatenated.
+    The view's tail is zero-padded up to whole hop rows; no frame reads
+    the zeros."""
+    hop, n_fft = config.hop_length, config.n_fft
+    lead = audio.shape[:-1]
+    if config.center:
+        pad = n_fft // 2
+        flat = audio.reshape(-1, 1, audio.shape[-1])  # reflect padding takes (N, C, L)
+        audio = torch.nn.functional.pad(flat, (pad, pad), mode="reflect").reshape(*lead, -1)
+    n_frames = (audio.shape[-1] - n_fft) // hop + 1
+    k_full = n_fft // hop
+    rem = n_fft - k_full * hop
+    rows_needed = n_frames + k_full + (1 if rem else 0)
+    total = rows_needed * hop
+    if audio.shape[-1] < total:
+        audio = torch.nn.functional.pad(audio, (0, total - audio.shape[-1]))
+    view = audio[..., :total].reshape(*lead, rows_needed, hop)
+    pieces = [view[..., j : j + n_frames, :] for j in range(k_full)]
+    if rem:
+        pieces.append(view[..., k_full : k_full + n_frames, :rem])
+    return torch.cat(pieces, dim=-1)
+
+
 def vtlp_filterbank(
     n_freqs: int,
     n_mels: int,

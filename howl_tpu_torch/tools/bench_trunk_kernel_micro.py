@@ -1,7 +1,7 @@
 """The res8 trunk-kernel study on a GPU (counterpart of
 ``tools/bench_trunk_kernel_micro.py``).
 
-    python -m howl_tpu_torch.tools.bench_trunk_kernel_micro [--batch 512] [--clip-seconds 8] [--iters 16] [--seed 0]
+    python -m howl_tpu_torch.tools.bench_trunk_kernel_micro [--batch 512] [--clip-seconds 8] [--iters 16] [--seed 0] [--device cuda]
 
 The question: can a hand-written fused residual trunk beat the library
 convolutions? The tool times the JAX tool's seven legs, under its names, at
@@ -25,7 +25,8 @@ no such cost. The kernel legs 3, 4 and 6 also time their plain versions, in
 turns plain, kernel, kernel, plain, plain, kernel.
 
 Weights and data are drawn from ``--seed`` with numpy, in the JAX tool's
-order. Without a CUDA device the tool runs at the JAX tool's CPU size
+order. The tool runs on the card: with ``--device cuda`` (the default) and
+no CUDA device it raises. ``--device cpu`` runs the JAX tool's CPU size
 (batch 4, 2 s, 2 iterations) on the CPU, where every kernel leg is its
 plain version and times are host times; each line names its route. The
 stem proto takes bf16 inputs on every device.
@@ -33,15 +34,13 @@ stem proto takes bf16 inputs on every device.
 
 from __future__ import annotations
 
-import argparse
-import time
 from dataclasses import dataclass
-from typing import Callable, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from howl_tpu_torch.tools._study import REPEATS, Leg, study_main, time_legs
 from howl_tpu_torch.tools.trunk_kernels import (
     CH,
     CH_PAD,
@@ -56,9 +55,6 @@ from howl_tpu_torch.tools.trunk_kernels import (
     trunk_proto_cuda,
     trunk_proto_plain,
 )
-
-REPEATS = 3
-CPU_SIZE = (4, 2.0, 2)  # batch, clip seconds, iterations: the JAX tool's CPU size
 
 
 @dataclass
@@ -131,13 +127,6 @@ def res6(inp: StudyInputs, s0: torch.Tensor) -> torch.Tensor:
     return x.float().mean(dim=3)
 
 
-@dataclass
-class Leg:
-    name: str
-    fn: Callable[[], torch.Tensor]
-    plain: Optional[Callable[[], torch.Tensor]] = None  # the kernel legs' plain versions
-
-
 def study_legs(inp: StudyInputs, model: torch.nn.Module) -> list:
     g = inp.geom
     feats_nchw = inp.feats[..., 0].transpose(1, 2)[:, None].to(inp.cdt).contiguous()  # (B, 1, 40, T)
@@ -169,32 +158,8 @@ def study_legs(inp: StudyInputs, model: torch.nn.Module) -> list:
     ]
 
 
-def time_ms(fn: Callable[[], torch.Tensor], iters: int, dev: torch.device) -> float:
-    """Mean ms per call over ``iters`` calls after one warm-up call: CUDA
-    events on a card, the host clock on the CPU."""
-    fn()
-    if dev.type != "cuda":
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        return (time.perf_counter() - t0) * 1000 / iters
-    torch.cuda.synchronize(dev)
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def _fmt(times) -> str:
-    return ", ".join(f"{t:.3f}" for t in times)
-
-
 def run(batch: int, clip_seconds: float, iters: int, seed: int, dev: torch.device) -> tuple:
-    """Time the seven legs; returns ({leg name: {"route", "ms", "plain_ms"}},
-    the inputs). ``ms`` and ``plain_ms`` hold one mean per repeat."""
+    """Time the seven legs; returns (:func:`time_legs`' records, the inputs)."""
     from howl_tpu_torch.models import create_model
 
     on_card = dev.type == "cuda"
@@ -203,38 +168,11 @@ def run(batch: int, clip_seconds: float, iters: int, seed: int, dev: torch.devic
     model.init_weights(torch.Generator().manual_seed(seed)).to(dev).eval()
     print(f"trunk-kernel study: batch {batch} x {clip_seconds:g} s, {iters} iterations, {REPEATS} repeats, "
           f"on {torch.cuda.get_device_name(dev) if on_card else 'the CPU (host times, plain versions)'}", flush=True)
-    results = {}
-    with torch.no_grad():
-        for leg in study_legs(inp, model):
-            if leg.plain is None or not on_card:
-                route = ("plain, cpu" if leg.plain else "torch, cpu") if not on_card else "cudnn"
-                ms = [time_ms(leg.fn, iters, dev) for _ in range(REPEATS)]
-                plain_ms = None
-                print(f"{leg.name:50s}: {_fmt(ms)} ms/iter [{route}]", flush=True)
-            else:
-                route = "cuda kernel"
-                turns = {"plain": [], "kernel": []}
-                for who in ("plain", "kernel", "kernel", "plain", "plain", "kernel"):
-                    turns[who].append(time_ms(leg.plain if who == "plain" else leg.fn, iters, dev))
-                ms, plain_ms = turns["kernel"], turns["plain"]
-                print(f"{leg.name:50s}: {_fmt(ms)} ms/iter [{route}]; plain {_fmt(plain_ms)} ms/iter", flush=True)
-            results[leg.name] = {"route": route, "ms": ms, "plain_ms": plain_ms}
-    return results, inp
+    return time_legs(study_legs(inp, model), iters, dev), inp
 
 
 def main(argv=None) -> dict:
-    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--batch", type=int, default=512)
-    p.add_argument("--clip-seconds", type=float, default=8.0)
-    p.add_argument("--iters", type=int, default=16)
-    p.add_argument("--seed", type=int, default=0)
-    args = p.parse_args(argv)
-    dev = torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
-    if dev.type == "cpu":
-        args.batch, args.clip_seconds, args.iters = CPU_SIZE
-    else:
-        torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions are float32 references
-    return run(args.batch, args.clip_seconds, args.iters, args.seed, dev)[0]
+    return study_main(run, __doc__, argv)
 
 
 if __name__ == "__main__":

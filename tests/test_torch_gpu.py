@@ -10,8 +10,13 @@ Shapes are small and cover geometries the main path does not use (80 mels,
 n_fft 400 / hop 160, center=False, a ragged last frame tile; batches of 1, 7
 and 1025, ragged windows and narrow banks for the noise-bank mix).
 Tolerances are tests/test_torch_frontend.py's and tests/test_torch_stem.py's;
-the noise-bank mix is held to its plain version bit for bit.
+the noise-bank mix is held to its plain version bit for bit. The frontend
+cost study's kernels (stream, GEMM, polyphase) run at the study's CPU size
+and at its full size, 512 clips of 8 s, with totals and frame counts that
+end inside a staging round, a block and a tile.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -275,3 +280,161 @@ def test_trunk_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         stem_fold_cuda(xpre, w0fold[:, :1024])
     with pytest.raises(ValueError, match="contiguous"):
         stem_fold_cuda(xpre.transpose(2, 3).contiguous().transpose(2, 3), w0fold)
+
+
+@functools.lru_cache(maxsize=2)
+def _micro_operands(cuda, batch, clip_seconds):
+    """The study's seeded operands, made once per size (about 1 GB at the full size)."""
+    from howl_tpu_torch.tools import bench_pallas_micro as study
+
+    return study.make_inputs(batch, clip_seconds, batch, cuda)
+
+
+MICRO_S = 0.3125
+
+
+@pytest.mark.parametrize("cut", [0, 1, 15, 17, 63, 65], ids=lambda c: f"total-minus-{c}")
+@pytest.mark.parametrize("batch,clip_seconds", [(4, 2.0), (512, 8.0)], ids=["small", "full"])
+def test_micro_stream_kernel_matches_plain_bitwise(cuda, batch, clip_seconds, cut):
+    """Totals that end inside a 16-row staging round and inside a block."""
+    from howl_tpu_torch.tools.frontend_micro_kernels import stream_cuda, stream_plain
+
+    inp = _micro_operands(cuda, batch, clip_seconds)
+    x = inp.frames[: inp.geom.total - cut]
+    before = stream_cuda.launches
+    got, want = stream_cuda(x, MICRO_S), stream_plain(x, MICRO_S)
+    torch.cuda.synchronize()
+    assert stream_cuda.launches == before + 1
+    assert got.shape == want.shape == (inp.geom.total - cut, 128) and got.dtype == torch.float32
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("n_dots", [1, 3])
+@pytest.mark.parametrize("cut", [0, 1, 63, 65], ids=lambda c: f"total-minus-{c}")
+@pytest.mark.parametrize("batch,clip_seconds", [(4, 2.0), (512, 8.0)], ids=["small", "full"])
+def test_micro_gemm_kernel_matches_plain(cuda, batch, clip_seconds, cut, n_dots):
+    """Within 1e-5 of the output's largest magnitude, the bound of
+    tests/test_torch_pallas_micro.py: only the order of the float32 sums
+    over K = 512 and over the products differs."""
+    from howl_tpu_torch.tools.frontend_micro_kernels import gemm_cuda, gemm_plain
+
+    inp = _micro_operands(cuda, batch, clip_seconds)
+    x = inp.frames[: inp.geom.total - cut]
+    before = gemm_cuda.launches
+    got, want = gemm_cuda(x, inp.w, MICRO_S, n_dots), gemm_plain(x, inp.w, MICRO_S, n_dots)
+    torch.cuda.synchronize()
+    assert gemm_cuda.launches == before + 1
+    assert got.shape == want.shape == (inp.geom.total - cut, 128) and got.dtype == torch.float32
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("n_dots", [1, 3])
+@pytest.mark.parametrize("cut", [0, 1, 63, 65, 127], ids=lambda c: f"t_pad-minus-{c}")
+@pytest.mark.parametrize("batch,clip_seconds", [(4, 2.0), (512, 8.0)], ids=["small", "full"])
+def test_micro_poly_kernel_matches_plain(cuda, batch, clip_seconds, cut, n_dots):
+    from howl_tpu_torch.tools.frontend_micro_kernels import poly_cuda, poly_plain
+
+    inp = _micro_operands(cuda, batch, clip_seconds)
+    t_pad = inp.geom.t_pad - cut
+    before = poly_cuda.launches
+    got, want = poly_cuda(inp.h, inp.w, MICRO_S, t_pad, n_dots), poly_plain(inp.h, inp.w, MICRO_S, t_pad, n_dots)
+    torch.cuda.synchronize()
+    assert poly_cuda.launches == before + 1
+    assert got.shape == want.shape == (batch, t_pad, 128) and got.dtype == torch.float32
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_micro_poly_kernel_reads_no_row_past_the_clip(cuda):
+    """With exactly t_pad + 2 hop rows a clip's last tile ends at its last
+    row, and the rows staged beyond belong to the next clip (or to nobody):
+    the kernel zero-fills them and no frame that is stored reads them."""
+    from howl_tpu_torch.tools.frontend_micro_kernels import poly_cuda, poly_plain
+
+    inp = _micro_operands(cuda, 3, 2.0)
+    t_pad = 100
+    h = inp.h[:, : t_pad + 2].contiguous()
+    got, want = poly_cuda(h, inp.w, MICRO_S, t_pad), poly_plain(h, inp.w, MICRO_S, t_pad)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_micro_kernels_round_x_plus_s_to_bf16_ties_to_even(cuda):
+    """x + s is a float32 add, then one rounding to nearest even: 1 + 2^-8
+    and 1 + 3 * 2^-8 lie half-way between two bf16 values. W is the
+    identity, so the output shows the rounded operand."""
+    from howl_tpu_torch.tools.frontend_micro_kernels import gemm_cuda, gemm_plain, poly_cuda, poly_plain
+
+    w = torch.eye(512, device=cuda).to(torch.bfloat16)
+    x = torch.zeros((64, 512), device=cuda)
+    x[:, 0], x[:, 1], x[:, 2] = 1.0, 1.0 + 2.0**-7, 0.5
+    got = gemm_cuda(x, w, 2.0**-8)
+    assert got[5, 0].item() == 1.0 and got[5, 1].item() == 1.0 + 2.0**-6 and got[5, 2].item() == 0.5 + 2.0**-8
+    assert torch.equal(got, gemm_plain(x, w, 2.0**-8))
+    h = torch.zeros((1, 66, 200), device=cuda)
+    h[0, :, 0], h[0, :, 1] = 1.0, 1.0 + 2.0**-7
+    got = poly_cuda(h, w, 2.0**-8, 64)
+    assert got[0, 7, 0].item() == 1.0 and got[0, 7, 1].item() == 1.0 + 2.0**-6
+    assert torch.equal(got, poly_plain(h, w, 2.0**-8, 64))
+
+
+def test_micro_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from howl_tpu_torch.tools.frontend_micro_kernels import gemm_cuda, poly_cuda, stream_cuda
+
+    x = torch.zeros((64, 512), device=cuda)
+    w = torch.zeros((512, 512), dtype=torch.bfloat16, device=cuda)
+    h = torch.zeros((2, 66, 200), device=cuda)
+    counts = (stream_cuda.launches, gemm_cuda.launches, poly_cuda.launches)
+    with pytest.raises(RuntimeError, match="no backward"):
+        stream_cuda(x.clone().requires_grad_(), 0.0)
+    with pytest.raises(RuntimeError, match="no backward"):
+        gemm_cuda(x.clone().requires_grad_(), w, 0.0)
+    with pytest.raises(RuntimeError, match="no backward"):
+        poly_cuda(h.clone().requires_grad_(), w, 0.0, 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        stream_cuda(torch.zeros((512, 64), device=cuda).t(), 0.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        gemm_cuda(x, w.t(), 0.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        poly_cuda(torch.zeros((2, 200, 66), device=cuda).transpose(1, 2), w, 0.0, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        stream_cuda(torch.zeros(64 * 512 + 1, device=cuda)[1:].view(64, 512), 0.0)
+    with pytest.raises(ValueError, match="float32 frames"):
+        stream_cuda(x.half(), 0.0)
+    with pytest.raises(ValueError, match="float32 frames"):
+        gemm_cuda(x.bfloat16(), w, 0.0)
+    with pytest.raises(ValueError, match="bf16 w"):
+        gemm_cuda(x, w.float(), 0.0)
+    with pytest.raises(ValueError, match="float32 hop rows"):
+        poly_cuda(h.double(), w, 0.0, 64)
+    with pytest.raises(ValueError, match="w on"):
+        gemm_cuda(x, w.cpu(), 0.0)
+    with pytest.raises(ValueError, match="w on"):
+        poly_cuda(h, w.cpu(), 0.0, 64)
+    with pytest.raises(ValueError, match="n_fft 512"):
+        stream_cuda(torch.zeros((64, 256), device=cuda), 0.0)
+    with pytest.raises(ValueError, match="hop 200"):
+        poly_cuda(torch.zeros((2, 66, 160), device=cuda), w, 0.0, 62)
+    with pytest.raises(ValueError, match="hop rows"):
+        poly_cuda(h, w, 0.0, 65)
+    with pytest.raises(ValueError, match="n_dots"):
+        poly_cuda(h, w, 0.0, 64, 0)
+    assert (stream_cuda.launches, gemm_cuda.launches, poly_cuda.launches) == counts  # a refusal launches nothing
+    assert stream_cuda(x[:0], 0.0).shape == (0, 128) and poly_cuda(h, w, 0.0, 0).shape == (2, 0, 128)
+    assert (stream_cuda.launches, gemm_cuda.launches, poly_cuda.launches) == counts  # nor does an empty call
+
+
+def test_micro_tools_run_on_the_card(cuda, capsys):
+    """Both tools' ``main`` with the default device, at a small size."""
+    from howl_tpu_torch.tools import bench_pallas_micro, validate_pallas_precision
+    from howl_tpu_torch.tools.frontend_micro_kernels import gemm_cuda, poly_cuda, stream_cuda
+
+    counts = (stream_cuda.launches, gemm_cuda.launches, poly_cuda.launches)
+    results = bench_pallas_micro.main(["--batch", "8", "--clip-seconds", "2", "--iters", "2"])
+    assert sum(r["route"] == "cuda kernel" for r in results.values()) == 5
+    assert all(a > b for a, b in zip((stream_cuda.launches, gemm_cuda.launches, poly_cuda.launches), counts))
+    records = validate_pallas_precision.main([])
+    f32 = [r for r in records if r["grade"] == "f32"]
+    assert len(records) == 6 and all(r["above_floor_max"] < 3e-3 and r["global_max"] < 0.02 for r in f32)
+    assert "above_floor_max" in capsys.readouterr().out

@@ -87,7 +87,8 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 def test_ctypes_signatures_match_the_cuda_sources():
     sources = {p.name: p.read_text() for p in _build.CSRC.glob("*.cu")}
-    assert set(sources) == {"frontend.cu", "stem.cu", "augment.cu", "trunk_proto.cu", "stem_fold.cu"}
+    assert set(sources) == {"frontend.cu", "stem.cu", "augment.cu", "trunk_proto.cu", "stem_fold.cu",
+                            "micro_stream.cu", "micro_gemm.cu", "micro_poly.cu"}
     entries = {}
     for text in sources.values():
         for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text):

@@ -224,7 +224,7 @@ def test_wrappers_refuse_grad_wrong_operands_and_other_devices():
 
 
 def test_port_tool_runs_all_seven_legs_on_the_cpu(capsys):
-    results = port_tool.main([])
+    results = port_tool.main(["--device", "cpu"])
     out = capsys.readouterr().out
     assert "batch 4 x 2 s" in out
     assert len(results) == 7
