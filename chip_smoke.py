@@ -36,16 +36,27 @@ them. In order it:
      ``howl_tpu_torch.tools.validate_pallas_precision``: the frontend kernel
      at every grade against the float64 goldens, the "f32" grade inside the
      golden tests' bounds;
-  8. drives the serving path: ``StreamingEngine.infer_batch`` with a res8
+  8. drives the device-memory bandwidth sweep
+     (``howl_tpu_torch.tools.bench_hbm_sweep``) at 256 MB, 8 and 32
+     iterations, the full list, and prints every leg; the auto-read,
+     auto-copy, stream-repro and whole-array-copy kernels' launch counts are
+     zeroed just before and read just after, and each must equal the
+     launches the sweep made; no kernel leg may read over 3.35 TB/s by the
+     bytes its definition stages. Then it holds the four kernels against
+     their plain versions, bit for bit over the whole output, on the sweep's
+     arrays (float32 at block heights 256 and 4096, bf16 at 1024) and on an
+     array of 3,144 rows, with a scalar that is no bf16 number. A watchdog
+     ends the run with an error if the phase hangs;
+  9. drives the serving path: ``StreamingEngine.infer_batch`` with a res8
      made from seeded numpy weights, in bf16, on 512 clips of 8 s. The
      frontend and stem kernels' launch counts are zeroed just before and
      read just after; both must have grown. Its decisions must equal the
      float32 engine's on the same card, on a batch where some clips fire
      and some do not. Then it times a batch (CUDA events, after warm-up)
      and prints the realtime factor;
-  9. holds one float32 train step with the bank on the card against the
+ 10. holds one float32 train step with the bank on the card against the
      same step on the CPU (batch 16, the same variables and draws);
- 10. drives the training path: ``make_classification_train_step`` at the
+ 11. drives the training path: ``make_classification_train_step`` at the
      JAX train bench's width (res8 45 maps, batch 1024 x 8,000 samples,
      bf16 compute over float32 masters, VTLP, augmentation, a (512, 32,000)
      noise bank with replace_prob 0.1, AdamW), from seeded numpy variables
@@ -56,12 +67,12 @@ them. In order it:
      a float32 step must run and be finite. Then it times the bf16 step
      with and without the bank, in turns, and the float32 step (CUDA
      events, 20 steps after warm-up) and prints examples per second;
- 11. prints one JSON line with each kernel's launches, error and times
+ 12. prints one JSON line with each kernel's launches, error and times
      beside its plain version's and its bound on this card (the larger of
      its bytes over 3.35 TB/s and its operations over the peak rate of
      their type, both counted from this run's shapes: what the function
-     needs, beside which M1-M3 carry a staged bound for the work the study
-     defines) and the one PyTorch call of the same function where there is
+     needs, beside which the two studies' and the sweep's kernels carry a
+     staged bound for the work the study defines) and the one PyTorch call of the same function where there is
      one, then the device line last.
 
 ``--profile DIR`` adds a stage breakdown and a ``torch.profiler`` kernel
@@ -95,6 +106,11 @@ TRAIN_STEPS = 30
 TIMED_STEPS = 20
 STUDY_ITERS = 16  # calls per timed repeat of each leg of the two kernel studies
 MICRO_S = 0.25  # the nonzero scalar of the frontend cost study's comparisons
+HBM_MB = 256  # the bandwidth sweep's array, the JAX tool's size
+HBM_ITERS = 8  # its short chain; the long one is four times as long
+HBM_S = 0.3  # the scalar of the sweep's comparisons: no bf16 number, so the bf16 legs must round it first
+HBM_ODD_ROWS, HBM_ODD_BN = 3144, 24  # a size that is not the sweep's: 131 blocks, a last stage that is not full
+HBM_PHASE_LIMIT_S = 300  # the sweep phase's watchdog
 # published peaks of one H100 SXM at its full power limit (NVIDIA's data sheet)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12  # dense, tensor cores, float32 accumulate
@@ -335,10 +351,11 @@ def drive_trunk_study(dev) -> dict:
 
 
 def print_sass_counts(library) -> None:
-    """Count the tensor-core (HMMA) and cp.async (LDGSTS) opcodes that
-    the compiler left in each of the frontend study's kernels, from
-    ``cuobjdump -sass`` of the built library: the study's kernels compute
-    results that nobody reads, and this shows the work is still there."""
+    """Count the tensor-core (HMMA), cp.async (LDGSTS) and bulk-copy
+    (UBLKCP) opcodes that the compiler left in each kernel of the frontend
+    study and of the bandwidth sweep, from ``cuobjdump -sass`` of the built
+    library: these kernels move and compute what nobody reads, and this
+    shows that the work and the asynchronous copy paths are still there."""
     import re
     import shutil
     from pathlib import Path
@@ -346,14 +363,16 @@ def print_sass_counts(library) -> None:
     from howl_tpu_torch.ops import _build
 
     tool = shutil.which("cuobjdump") or str(Path(_build._nvcc()).with_name("cuobjdump"))
-    if not Path(tool).exists():  # a diagnostic: the check is the time of three products beside one's
+    if not Path(tool).exists():  # a diagnostic: the checks are the legs' times and rates
         print("cuobjdump not found: SASS opcode counts not printed")
         return
     sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True, check=True, timeout=300).stdout
     for name, body in re.findall(r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)", sass, flags=re.S):
-        if "micro_" in name:
-            kernel = re.findall(r"micro_[a-z]+_kernel", name)[-1]
-            print(f"SASS of {kernel}: {len(re.findall(r'HMMA', body))} HMMA, {len(re.findall(r'LDGSTS', body))} LDGSTS")
+        kernel = re.findall(r"(?:micro_[a-z]+|hbm_[a-z_]+?|hbm2hbm)_kernel", name)
+        if kernel:
+            variant = {"ILb0E": " (float32)", "ILb1E": " (bf16)"}.get((re.findall(r"ILb[01]E", name) or [""])[0], "")
+            counts = ", ".join(f"{len(re.findall(op, body))} {op}" for op in ("HMMA", "LDGSTS", "UBLKCP"))
+            print(f"SASS of {kernel[-1]}{variant}: {counts}")
 
 
 def drive_frontend_study(dev) -> dict:
@@ -469,6 +488,109 @@ def drive_frontend_study(dev) -> dict:
     # M1's function is one PyTorch call, timed as the study's first library leg; M2 and M3 are chains of calls
     return {"launches": launches, "m1": {**record("m1", stream), "library_ms": ms[lib_stream]},
             "m2": record("m2", gemm1, gemm3), "m3": record("m3", poly1, poly3)}
+
+
+def drive_hbm_sweep(dev) -> dict:
+    """The bandwidth sweep's path: ``bench_hbm_sweep.run`` at 256 MB, the
+    full list, with the four kernels' launch counts zeroed just before and
+    read just after; then each kernel held against its plain version, bit
+    for bit over the whole output. Returns the kernels' records."""
+    import faulthandler
+
+    import torch
+
+    from howl_tpu_torch.tools import bench_hbm_sweep as study
+    from howl_tpu_torch.tools import hbm_sweep_kernels as hk
+
+    # a wrong mbarrier parity hangs rather than miscomputes: the kernel traps after 2 s of waiting, and
+    # should the phase sit all the same, this ends the process with a traceback and exit code 1
+    faulthandler.dump_traceback_later(HBM_PHASE_LIMIT_S, exit=True)
+    for fn in study.KERNELS.values():
+        fn.launches = 0
+    records, made = study.run(HBM_MB, HBM_ITERS, False, SEED, dev)
+    torch.cuda.synchronize()
+    launches = {key: fn.launches for key, fn in study.KERNELS.items()}
+    print(f"bandwidth sweep path launches: {launches}; the sweep's own tally {made}")
+    if launches != made or min(launches.values()) < 1:
+        raise AssertionError(f"the kernels' launch counts {launches} are not the launches the sweep made {made}")
+    legs = {rec["config"]: rec for rec in records}
+    for name, rec in legs.items():
+        if rec["route"] == "cuda kernel" and rec["gbps"] * 1e9 > PEAK_BYTES_PER_S:
+            raise AssertionError(f"{name} reads {rec['gbps']:.1f} GB/s, over the card's memory rate: "
+                                 "a copy was dropped or the bytes are miscounted")
+
+    def bits(t):
+        return t.contiguous().view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+    def hold(name, got, ref):
+        torch.cuda.synchronize()
+        same = got.shape == ref.shape and got.dtype == ref.dtype and torch.equal(bits(got), bits(ref))
+        err = float((got.float() - ref.float()).abs().max()) if got.shape == ref.shape else float("nan")
+        print(f"{name} -> {tuple(got.shape)} {str(got.dtype)[6:]}: bitwise={same} max_abs_err={err:.3e}")
+        if not same:
+            raise AssertionError(f"{name}: the kernel is not bitwise equal to its plain version")
+        return err
+
+    _, x32, x16 = study.make_inputs(HBM_MB, SEED, dev)
+    odd = x32[:HBM_ODD_ROWS]
+    cases = [(x32, "f32 256 MB", 256), (x32, "f32 256 MB", 4096), (x16, "bf16 256 MB", 1024),
+             (odd, f"f32 {HBM_ODD_ROWS} rows", HBM_ODD_BN), (odd.to(torch.bfloat16), f"bf16 {HBM_ODD_ROWS} rows", HBM_ODD_BN)]
+    errs = dict.fromkeys(study.KERNELS, 0.0)
+    for x, tag, bn in cases:
+        for key, got, ref in (
+            ("auto_read", hk.auto_read_cuda(x, bn, HBM_S), hk.auto_read_plain(x, bn, HBM_S)),
+            ("auto_copy", hk.auto_copy_cuda(x, bn, HBM_S), hk.auto_copy_plain(x, HBM_S)),
+            ("stream_repro", hk.stream_repro_cuda(x, bn, HBM_S), hk.stream_repro_plain(x, HBM_S)),
+        ):
+            errs[key] = max(errs[key], hold(f"{key} {tag} bn={bn}", got, ref))
+            del got, ref
+    for x, tag in ((x32, "f32 256 MB"), (x16, "bf16 256 MB"), (odd, f"f32 {HBM_ODD_ROWS} rows")):
+        (out, done), (ref, ref_done) = hk.hbm2hbm_cuda(x, HBM_S), hk.hbm2hbm_plain(x, HBM_S)
+        errs["hbm2hbm"] = max(errs["hbm2hbm"], hold(f"hbm2hbm {tag}", out, x), hold(f"hbm2hbm {tag} done", done, ref_done))
+        if not torch.equal(bits(ref), bits(x)):
+            raise AssertionError("hbm2hbm's plain version is no copy")
+        del out, done, ref
+    faulthandler.cancel_dump_traceback_later()
+
+    # The bound is the function's own: a read block needs its corner alone, the stream leg the quarter of
+    # the array it returns. The staged bound counts what the sweep defines: the whole array read, the output
+    # written. Both at the sweep's first block height, 256, in float32, which is also the leg whose times the
+    # kernels line carries; the other block heights' times are in ``ms_by_leg``.
+    n_x, bn = _nbytes(x32), study.BNS[0]
+    corners = x32.shape[0] // bn * hk.CORNER_ROWS * hk.OUT_COLS
+    quarter = x32.shape[0] * hk.OUT_COLS
+    bounds = {
+        "auto_read": _bound(2 * corners * 4, corners, PEAK_F32_FLOPS),
+        "auto_copy": _bound(2 * n_x, x32.numel(), PEAK_F32_FLOPS),
+        "stream_repro": _bound(2 * quarter * 4, quarter, PEAK_F32_FLOPS),
+        "hbm2hbm": _bound(2 * n_x + 4 * 8 * 128, 0, PEAK_F32_FLOPS),
+    }
+    staged = {
+        "auto_read": _bound(n_x + corners * 4, corners, PEAK_F32_FLOPS),
+        "auto_copy": bounds["auto_copy"],
+        "stream_repro": _bound(n_x + quarter * 4, quarter, PEAK_F32_FLOPS),
+        "hbm2hbm": bounds["hbm2hbm"],
+    }
+    lib_add, lib_slice, lib_copy, lib_corners = (rec["ms_per_iter"] for rec in records if rec["library"])
+    main_leg = {"auto_read": f"auto read  f32 bn={bn}", "auto_copy": f"auto copy  f32 bn={bn}",
+                "stream_repro": f"stream-264-repro f32 bn={study.STREAM_BN} (r+w/4)", "hbm2hbm": "hbm->hbm whole-array DMA (r+w)"}
+    # each function is one PyTorch call; the read leg's is an add over a strided view of the corners, and must
+    # equal the plain version, which gathers before it adds
+    if not torch.equal(bits(study.auto_read_library(x32, bn, HBM_S)), bits(hk.auto_read_plain(x32, bn, HBM_S))):
+        raise AssertionError("the read leg's library call is not bitwise equal to its plain version")
+    library = {"auto_read": lib_corners, "auto_copy": lib_add, "stream_repro": lib_slice, "hbm2hbm": lib_copy}
+    prefix = {"auto_read": "auto read", "auto_copy": "auto copy", "stream_repro": "stream", "hbm2hbm": "hbm->hbm"}
+    out = {"launches": launches}
+    for key in study.KERNELS:
+        rec, bd, st = legs[main_leg[key]], bounds[key], staged[key]
+        print(f"{main_leg[key]}: {rec['ms_per_iter']:.4f} ms, bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
+              f"({bd['bytes']} bytes, {bd['operations']} operations); staged bound {st['bound_ms']:.4f} ms "
+              f"({st['bytes']} bytes): {st['bound_ms'] / rec['ms_per_iter']:.3f} of the memory rate; library "
+              f"{library[key]:.4f} ms")
+        out[key] = {"max_abs_err": errs[key], "ms": rec["ms_per_iter"], "plain_ms": rec["plain_ms_per_iter"], **bd,
+                    "library_ms": library[key], "staged_bound_ms": st["bound_ms"], "staged_bound_by": st["bound_by"],
+                    "ms_by_leg": {n: r["ms_per_iter"] for n, r in legs.items() if n.startswith(prefix[key])}}
+    return out
 
 
 def res8_numpy_variables(rng: np.random.Generator, num_labels: int, maps: int = 45) -> dict:
@@ -856,6 +978,7 @@ def main() -> int:
     k3 = check_noise_mix(dev)
     study = drive_trunk_study(dev)
     micro = drive_frontend_study(dev)
+    sweep = drive_hbm_sweep(dev)
     main_path = drive_main_path(dev, BATCH, CLIP_SECONDS)
     check_train_step_against_cpu(dev)
     train_path = drive_train_path(dev)
@@ -897,6 +1020,12 @@ def main() -> int:
             "name": "micro_poly", "route": "cuda", "source": "howl_tpu_torch/csrc/micro_poly.cu",
             "replaces": "tools/bench_pallas_micro.py:144", "launches": micro["launches"]["m3"], **micro["m3"],
         },
+        *(
+            {"name": f"hbm_{key}" if key != "hbm2hbm" else key, "route": "cuda", "source": f"howl_tpu_torch/csrc/{source}",
+             "replaces": f"tools/bench_hbm_sweep.py:{line}", "launches": sweep["launches"][key], **sweep[key]}
+            for key, source, line in (("auto_read", "hbm_auto_read.cu", 161), ("auto_copy", "hbm_auto_copy.cu", 181),
+                                      ("stream_repro", "micro_stream.cu", 204), ("hbm2hbm", "hbm2hbm.cu", 414))
+        ),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -20,7 +20,18 @@
 // and 32 KB of shared memory let seven blocks share an SM, so about 220 KB
 // of loads are in flight per SM while other blocks store. The add is one
 // float32 add (__fadd_rn), bitwise what the plain version computes.
+//
+// The second entry, howl_hbm_stream_repro_forward, replaces
+// tools/bench_hbm_sweep.py, make_stream_repro: the same function at any
+// block height bn and in float32 or bf16, as the device-memory bandwidth
+// sweep runs it. There one CTA owns a block of bn rows, as in the sweep's
+// other legs, and walks it through a three-stage ring of 32 KB
+// (hbm_common.cuh, walk_block): all 512 columns of every row go through
+// cp.async, and the first 128 of each landed row plus s are stored, 16 bytes
+// a thread, while the next two stages are in flight. In bf16, s is rounded to
+// bf16 first and the float32 sum to nearest even.
 
+#include "hbm_common.cuh"
 #include "micro_common.cuh"
 
 namespace {
@@ -58,4 +69,42 @@ extern "C" int howl_micro_stream_forward(const void* x, void* out, int total, fl
   micro_stream_kernel<<<blocks, kThreads, kStageFloats * sizeof(float), static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<float*>(out), total, s);
   return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+template <bool kBf16>
+__global__ void __launch_bounds__(hbm::kThreads)
+hbm_stream_repro_kernel(const unsigned char* __restrict__ x, unsigned char* __restrict__ out, int bn, float s) {
+  extern __shared__ __align__(128) unsigned char ring[];
+  constexpr int kRowBytes = hbm::kCols * (kBf16 ? 2 : 4);
+  constexpr int kOutRowBytes = hbm::kCornerCols * (kBf16 ? 2 : 4);
+  constexpr int kChunksPerRow = kOutRowBytes / 16;
+  const long long block_bytes = static_cast<long long>(bn) * kRowBytes;
+  unsigned char* dst = out + static_cast<long long>(blockIdx.x) * bn * kOutRowBytes;
+  if (kBf16) s = hbm::bf16_round(s);
+  hbm::walk_block(ring, x + blockIdx.x * block_bytes, block_bytes,
+                  [&](const unsigned char* stage, long long base, int m) {
+                    // a stage holds whole rows: its size and the ring's stage size are multiples of a row
+                    unsigned char* to = dst + base / kRowBytes * kOutRowBytes;
+                    for (int c = threadIdx.x; c < m / kRowBytes * kChunksPerRow; c += hbm::kThreads) {
+                      const int row = c / kChunksPerRow;
+                      const int q = (c % kChunksPerRow) * 16;
+                      const uint4 v = *reinterpret_cast<const uint4*>(stage + row * kRowBytes + q);
+                      *reinterpret_cast<uint4*>(to + row * kOutRowBytes + q) = hbm::add16<kBf16>(v, s);
+                    }
+                  });
+}
+
+}  // namespace
+
+// x (rows, 512) float32 or bf16 (is_bf16), 16-byte aligned, rows a multiple
+// of bn and bn at least 8; out (rows, 128) in x's dtype. Both contiguous.
+// Returns cudaGetLastError() after the launch.
+extern "C" int howl_hbm_stream_repro_forward(const void* x, void* out, int rows, int bn, int is_bf16, float s,
+                                             void* stream) {
+  const unsigned char* src = static_cast<const unsigned char*>(x);
+  unsigned char* dst = static_cast<unsigned char*>(out);
+  return is_bf16 ? hbm::launch_block_walk(hbm_stream_repro_kernel<true>, rows, bn, stream, src, dst, bn, s)
+                 : hbm::launch_block_walk(hbm_stream_repro_kernel<false>, rows, bn, stream, src, dst, bn, s);
 }

@@ -68,7 +68,7 @@ class StreamingEngine:
         frontend_precision="bf16",
         carry_windows: bool = False,
         use_int8_trunk: bool = False,
-        device="cpu",
+        device="cuda",
     ):
         """``model`` gives the architecture (a ``Res8``); the engine keeps its
         own copy on ``device`` and loads ``variables``, a res8 state dict
@@ -82,8 +82,9 @@ class StreamingEngine:
         for float32 serving and "bf16" for bf16) and writes its mels in the
         compute dtype.
 
-        ``device`` is where the engine runs; a CUDA device that does not
-        exist raises, it never falls back to the CPU.
+        ``device`` is where the engine runs: the card unless the caller
+        passes ``"cpu"``. A CUDA device that does not exist raises; the
+        engine never falls back to the CPU.
         """
         self.spec = spec or model_spec(getattr(model, "registered_name", "res8"))
         if not self.spec.supports_trunk:

@@ -35,8 +35,9 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 # argtypes of every C entry point: each pointer and the stream is a
 # c_void_p (ctypes would otherwise pass a Python int as a 32-bit int and cut
-# the pointer), each size or flag a c_int, each scalar a c_float
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the pointer), each size or flag a c_int, a size in bytes a c_longlong, each
+# scalar a c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
     # audio, w, fb, out, B, S, n_frames, n_fft, hop, center, n_bins_pad,
     # n_mels, round_audio, round_power, round_mel, out_bf16, layout_fm,
@@ -58,6 +59,12 @@ SIGNATURES = {
     "howl_micro_gemm_forward": (_P, _P, _P, _I, _F, _I, _I, _P),
     # h, w, out, B, rows, t_pad, s, n_dots, keep, stream
     "howl_micro_poly_forward": (_P, _P, _P, _I, _I, _I, _F, _I, _I, _P),
+    # x, out, rows, bn, is_bf16, s, stream
+    "howl_hbm_auto_read_forward": (_P, _P, _I, _I, _I, _F, _P),
+    "howl_hbm_auto_copy_forward": (_P, _P, _I, _I, _I, _F, _P),
+    "howl_hbm_stream_repro_forward": (_P, _P, _I, _I, _I, _F, _P),
+    # x, out, done, n_bytes, s, stream
+    "howl_hbm2hbm_forward": (_P, _P, _P, _L, _F, _P),
 }
 
 _lock = threading.Lock()

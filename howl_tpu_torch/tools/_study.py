@@ -4,6 +4,7 @@ for the device they run on, and the timing of a list of legs."""
 from __future__ import annotations
 
 import argparse
+import statistics
 import time
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -39,6 +40,48 @@ def time_ms(fn: Callable[[], torch.Tensor], iters: int, dev: torch.device) -> fl
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def chain_ms(chain: Callable[[], None], dev: torch.device, clock: Callable[[], float] = time.perf_counter) -> float:
+    """Milliseconds one call of ``chain`` takes: CUDA events on a card,
+    ``clock`` (seconds; the host clock) on the CPU."""
+    if dev.type != "cuda":
+        t0 = clock()
+        chain()
+        return (clock() - t0) * 1000
+    torch.cuda.synchronize(dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    chain()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def slope_turns(makers: dict, order, lo: int, hi: int, dev: torch.device, clock=time.perf_counter) -> dict:
+    """Two-point slopes of several chains timed in turns. ``makers[who](n)``
+    returns a chain, a callable that runs n iterations; on a card those are n
+    launches in a row on one stream. Every chain is warmed with one call of
+    its short form; then, for each ``who`` in ``order``, the chains of ``lo``
+    and ``hi`` iterations are timed and ``(t_hi - t_lo) / (hi - lo)`` taken,
+    which cancels whatever a call costs once. Returns {who: (the median of
+    its slopes, the median of its long chain's plain mean ``t_hi / hi``)},
+    in ms per iteration."""
+    chains = {who: (make(lo), make(hi)) for who, make in makers.items()}
+    for chain_lo, _ in chains.values():
+        chain_lo()
+    slopes, means = {who: [] for who in makers}, {who: [] for who in makers}
+    for who in order:
+        t_lo, t_hi = (chain_ms(chain, dev, clock) for chain in chains[who])
+        slopes[who].append((t_hi - t_lo) / (hi - lo))
+        means[who].append(t_hi / hi)
+    return {who: (statistics.median(slopes[who]), statistics.median(means[who])) for who in makers}
+
+
+def slope_ms(make_chain, lo: int, hi: int, repeats: int, dev: torch.device, clock=time.perf_counter) -> tuple:
+    """(ms per iteration by the two-point slope, the long chain's plain
+    mean): the medians of ``repeats`` measurements, see :func:`slope_turns`."""
+    return slope_turns({"leg": make_chain}, ("leg",) * repeats, lo, hi, dev, clock)["leg"]
 
 
 def _fmt(times) -> str:

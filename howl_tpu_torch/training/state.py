@@ -56,9 +56,11 @@ def create_train_state(
     steps_per_epoch: int = 1,
     variables=None,
     generator: Optional[torch.Generator] = None,
-    device=None,
+    device="cuda",
 ) -> TrainState:
-    """A train state for ``model`` on ``device``.
+    """A train state for ``model`` on ``device``: the card unless the caller
+    passes ``"cpu"``. A CUDA device that does not exist raises; nothing
+    falls back to the CPU.
 
     ``variables`` are res8 variables in the JAX package's layout
     (``{"params": ..., "batch_stats": ...}`` as numpy), so both packages
@@ -67,6 +69,9 @@ def create_train_state(
     Parameters are float32 master weights whatever the model's compute
     dtype.
     """
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(device)!r} requested but CUDA is not available")
     if variables is not None:
         model.load_state_dict(res8_variables_to_state_dict(variables), strict=True)
     elif generator is not None:

@@ -76,7 +76,7 @@ def _jax_engine(variables, cfg_kw, compute_dtype=None):
 def _port_engine(variables, cfg_kw, compute_dtype=None, **kw):
     return StreamingEngine(
         create_model("res8", num_labels=4), res8_variables_to_state_dict(variables), EngineConfig(**cfg_kw),
-        FrontendConfig(n_mels=40), *ZMUV, compute_dtype=compute_dtype, **kw,
+        FrontendConfig(n_mels=40), *ZMUV, compute_dtype=compute_dtype, device="cpu", **kw,
     )
 
 

@@ -13,7 +13,10 @@ Tolerances are tests/test_torch_frontend.py's and tests/test_torch_stem.py's;
 the noise-bank mix is held to its plain version bit for bit. The frontend
 cost study's kernels (stream, GEMM, polyphase) run at the study's CPU size
 and at its full size, 512 clips of 8 s, with totals and frame counts that
-end inside a staging round, a block and a tile.
+end inside a staging round, a block and a tile. The bandwidth sweep's four
+kernels are held to their plain versions bit for bit over the whole output,
+in float32 and bf16, at block heights from 8 rows to the whole array and at
+row counts whose last ring stage and last bulk-copy chunk are not full.
 """
 
 import functools
@@ -438,3 +441,133 @@ def test_micro_tools_run_on_the_card(cuda, capsys):
     f32 = [r for r in records if r["grade"] == "f32"]
     assert len(records) == 6 and all(r["above_floor_max"] < 3e-3 and r["global_max"] < 0.02 for r in f32)
     assert "above_floor_max" in capsys.readouterr().out
+
+
+# ---- the device-memory bandwidth sweep's kernels ----
+
+HBM_S = 0.3  # no bf16 number: the bf16 legs must round it before the add
+
+
+def _sweep_array(cuda, rows, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(rows)
+    return torch.randn((rows, 512), generator=gen, device=cuda).to(dtype)
+
+
+def _same_bits(got, want) -> bool:
+    view = torch.int16 if want.dtype == torch.bfloat16 else torch.int32
+    return got.shape == want.shape and got.dtype == want.dtype and torch.equal(got.view(view), want.view(view))
+
+
+# 8 rows: one stage that is not full; 24 x 131: many small blocks; 1048: 65.5 stages of float32; 3144: one CTA
+# that wraps the ring many times; 4096 x 2: whole stages only
+@pytest.mark.parametrize("rows,bn", [(8, 8), (3144, 24), (3144, 1048), (3144, 3144), (8192, 4096), (8192, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("leg", ["auto_read", "auto_copy", "stream_repro"])
+def test_sweep_block_kernels_match_plain_bitwise(cuda, leg, dtype, rows, bn):
+    from howl_tpu_torch.tools import hbm_sweep_kernels as hk
+
+    x = _sweep_array(cuda, rows, dtype)
+    kernel = getattr(hk, f"{leg}_cuda")
+    before = kernel.launches
+    got = kernel(x, bn, HBM_S)
+    torch.cuda.synchronize()
+    want = {"auto_read": lambda: hk.auto_read_plain(x, bn, HBM_S), "auto_copy": lambda: hk.auto_copy_plain(x, HBM_S),
+            "stream_repro": lambda: hk.stream_repro_plain(x, HBM_S)}[leg]()
+    assert kernel.launches == before + 1
+    assert _same_bits(got, want)
+    assert not torch.equal(got.float(), (kernel(x, bn, 0.0)).float())  # s reaches the output
+
+
+@pytest.mark.parametrize("rows", [8, 16, 3144, 8192, 33000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_hbm2hbm_kernel_copies_every_byte_and_fills_done(cuda, rows, dtype):
+    """8 rows of bf16 are a quarter of one chunk; 33,000 rows of float32 are
+    2,062.5 chunks, so every CTA of the grid wraps its ring and the last
+    chunk is not full."""
+    from howl_tpu_torch.tools.hbm_sweep_kernels import hbm2hbm_cuda, hbm2hbm_plain
+
+    x = _sweep_array(cuda, rows, dtype)
+    before = hbm2hbm_cuda.launches
+    out, done = hbm2hbm_cuda(x, HBM_S)
+    torch.cuda.synchronize()
+    ref, ref_done = hbm2hbm_plain(x, HBM_S)
+    assert hbm2hbm_cuda.launches == before + 1
+    assert out.data_ptr() != x.data_ptr() and _same_bits(out, x) and _same_bits(ref, x)
+    assert _same_bits(done, ref_done) and done[3, 77].item() == np.float32(HBM_S)
+
+
+def test_sweep_bf16_add_rounds_the_scalar_first_and_ties_to_even(cuda):
+    """s = 0.3 becomes the bf16 number 0.30078125 before the add; 1 + 2^-8
+    lies half-way between two bf16 values and goes to the even one."""
+    from howl_tpu_torch.tools.hbm_sweep_kernels import auto_copy_cuda
+
+    x = torch.zeros((8, 512), dtype=torch.bfloat16, device=cuda)
+    x[:, 1], x[:, 2] = 1.0, 1.0 + 2.0**-7
+    assert auto_copy_cuda(x, 8, 0.3)[0, 0].item() == 0.30078125
+    got = auto_copy_cuda(x, 8, 2.0**-8)
+    assert got[0, 1].item() == 1.0 and got[0, 2].item() == 1.0 + 2.0**-6
+
+
+def test_sweep_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from howl_tpu_torch.tools import hbm_sweep_kernels as hk
+
+    block_legs = (hk.auto_read_cuda, hk.auto_copy_cuda, hk.stream_repro_cuda)
+    x = torch.zeros((64, 512), device=cuda)
+    counts = [fn.launches for fn in (*block_legs, hk.hbm2hbm_cuda)]
+    for fn in block_legs:
+        with pytest.raises(RuntimeError, match="no backward"):
+            fn(x.clone().requires_grad_(), 8, 0.0)
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            fn(x.half(), 8, 0.0)
+        with pytest.raises(ValueError, match=r"\(rows, 512\)"):
+            fn(torch.zeros((64, 256), device=cuda), 8, 0.0)
+        with pytest.raises(ValueError, match="whole number of blocks"):
+            fn(x, 24, 0.0)
+        with pytest.raises(ValueError, match="multiple of 8"):
+            fn(x, 4, 0.0)
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(torch.zeros((512, 64), device=cuda).t(), 8, 0.0)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fn(torch.zeros(64 * 512 + 1, device=cuda)[1:].view(64, 512), 8, 0.0)
+        with pytest.raises(TypeError, match="Python number"):
+            fn(x, 8, torch.tensor(0.0))
+        assert fn(x[:0], 8, 0.0).shape[0] == 0
+    with pytest.raises(RuntimeError, match="no backward"):
+        hk.hbm2hbm_cuda(x.clone().requires_grad_(), 0.0)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        hk.hbm2hbm_cuda(x.double(), 0.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        hk.hbm2hbm_cuda(torch.zeros((512, 64), device=cuda).t(), 0.0)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        hk.hbm2hbm_cuda(torch.zeros(64 * 512 + 1, device=cuda)[1:].view(64, 512), 0.0)
+    assert [fn.launches for fn in (*block_legs, hk.hbm2hbm_cuda)] == counts  # neither a refusal nor an empty call launches
+    out, done = hk.hbm2hbm_cuda(x[:0], 0.5)  # but the whole-array copy of nothing still fills done
+    assert out.shape == (0, 512) and bool((done == 0.5).all()) and hk.hbm2hbm_cuda.launches == counts[3] + 1
+
+
+@pytest.mark.parametrize("rows,bn", [(8192, 256), (3144, 24)])
+def test_sweep_read_library_call_matches_plain_bitwise(cuda, rows, bn):
+    """The read leg's library leg is one add over a strided view; the plain
+    version gathers the corners first. Same function, bit for bit."""
+    from howl_tpu_torch.tools.bench_hbm_sweep import auto_read_library
+    from howl_tpu_torch.tools.hbm_sweep_kernels import auto_read_plain
+
+    x = _sweep_array(cuda, rows, torch.float32)
+    assert _same_bits(auto_read_library(x, bn, HBM_S), auto_read_plain(x, bn, HBM_S))
+
+
+def test_sweep_tool_runs_on_the_card(cuda, capsys, tmp_path):
+    """The tool's ``main`` with the default device at a small size: every
+    kernel leg on its kernel, the launch tally equal to the counters."""
+    from howl_tpu_torch.tools import bench_hbm_sweep
+
+    for fn in bench_hbm_sweep.KERNELS.values():
+        fn.launches = 0
+    records, tally = bench_hbm_sweep.run(16, 2, False, 0, cuda)
+    assert tally == {key: fn.launches for key, fn in bench_hbm_sweep.KERNELS.items()}
+    assert tally == {"auto_read": 7 * 32, "auto_copy": 7 * 32, "stream_repro": 32, "hbm2hbm": 32}
+    assert sum(r["route"] == "cuda kernel" for r in records) == 16 and sum(r["library"] for r in records) == 4
+    assert all(np.isfinite(r["ms_per_iter"]) and r["ms_per_iter"] > 0 for r in records if r["route"] == "cuda kernel")
+    out_file = tmp_path / "sweep.json"
+    bench_hbm_sweep.main(["--mb", "16", "--iters", "2", "--quick", "--json", str(out_file)])
+    assert "not ported yet" in capsys.readouterr().out and out_file.exists()

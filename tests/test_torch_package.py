@@ -2,7 +2,8 @@
 
 * It imports without jax, flax or howl_tpu: every module is imported in a
   fresh interpreter whose import hook refuses them.
-* It never quietly runs on the CPU what was asked of a CUDA device.
+* It never quietly runs on the CPU what was asked of a CUDA device, and its
+  entry points ask for the card unless the caller names the CPU.
 * The ctypes signatures the wrappers use agree with the CUDA sources' C
   entry points, and a build without nvcc raises.
 """
@@ -35,7 +36,7 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "howl_tpu"))
 assert not bad, bad
-print(len(names))
+print(" ".join(names))
 """
 
 
@@ -44,7 +45,18 @@ def test_imports_without_jax_or_flax():
         [sys.executable, "-c", _NO_JAX], cwd=REPO, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 20  # every module of both slices, training included, was imported
+    names = proc.stdout.split()
+    assert len(names) >= 22  # every module of every slice, training and the tools included, was imported
+    for module in ("inference.engine", "training.step", "tools.bench_pallas_micro", "tools.bench_hbm_sweep",
+                   "tools.hbm_sweep_kernels", "tools._study"):
+        assert f"howl_tpu_torch.{module}" in names
+
+
+def test_chip_smoke_imports_nothing_of_jax_or_the_jax_package():
+    imports = re.findall(r"^\s*(?:import|from)\s+([\w.]+)", (REPO / "chip_smoke.py").read_text(), flags=re.M)
+    assert "howl_tpu_torch.tools" in imports  # the pattern finds the function-level imports too
+    roots = {name.split(".")[0] for name in imports}
+    assert not roots & {"jax", "jaxlib", "flax", "howl_tpu", "tools"}
 
 
 def test_cuda_engine_without_cuda_raises():
@@ -57,6 +69,31 @@ def test_cuda_engine_without_cuda_raises():
     model = create_model("res8", num_labels=2)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         StreamingEngine(model, model.state_dict(), EngineConfig(), FrontendConfig(n_mels=40), device="cuda")
+
+
+def test_entry_points_ask_for_the_card_unless_given_the_cpu(monkeypatch):
+    """``StreamingEngine`` and ``create_train_state`` default to the card:
+    without one they raise and pick no CPU by themselves; ``device="cpu"``
+    runs them here."""
+    from howl_tpu_torch.inference import EngineConfig, StreamingEngine
+    from howl_tpu_torch.models import create_model
+    from howl_tpu_torch.ops.frontend import FrontendConfig
+    from howl_tpu_torch.training.state import create_train_state
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = create_model("res8", num_labels=2)
+    engine_args = (model, model.state_dict(), EngineConfig(num_labels=2), FrontendConfig(n_mels=40))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        StreamingEngine(*engine_args)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        create_train_state(create_model("res8", num_labels=2), 0.01, generator=torch.Generator().manual_seed(0))
+    engine = StreamingEngine(*engine_args, device="cpu")
+    assert engine.device.type == "cpu" and next(engine.model.parameters()).device.type == "cpu"
+    assert tuple(engine.score_batch(torch.zeros((1, 16000)))["probs"].shape[::2]) == (1, 2)
+    state = create_train_state(
+        create_model("res8", num_labels=2), 0.01, generator=torch.Generator().manual_seed(0), device="cpu"
+    )
+    assert next(state.model.parameters()).device.type == "cpu" and state.step == 0
 
 
 def test_wrappers_refuse_devices_they_have_no_route_for():
@@ -88,7 +125,8 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 def test_ctypes_signatures_match_the_cuda_sources():
     sources = {p.name: p.read_text() for p in _build.CSRC.glob("*.cu")}
     assert set(sources) == {"frontend.cu", "stem.cu", "augment.cu", "trunk_proto.cu", "stem_fold.cu",
-                            "micro_stream.cu", "micro_gemm.cu", "micro_poly.cu"}
+                            "micro_stream.cu", "micro_gemm.cu", "micro_poly.cu", "hbm_auto_read.cu",
+                            "hbm_auto_copy.cu", "hbm2hbm.cu"}
     entries = {}
     for text in sources.values():
         for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text):
@@ -99,12 +137,21 @@ def test_ctypes_signatures_match_the_cuda_sources():
         assert len(params) == len(argtypes), name
         for param, argtype in zip(params, argtypes):
             ctype = param.rsplit(" ", 1)[0]
-            want = {"void*": _build._P, "const void*": _build._P, "int": _build._I, "float": _build._F}[ctype]
+            want = {"void*": _build._P, "const void*": _build._P, "int": _build._I, "long long": _build._L,
+                    "float": _build._F}[ctype]
             assert argtype is want, (name, param)
     # audio, bank, rows, offs, alpha, out, B, n, n_rows, w_cols, stream
     assert entries["howl_mix_noise_bank_forward"] == [
         "const void* audio", "const void* bank", "const void* rows", "const void* offs", "const void* alpha",
         "void* out", "int B", "int n", "int n_rows", "int w_cols", "void* stream",
+    ]
+    # the sweep's three block legs share one signature; the whole-array copy counts its bytes in 64 bits
+    assert entries["howl_hbm_auto_read_forward"] == entries["howl_hbm_auto_copy_forward"] == [
+        "const void* x", "void* out", "int rows", "int bn", "int is_bf16", "float s", "void* stream",
+    ]
+    assert entries["howl_hbm_stream_repro_forward"] == entries["howl_hbm_auto_read_forward"]
+    assert entries["howl_hbm2hbm_forward"] == [
+        "const void* x", "void* out", "void* done", "long long n_bytes", "float s", "void* stream",
     ]
     # sm_90a, the target wgmma and setmaxnreg exist for
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

@@ -29,6 +29,7 @@ from jax.experimental import pallas as pl
 
 import howl_tpu.ops.frontend as jfe
 from howl_tpu_torch.ops import frontend as tfe
+from howl_tpu_torch.tools import bench_hbm_sweep as sweep_tool
 from howl_tpu_torch.tools import bench_pallas_micro as port_tool
 from howl_tpu_torch.tools import bench_trunk_kernel_micro as trunk_tool
 from howl_tpu_torch.tools import frontend_micro_kernels as mk
@@ -263,8 +264,9 @@ def test_precision_tool_runs_on_the_cpu_and_the_f32_grade_meets_the_golden_bound
             assert rec["above_floor_max"] < 3e-3 and rec["global_max"] < 0.02
 
 
-@pytest.mark.parametrize("tool", [port_tool, trunk_tool, precision_tool],
-                         ids=["bench_pallas_micro", "bench_trunk_kernel_micro", "validate_pallas_precision"])
+@pytest.mark.parametrize("tool", [port_tool, trunk_tool, precision_tool, sweep_tool],
+                         ids=["bench_pallas_micro", "bench_trunk_kernel_micro", "validate_pallas_precision",
+                              "bench_hbm_sweep"])
 def test_tools_refuse_to_run_without_a_card_unless_asked_for_the_cpu(tool, monkeypatch):
     """The default device is the card: without one the tool raises and names
     the flag, and picks no CPU by itself."""

@@ -199,7 +199,7 @@ def test_create_train_state_schedule_init_and_count():
         learning_rate=0.01, lr_decay=0.99, steps_per_epoch=100,
     )
     gen = torch.Generator().manual_seed(0)
-    state = create_train_state(create_model("res8", num_labels=4), 0.01, lr_decay=0.99, steps_per_epoch=100, generator=gen)
+    state = create_train_state(create_model("res8", num_labels=4), 0.01, lr_decay=0.99, steps_per_epoch=100, generator=gen, device="cpu")
     assert param_count(state) == jax_param_count(jax_state) == 109939
     schedule = optax.exponential_decay(0.01, 100, 0.99, staircase=True)
     for step in (0, 99, 100, 250, 1000):
@@ -210,8 +210,8 @@ def test_create_train_state_schedule_init_and_count():
     assert abs(float(w.std()) * (9 * 45) ** 0.5 - 1.0) < 0.05 and float(w.abs().max()) <= 2.0 / 0.8796 / (9 * 45) ** 0.5
     assert not state.model.output.bias.any() and float(state.model.bn2.running_var.min()) == 1.0
     again = create_train_state(
-        create_model("res8", num_labels=4), 0.01, generator=torch.Generator().manual_seed(0)
+        create_model("res8", num_labels=4), 0.01, generator=torch.Generator().manual_seed(0), device="cpu"
     )
     assert torch.equal(again.model.conv3.weight, state.model.conv3.weight)
     with pytest.raises(ValueError, match="Generator"):
-        create_train_state(create_model("res8", num_labels=4), 0.01)
+        create_train_state(create_model("res8", num_labels=4), 0.01, device="cpu")

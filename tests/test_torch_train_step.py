@@ -84,7 +84,7 @@ def _jax_state(variables, dtype=None):
 
 def _port_state(variables, dtype=None):
     model = create_model("res8", num_labels=4, dtype=dtype)
-    return model, create_train_state(model, 0.01, lr_decay=0.99, steps_per_epoch=100, variables=variables)
+    return model, create_train_state(model, 0.01, lr_decay=0.99, steps_per_epoch=100, variables=variables, device="cpu")
 
 
 def jax_step_draws(key, step, jcfg, bank_shape) -> StepDraws:
@@ -179,7 +179,7 @@ def test_loss_falls_on_synthetic_tones():
     bank = (rng.standard_normal((4, 9000)) * 0.02).astype(np.float32)
     _, tcfg = _cfgs(True, replace_prob=0.1)
     model = create_model("res8", num_labels=4)
-    state = create_train_state(model, 0.01, lr_decay=0.99, steps_per_epoch=100, generator=torch.Generator().manual_seed(0))
+    state = create_train_state(model, 0.01, lr_decay=0.99, steps_per_epoch=100, generator=torch.Generator().manual_seed(0), device="cpu")
     step = make_classification_train_step(model, tcfg, bank)
     losses = [
         float(step(state, torch.from_numpy(audio), torch.from_numpy(labels), None, 11)[1]["loss"]) for _ in range(10)
@@ -195,7 +195,7 @@ def test_step_is_reproducible_from_key_and_step():
 
     def first_loss(key):
         model = create_model("res8", num_labels=4)
-        state = create_train_state(model, 0.01, generator=torch.Generator().manual_seed(1))
+        state = create_train_state(model, 0.01, generator=torch.Generator().manual_seed(1), device="cpu")
         step = make_classification_train_step(model, tcfg, bank)
         return float(step(state, torch.from_numpy(audio), torch.from_numpy(labels), None, key)[1]["loss"])
 
