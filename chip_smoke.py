@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch + CUDA port (howl_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py [--profile DIR | --profile-only DIR]
 
 Needs one CUDA device and nvcc; exits non-zero, printing no result, without
 them. In order it:
@@ -8,9 +8,16 @@ them. In order it:
   1. prints the card's ``nvidia-smi`` name and power limit;
   2. builds the hand-written kernels from ``howl_tpu_torch/csrc`` (one nvcc
      per source, all at once, sm_90a) and prints the build time;
-  3. holds the log-mel frontend kernel against its plain PyTorch version at
-     the serving path's shape, B=512 x 128,000 samples, 40 mels, in every
-     precision grade with float32 and bf16 output, plus one "fm" case;
+  3. holds both log-mel frontend kernels, the tensor-core one ("tc",
+     ``csrc/frontend_tc.cu``: the two bf16 grades) and the float32-FMA one
+     ("fma", ``csrc/frontend.cu``: every grade), against their plain PyTorch
+     version at the serving path's shape, B=512 x 128,000 samples, 40 mels,
+     in every precision grade with float32 and bf16 output, plus two "fm"
+     cases; then times the main path's case in turns (plain, fma, tc, tc,
+     fma, plain) and the two-pass grade (fma, tc, tc, fma); the tensor-core
+     kernel must be the faster. Before that it counts the tensor-core and
+     bulk-copy opcodes in the built library: the tensor-core kernel must
+     hold HGMMA (``wgmma``) and UBLKCP (bulk copies);
   4. holds the res8 stem kernel against its plain version on (512, 641, 40)
      mels in bf16 and float32;
   5. holds the noise-bank mix kernel against its plain version, bit for
@@ -42,9 +49,11 @@ them. In order it:
      kernels' launch counts (auto read, auto copy, stream repro, manual
      read, manual write, manual copy, whole-array copy) are zeroed just
      before and read just after, and each must equal the launches the sweep
-     made; no kernel leg may read over 3.35 TB/s by the bytes its definition
-     moves. Then it holds the seven kernels against their plain versions,
-     bit for bit over the whole output, with a scalar that is no bf16
+     made; no kernel leg may read over 1.1 x 3.35 TB/s by the bytes its
+     definition moves (the slope of two chain times is noisy by a few percent;
+     a dropped copy reads a multiple). Then it holds the seven kernels
+     against their plain versions, bit for bit over the whole output, with a
+     scalar that is no bf16
      number: the block legs and the whole-array copy on the sweep's arrays
      (float32 at block heights 256 and 4096, bf16 at 1024) and on an array of
      3,144 rows; the manual legs at (k, cb) = (2, 512), (3, 1024), (8, 512)
@@ -55,7 +64,8 @@ them. In order it:
   9. drives the serving path: ``StreamingEngine.infer_batch`` with a res8
      made from seeded numpy weights, in bf16, on 512 clips of 8 s. The
      frontend and stem kernels' launch counts are zeroed just before and
-     read just after; both must have grown. Its decisions must equal the
+     read just after; both must have grown, and the frontend's launch must
+     be the tensor-core kernel's. Its decisions must equal the
      float32 engine's on the same card, on a batch where some clips fire
      and some do not. Then it times a batch (CUDA events, after warm-up)
      and prints the realtime factor;
@@ -81,7 +91,10 @@ them. In order it:
      one, then the device line last.
 
 ``--profile DIR`` adds a stage breakdown and a ``torch.profiler`` kernel
-table of the bf16 noise-bank train step, written to ``DIR/train_profile.txt``.
+table, with the device's idle share, of the bf16 serving batch
+(``DIR/serve_profile.txt``) and of the bf16 noise-bank train step
+(``DIR/train_profile.txt``). ``--profile-only DIR`` builds the kernels, writes
+the two profiles and the device line, and runs none of the checks.
 
 Float32 matrix products and convolutions run in full float32 here (TF32 off)
 so the plain versions are float32 references.
@@ -119,6 +132,9 @@ HBM_ODD_ROWS, HBM_ODD_BN = 3144, 24  # a size that is not the sweep's: 131 block
 # (bf16 chunks of 24 and 1,048 rows are 1.5 and 65.5 ring stages of 16 KB)
 HBM_RING_F32, HBM_RING_BF16, HBM_RING_ODD = ((2, 512), (3, 1024), (8, 512)), ((3, 1024),), ((2, 24), (3, 1048))
 HBM_PHASE_LIMIT_S = 300  # the sweep phase's watchdog
+# A leg's rate is the two-point slope of two chain times, noisy by a few percent: a write leg that reads
+# 3,030-3,130 GB/s read 3,359.8 GB/s in one run of fourteen. A copy that was dropped reads a multiple of the rate.
+HBM_RATE_MARGIN = 1.1
 # published peaks of one H100 SXM at its full power limit (NVIDIA's data sheet)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12  # dense, tensor cores, float32 accumulate
@@ -169,49 +185,74 @@ def _bf16_ulp(x) -> float:
 
 
 def check_frontend(audio, cfg, zmuv) -> dict:
-    """Kernel vs plain log-mel frontend in every grade; returns the record of
-    the main path's case (grade "bf16", bf16 output, "tm")."""
+    """Both frontend kernels vs the plain log-mel frontend in every grade they
+    serve; returns the record of the main path's case (grade "bf16", bf16
+    output, "tm"), whose ``ms`` is the tensor-core ("tc") route's, the one the
+    engine runs, and whose ``prev_ms`` is the float32-FMA ("fma") route's."""
     import torch
 
-    from howl_tpu_torch.ops.frontend_cuda import log_mel_spectrogram_cuda, log_mel_spectrogram_plain
+    from howl_tpu_torch.ops.frontend_cuda import (
+        ROUTES, frontend_route, log_mel_spectrogram_cuda, log_mel_spectrogram_plain,
+    )
 
     mean, std = zmuv
     cases = [(g, d, "tm") for g in ("f32", "bf16x2", "bf16") for d in (torch.float32, torch.bfloat16)]
-    cases.append(("bf16", torch.float32, "fm"))
-    record = None
+    cases += [("bf16", torch.float32, "fm"), ("bf16x2", torch.bfloat16, "fm")]
+    errs = {}
     for grade, out_dtype, layout in cases:
         kw = dict(precision=grade, out_dtype=out_dtype, layout=layout)
-        got = log_mel_spectrogram_cuda(audio, cfg, mean, std, **kw)
         ref = log_mel_spectrogram_plain(audio, cfg, mean, std, **kw)
-        torch.cuda.synchronize()
-        if got.shape != ref.shape or got.dtype != ref.dtype:
-            raise AssertionError(f"K1 {grade}/{out_dtype}/{layout}: {got.shape} {got.dtype} vs {ref.shape} {ref.dtype}")
-        err = float((got.float() - ref.float()).abs().max())
-        # the tests' bounds: f32 1e-3/std; bf16 operand grades 2e-2/std (a
-        # float32 sum-order difference can flip one bf16 rounding of the
-        # power); bf16 output adds one bf16 ulp of its magnitude for the
-        # same reason at the final rounding
+        # the tests' bounds: f32 1e-3/std; bf16 operand grades 2e-2/std (the
+        # operands are bit-equal, the float32 sums differ in order and the
+        # tensor cores do not round each partial sum as fmaf does, which can
+        # flip one bf16 rounding of the power); bf16 output adds one bf16 ulp
+        # of its magnitude for the same reason at the final rounding
         tol = (1e-3 if grade == "f32" else 2e-2) / std
         if out_dtype == torch.bfloat16:
             tol += _bf16_ulp(ref)
-        finite = bool(torch.isfinite(got.float()).all())
-        print(f"K1 {grade:6s} out={str(out_dtype)[6:]:8s} {layout}: max_abs_err={err:.3e} tol={tol:.3e} finite={finite}")
-        if not (finite and err <= tol):
-            raise AssertionError(f"K1 {grade}/{out_dtype}/{layout} disagrees with its plain version")
-        if (grade, out_dtype, layout) == ("bf16", torch.bfloat16, "tm"):
-            kernel_ms, plain_ms = _ab_ms(
-                lambda: log_mel_spectrogram_plain(audio, cfg, mean, std, **kw),
-                lambda: log_mel_spectrogram_cuda(audio, cfg, mean, std, **kw),
-                iters=5,
-            )
-            # bf16 operands, float32 sums: the DFT as (frames, n_fft) @ (n_fft, 2 bins), power, the mel product
-            frames, n_bins = got.shape[0] * got.shape[1], cfg.n_fft // 2
-            ops = frames * (2 * cfg.n_fft * 2 * n_bins + 3 * n_bins + 2 * n_bins * cfg.n_mels)
-            w_fb_bytes = 4 * (cfg.n_fft * 2 * n_bins + n_bins * cfg.n_mels)
-            record = {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms, "mel": got,
-                      **_bound(_nbytes(audio, got) + w_fb_bytes, ops, PEAK_BF16_FLOPS)}
-            print(f"K1 main-path case: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms per batch; "
-                  f"bound {record['bound_ms']:.4f} ms by {record['bound_by']}")
+        served = frontend_route(cfg, grade)
+        for route in (r for r in ROUTES if r == "fma" or served == "tc"):
+            got = log_mel_spectrogram_cuda(audio, cfg, mean, std, route=route, **kw)
+            torch.cuda.synchronize()
+            if got.shape != ref.shape or got.dtype != ref.dtype:
+                raise AssertionError(f"K1 {route} {grade}/{out_dtype}/{layout}: {got.shape} {got.dtype} vs {ref.shape} {ref.dtype}")
+            err = float((got.float() - ref.float()).abs().max())
+            finite = bool(torch.isfinite(got.float()).all())
+            print(f"K1 {route:3s} {grade:6s} out={str(out_dtype)[6:]:8s} {layout}: max_abs_err={err:.3e} tol={tol:.3e} finite={finite}")
+            if not (finite and err <= tol):
+                raise AssertionError(f"K1 {route} {grade}/{out_dtype}/{layout} disagrees with its plain version")
+            errs[route, grade, out_dtype, layout] = err
+            if (route, grade, out_dtype, layout) == (served, "bf16", torch.bfloat16, "tm"):
+                mel = got
+        del ref
+
+    def timed(grade, route=None, plain=False, iters=5):
+        fn = log_mel_spectrogram_plain if plain else log_mel_spectrogram_cuda
+        kw = dict(precision=grade, out_dtype=torch.bfloat16, layout="tm", **({} if plain else {"route": route}))
+        return _cuda_ms(lambda: fn(audio, cfg, mean, std, **kw), iters)
+
+    if frontend_route(cfg, "bf16") != "tc":
+        raise AssertionError(f"the main path's geometry {cfg} is not served by the tensor-core frontend kernel")
+    # the main-path case in turns: plain, fma, tc, tc, fma, plain; then the two-pass grade: fma, tc, tc, fma
+    turns = [timed("bf16", plain=True), timed("bf16", "fma"), timed("bf16", "tc"), timed("bf16", "tc"),
+             timed("bf16", "fma"), timed("bf16", plain=True)]
+    plain_ms, fma_ms, tc_ms = (turns[0] + turns[5]) / 2, (turns[1] + turns[4]) / 2, (turns[2] + turns[3]) / 2
+    x2 = [timed("bf16x2", "fma"), timed("bf16x2", "tc"), timed("bf16x2", "tc"), timed("bf16x2", "fma")]
+    tc_x2_ms, fma_x2_ms = (x2[1] + x2[2]) / 2, (x2[0] + x2[3]) / 2
+    # bf16 operands, float32 sums: the DFT as (frames, n_fft) @ (n_fft, 2 bins), power, the mel product; the
+    # same work whatever implements it
+    frames, n_bins = mel.shape[0] * mel.shape[1], cfg.n_fft // 2
+    ops = frames * (2 * cfg.n_fft * 2 * n_bins + 3 * n_bins + 2 * n_bins * cfg.n_mels)
+    w_fb_bytes = 4 * (cfg.n_fft * 2 * n_bins + n_bins * cfg.n_mels)
+    record = {"max_abs_err": errs["tc", "bf16", torch.bfloat16, "tm"], "ms": tc_ms, "plain_ms": plain_ms, "mel": mel,
+              "route_tc": True, "prev_ms": fma_ms, "prev_source": "howl_tpu_torch/csrc/frontend.cu",
+              "prev_max_abs_err": errs["fma", "bf16", torch.bfloat16, "tm"], "ms_bf16x2": tc_x2_ms,
+              "prev_ms_bf16x2": fma_x2_ms, **_bound(_nbytes(audio, mel) + w_fb_bytes, ops, PEAK_BF16_FLOPS)}
+    print(f"K1 main-path case: tc kernel {tc_ms:.3f} ms, fma kernel {fma_ms:.3f} ms, plain {plain_ms:.3f} ms per batch; "
+          f"bound {record['bound_ms']:.4f} ms by {record['bound_by']}: {record['bound_ms'] / tc_ms:.3f} of the bound's rate")
+    print(f"K1 grade bf16x2, bf16 out, tm: tc kernel {tc_x2_ms:.3f} ms, fma kernel {fma_x2_ms:.3f} ms")
+    if not tc_ms < fma_ms:
+        raise AssertionError(f"the tensor-core frontend kernel ({tc_ms:.3f} ms) is not faster than the FMA kernel ({fma_ms:.3f} ms)")
     return record
 
 
@@ -359,11 +400,13 @@ def drive_trunk_study(dev) -> dict:
 
 
 def print_sass_counts(library) -> None:
-    """Count the tensor-core (HMMA), cp.async (LDGSTS) and bulk-copy
-    (UBLKCP) opcodes that the compiler left in each kernel of the frontend
-    study and of the bandwidth sweep, from ``cuobjdump -sass`` of the built
-    library: these kernels move and compute what nobody reads, and this
-    shows that the work and the asynchronous copy paths are still there."""
+    """Count the tensor-core (HGMMA for ``wgmma``, HMMA for ``mma.sync``),
+    cp.async (LDGSTS) and bulk-copy (UBLKCP) opcodes that the compiler left
+    in each kernel of the frontend, of the frontend study and of the
+    bandwidth sweep, from ``cuobjdump -sass`` of the built library. The
+    studies' kernels move and compute what nobody reads, and this shows that
+    the work and the asynchronous copy paths are still there; the
+    tensor-core frontend kernel must hold HGMMA and UBLKCP, or the run fails."""
     import re
     import shutil
     from pathlib import Path
@@ -371,16 +414,24 @@ def print_sass_counts(library) -> None:
     from howl_tpu_torch.ops import _build
 
     tool = shutil.which("cuobjdump") or str(Path(_build._nvcc()).with_name("cuobjdump"))
-    if not Path(tool).exists():  # a diagnostic: the checks are the legs' times and rates
-        print("cuobjdump not found: SASS opcode counts not printed")
-        return
+    if not Path(tool).exists():
+        raise RuntimeError("cuobjdump not found beside nvcc: the frontend kernel's tensor-core opcodes cannot be checked")
     sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True, check=True, timeout=300).stdout
+    opcodes = ("HGMMA", "HMMA", "LDGSTS", "UBLKCP")
+    tc_kernels = 0
     for name, body in re.findall(r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)", sass, flags=re.S):
-        kernel = re.findall(r"(?:micro_[a-z]+|hbm_[a-z_]+?|hbm2hbm)_kernel", name)
+        kernel = re.findall(r"(?:micro_[a-z]+|hbm_[a-z_]+?|hbm2hbm|logmel(?:_tc)?)_kernel", name)
         if kernel:
-            variant = {"ILb0E": " (float32)", "ILb1E": " (bf16)"}.get((re.findall(r"ILb[01]E", name) or [""])[0], "")
-            counts = ", ".join(f"{len(re.findall(op, body))} {op}" for op in ("HMMA", "LDGSTS", "UBLKCP"))
-            print(f"SASS of {kernel[-1]}{variant}: {counts}")
+            variant = {"ILb0E": " (float32)", "ILb1E": " (bf16)", "ILi40E": " (mel width 40)",
+                       "ILi80E": " (mel width 80)"}.get((re.findall(r"ILb[01]E|ILi[48]0E", name) or [""])[0], "")
+            counts = {op: len(re.findall(rf"\b{op}\b", body)) for op in opcodes}
+            print(f"SASS of {kernel[-1]}{variant}: " + ", ".join(f"{n} {op}" for op, n in counts.items()))
+            if kernel[-1] == "logmel_tc_kernel":
+                tc_kernels += 1
+                if counts["HGMMA"] < 1 or counts["UBLKCP"] < 1:
+                    raise AssertionError(f"the tensor-core frontend kernel{variant} holds {counts}: no wgmma or no bulk copy")
+    if tc_kernels < 1:
+        raise AssertionError("the built library holds no tensor-core frontend kernel")
 
 
 def drive_frontend_study(dev) -> dict:
@@ -523,8 +574,8 @@ def drive_hbm_sweep(dev) -> dict:
         raise AssertionError(f"the kernels' launch counts {launches} are not the launches the sweep made {made}")
     legs = {rec["config"]: rec for rec in records}
     for name, rec in legs.items():
-        if rec["route"] == "cuda kernel" and rec["gbps"] * 1e9 > PEAK_BYTES_PER_S:
-            raise AssertionError(f"{name} reads {rec['gbps']:.1f} GB/s, over the card's memory rate: "
+        if rec["route"] == "cuda kernel" and rec["gbps"] * 1e9 > HBM_RATE_MARGIN * PEAK_BYTES_PER_S:
+            raise AssertionError(f"{name} reads {rec['gbps']:.1f} GB/s, over {HBM_RATE_MARGIN} x the card's memory rate: "
                                  "a copy was dropped or the bytes are miscounted")
 
     def bits(t):
@@ -724,11 +775,14 @@ def drive_main_path(dev, batch: int, clip_seconds: float) -> dict:
     ref = f32.infer_batch(audio)
 
     log_mel_spectrogram_cuda.launches = 0
+    log_mel_spectrogram_cuda.launches_tc = 0
     res8_stem_cuda.launches = 0
     out = bf16.infer_batch(audio)
     torch.cuda.synchronize()
-    launches = {"k1": log_mel_spectrogram_cuda.launches, "k2": res8_stem_cuda.launches}
-    print(f"main path launches: frontend kernel {launches['k1']}, stem kernel {launches['k2']}")
+    launches = {"k1": log_mel_spectrogram_cuda.launches, "k1_tc": log_mel_spectrogram_cuda.launches_tc,
+                "k2": res8_stem_cuda.launches}
+    print(f"main path launches: frontend kernel {launches['k1']} ({launches['k1_tc']} of them the tensor-core kernel), "
+          f"stem kernel {launches['k2']}")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the main path was not launched: {launches}")
 
@@ -993,6 +1047,73 @@ def profile_train_step(dev, out_dir) -> None:
     print("\n".join(lines[:10]))
 
 
+def profile_serving(dev, out_dir) -> None:
+    """Stage times (CUDA events) of the bf16 serving batch, 512 clips of 8 s,
+    and a torch.profiler kernel table with the device's idle share over 5
+    batches, into ``out_dir/serve_profile.txt``."""
+    import torch
+
+    from howl_tpu_torch.compat import res8_variables_to_state_dict
+    from howl_tpu_torch.inference import EngineConfig, StreamingEngine
+    from howl_tpu_torch.inference.detect import _smooth_and_detect_parallel
+    from howl_tpu_torch.models import create_model
+    from howl_tpu_torch.ops.frontend import FrontendConfig
+    from howl_tpu_torch.ops.frontend_cuda import log_mel_spectrogram_cuda
+    from howl_tpu_torch.ops.stem_cuda import res8_stem_cuda
+
+    rng = np.random.default_rng(SEED + 1)
+    frontend = FrontendConfig(n_mels=N_MELS)
+    cfg = EngineConfig(inference_sequence=(0, 1, 2), max_window_size_ms=500.0, eval_stride_size_ms=62.5,
+                       negative_label=3, num_labels=4, sample_rate=SAMPLE_RATE)
+    state = res8_variables_to_state_dict(res8_numpy_variables(rng, 4))
+    samples = int(CLIP_SECONDS * SAMPLE_RATE)
+    audio = torch.from_numpy(smoke_audio(rng, BATCH, samples)).to(dev)
+    eng = StreamingEngine(create_model("res8", num_labels=4), state, cfg, frontend, zmuv_mean=-6.0, zmuv_std=4.0,
+                          compute_dtype=torch.bfloat16, device=dev)
+    geom = eng._step_geometry(BATCH, samples)
+    lengths = eng._as_lengths(None, BATCH, samples)
+    static_cfg = dataclasses.replace(cfg, inference_threshold=0.0)
+
+    def frontend_stage():
+        return log_mel_spectrogram_cuda(audio, frontend, eng.zmuv_mean, eng.zmuv_std, precision=eng.frontend_precision,
+                                        out_dtype=torch.bfloat16, layout="tm")
+
+    with torch.no_grad():
+        mel = frontend_stage()
+        stem = res8_stem_cuda(mel, eng._stem_taps, eng.model.pooling)
+        probs, valid = eng._score_weight_mask(audio, lengths, geom["n_win"])
+        stages = {
+            "1. frontend (K1)": frontend_stage,
+            "2. stem (K2)": lambda: res8_stem_cuda(mel, eng._stem_taps, eng.model.pooling),
+            "3. residual convs + BN": lambda: eng.model.residual_features(stem),
+            "1-4. scoring (_score)": lambda: eng._score(audio, geom["n_win"]),
+            "5. smoothing + FSM alone": lambda: _smooth_and_detect_parallel(
+                probs, valid, cfg.inference_threshold, static_cfg, geom["s_steps"], geom["w_steps"], geom["stride"],
+                geom["check_offset"]),
+            "infer_batch": lambda: eng.infer_batch(audio),
+        }
+        lines = [f"bf16 serving batch, {BATCH} x {CLIP_SECONDS:g} s; stage ms (CUDA events, 3 x 10 calls)"]
+        for name, fn in stages.items():
+            times = [_cuda_ms(fn, 10) for _ in range(3)]
+            lines.append(f"  {name}: " + ", ".join(f"{t:.3f}" for t in times))
+        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            for _ in range(5):
+                eng.infer_batch(audio)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1000
+    events = prof.key_averages()
+    busy_us = sum(getattr(e, "self_device_time_total", 0) for e in events if e.device_type == torch.autograd.DeviceType.CUDA)
+    lines.append(f"profiled 5 batches: wall {wall_ms:.3f} ms, device busy {busy_us / 1000:.3f} ms, "
+                 f"idle share {1 - busy_us / 1000 / wall_ms:.3f}")
+    lines.append(events.table(sort_by="self_device_time_total", row_limit=20, max_name_column_width=70))
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "serve_profile.txt").write_text("\n".join(lines) + "\n")
+    print("\n".join(lines[:8]))
+
+
 def main() -> int:
     import torch
 
@@ -1013,6 +1134,18 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.kernel_library()
     print(f"built {_build.library_path().name} in {time.perf_counter() - t0:.1f} s")
+    device_line = json.dumps({
+        "ok": True,
+        "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},
+    })
+    if "--profile-only" in sys.argv[1:]:
+        from pathlib import Path
+
+        out_dir = Path(sys.argv[sys.argv.index("--profile-only") + 1])
+        profile_serving(dev, out_dir)
+        profile_train_step(dev, out_dir)
+        print(device_line)
+        return 0
     print_sass_counts(_build.library_path())
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1038,12 +1171,13 @@ def main() -> int:
     if "--profile" in sys.argv[1:]:
         from pathlib import Path
 
+        profile_serving(dev, Path(sys.argv[sys.argv.index("--profile") + 1]))
         profile_train_step(dev, Path(sys.argv[sys.argv.index("--profile") + 1]))
 
     kernels = [
         {
-            "name": "log_mel_frontend", "route": "cuda", "source": "howl_tpu_torch/csrc/frontend.cu",
-            "replaces": "howl_tpu/ops/frontend_pallas.py:119", "launches": main_path["launches"]["k1"], **k1,
+            "name": "log_mel_frontend", "route": "cuda", "source": "howl_tpu_torch/csrc/frontend_tc.cu",
+            "replaces": "howl_tpu/ops/frontend_pallas.py:119", "launches": main_path["launches"]["k1_tc"], **k1,
         },
         {
             "name": "res8_stem", "route": "cuda", "source": "howl_tpu_torch/csrc/stem.cu",
@@ -1083,10 +1217,7 @@ def main() -> int:
         ),
     ]
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({
-        "ok": True,
-        "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},
-    }))
+    print(device_line)
     return 0
 
 

@@ -5,7 +5,7 @@ module for module: each module here mirrors the name of its JAX counterpart
 (``ops/frontend.py``, ``models/cnn.py``, ``inference/engine.py``, ...).
 
 This package imports ``torch`` and never ``jax``, ``flax`` or ``howl_tpu``.
-The two hand-written Hopper kernels live in ``csrc/`` and are compiled with
+The hand-written Hopper kernels live in ``csrc/`` and are compiled with
 ``nvcc`` on first use (``ops/_build.py``); nothing is built at import.
 
 Ported so far: the offline fused-trunk res8 scoring path

@@ -1,0 +1,367 @@
+// Fused log-mel frontend on Hopper's tensor cores (sm_90a): audio -> ZMUV'd
+// log-mels, the "tc" route of ops/frontend_cuda.py for the two bf16 grades.
+//
+// Replaces the TPU kernel howl_tpu/ops/frontend_pallas.py,
+// log_mel_spectrogram_pallas (Pallas kernel _kernel), as frontend.cu does,
+// and computes the same function:
+//
+//     out = (log(mel + log_offset) - mean) * inv_std,
+//     mel = bf16(|frames @ W|^2) @ fb
+//
+// with frame t the samples [t*hop, t*hop + n_fft) of the center
+// reflect-padded audio rounded to bf16, W the bf16 [cos | -sin] DFT basis
+// with the Hann window folded in (grade "bf16"), or its bf16 hi and lo parts
+// one after the other, frames @ W_hi + frames @ W_lo (grade "bf16x2"), and
+// fb the bf16 mel filterbank. Sums are float32.
+//
+// What bounds it on this card: the operations of the DFT product,
+// n_fft * 2 * n_bins multiply-adds a frame (0.5 MFLOP at 512 / 256) against
+// 200 new samples read, so the product belongs on the tensor cores; and next
+// the traffic of W, which every block reads whole from L2.
+//
+// What the design does about it:
+//  * A block owns one clip and kTile = 128 frames: two warpgroups of 64
+//    frames each, 256 threads. The tile's audio span, (kTile - 1) * hop +
+//    n_fft samples, is read once with the reflect padding applied, rounded
+//    to bf16 and kept in shared memory; the overlapping frames are never
+//    built. A (frames) comes from registers: the fragment of a thread is
+//    pairs of neighbouring samples of a frame, one 32-bit shared-memory load
+//    each at sample t * hop + k (hop is even).
+//  * W is packed by the host in the very image the wgmma descriptor reads
+//    (frontend_cuda.pack_w_image): per half of 128 bins an N = 256 tile [re
+//    of the half's bins | im of the same bins], per 16 rows of k two by 32
+//    core matrices of 128 bytes. A stage of the ring is 64 rows of k, 32 KB,
+//    one contiguous bulk copy (cp.async.bulk) that one thread starts as soon
+//    as all eight warps have released the slot; a "full" and an "empty"
+//    mbarrier per slot, kSlots = 3. With 128-frame tiles a batch of 512 x
+//    8 s reads W 3,072 times from L2, not 10,752.
+//  * There is no producer warp. A thread needs about 240 registers (128 of
+//    them sums), which eight warps of an SM can have and nine cannot, and
+//    the compiler plans a kernel's registers for the count at entry whatever
+//    setmaxnreg moves at run time: with a producer warpgroup the sums
+//    spilled and every wgmma waited for the one before. So the first warp
+//    refills the ring between its own products. The wait before a refill is
+//    made by the whole warp and only the copy by one lane: a one-thread
+//    branch around a wait loop, in the loop of the products, makes the
+//    compiler serialise them as well.
+//  * A warpgroup's sums are 64 x 256 float32, 128 registers a thread. re and
+//    im of a bin fall to the same thread, 64 registers apart, so the power
+//    is formed in registers, rounded to bf16 and packed straight into the A
+//    fragments of a second wgmma against fb, which lies in shared memory
+//    whole (frontend_cuda.pack_fb_image); the halves' mel products add up in
+//    n_mels_pad / 2 registers. The power never reaches shared memory.
+//  * A warpgroup whose 64 frames all lie past the clip's last frame skips
+//    its products (641 frames are 5 tiles and one frame) but keeps its place
+//    at the barriers.
+//  * The epilogue (bf16 rounding of the mel for bf16 output, log, ZMUV) runs
+//    in registers; the tile's outputs are staged in the ring's shared
+//    memory, and leave as 16-byte stores ("tm": the tile is one contiguous
+//    run of the output) or as runs along t ("fm").
+//
+// The geometry it serves: n_fft a multiple of 16, hop even, n_mels a
+// multiple of 8 and at most 80, and shared memory for the ring, fb and the
+// span (frontend_cuda.frontend_route decides; the entry refuses the rest).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "hopper_async.cuh"
+
+namespace {
+
+using namespace hopper;
+
+constexpr int kTile = 128;                        // frames a block owns
+constexpr int kThreads = 256;                     // two warpgroups of 64 frames
+constexpr int kHalfBins = 128;                    // bins of one N = 256 tile: [re | im]
+constexpr int kStepBytes = 16 * 2 * kHalfBins * 2;  // 16 rows of k of a tile: 8 KB
+constexpr int kStageSteps = 4;                    // 64 rows of k a stage
+constexpr int kStageBytes = kStageSteps * kStepBytes;
+constexpr int kSlots = 3;                         // stages of the ring; 4 measured the same
+constexpr int kRingBytes = kSlots * kStageBytes;
+constexpr int kMaxSmem = 232448;                  // 227 KB a block
+
+__host__ __device__ __forceinline__ int round_up16(int x) { return (x + 15) & ~15; }
+
+__host__ __device__ __forceinline__ int fb_image_bytes(int n_halves, int mel_n) { return n_halves * kHalfBins * mel_n * 2; }
+
+__host__ __device__ __forceinline__ int span_samples(int n_fft, int hop) { return (kTile - 1) * hop + n_fft; }
+
+__device__ __forceinline__ float round_bf16(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Sample p of the padded signal: reflect within `pad` of either end (the
+// edge sample itself is not repeated), zeros past the padded end.
+__device__ __forceinline__ float padded_sample(const float* row, long S, long pad, long p) {
+  long i = p - pad;
+  if (i >= S + pad) return 0.f;
+  if (i < 0) i = -i;
+  else if (i >= S) i = 2 * (S - 1) - i;
+  return row[i];
+}
+
+template <int kMelN>
+__global__ void __launch_bounds__(kThreads, 1)
+logmel_tc_kernel(const float* __restrict__ audio, const unsigned char* __restrict__ w_img,
+                 const unsigned char* __restrict__ fb_img, void* __restrict__ out, int S, int n_frames, int n_fft,
+                 int hop, int pad, int n_halves, int n_passes, int n_mels, int round_mel, int out_bf16,
+                 int layout_fm, float log_offset, float mean, float inv_std) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int fb_bytes = fb_image_bytes(n_halves, kMelN);
+  const int span = span_samples(n_fft, hop);
+  unsigned char* ring = smem;
+  unsigned char* s_fb = ring + kRingBytes;
+  __nv_bfloat16* s_audio = reinterpret_cast<__nv_bfloat16*>(s_fb + fb_bytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(s_fb + fb_bytes + round_up16(span * 2));
+  uint64_t* empty = full + kSlots;
+  uint64_t* fb_full = empty + kSlots;
+
+  const int tid = threadIdx.x;
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);  // the same in every lane, and the compiler knows it
+  const int lane = tid & 31;
+  const int b = blockIdx.y;
+  const int t0 = blockIdx.x * kTile;
+
+  // The stages of W in the order they are consumed, which is the order of the image: per half, per pass, 64 rows
+  // of k at a time; the last stage of a pass is short when n_fft is no multiple of 64.
+  const int k_steps = n_fft / 16;
+  const int stages_per_pass = (k_steps + kStageSteps - 1) / kStageSteps;
+  const int n_stages = n_halves * n_passes * stages_per_pass;
+  auto stage_steps = [&](int i) {
+    const int left = k_steps - (i % stages_per_pass) * kStageSteps;
+    return left < kStageSteps ? left : kStageSteps;
+  };
+  auto load_stage = [&](int i) {  // one thread
+    const int slot = i % kSlots;
+    const uint32_t bytes = stage_steps(i) * kStepBytes;
+    const size_t first_step = static_cast<size_t>(i / stages_per_pass) * k_steps + (i % stages_per_pass) * kStageSteps;
+    mbar_arrive_expect_tx(&full[slot], bytes);
+    bulk_load(ring + slot * kStageBytes, w_img + first_step * kStepBytes, bytes, &full[slot]);
+  };
+
+  if (tid == 0) {
+    for (int slot = 0; slot < kSlots; ++slot) {
+      mbar_init(&full[slot], 1);
+      mbar_init(&empty[slot], kThreads / 32);  // one arrival a warp
+    }
+    mbar_init(fb_full, 1);
+    mbar_init_fence();
+    fence_proxy_async();
+    mbar_arrive_expect_tx(fb_full, fb_bytes);
+    bulk_load(s_fb, fb_img, fb_bytes, fb_full);
+    for (int i = 0; i < kSlots && i < n_stages; ++i) load_stage(i);
+  }
+  // The span, rounded to bf16. A tile inside the clip (all but the first and the last, when the clip's rows are
+  // 16-byte aligned; the span's first sample is a multiple of 4 samples into the clip) takes 16-byte loads,
+  // kSpanLoads of them in flight a thread, since the block has nothing else to hide their latency behind. A
+  // tile at an edge goes sample by sample through the padding.
+  const float* clip = audio + static_cast<size_t>(b) * S;
+  const long p0 = static_cast<long>(t0) * hop;
+  const long first = p0 - pad;
+  if ((reinterpret_cast<uintptr_t>(clip) & 15) == 0 && first >= 0 && first + span <= S) {
+    constexpr int kSpanLoads = 13;
+    const float4* src = reinterpret_cast<const float4*>(clip + first);
+    const int n4 = span / 4;
+    for (int base = tid; base < n4; base += kThreads * kSpanLoads) {
+      float4 v[kSpanLoads];
+#pragma unroll
+      for (int u = 0; u < kSpanLoads; ++u)
+        if (base + u * kThreads < n4) v[u] = __ldg(src + base + u * kThreads);
+#pragma unroll
+      for (int u = 0; u < kSpanLoads; ++u)
+        if (base + u * kThreads < n4)
+          reinterpret_cast<uint2*>(s_audio)[base + u * kThreads] =
+              make_uint2(pack_bf16(v[u].x, v[u].y), pack_bf16(v[u].z, v[u].w));
+    }
+    for (int i = n4 * 4 + tid; i < span; i += kThreads) s_audio[i] = __float2bfloat16_rn(clip[first + i]);
+  } else {
+    for (int i = tid; i < span; i += kThreads) s_audio[i] = __float2bfloat16_rn(padded_sample(clip, S, pad, p0 + i));
+  }
+  __syncthreads();  // the span is written and the barriers are initialised
+
+  const int wg = warp >> 2;
+  const int g = lane >> 2;
+  const int tig = lane & 3;
+  const int row = wg * 64 + (warp & 3) * 16 + g;  // this thread's first frame of the tile; the second is row + 8
+  const bool active = t0 + wg * 64 < n_frames;    // a warpgroup with no frame of the clip computes nothing
+  const __nv_bfloat16* xa = s_audio + row * hop + 2 * tig;
+  const __nv_bfloat16* xb = xa + 8 * hop;
+
+  // the A fragments of a stage's products: samples k0 + 16 ks + {2 tig, 2 tig + 1} and + 8 of both frames
+  uint32_t a[kStageSteps * 4];
+  auto load_a = [&](int i) {
+    const int k0 = (i % stages_per_pass) * kStageSteps * 16;
+    const int steps = stage_steps(i);
+#pragma unroll
+    for (int ks = 0; ks < kStageSteps; ++ks)
+      if (ks < steps) {
+        const int k = k0 + ks * 16;
+        a[ks * 4 + 0] = *reinterpret_cast<const uint32_t*>(xa + k);
+        a[ks * 4 + 1] = *reinterpret_cast<const uint32_t*>(xb + k);
+        a[ks * 4 + 2] = *reinterpret_cast<const uint32_t*>(xa + k + 8);
+        a[ks * 4 + 3] = *reinterpret_cast<const uint32_t*>(xb + k + 8);
+      }
+  };
+
+  float mel[kMelN / 2];
+#pragma unroll
+  for (int i = 0; i < kMelN / 2; ++i) mel[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kStageSteps * 4; ++i) a[i] = 0u;
+  if (active) load_a(0);
+
+  int stage = 0;
+  for (int h = 0; h < n_halves; ++h) {
+    float acc[128];  // (64, 256) sums: d[4j + i] is re of bin 8j + 2 tig + (i & 1), d[64 + 4j + i] its im
+    for (int j = 0; j < n_passes * stages_per_pass; ++j, ++stage) {
+      const int slot = stage % kSlots;
+      const int steps = stage_steps(stage);
+      mbar_wait(&full[slot], (stage / kSlots) & 1);
+      if (active) {
+        const uint32_t w_s = smem_u32(ring + slot * kStageBytes);
+        wgmma_fence();
+        auto product = [&](int ks) {
+          wgmma_m64n256k16(acc, a[ks * 4], a[ks * 4 + 1], a[ks * 4 + 2], a[ks * 4 + 3],
+                           wgmma_desc(w_s + ks * kStepBytes, kStepBytes / 2, 128), j > 0 || ks > 0);
+        };
+        if (steps == kStageSteps) {  // no branch between the products of a full stage
+#pragma unroll
+          for (int ks = 0; ks < kStageSteps; ++ks) product(ks);
+        } else {
+#pragma unroll
+          for (int ks = 0; ks < kStageSteps - 1; ++ks)
+            if (ks < steps) product(ks);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        wgmma_keep(a);  // the products have read them: now the next stage's may take their place
+        if (stage + 1 < n_stages) load_a(stage + 1);
+      }
+      if (lane == 0) mbar_arrive(&empty[slot]);
+      if (warp == 0 && stage + kSlots < n_stages) {
+        // every warp has released the slot: refill it (the wait by the whole warp, see the top of the file)
+        mbar_wait(&empty[slot], (stage / kSlots) & 1);
+        if (lane == 0) load_stage(stage + kSlots);
+      }
+    }
+    if (active) {
+      wgmma_keep(acc);
+      // power = re^2 + im^2, each product and the sum rounded as float32, then to bf16: the A fragments of the
+      // mel product over this half's 128 bins, 16 bins a step
+      uint32_t p[32];
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float re0 = acc[4 * j + 2 * r], re1 = acc[4 * j + 2 * r + 1];
+          const float im0 = acc[64 + 4 * j + 2 * r], im1 = acc[64 + 4 * j + 2 * r + 1];
+          p[2 * j + r] = pack_bf16(__fadd_rn(__fmul_rn(re0, re0), __fmul_rn(im0, im0)),
+                                   __fadd_rn(__fmul_rn(re1, re1), __fmul_rn(im1, im1)));
+        }
+      if (h == 0) mbar_wait(fb_full, 0);
+      // fb's image: per 16 bins two by kMelN / 8 core matrices
+      const uint32_t fb_s = smem_u32(s_fb) + h * (kHalfBins / 16) * (kMelN * 32);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kHalfBins / 16; ++kk)
+        wgmma_m64nNk16(mel, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+                       wgmma_desc(fb_s + kk * (kMelN * 32), kMelN * 16, 128), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      wgmma_keep(p);
+      wgmma_keep(mel);
+    }
+  }
+
+  __syncthreads();  // both warpgroups are done with the ring: it now stages the tile's outputs
+  if (active) {
+#pragma unroll
+    for (int j = 0; j < kMelN / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int m = 8 * j + 2 * tig + (i & 1);
+        const int f = row + 8 * (i >> 1);
+        if (m < n_mels) {
+          float v = mel[4 * j + i];
+          if (round_mel) v = round_bf16(v);
+          const float y = (logf(v + log_offset) - mean) * inv_std;
+          const int idx = layout_fm ? m * kTile + f : f * n_mels + m;
+          if (out_bf16)
+            reinterpret_cast<__nv_bfloat16*>(ring)[idx] = __float2bfloat16_rn(y);
+          else
+            reinterpret_cast<float*>(ring)[idx] = y;
+        }
+      }
+  }
+  __syncthreads();
+
+  const int valid = n_frames - t0 < kTile ? n_frames - t0 : kTile;
+  const int esize = out_bf16 ? 2 : 4;
+  if (!layout_fm) {
+    // (B, n_frames, n_mels): the tile's valid frames are one run, a multiple of 16 bytes at a multiple of 16
+    unsigned char* dst = static_cast<unsigned char*>(out) + (static_cast<size_t>(b) * n_frames + t0) * n_mels * esize;
+    const int bytes = valid * n_mels * esize;
+    for (int o = tid * 16; o < bytes; o += kThreads * 16)
+      *reinterpret_cast<uint4*>(dst + o) = *reinterpret_cast<const uint4*>(ring + o);
+  } else {
+    // (B, n_mels, n_frames): a run of `valid` frames for each mel
+    for (int o = tid; o < n_mels * valid; o += kThreads) {
+      const int m = o / valid;
+      const int f = o - m * valid;
+      const size_t idx = (static_cast<size_t>(b) * n_mels + m) * n_frames + t0 + f;
+      if (out_bf16)
+        static_cast<__nv_bfloat16*>(out)[idx] = reinterpret_cast<const __nv_bfloat16*>(ring)[m * kTile + f];
+      else
+        static_cast<float*>(out)[idx] = reinterpret_cast<const float*>(ring)[m * kTile + f];
+    }
+  }
+}
+
+template <int kMelN>
+int launch(const void* audio, const void* w_img, const void* fb_img, void* out, int B, int S, int n_frames, int n_fft,
+           int hop, int center, int n_halves, int n_passes, int n_mels, int out_bf16, int layout_fm,
+           float log_offset, float mean, float inv_std, void* stream) {
+  const int smem = kRingBytes + fb_image_bytes(n_halves, kMelN) + round_up16(span_samples(n_fft, hop) * 2) +
+                   (2 * kSlots + 1) * static_cast<int>(sizeof(uint64_t));
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(logmel_tc_kernel<kMelN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n_frames + kTile - 1) / kTile, B);
+  logmel_tc_kernel<kMelN><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(audio), static_cast<const unsigned char*>(w_img),
+      static_cast<const unsigned char*>(fb_img), out, S, n_frames, n_fft, hop, center ? n_fft / 2 : 0, n_halves,
+      n_passes, n_mels, out_bf16, out_bf16, layout_fm, log_offset, mean, inv_std);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// audio (B, S) float32; w_img the bf16 image of W, n_halves x n_passes x
+// (n_fft / 16) steps of 8 KB (frontend_cuda.pack_w_image); fb_img the bf16
+// image of fb, (n_halves * 128, mel_n) (frontend_cuda.pack_fb_image), mel_n
+// 40 or 80 and at least n_mels; out (B, n_frames, n_mels) ("tm") or (B,
+// n_mels, n_frames) ("fm"), float32 or bf16, the pre-log mel rounded to bf16
+// first for bf16. All contiguous. Returns cudaGetLastError() after the
+// launch, the error of the shared-memory attribute call, or
+// cudaErrorInvalidValue for a geometry the kernel does not serve.
+extern "C" int howl_logmel_tc_forward(const void* audio, const void* w_img, const void* fb_img, void* out, int B,
+                                      int S, int n_frames, int n_fft, int hop, int center, int n_halves,
+                                      int n_passes, int n_mels, int mel_n, int out_bf16, int layout_fm,
+                                      float log_offset, float mean, float inv_std, void* stream) {
+  if (B == 0 || n_frames == 0) return 0;
+  if (n_fft < 16 || n_fft % 16 != 0 || hop < 2 || hop % 2 != 0 || n_mels < 8 || n_mels % 8 != 0 || n_mels > mel_n ||
+      n_halves < 1 || n_passes < 1 || n_passes > 2 || B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (mel_n == 40)
+    return launch<40>(audio, w_img, fb_img, out, B, S, n_frames, n_fft, hop, center, n_halves, n_passes, n_mels,
+                      out_bf16, layout_fm, log_offset, mean, inv_std, stream);
+  if (mel_n == 80)
+    return launch<80>(audio, w_img, fb_img, out, B, S, n_frames, n_fft, hop, center, n_halves, n_passes, n_mels,
+                      out_bf16, layout_fm, log_offset, mean, inv_std, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -20,10 +20,11 @@
 //   2. bulk asynchronous copies (cp.async.bulk): one thread asks for a span
 //      of bytes to be copied device -> shared memory, completion counted in
 //      bytes on an mbarrier, or shared -> device memory, completion tracked
-//      in bulk groups. No thread loads a byte. The helpers below are an
-//      mbarrier (init, arrive.expect_tx, a wait on the phase parity that
-//      traps instead of hanging), the two copies, and the group commit and
-//      waits. Sizes and both addresses of a bulk copy are multiples of 16.
+//      in bulk groups. No thread loads a byte. The helpers are
+//      hopper_async.cuh's: an mbarrier (init, arrive.expect_tx, a wait on the
+//      phase parity that traps instead of hanging), the two copies, and the
+//      group commit and waits. Sizes and both addresses of a bulk copy are
+//      multiples of 16.
 //      The manual legs walk a chunk of cb rows through a ring of k slots of
 //      kRingStageBytes with them, k a run-time number (`RingWalk`,
 //      `launch_ring`): one CTA per chunk, the ring its dynamic shared memory.
@@ -42,6 +43,8 @@
 
 #include <atomic>
 
+#include "hopper_async.cuh"
+
 namespace hbm {
 
 constexpr int kThreads = 256;
@@ -51,11 +54,8 @@ constexpr int kCornerCols = 128;      // and the columns the stream leg stores
 constexpr int kStageBytes = 32768;    // 16 float32 rows or 32 bf16 rows
 constexpr int kStages = 3;            // two CTAs of 96 KB share an SM
 constexpr int kRingBytes = kStages * kStageBytes;
-constexpr unsigned long long kWaitLimitNs = 2000000000ull;  // an mbarrier wait longer than 2 s traps
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+using hopper::smem_u32;
 
 // ---- cp.async, 16 bytes a thread ----
 
@@ -146,82 +146,19 @@ __device__ __forceinline__ uint4 add16(uint4 v, float s) {
   return v;
 }
 
-// ---- mbarrier and bulk asynchronous copies; called by one thread ----
+// ---- mbarrier and bulk asynchronous copies: hopper_async.cuh's, under this namespace's names ----
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int arrivals) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(arrivals) : "memory");
-}
-
-// after the inits, before anyone (the async proxy included) uses the barriers
-__device__ __forceinline__ void mbar_init_fence() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// one arrival, and `bytes` more to be counted off by bulk copies before the phase completes
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n"
-      "}\n"
-      : "=r"(done)
-      : "r"(smem_u32(bar)), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Wait until the phase of parity `parity` has completed. The caller keeps
-// one phase bit per barrier, starting at 0, and flips it after every wait.
-// A wrong bit would wait for ever; here it traps after kWaitLimitNs, so the
-// launch fails with an error at the next synchronisation.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  unsigned long long t0, t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t0));
-  while (!mbar_try_wait(bar, parity)) {
-    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-    if (t - t0 > kWaitLimitNs) __trap();
-  }
-}
-
-// generic-proxy writes to shared memory (data, or an mbarrier's init), before the bulk copies' proxy touches them
-__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
-
-// device -> shared memory; the bytes are counted off on `bar`
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
-  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(bytes), "r"(smem_u32(bar))
-               : "memory");
-}
-
-// shared -> device memory, part of the thread's current bulk group
-__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst), "r"(smem_u32(src)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
-
-// all but the newest kPending bulk groups have finished READING shared memory: their slots may be refilled
-template <int kPending>
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(kPending) : "memory");
-}
-
-// all but the newest kPending bulk groups are complete, their writes to device memory included
-template <int kPending>
-__device__ __forceinline__ void bulk_wait() {
-  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
+using hopper::bulk_commit;
+using hopper::bulk_load;
+using hopper::bulk_store;
+using hopper::bulk_wait;
+using hopper::bulk_wait_read;
+using hopper::fence_proxy_async;
+using hopper::mbar_arrive_expect_tx;
+using hopper::mbar_init;
+using hopper::mbar_init_fence;
+using hopper::mbar_try_wait;
+using hopper::mbar_wait;
 
 // cp.async.bulk.wait_group.read takes an immediate; a run-time ring depth picks its instance here
 __device__ __forceinline__ void bulk_wait_read_upto(int pending) {

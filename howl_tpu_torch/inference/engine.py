@@ -3,7 +3,9 @@
 
 A batch of clips is scored in five stages, each over the whole batch:
 
-  1. audio -> ZMUV'd time-major log-mels: ``ops/frontend_cuda.py`` (kernel);
+  1. audio -> ZMUV'd time-major log-mels: ``ops/frontend_cuda.py`` (kernel:
+     on the tensor cores for the bf16 engine, float32 FMA for the float32
+     engine, as ``frontend_route`` picks);
   2. res8 stem, conv0 + ReLU + AvgPool(3, 4): ``ops/stem_cuda.py`` (kernel);
   3. the six residual convs with affine-less BatchNorm (``F.conv2d``);
   4. the frequency mean of the trunk output, then cumsum window pooling over

@@ -45,6 +45,12 @@ SIGNATURES = {
     "howl_logmel_forward": (
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P,
     ),
+    # audio, w_img, fb_img, out, B, S, n_frames, n_fft, hop, center, n_halves,
+    # n_passes, n_mels, mel_n, out_bf16, layout_fm, log_offset, mean, inv_std,
+    # stream
+    "howl_logmel_tc_forward": (
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P,
+    ),
     # mel, taps, out, B, T, n_mels, ch, pool_t, pool_f, in_bf16, stream
     "howl_res8_stem_forward": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # audio, bank, rows, offs, alpha, out, B, n, n_rows, w_cols, stream

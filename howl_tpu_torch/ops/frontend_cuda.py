@@ -1,26 +1,40 @@
-"""Fused log-mel frontend: the CUDA kernel ``csrc/frontend.cu`` and its plain
-PyTorch version (counterpart of ``howl_tpu/ops/frontend_pallas.py``).
+"""Fused log-mel frontend: the CUDA kernels ``csrc/frontend.cu`` and
+``csrc/frontend_tc.cu`` and their plain PyTorch version (counterpart of
+``howl_tpu/ops/frontend_pallas.py``).
 
-Both compute ``(log(mel + log_offset) - mean) / std`` of the center
+All compute ``(log(mel + log_offset) - mean) / std`` of the center
 reflect-padded, Hann-windowed, HTK-mel power spectrum, with the Nyquist bin
 cropped, as ``log_mel_spectrogram_pallas`` does. The plain version is the
 polyphase sum of the JAX kernel written with ``torch.matmul``: the audio is
 viewed as hop rows H and ``frames @ W == sum_j H[t + j] @ W_j``. The CUDA
-kernel keeps the overlapping frames and the re/im tensor out of device
-memory; see the note at the top of ``csrc/frontend.cu``.
+kernels keep the overlapping frames and the re/im tensor out of device
+memory; see the notes at the top of the two sources.
 
 Precision grades round operands to bf16 and accumulate in float32:
 
-    grade     precision                        audio  W     power, filterbank
-    "f32"     None, "f32", "high", "highest"   f32    f32   f32
-    "bf16x2"  "bf16x2"                         bf16   f32   bf16
-    "bf16"    "bf16"                           bf16   bf16  bf16
+    grade     precision                        audio  W            power, filterbank
+    "f32"     None, "f32", "high", "highest"   f32    f32          f32
+    "bf16x2"  "bf16x2"                         bf16   bf16 hi+lo   bf16
+    "bf16"    "bf16"                           bf16   bf16         bf16
 
-With ``out_dtype=torch.bfloat16`` the pre-log mel is rounded to bf16 before
-the log, as the TPU kernel's bf16 output tiles are.
+"bf16x2" is the JAX kernel's two-pass grade: W is split into its bf16 part
+and the bf16 rounding of the rest (``split_bf16``) and the product is
+``x @ W_hi + x @ W_lo``. With ``out_dtype=torch.bfloat16`` the pre-log mel is
+rounded to bf16 before the log, as the TPU kernel's bf16 output tiles are.
 
 ``log_mel_spectrogram_cuda`` runs the plain version for a tensor on the CPU
-and the kernel for a tensor on a CUDA device; it has no other route.
+and a kernel for a tensor on a CUDA device. Which kernel is decided by the
+grade and the geometry alone (``frontend_route``), never by a failure:
+
+    "tc"   ``csrc/frontend_tc.cu``: both products on the tensor cores
+           (``wgmma``), W streamed by bulk asynchronous copies. The two bf16
+           grades, when n_fft is a multiple of 16, hop is even, n_mels is a
+           multiple of 8 and at most 80, and the tile's audio span, the ring
+           and the filterbank fit a block's shared memory.
+    "fma"  ``csrc/frontend.cu``: float32 FMA on the CUDA cores. The "f32"
+           grade always, and every geometry the "tc" kernel does not serve.
+
+``route=`` forces one of the two and raises where it cannot serve.
 """
 
 from __future__ import annotations
@@ -62,16 +76,20 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-@functools.lru_cache(maxsize=32)
-def frontend_bases(config: FrontendConfig, grade: str, device: torch.device):
-    """(W, fb) on ``device`` for one geometry and grade, built once.
+def split_bf16(a: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
+    """hi/lo bf16 split of a float32 array: ``a ~ hi + lo`` with hi the bf16
+    rounding of a and lo the bf16 rounding of the rest, as bf16 tensors."""
+    a = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+    hi = a.to(torch.bfloat16)
+    lo = (a - hi.to(torch.float32)).to(torch.bfloat16)
+    return hi, lo
 
-    W is (n_fft, 2*n_bins_pad) [cos | -sin] with the Hann window folded in;
-    fb is (n_bins_pad, n_mels). n_bins is padded to a multiple of 4 with
-    zero columns and rows, which add exact zeros to the power and the mel.
-    """
+
+def _padded_bases(config: FrontendConfig, nbp: int) -> tuple[np.ndarray, np.ndarray]:
+    """float32 W (n_fft, 2*nbp) [cos | -sin] and fb (nbp, n_mels), n_bins
+    padded to nbp with zero columns and rows, which add exact zeros to the
+    power and the mel."""
     n_bins = nyquist_crop_bins(config)
-    nbp = _round_up(n_bins, 4)
     w = windowed_dft_matrix(config.n_fft, n_bins)
     w_pad = np.zeros((config.n_fft, 2 * nbp), np.float32)
     w_pad[:, :n_bins] = w[:, :n_bins]
@@ -79,12 +97,148 @@ def frontend_bases(config: FrontendConfig, grade: str, device: torch.device):
     fb = mel_filterbank(config.n_freqs, config.n_mels, config.sample_rate, config.f_min, config.f_max)
     fb_pad = np.zeros((nbp, config.n_mels), np.float32)
     fb_pad[:n_bins] = fb[:n_bins]
+    return w_pad, fb_pad
+
+
+@functools.lru_cache(maxsize=32)
+def frontend_bases(config: FrontendConfig, grade: str, device: torch.device):
+    """(W, fb) on ``device`` for one geometry and grade, built once: the
+    float32 operands of the plain version and of the "fma" kernel.
+
+    W is (n_fft, 2*n_bins_pad) [cos | -sin] with the Hann window folded in;
+    fb is (n_bins_pad, n_mels); n_bins is padded to a multiple of 4. For
+    "bf16" W is rounded to bf16; for "bf16x2" it is hi + lo of
+    ``split_bf16``, which float32 holds exactly (the two parts themselves:
+    :func:`frontend_w_passes`).
+    """
+    w_pad, fb_pad = _padded_bases(config, _round_up(nyquist_crop_bins(config), 4))
     w_t, fb_t = torch.from_numpy(w_pad), torch.from_numpy(fb_pad)
     if grade == "bf16":
         w_t = round_bf16(w_t)
+    elif grade == "bf16x2":
+        hi, lo = split_bf16(w_pad)
+        w_t = hi.to(torch.float32) + lo.to(torch.float32)
     if grade != "f32":
         fb_t = round_bf16(fb_t)
     return w_t.to(device), fb_t.to(device)
+
+
+@functools.lru_cache(maxsize=8)
+def frontend_w_passes(config: FrontendConfig, device: torch.device):
+    """(W_hi, W_lo) of the "bf16x2" grade as float32 on ``device``, shaped
+    like :func:`frontend_bases`' W: the operands of the plain version's two
+    passes."""
+    w_pad, _ = _padded_bases(config, _round_up(nyquist_crop_bins(config), 4))
+    hi, lo = split_bf16(w_pad)
+    return hi.to(torch.float32).to(device), lo.to(torch.float32).to(device)
+
+
+# ---- the "tc" route's geometry and operand images (csrc/frontend_tc.cu) ----
+
+TC_TILE = 128  # frames a block owns
+TC_HALF_BINS = 128  # bins of one N = 256 tile of W: [re | im]
+TC_STAGE_BYTES = 32768  # 64 rows of k of a tile
+TC_SLOTS = 3  # stages of the ring
+TC_MEL_WIDTHS = (40, 80)  # the mel product's N, compiled in
+TC_MAX_SHARED = 232448  # 227 KB a block
+ROUTES = ("tc", "fma")
+
+
+def _tc_mel_width(n_mels: int):
+    return next((n for n in TC_MEL_WIDTHS if n_mels <= n), None)
+
+
+def tc_shared_bytes(config: FrontendConfig) -> int:
+    """Shared memory of one block of the "tc" kernel: the ring, the
+    filterbank's image, the tile's audio span in bf16, seven barriers."""
+    n_halves = -(-nyquist_crop_bins(config) // TC_HALF_BINS)
+    span = (TC_TILE - 1) * config.hop_length + config.n_fft
+    fb = n_halves * TC_HALF_BINS * _tc_mel_width(config.n_mels) * 2
+    return TC_SLOTS * TC_STAGE_BYTES + fb + _round_up(span * 2, 16) + (2 * TC_SLOTS + 1) * 8
+
+
+def frontend_route(config: FrontendConfig, grade: str) -> str:
+    """The kernel that serves a geometry and grade on a CUDA tensor: "tc" or
+    "fma", by the rule in the module's docstring."""
+    if grade not in ("f32", "bf16x2", "bf16"):
+        raise ValueError(f"unknown grade {grade!r}")
+    fits = (
+        grade != "f32"
+        and config.n_fft >= 16 and config.n_fft % 16 == 0
+        and config.hop_length >= 2 and config.hop_length % 2 == 0
+        and config.n_mels >= 8 and config.n_mels % 8 == 0 and _tc_mel_width(config.n_mels) is not None
+        and tc_shared_bytes(config) <= TC_MAX_SHARED
+    )
+    return "tc" if fits else "fma"
+
+
+def tc_tile_columns(n_bins: int) -> np.ndarray:
+    """For every column of W's tiles, the column of the (n_fft, 2*n_bins)
+    [cos | -sin] matrix it holds, or -1 for a zero column: tile h is [re of
+    bins 128h .. 128h + 127 | im of the same bins]."""
+    n_halves = -(-n_bins // TC_HALF_BINS)
+    bins = np.arange(n_halves * TC_HALF_BINS).reshape(n_halves, 1, TC_HALF_BINS)
+    cols = np.concatenate([bins, bins + n_bins], axis=1)  # (n_halves, [re, im], 128)
+    return np.where(bins < n_bins, cols, -1).reshape(-1)
+
+
+def pack_w_image(w: torch.Tensor) -> torch.Tensor:
+    """(n_passes, n_fft, n_halves * 256) tiles of W -> the flat image the
+    kernel's ring copies and its ``wgmma`` descriptor reads.
+
+    Element (p, k, 256h + n) goes to
+    ``((((h * n_passes + p) * n_fft/16 + k // 16) * 2 + (k % 16) // 8) * 32 + n // 8) * 64 + (n % 8) * 8 + k % 8``:
+    per half and pass, per 16 rows of k, two by 32 core matrices (8 columns
+    by 8 consecutive k, 128 contiguous bytes); a stage of the ring is four
+    such steps, 32 KB, one contiguous copy.
+    """
+    n_passes, n_fft, cols = w.shape
+    n_halves = cols // (2 * TC_HALF_BINS)
+    v = w.reshape(n_passes, n_fft // 16, 2, 8, n_halves, 32, 8)  # p, k16, kc, e, h, ng, r
+    return v.permute(4, 0, 1, 2, 5, 6, 3).contiguous().reshape(-1)
+
+
+def unpack_w_image(img: torch.Tensor, n_passes: int, n_fft: int, n_halves: int) -> torch.Tensor:
+    """The inverse of :func:`pack_w_image`."""
+    v = img.reshape(n_halves, n_passes, n_fft // 16, 2, 32, 8, 8)  # h, p, k16, kc, ng, r, e
+    return v.permute(1, 2, 3, 6, 0, 4, 5).contiguous().reshape(n_passes, n_fft, n_halves * 2 * TC_HALF_BINS)
+
+
+def pack_fb_image(fb: torch.Tensor) -> torch.Tensor:
+    """(bins, mel_n) filterbank, bins a multiple of 16 and mel_n of 8 -> the
+    flat image of the mel product's B operand, k the bin: element (k, n) goes
+    to ``((k // 16 * 2 + (k % 16) // 8) * mel_n/8 + n // 8) * 64 + (n % 8) * 8 + k % 8``."""
+    bins, mel_n = fb.shape
+    v = fb.reshape(bins // 16, 2, 8, mel_n // 8, 8)  # k16, kc, e, ng, r
+    return v.permute(0, 1, 3, 4, 2).contiguous().reshape(-1)
+
+
+def unpack_fb_image(img: torch.Tensor, mel_n: int) -> torch.Tensor:
+    """The inverse of :func:`pack_fb_image`."""
+    v = img.reshape(-1, 2, mel_n // 8, 8, 8)  # k16, kc, ng, r, e
+    return v.permute(0, 1, 4, 2, 3).contiguous().reshape(-1, mel_n)
+
+
+@functools.lru_cache(maxsize=32)
+def frontend_bases_tc(config: FrontendConfig, grade: str, device: torch.device):
+    """(W image, fb image, n_halves, n_passes, mel_n) on ``device`` for the
+    "tc" kernel, built once per geometry and grade: bf16 W in tiles of 128
+    bins (one pass for "bf16", hi then lo for "bf16x2") and the bf16
+    filterbank, its bins padded to whole tiles and its mels to mel_n with
+    zeros, both packed as the kernel reads them."""
+    if frontend_route(config, grade) != "tc":
+        raise ValueError(f"the tensor-core frontend kernel does not serve {config} at grade {grade!r}")
+    n_bins = nyquist_crop_bins(config)
+    cols = tc_tile_columns(n_bins)
+    w, fb = _padded_bases(config, n_bins)
+    tiles = np.where(cols >= 0, w[:, np.maximum(cols, 0)], np.float32(0.0))
+    passes = split_bf16(tiles) if grade == "bf16x2" else (torch.from_numpy(tiles).to(torch.bfloat16),)
+    mel_n = _tc_mel_width(config.n_mels)
+    fb_pad = np.zeros((len(cols) // 2, mel_n), np.float32)
+    fb_pad[:n_bins, : config.n_mels] = fb
+    w_img = pack_w_image(torch.stack(passes))
+    fb_img = pack_fb_image(torch.from_numpy(fb_pad).to(torch.bfloat16))
+    return w_img.to(device), fb_img.to(device), len(cols) // (2 * TC_HALF_BINS), len(passes), mel_n
 
 
 def _zmuv_scalars(zmuv_mean, zmuv_std) -> tuple[float, float]:
@@ -139,13 +293,16 @@ def log_mel_spectrogram_plain(
     hview = padded[:, : rows * hop].reshape(b, rows, hop)
 
     w, fb = frontend_bases(config, grade, audio.device)
+    # "bf16x2" is two passes: W's bf16 part, then the bf16 rounding of the rest
+    passes = frontend_w_passes(config, audio.device) if grade == "bf16x2" else (w,)
     acc = None
     for j in range(n_sub):
         width = min(hop, n_fft - j * hop)
-        # rows past the block's true width multiply the next hop row by zero
-        wj = torch.nn.functional.pad(w[j * hop : j * hop + width], (0, 0, 0, hop - width))
-        term = hview[:, j : j + n_frames] @ wj
-        acc = term if acc is None else acc + term
+        for wp in passes:
+            # rows past the block's true width multiply the next hop row by zero
+            wj = torch.nn.functional.pad(wp[j * hop : j * hop + width], (0, 0, 0, hop - width))
+            term = hview[:, j : j + n_frames] @ wj
+            acc = term if acc is None else acc + term
     nbp = fb.shape[0]
     re, im = acc[..., :nbp], acc[..., nbp:]
     power = re * re + im * im
@@ -169,16 +326,26 @@ def log_mel_spectrogram_cuda(
     precision=None,
     out_dtype=torch.float32,
     layout: str = "fm",
+    route: str = None,
 ) -> torch.Tensor:
     """(B, samples) float32 -> ZMUV'd log-mels, (B, n_mels, frames) for
     ``layout="fm"`` or (B, frames, n_mels) for ``"tm"``, in ``out_dtype``.
 
     On a CPU tensor this is :func:`log_mel_spectrogram_plain`. On a CUDA
-    tensor it launches ``howl_logmel_forward`` or raises. The kernel has no
-    backward: audio that requires grad raises while grad mode is on.
+    tensor it launches the kernel that :func:`frontend_route` names for the
+    geometry and grade, ``howl_logmel_tc_forward`` ("tc") or
+    ``howl_logmel_forward`` ("fma"), or raises. ``route`` forces one of the
+    two on a CUDA tensor and raises where that kernel cannot serve. The
+    kernels have no backward: audio that requires grad raises while grad
+    mode is on. ``launches`` counts every kernel launch, ``launches_tc``
+    those of the "tc" kernel.
     """
     _build.refuse_grad("log_mel_spectrogram_cuda", audio)
+    if route is not None and route not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES} or None, got {route!r}")
     if audio.device.type == "cpu":
+        if route is not None:
+            raise ValueError(f"route={route!r} names a CUDA kernel: a CPU tensor takes the plain version")
         return log_mel_spectrogram_plain(audio, config, zmuv_mean, zmuv_std, precision, out_dtype, layout)
     if audio.device.type != "cuda":
         raise ValueError(f"log_mel_spectrogram_cuda takes CPU or CUDA tensors, got {audio.device}")
@@ -189,26 +356,41 @@ def log_mel_spectrogram_cuda(
     b, num_samples = audio.shape
     if b > 65535:
         raise ValueError(f"batch {b} exceeds the kernel grid's 65535 clips")
+    served = frontend_route(config, grade)
+    if route == "tc" and served != "tc":
+        raise ValueError(f"route='tc' cannot serve grade {grade!r} with {config}: see frontend_route")
+    route = route or served
     n_frames = config.num_frames(num_samples)
     n_mels = config.n_mels
     shape = (b, n_mels, n_frames) if layout == "fm" else (b, n_frames, n_mels)
     out = torch.empty(shape, dtype=out_dtype, device=audio.device)
-    w, fb = frontend_bases(config, grade, audio.device)
     mean, inv_std = _zmuv_scalars(zmuv_mean, zmuv_std)
+    out_bf16, stream = int(out_dtype == torch.bfloat16), torch.cuda.current_stream(audio.device).cuda_stream
     lib = _build.kernel_library()
     with torch.cuda.device(audio.device):
-        status = lib.howl_logmel_forward(
-            audio.data_ptr(), w.data_ptr(), fb.data_ptr(), out.data_ptr(),
-            b, num_samples, n_frames, config.n_fft, config.hop_length, int(config.center),
-            fb.shape[0], n_mels,
-            int(grade != "f32"), int(grade != "f32"), int(out_dtype == torch.bfloat16),
-            int(out_dtype == torch.bfloat16), int(layout == "fm"),
-            config.log_offset, mean, inv_std,
-            torch.cuda.current_stream(audio.device).cuda_stream,
-        )
-    _build.check_launch(status, "log-mel")
+        if route == "tc":
+            w_img, fb_img, n_halves, n_passes, mel_n = frontend_bases_tc(config, grade, audio.device)
+            status = lib.howl_logmel_tc_forward(
+                audio.data_ptr(), w_img.data_ptr(), fb_img.data_ptr(), out.data_ptr(),
+                b, num_samples, n_frames, config.n_fft, config.hop_length, int(config.center),
+                n_halves, n_passes, n_mels, mel_n, out_bf16, int(layout == "fm"),
+                config.log_offset, mean, inv_std, stream,
+            )
+        else:
+            w, fb = frontend_bases(config, grade, audio.device)
+            status = lib.howl_logmel_forward(
+                audio.data_ptr(), w.data_ptr(), fb.data_ptr(), out.data_ptr(),
+                b, num_samples, n_frames, config.n_fft, config.hop_length, int(config.center),
+                fb.shape[0], n_mels,
+                int(grade != "f32"), int(grade != "f32"), out_bf16, out_bf16, int(layout == "fm"),
+                config.log_offset, mean, inv_std, stream,
+            )
+    _build.check_launch(status, f"log-mel ({route})")
     log_mel_spectrogram_cuda.launches += 1
+    if route == "tc":
+        log_mel_spectrogram_cuda.launches_tc += 1
     return out
 
 
 log_mel_spectrogram_cuda.launches = 0
+log_mel_spectrogram_cuda.launches_tc = 0

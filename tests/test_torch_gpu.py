@@ -8,7 +8,11 @@ not installed; the repo's conftest.py imports jax, so run it without:
 
 Shapes are small and cover geometries the main path does not use (80 mels,
 n_fft 400 / hop 160, center=False, a ragged last frame tile; batches of 1, 7
-and 1025, ragged windows and narrow banks for the noise-bank mix).
+and 1025, ragged windows and narrow banks for the noise-bank mix). The
+frontend runs through both of its kernels (``route="tc"``, ``"fma"``) and
+through the one ``frontend_route`` picks, at frame counts around the
+tensor-core kernel's 64-frame warpgroups and 128-frame tiles, and once at the
+serving batch of 512 clips of 8 s.
 Tolerances are tests/test_torch_frontend.py's and tests/test_torch_stem.py's;
 the noise-bank mix is held to its plain version bit for bit. The frontend
 cost study's kernels (stream, GEMM, polyphase) run at the study's CPU size
@@ -30,7 +34,7 @@ import torch
 from howl_tpu_torch.ops import augment as aug
 from howl_tpu_torch.ops.augment_cuda import mix_noise_bank_cuda, mix_noise_bank_plain
 from howl_tpu_torch.ops.frontend import FrontendConfig, round_bf16
-from howl_tpu_torch.ops.frontend_cuda import log_mel_spectrogram_cuda, log_mel_spectrogram_plain
+from howl_tpu_torch.ops.frontend_cuda import frontend_route, log_mel_spectrogram_cuda, log_mel_spectrogram_plain
 from howl_tpu_torch.ops.stem_cuda import res8_stem_cuda, res8_stem_plain
 
 pytestmark = pytest.mark.gpu
@@ -49,6 +53,33 @@ def _bf16_ulp(x) -> float:
     return 2.0 ** (np.floor(np.log2(max(float(x.float().abs().max()), 1e-30))) - 7)
 
 
+def _hold_frontend(cuda, audio, cfg, route, grade, out_dtype, layout, mean=-3.0, std=2.5):
+    """One kernel launch held against the plain version. Tolerances: the
+    float32 grade 1e-3/std; the bf16 operand grades 2e-2/std (the operands
+    are bit-equal, the float32 sums differ in order and the tensor cores do
+    not round each partial sum as fmaf does, which can flip one bf16 rounding
+    of the power); bf16 output adds one bf16 ulp of its magnitude."""
+    fn = log_mel_spectrogram_cuda
+    args = dict(precision=grade, out_dtype=out_dtype, layout=layout)
+    served = frontend_route(cfg, grade)
+    if route == "tc" and served != "tc":
+        with pytest.raises(ValueError, match="route='tc'"):
+            fn(audio, cfg, mean, std, route=route, **args)
+        return
+    before, before_tc = fn.launches, fn.launches_tc
+    got = fn(audio, cfg, mean, std, route=route, **args)
+    want = log_mel_spectrogram_plain(audio, cfg, mean, std, **args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert fn.launches_tc == before_tc + ((route or served) == "tc")
+    assert got.shape == want.shape and got.dtype == want.dtype
+    atol = (1e-3 if grade == "f32" else 2e-2) / std
+    if out_dtype == torch.bfloat16:
+        atol += _bf16_ulp(want)
+    assert bool(torch.isfinite(got.float()).all())
+    assert float((got.float() - want.float()).abs().max()) <= atol
+
+
 @pytest.mark.parametrize(
     "kw,samples",
     [({"n_mels": 40}, 16000), ({"n_mels": 80}, 12345), ({"n_mels": 40, "n_fft": 400, "hop_length": 160}, 9000),
@@ -57,22 +88,57 @@ def _bf16_ulp(x) -> float:
 @pytest.mark.parametrize("grade", ["f32", "bf16x2", "bf16"])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("layout", ["tm", "fm"])
-def test_frontend_kernel_matches_plain(cuda, kw, samples, grade, out_dtype, layout):
+@pytest.mark.parametrize("route", [None, "tc", "fma"])
+def test_frontend_kernel_matches_plain(cuda, kw, samples, grade, out_dtype, layout, route):
     gen = torch.Generator(device=cuda).manual_seed(samples)
     audio = torch.randn((3, samples), generator=gen, device=cuda) * 0.1
-    cfg = FrontendConfig(**kw)
-    mean, std = -3.0, 2.5
-    args = dict(precision=grade, out_dtype=out_dtype, layout=layout)
-    before = log_mel_spectrogram_cuda.launches
-    got = log_mel_spectrogram_cuda(audio, cfg, mean, std, **args)
-    want = log_mel_spectrogram_plain(audio, cfg, mean, std, **args)
-    torch.cuda.synchronize()
-    assert log_mel_spectrogram_cuda.launches == before + 1
-    assert got.shape == want.shape and got.dtype == want.dtype
-    atol = (1e-3 if grade == "f32" else 2e-2) / std
-    if out_dtype == torch.bfloat16:
-        atol += _bf16_ulp(want)
-    assert float((got.float() - want.float()).abs().max()) <= atol
+    _hold_frontend(cuda, audio, FrontendConfig(**kw), route, grade, out_dtype, layout)
+
+
+@pytest.mark.parametrize("n_frames", [1, 2, 63, 64, 65, 128, 129, 641])
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("route", ["tc", "fma"])
+def test_frontend_kernel_across_tile_edges(cuda, n_frames, batch, route):
+    """Frame counts around the tensor-core kernel's 64-frame warpgroups and
+    128-frame tiles. A clip of two frames (257 samples, one more than the
+    reflect padding needs) is shorter than a tile, and both its reflected
+    edges fall into one span; a single frame exists only with center=False."""
+    cfg = FrontendConfig(n_mels=40, center=n_frames > 1)
+    samples = (n_frames - 1) * cfg.hop_length + 57 if cfg.center else 600
+    assert cfg.num_frames(samples) == n_frames
+    gen = torch.Generator(device=cuda).manual_seed(n_frames)
+    audio = torch.randn((batch, samples), generator=gen, device=cuda) * 0.1
+    for grade, out_dtype, layout in (("bf16", torch.bfloat16, "tm"), ("bf16x2", torch.float32, "fm")):
+        _hold_frontend(cuda, audio, cfg, route, grade, out_dtype, layout)
+
+
+@pytest.mark.parametrize("route", ["tc", "fma"])
+def test_frontend_kernel_at_the_serving_batch(cuda, route):
+    gen = torch.Generator(device=cuda).manual_seed(512)
+    audio = torch.randn((512, 128000), generator=gen, device=cuda) * 0.1
+    _hold_frontend(cuda, audio, FrontendConfig(n_mels=40), route, "bf16", torch.bfloat16, "tm", mean=-6.0, std=4.0)
+
+
+def test_frontend_routes(cuda):
+    """An odd clip length leaves the clips' rows unaligned (the tensor-core
+    kernel then reads its span sample by sample); a geometry the tensor-core
+    kernel does not serve goes to the FMA kernel, and forcing it raises."""
+    fn = log_mel_spectrogram_cuda
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    audio = torch.randn((3, 30001), generator=gen, device=cuda) * 0.1
+    _hold_frontend(cuda, audio, FrontendConfig(n_mels=40), "tc", "bf16", torch.float32, "tm")
+    odd = FrontendConfig(n_mels=40, hop_length=201)
+    _hold_frontend(cuda, audio, odd, None, "bf16", torch.float32, "tm")
+    _hold_frontend(cuda, audio, odd, "tc", "bf16", torch.float32, "tm")
+    _hold_frontend(cuda, audio, FrontendConfig(n_mels=40), "tc", "f32", torch.float32, "tm")
+    before = fn.launches_tc
+    fn(audio, odd, precision="bf16")
+    fn(audio, FrontendConfig(n_mels=40), precision="f32")
+    assert fn.launches_tc == before
+    fn(audio, FrontendConfig(n_mels=40), precision="bf16")
+    assert fn.launches_tc == before + 1
+    with pytest.raises(ValueError, match="route must be"):
+        fn(audio, route="wgmma")
 
 
 @pytest.mark.parametrize("t_frames", [3, 41, 100, 641])

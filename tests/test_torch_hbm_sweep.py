@@ -20,6 +20,7 @@ a few float32 ulps of a sum near 10).
 import contextlib
 import importlib
 import io
+import itertools
 import json
 import sys
 import types
@@ -63,11 +64,16 @@ def _record(argv):
 
         return run
 
+    # The recorded kernels do nothing, so the tool's two chains can take the same time to the clock's last
+    # digit, and it divides by their difference. Its own view of the clock (not the process's) ticks in
+    # growing steps instead: the long chain always reads longer than the short one.
+    ticks = itertools.accumulate(itertools.count(1))
     printed = io.StringIO()
     with pytest.MonkeyPatch.context() as mp:
         mp.syspath_prepend(str(TOOLS))
         mp.setattr(pl, "pallas_call", recorder)
         tool = importlib.import_module("bench_hbm_sweep")
+        mp.setattr(tool, "time", types.SimpleNamespace(perf_counter=lambda: float(next(ticks))))
         with contextlib.redirect_stdout(printed):
             tool.main(argv)
     sys.modules.pop("bench_hbm_sweep", None)

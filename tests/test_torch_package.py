@@ -124,7 +124,7 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 def test_ctypes_signatures_match_the_cuda_sources():
     sources = {p.name: p.read_text() for p in _build.CSRC.glob("*.cu")}
-    assert set(sources) == {"frontend.cu", "stem.cu", "augment.cu", "trunk_proto.cu", "stem_fold.cu",
+    assert set(sources) == {"frontend.cu", "frontend_tc.cu", "stem.cu", "augment.cu", "trunk_proto.cu", "stem_fold.cu",
                             "micro_stream.cu", "micro_gemm.cu", "micro_poly.cu", "hbm_auto_read.cu",
                             "hbm_auto_copy.cu", "hbm2hbm.cu", "hbm_manual_read.cu", "hbm_manual_write.cu",
                             "hbm_manual_copy.cu"}
@@ -141,6 +141,12 @@ def test_ctypes_signatures_match_the_cuda_sources():
             want = {"void*": _build._P, "const void*": _build._P, "int": _build._I, "long long": _build._L,
                     "float": _build._F}[ctype]
             assert argtype is want, (name, param)
+    # the tensor-core frontend takes the packed images and their shape in place of W, fb and the rounding flags
+    assert entries["howl_logmel_tc_forward"] == [
+        "const void* audio", "const void* w_img", "const void* fb_img", "void* out", "int B", "int S", "int n_frames",
+        "int n_fft", "int hop", "int center", "int n_halves", "int n_passes", "int n_mels", "int mel_n", "int out_bf16",
+        "int layout_fm", "float log_offset", "float mean", "float inv_std", "void* stream",
+    ]
     # audio, bank, rows, offs, alpha, out, B, n, n_rows, w_cols, stream
     assert entries["howl_mix_noise_bank_forward"] == [
         "const void* audio", "const void* bank", "const void* rows", "const void* offs", "const void* alpha",
