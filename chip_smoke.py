@@ -16,10 +16,14 @@ them. In order it:
      cases; then times the main path's case in turns (plain, fma, tc, tc,
      fma, plain) and the two-pass grade (fma, tc, tc, fma); the tensor-core
      kernel must be the faster. Before that it counts the tensor-core and
-     bulk-copy opcodes in the built library: the tensor-core kernel must
-     hold HGMMA (``wgmma``) and UBLKCP (bulk copies);
-  4. holds the res8 stem kernel against its plain version on (512, 641, 40)
-     mels in bf16 and float32;
+     bulk-copy opcodes in the built library: the tensor-core frontend kernel
+     and the stem fold kernel (T2) must hold HGMMA (``wgmma``) and UBLKCP
+     (bulk copies), the tensor-core stem kernel HMMA or HGMMA;
+  4. holds both res8 stem kernels, the tensor-core one ("tc",
+     ``csrc/stem_tc.cu``: bf16) and the float32-FMA one ("fma",
+     ``csrc/stem.cu``: bf16 and float32), against their plain version on
+     (512, 641, 40) mels, then times them in turns (plain, fma, tc, tc, fma,
+     plain); the tensor-core kernel must be the faster;
   5. holds the noise-bank mix kernel against its plain version, bit for
      bit, at the train step's shape (1024 x 8,000 samples from a (512,
      32,000) bank, draws from the step's own sampler), on a narrow bank of
@@ -29,8 +33,9 @@ them. In order it:
      bf16 and prints its seven legs' times; the trunk proto (T1) and stem
      fold (T2) kernels' launch counts are zeroed just before and read just
      after, and both must have grown. Then it holds T1, both variants,
-     and T2, bf16 and float32 output, against their plain versions on the
-     study's inputs and times T2 alone;
+     and T2 (``wgmma`` on a resident, swizzled image of W), bf16 and float32
+     output, against their plain versions on the study's inputs and times T2
+     alone;
   7. drives the frontend cost study
      (``howl_tpu_torch.tools.bench_pallas_micro``) at 512 x 8 s and prints
      its six legs and three library legs; the stream (M1), GEMM (M2) and
@@ -64,8 +69,9 @@ them. In order it:
   9. drives the serving path: ``StreamingEngine.infer_batch`` with a res8
      made from seeded numpy weights, in bf16, on 512 clips of 8 s. The
      frontend and stem kernels' launch counts are zeroed just before and
-     read just after; both must have grown, and the frontend's launch must
-     be the tensor-core kernel's. Its decisions must equal the
+     read just after; both must have grown, and the frontend's and the
+     stem's launch must each be the tensor-core kernel's, one of each per
+     batch. Its decisions must equal the
      float32 engine's on the same card, on a batch where some clips fire
      and some do not. Then it times a batch (CUDA events, after warm-up)
      and prints the realtime factor;
@@ -257,34 +263,57 @@ def check_frontend(audio, cfg, zmuv) -> dict:
 
 
 def check_stem(mel_bf16, taps) -> dict:
-    """Kernel vs plain res8 stem in bf16 and float32; returns the bf16 record."""
+    """Both stem kernels vs the plain res8 stem: "tc" in bf16, "fma" in bf16
+    and float32; returns the record of the main path's case (bf16), whose
+    ``ms`` is the tensor-core route's, the one the bf16 engine runs, and whose
+    ``prev_ms`` is the float32-FMA route's."""
     import torch
 
     from howl_tpu_torch.ops.frontend import round_bf16
-    from howl_tpu_torch.ops.stem_cuda import res8_stem_cuda, res8_stem_plain
+    from howl_tpu_torch.ops.stem_cuda import res8_stem_cuda, res8_stem_plain, stem_route
 
-    record = None
+    errs = {}
     for dtype in (torch.bfloat16, torch.float32):
         mel = mel_bf16.to(dtype).contiguous()
         w = round_bf16(taps) if dtype == torch.bfloat16 else taps
-        got = res8_stem_cuda(mel, w)
         ref = res8_stem_plain(mel, w)
-        torch.cuda.synchronize()
-        if got.shape != ref.shape or got.dtype != ref.dtype:
-            raise AssertionError(f"K2 {dtype}: {got.shape} {got.dtype} vs {ref.shape} {ref.dtype}")
-        err = float((got.float() - ref.float()).abs().max())
         tol = _bf16_ulp(ref) if dtype == torch.bfloat16 else 1e-5
-        finite = bool(torch.isfinite(got.float()).all())
-        print(f"K2 {str(dtype)[6:]:8s} {tuple(mel.shape)} -> {tuple(got.shape)}: max_abs_err={err:.3e} tol={tol:.3e} finite={finite}")
-        if not (finite and err <= tol):
-            raise AssertionError(f"K2 {dtype} disagrees with its plain version")
-        if dtype == torch.bfloat16:
-            kernel_ms, plain_ms = _ab_ms(lambda: res8_stem_plain(mel, w), lambda: res8_stem_cuda(mel, w), iters=10)
-            ops = mel.numel() * taps.shape[2] * 9 * 2 + got.numel() * 12  # conv0 at full resolution, the pool's sums
-            record = {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-                      **_bound(_nbytes(mel, w, got), ops, PEAK_BF16_FLOPS)}
-            print(f"K2 main-path case: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms per batch; "
-                  f"bound {record['bound_ms']:.4f} ms by {record['bound_by']}")
+        for route in ("tc", "fma") if dtype == torch.bfloat16 else ("fma",):
+            got = res8_stem_cuda(mel, w, route=route)
+            torch.cuda.synchronize()
+            if got.shape != ref.shape or got.dtype != ref.dtype:
+                raise AssertionError(f"K2 {route} {dtype}: {got.shape} {got.dtype} vs {ref.shape} {ref.dtype}")
+            err = float((got.float() - ref.float()).abs().max())
+            finite = bool(torch.isfinite(got.float()).all())
+            print(f"K2 {route:3s} {str(dtype)[6:]:8s} {tuple(mel.shape)} -> {tuple(got.shape)}: max_abs_err={err:.3e} "
+                  f"tol={tol:.3e} finite={finite}")
+            if not (finite and err <= tol):
+                raise AssertionError(f"K2 {route} {dtype} disagrees with its plain version")
+            errs[route, dtype] = err
+            del got
+        del ref
+    mel, w = mel_bf16.contiguous(), round_bf16(taps)
+    if stem_route(mel.dtype, mel.shape[-1], w.shape[-1]) != "tc":
+        raise AssertionError("the main path's stem geometry is not served by the tensor-core stem kernel")
+
+    def timed(route=None, iters=10):
+        if route is None:
+            return _cuda_ms(lambda: res8_stem_plain(mel, w), iters)
+        return _cuda_ms(lambda: res8_stem_cuda(mel, w, route=route), iters)
+
+    # plain, fma, tc, tc, fma, plain
+    turns = [timed(), timed("fma"), timed("tc"), timed("tc"), timed("fma"), timed()]
+    plain_ms, fma_ms, tc_ms = (turns[0] + turns[5]) / 2, (turns[1] + turns[4]) / 2, (turns[2] + turns[3]) / 2
+    out = res8_stem_cuda(mel, w)
+    ops = mel.numel() * taps.shape[2] * 9 * 2 + out.numel() * 12  # conv0 at full resolution, the pool's sums
+    record = {"max_abs_err": errs["tc", torch.bfloat16], "ms": tc_ms, "plain_ms": plain_ms, "route_tc": True,
+              "prev_ms": fma_ms, "prev_source": "howl_tpu_torch/csrc/stem.cu",
+              "prev_max_abs_err": errs["fma", torch.bfloat16], "max_abs_err_f32_fma": errs["fma", torch.float32],
+              **_bound(_nbytes(mel, w, out), ops, PEAK_BF16_FLOPS)}
+    print(f"K2 main-path case: tc kernel {tc_ms:.4f} ms, fma kernel {fma_ms:.4f} ms, plain {plain_ms:.3f} ms per batch; "
+          f"bound {record['bound_ms']:.4f} ms by {record['bound_by']}: {record['bound_ms'] / tc_ms:.3f} of the bound's rate")
+    if not tc_ms < fma_ms:
+        raise AssertionError(f"the tensor-core stem kernel ({tc_ms:.4f} ms) is not faster than the FMA kernel ({fma_ms:.4f} ms)")
     return record
 
 
@@ -402,11 +431,13 @@ def drive_trunk_study(dev) -> dict:
 def print_sass_counts(library) -> None:
     """Count the tensor-core (HGMMA for ``wgmma``, HMMA for ``mma.sync``),
     cp.async (LDGSTS) and bulk-copy (UBLKCP) opcodes that the compiler left
-    in each kernel of the frontend, of the frontend study and of the
-    bandwidth sweep, from ``cuobjdump -sass`` of the built library. The
-    studies' kernels move and compute what nobody reads, and this shows that
-    the work and the asynchronous copy paths are still there; the
-    tensor-core frontend kernel must hold HGMMA and UBLKCP, or the run fails."""
+    in each kernel of the frontend, the stem, the stem fold, the frontend
+    study and the bandwidth sweep, from ``cuobjdump -sass`` of the built
+    library. The studies' kernels move and compute what nobody reads, and
+    this shows that the work and the asynchronous copy paths are still
+    there. The run fails unless the tensor-core frontend kernel and the stem
+    fold kernel hold HGMMA and UBLKCP and the tensor-core stem kernel holds
+    HMMA or HGMMA."""
     import re
     import shutil
     from pathlib import Path
@@ -415,23 +446,27 @@ def print_sass_counts(library) -> None:
 
     tool = shutil.which("cuobjdump") or str(Path(_build._nvcc()).with_name("cuobjdump"))
     if not Path(tool).exists():
-        raise RuntimeError("cuobjdump not found beside nvcc: the frontend kernel's tensor-core opcodes cannot be checked")
+        raise RuntimeError("cuobjdump not found beside nvcc: the tensor-core kernels' opcodes cannot be checked")
     sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True, check=True, timeout=300).stdout
     opcodes = ("HGMMA", "HMMA", "LDGSTS", "UBLKCP")
-    tc_kernels = 0
+    # the kernels that must be in the library, and the opcodes each must hold ("A|B": either)
+    required = {"logmel_tc_kernel": ("HGMMA", "UBLKCP"), "stem_fold_kernel": ("HGMMA", "UBLKCP"),
+                "stem_tc_kernel": ("HMMA|HGMMA",)}
+    found = dict.fromkeys(required, 0)
     for name, body in re.findall(r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)", sass, flags=re.S):
-        kernel = re.findall(r"(?:micro_[a-z]+|hbm_[a-z_]+?|hbm2hbm|logmel(?:_tc)?)_kernel", name)
+        kernel = re.findall(r"(?:micro_[a-z]+|hbm_[a-z_]+?|hbm2hbm|logmel(?:_tc)?|stem(?:_tc|_fold)?)_kernel", name)
         if kernel:
             variant = {"ILb0E": " (float32)", "ILb1E": " (bf16)", "ILi40E": " (mel width 40)",
                        "ILi80E": " (mel width 80)"}.get((re.findall(r"ILb[01]E|ILi[48]0E", name) or [""])[0], "")
             counts = {op: len(re.findall(rf"\b{op}\b", body)) for op in opcodes}
             print(f"SASS of {kernel[-1]}{variant}: " + ", ".join(f"{n} {op}" for op, n in counts.items()))
-            if kernel[-1] == "logmel_tc_kernel":
-                tc_kernels += 1
-                if counts["HGMMA"] < 1 or counts["UBLKCP"] < 1:
-                    raise AssertionError(f"the tensor-core frontend kernel{variant} holds {counts}: no wgmma or no bulk copy")
-    if tc_kernels < 1:
-        raise AssertionError("the built library holds no tensor-core frontend kernel")
+            if kernel[-1] in required:
+                found[kernel[-1]] += 1
+                for need in required[kernel[-1]]:
+                    if not any(counts[op] for op in need.split("|")):
+                        raise AssertionError(f"{kernel[-1]}{variant} holds {counts}: no {need}")
+    if min(found.values()) < 1:
+        raise AssertionError(f"the built library lacks a tensor-core kernel: {found}")
 
 
 def drive_frontend_study(dev) -> dict:
@@ -777,14 +812,17 @@ def drive_main_path(dev, batch: int, clip_seconds: float) -> dict:
     log_mel_spectrogram_cuda.launches = 0
     log_mel_spectrogram_cuda.launches_tc = 0
     res8_stem_cuda.launches = 0
+    res8_stem_cuda.launches_tc = 0
     out = bf16.infer_batch(audio)
     torch.cuda.synchronize()
     launches = {"k1": log_mel_spectrogram_cuda.launches, "k1_tc": log_mel_spectrogram_cuda.launches_tc,
-                "k2": res8_stem_cuda.launches}
+                "k2": res8_stem_cuda.launches, "k2_tc": res8_stem_cuda.launches_tc}
     print(f"main path launches: frontend kernel {launches['k1']} ({launches['k1_tc']} of them the tensor-core kernel), "
-          f"stem kernel {launches['k2']}")
+          f"stem kernel {launches['k2']} ({launches['k2_tc']} of them the tensor-core kernel)")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the main path was not launched: {launches}")
+    if launches["k2"] != 1 or launches["k2_tc"] != 1:
+        raise AssertionError(f"a bf16 batch must launch the tensor-core stem kernel once, and no other stem: {launches}")
 
     probs = out["probs"]
     n_win = bf16.n_windows(samples)
@@ -1180,8 +1218,8 @@ def main() -> int:
             "replaces": "howl_tpu/ops/frontend_pallas.py:119", "launches": main_path["launches"]["k1_tc"], **k1,
         },
         {
-            "name": "res8_stem", "route": "cuda", "source": "howl_tpu_torch/csrc/stem.cu",
-            "replaces": "howl_tpu/ops/stem_pallas.py:89", "launches": main_path["launches"]["k2"], **k2,
+            "name": "res8_stem", "route": "cuda", "source": "howl_tpu_torch/csrc/stem_tc.cu",
+            "replaces": "howl_tpu/ops/stem_pallas.py:89", "launches": main_path["launches"]["k2_tc"], **k2,
         },
         {
             "name": "noise_bank_mix", "route": "cuda", "source": "howl_tpu_torch/csrc/augment.cu",

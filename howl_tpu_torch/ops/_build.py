@@ -24,6 +24,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import weakref
 from pathlib import Path
 
 import torch
@@ -53,11 +54,13 @@ SIGNATURES = {
     ),
     # mel, taps, out, B, T, n_mels, ch, pool_t, pool_f, in_bf16, stream
     "howl_res8_stem_forward": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # mel, img, out, B, T, n_mels, ch, stream
+    "howl_res8_stem_tc_forward": (_P, _P, _P, _I, _I, _I, _I, _P),
     # audio, bank, rows, offs, alpha, out, B, n, n_rows, w_cols, stream
     "howl_mix_noise_bank_forward": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x, ws, pool_t, scale, shift, out, B, pos, pos_pad, n_win_pad, full_build, stream
     "howl_trunk_proto_forward": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # xpre, w0fold, out, B, q_rows, out_bf16, stream
+    # xpre, w_img, out, B, q_rows, out_bf16, stream
     "howl_stem_fold_forward": (_P, _P, _P, _I, _I, _I, _P),
     # x, out, total, s, stream
     "howl_micro_stream_forward": (_P, _P, _I, _F, _P),
@@ -180,3 +183,18 @@ def refuse_grad(what: str, *tensors) -> None:
         raise RuntimeError(
             f"{what} has no backward: call it under torch.no_grad() or on inputs that do not require grad"
         )
+
+
+_packed: dict = {}
+
+
+def packed_operand(pack, tensor: torch.Tensor) -> torch.Tensor:
+    """``pack(tensor)``, the image of an operand that a kernel reads, packed
+    again only when ``tensor`` is another tensor than last time or was
+    changed in place (a weight served for many launches is packed once)."""
+    key = (pack, tensor.device)
+    ref, version, image = _packed.get(key, (None, None, None))
+    if ref is None or ref() is not tensor or version != tensor._version:
+        image = pack(tensor)
+        _packed[key] = (weakref.ref(tensor), tensor._version, image)
+    return image

@@ -22,7 +22,10 @@ reads the taps of the layer-0 input; the updated x feeds only res.
 T2, the banded-fold stem proto (``csrc/stem_fold.cu``, replacing
 ``stem_kernel``): for xpre (B, 3, 224, 120) and w0fold (120, 4 * 512), both
 bf16, out[b, q, n] = (1/12) sum_{j<4} sum_{r<3} relu(xpre[b, r, q] @
-w0fold[:, 512 j + n]), float32 sums, in bf16 or float32.
+w0fold[:, 512 j + n]), float32 sums, in bf16 or float32. The kernel reads
+w0fold as the image ``pack_fold_image`` builds: per slice of 32 columns of
+each j-block, the (128, 128) operand of one ``wgmma`` in its descriptor's
+K-major 128-byte-swizzled layout.
 
 Neither is res8's function: the proto adds the post-affine x as its
 residual, sums each window's positions instead of averaging and applies
@@ -56,6 +59,9 @@ SPAN = 13  # 41-frame window / pool_t 3
 Q_ROWS = 224  # the stem proto's pooled rows q (t' = q - 1), padded
 STEM_K = 120  # [mel(dt=-1) | mel(0) | mel(+1)] lanes of the banded fold
 STEM_N = 512  # one f-pool block of the fold's columns; w0fold has 4
+FOLD_SLICE = 32  # columns of each j-block one block of the T2 kernel owns
+FOLD_SLICES = STEM_N // FOLD_SLICE  # 16
+FOLD_K_PAD = 128  # STEM_K padded to whole k16 steps
 
 
 def _round_up(x: int, m: int) -> int:
@@ -230,6 +236,39 @@ def stem_fold_plain(xpre: torch.Tensor, w0fold: torch.Tensor, out_dtype=torch.bf
     return pooled.to(out_dtype)
 
 
+def _swizzle_index(device) -> torch.Tensor:
+    """(128, 8): for row n of a 128-byte-swizzled image, the 16-byte chunk
+    stored at each place, c ^ (n % 8); the map is its own inverse."""
+    n = torch.arange(4 * FOLD_SLICE, device=device)[:, None]
+    return torch.arange(8, device=device)[None, :] ^ (n % 8)
+
+
+def pack_fold_image(w0fold: torch.Tensor) -> torch.Tensor:
+    """(120, 2048) bf16 w0fold -> the flat image the T2 kernel's ``wgmma``
+    descriptor reads, 16 slices of 32 KB.
+
+    Slice s is the B operand (k, n) of one product, k < 128 (rows 120-127
+    zero) and n = 32 j + nl holding w0fold[k, 512 j + 32 s + nl]. Element (k,
+    n) of slice s lies at byte ``s * 32768 + (k // 64) * 16384 + n * 128 +
+    16 * ((k % 64 // 8) ^ (n % 8)) + 2 * (k % 8)``: rows of 64 k, 128 bytes,
+    their 16-byte chunks permuted by the row's place in its 1,024-byte atom.
+    """
+    w = F.pad(w0fold, (0, 0, 0, FOLD_K_PAD - STEM_K))
+    v = w.reshape(FOLD_K_PAD, 4, FOLD_SLICES, FOLD_SLICE).permute(2, 1, 3, 0)  # s, j, nl, k
+    v = v.reshape(FOLD_SLICES, 4 * FOLD_SLICE, FOLD_K_PAD // 64, 8, 8).permute(0, 2, 1, 3, 4)  # s, kb, n, chunk, e
+    idx = _swizzle_index(w.device)[None, None, :, :, None].expand(v.shape)
+    return v.gather(3, idx).contiguous().reshape(-1)
+
+
+def unpack_fold_image(img: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`pack_fold_image`, the K padding included:
+    (128, 2048)."""
+    v = img.reshape(FOLD_SLICES, FOLD_K_PAD // 64, 4 * FOLD_SLICE, 8, 8)  # s, kb, n, place, e
+    v = v.gather(3, _swizzle_index(img.device)[None, None, :, :, None].expand(v.shape))
+    v = v.permute(0, 2, 1, 3, 4).reshape(FOLD_SLICES, 4, FOLD_SLICE, FOLD_K_PAD)  # s, j, nl, k
+    return v.permute(3, 1, 0, 2).reshape(FOLD_K_PAD, 4 * STEM_N)
+
+
 def stem_fold_cuda(xpre: torch.Tensor, w0fold: torch.Tensor, out_dtype=torch.bfloat16) -> torch.Tensor:
     """xpre (B, 3, q_rows, 120) and w0fold (120, 2048), bf16 -> (B, q_rows,
     512) in ``out_dtype``. On a CPU tensor this is :func:`stem_fold_plain`;
@@ -242,14 +281,15 @@ def stem_fold_cuda(xpre: torch.Tensor, w0fold: torch.Tensor, out_dtype=torch.bfl
     _check_stem(xpre, w0fold, out_dtype)
     if not (xpre.is_contiguous() and w0fold.is_contiguous()):
         raise ValueError("stem_fold_cuda's operands must be contiguous")
+    if xpre.data_ptr() % 16:
+        raise ValueError("the stem fold kernel copies xpre's rows in bulk: xpre must be 16-byte aligned")
     b, _, q_rows, _ = xpre.shape
-    if b > 65535:
-        raise ValueError(f"batch {b} exceeds the kernel grid's 65535 clips")
     out = torch.empty((b, q_rows, STEM_N), dtype=out_dtype, device=xpre.device)
     lib = _build.kernel_library()
     with torch.cuda.device(xpre.device):
+        w_img = _build.packed_operand(pack_fold_image, w0fold)
         status = lib.howl_stem_fold_forward(
-            xpre.data_ptr(), w0fold.data_ptr(), out.data_ptr(), b, q_rows, int(out_dtype == torch.bfloat16),
+            xpre.data_ptr(), w_img.data_ptr(), out.data_ptr(), b, q_rows, int(out_dtype == torch.bfloat16),
             torch.cuda.current_stream(xpre.device).cuda_stream,
         )
     _build.check_launch(status, "stem fold")

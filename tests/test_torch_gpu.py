@@ -12,7 +12,12 @@ and 1025, ragged windows and narrow banks for the noise-bank mix). The
 frontend runs through both of its kernels (``route="tc"``, ``"fma"``) and
 through the one ``frontend_route`` picks, at frame counts around the
 tensor-core kernel's 64-frame warpgroups and 128-frame tiles, and once at the
-serving batch of 512 clips of 8 s.
+serving batch of 512 clips of 8 s. The res8 stem runs through both of its
+kernels at frame counts whose pooled frames are no multiple of the
+tensor-core kernel's 24-frame tile, at batches of 1, 3 and 512, at other
+mel and channel counts, and on clips whose output starts off a 16-byte
+boundary; the stem fold proto (T2) at row counts whose last 64-row item is
+not full.
 Tolerances are tests/test_torch_frontend.py's and tests/test_torch_stem.py's;
 the noise-bank mix is held to its plain version bit for bit. The frontend
 cost study's kernels (stream, GEMM, polyphase) run at the study's CPU size
@@ -35,7 +40,7 @@ from howl_tpu_torch.ops import augment as aug
 from howl_tpu_torch.ops.augment_cuda import mix_noise_bank_cuda, mix_noise_bank_plain
 from howl_tpu_torch.ops.frontend import FrontendConfig, round_bf16
 from howl_tpu_torch.ops.frontend_cuda import frontend_route, log_mel_spectrogram_cuda, log_mel_spectrogram_plain
-from howl_tpu_torch.ops.stem_cuda import res8_stem_cuda, res8_stem_plain
+from howl_tpu_torch.ops.stem_cuda import res8_stem_cuda, res8_stem_plain, stem_route
 
 pytestmark = pytest.mark.gpu
 
@@ -157,6 +162,88 @@ def test_stem_kernel_matches_plain(cuda, t_frames, dtype):
     assert got.shape == want.shape == (5, t_frames // 3, 10, 45) and got.dtype == dtype
     atol = 1e-5 if dtype == torch.float32 else _bf16_ulp(want)
     assert float((got.float() - want.float()).abs().max()) <= atol
+
+
+def _stem_operands(cuda, b, t_frames, n_mels=40, ch=45, dtype=torch.bfloat16):
+    rng = np.random.default_rng(b * 1000 + t_frames + n_mels)
+    mel = torch.from_numpy(rng.standard_normal((b, t_frames, n_mels)).astype(np.float32) * 0.7).to(cuda).to(dtype)
+    taps = round_bf16(torch.from_numpy(rng.standard_normal((3, 3, ch)).astype(np.float32) / 3.0).to(cuda))
+    return mel, taps
+
+
+@pytest.mark.parametrize("t_frames", [9, 10, 11, 100, 641])
+@pytest.mark.parametrize("b", [1, 3, 512])
+@pytest.mark.parametrize("route", ["tc", "fma"])
+def test_stem_routes_match_plain_bf16_at_ragged_shapes(cuda, route, b, t_frames):
+    """T' of 3, 33 and 213 frames: no multiple of the tensor-core kernel's
+    24-frame tile; one bf16 ulp of the output's magnitude."""
+    mel, taps = _stem_operands(cuda, b, t_frames)
+    got, want = res8_stem_cuda(mel, taps, route=route), res8_stem_plain(mel, taps)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (b, t_frames // 3, 10, 45) and got.dtype == torch.bfloat16
+    assert bool(torch.isfinite(got.float()).all())
+    assert float((got.float() - want.float()).abs().max()) <= _bf16_ulp(want)
+
+
+@pytest.mark.parametrize("n_mels,ch", [(36, 45), (12, 45), (80, 48), (128, 48), (40, 16), (40, 1)])
+def test_stem_tc_kernel_at_other_geometries(cuda, n_mels, ch):
+    mel, taps = _stem_operands(cuda, 5, 77, n_mels, ch)
+    assert stem_route(mel.dtype, n_mels, ch) == "tc"
+    got, want = res8_stem_cuda(mel, taps), res8_stem_plain(mel, taps)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (5, 25, n_mels // 4, ch)
+    assert float((got.float() - want.float()).abs().max()) <= _bf16_ulp(want)
+
+
+def test_stem_tc_kernel_writes_clips_whose_output_is_not_16_byte_aligned(cuda):
+    """A clip's output is 191,700 bytes: clip b starts on a 16-byte boundary
+    only when b % 4 == 0. Every clip must equal its own plain result, and a
+    batch of one clip must equal the same clip inside the batch."""
+    mel, taps = _stem_operands(cuda, 7, 641)
+    got = res8_stem_cuda(mel, taps, route="tc")
+    for b in range(7):
+        alone = res8_stem_cuda(mel[b : b + 1].contiguous(), taps, route="tc")
+        torch.cuda.synchronize()
+        assert torch.equal(alone[0], got[b])
+    assert float((got.float() - res8_stem_plain(mel, taps).float()).abs().max()) <= _bf16_ulp(got)
+
+
+def test_stem_route_counts_its_launches(cuda):
+    mel, taps = _stem_operands(cuda, 2, 30)
+    n, n_tc = res8_stem_cuda.launches, res8_stem_cuda.launches_tc
+    res8_stem_cuda(mel, taps)  # bf16: the tensor-core kernel
+    assert (res8_stem_cuda.launches, res8_stem_cuda.launches_tc) == (n + 1, n_tc + 1)
+    res8_stem_cuda(mel, taps, route="fma")
+    res8_stem_cuda(mel.float(), taps)  # float32: the FMA kernel
+    torch.cuda.synchronize()
+    assert (res8_stem_cuda.launches, res8_stem_cuda.launches_tc) == (n + 3, n_tc + 1)
+
+
+def test_stem_forced_route_raises_where_it_cannot_serve(cuda):
+    mel, taps = _stem_operands(cuda, 1, 30)
+    n, n_tc = res8_stem_cuda.launches, res8_stem_cuda.launches_tc
+    with pytest.raises(ValueError, match="route='tc' cannot serve"):
+        res8_stem_cuda(mel.float(), taps, route="tc")
+    with pytest.raises(ValueError, match="route='tc' cannot serve"):
+        res8_stem_cuda(mel, torch.zeros((3, 3, 49), device=cuda), route="tc")
+    with pytest.raises(ValueError, match="route='tc' cannot serve"):
+        res8_stem_cuda(mel, taps, pool=(3, 2), route="tc")
+    with pytest.raises(ValueError, match="route must be"):
+        res8_stem_cuda(mel, taps, route="wgmma")
+    with pytest.raises(RuntimeError, match="no backward"):
+        res8_stem_cuda(mel.float().requires_grad_(), taps, route="tc")
+    with pytest.raises(RuntimeError, match="no backward"):
+        res8_stem_cuda(mel, taps.clone().requires_grad_())
+    assert (res8_stem_cuda.launches, res8_stem_cuda.launches_tc) == (n, n_tc)
+
+
+def test_stem_tc_kernel_packs_the_taps_again_after_an_in_place_change(cuda):
+    mel, taps = _stem_operands(cuda, 2, 30)
+    res8_stem_cuda(mel, taps)
+    taps.mul_(-1.0)
+    got = res8_stem_cuda(mel, taps)
+    torch.cuda.synchronize()
+    assert float((got.float() - res8_stem_plain(mel, taps).float()).abs().max()) <= _bf16_ulp(got)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -326,6 +413,36 @@ def test_stem_fold_kernel_matches_plain(cuda, b, out_dtype):
     assert float((got.float() - want.float()).abs().max()) <= tol
 
 
+@pytest.mark.parametrize("q_rows", [1, 64, 100, 224, 300])
+def test_stem_fold_kernel_at_other_row_counts(cuda, q_rows):
+    """Items of 64 rows: a last item of 1 to 63 rows, and more items than the
+    kernel has blocks."""
+    from howl_tpu_torch.tools.trunk_kernels import stem_fold_cuda, stem_fold_plain
+
+    rng = np.random.default_rng(q_rows)
+    xpre = torch.from_numpy(rng.standard_normal((3, 3, q_rows, 120)).astype(np.float32) * 0.5).to(cuda).bfloat16()
+    w0fold = torch.from_numpy(rng.standard_normal((120, 2048)).astype(np.float32) * 0.1).to(cuda).bfloat16()
+    for out_dtype in (torch.bfloat16, torch.float32):
+        got, want = stem_fold_cuda(xpre, w0fold, out_dtype), stem_fold_plain(xpre, w0fold, out_dtype)
+        torch.cuda.synchronize()
+        top = float(want.float().abs().max())
+        tol = 1e-5 * top if out_dtype == torch.float32 else _bf16_ulp(want)
+        assert got.shape == (3, q_rows, 512) and float((got.float() - want.float()).abs().max()) <= tol
+
+
+def test_stem_fold_kernel_packs_w_again_after_an_in_place_change(cuda):
+    from howl_tpu_torch.tools.trunk_kernels import stem_fold_cuda, stem_fold_plain
+
+    rng = np.random.default_rng(5)
+    xpre = torch.from_numpy(rng.standard_normal((2, 3, 224, 120)).astype(np.float32) * 0.5).to(cuda).bfloat16()
+    w0fold = torch.from_numpy(rng.standard_normal((120, 2048)).astype(np.float32) * 0.1).to(cuda).bfloat16()
+    stem_fold_cuda(xpre, w0fold)
+    w0fold[:, :512].mul_(-1.0)
+    got, want = stem_fold_cuda(xpre, w0fold, torch.float32), stem_fold_plain(xpre, w0fold, torch.float32)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
 def test_trunk_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     from howl_tpu_torch.tools.trunk_kernels import stem_fold_cuda, trunk_proto_cuda
 
@@ -351,6 +468,9 @@ def test_trunk_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         stem_fold_cuda(xpre, w0fold[:, :1024])
     with pytest.raises(ValueError, match="contiguous"):
         stem_fold_cuda(xpre.transpose(2, 3).contiguous().transpose(2, 3), w0fold)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        stem_fold_cuda(torch.zeros(1 * 3 * 224 * 120 + 1, dtype=torch.bfloat16, device=cuda)[1:].view(1, 3, 224, 120),
+                       w0fold)
 
 
 @functools.lru_cache(maxsize=2)

@@ -124,7 +124,7 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 def test_ctypes_signatures_match_the_cuda_sources():
     sources = {p.name: p.read_text() for p in _build.CSRC.glob("*.cu")}
-    assert set(sources) == {"frontend.cu", "frontend_tc.cu", "stem.cu", "augment.cu", "trunk_proto.cu", "stem_fold.cu",
+    assert set(sources) == {"frontend.cu", "frontend_tc.cu", "stem.cu", "stem_tc.cu", "augment.cu", "trunk_proto.cu", "stem_fold.cu",
                             "micro_stream.cu", "micro_gemm.cu", "micro_poly.cu", "hbm_auto_read.cu",
                             "hbm_auto_copy.cu", "hbm2hbm.cu", "hbm_manual_read.cu", "hbm_manual_write.cu",
                             "hbm_manual_copy.cu"}
@@ -146,6 +146,10 @@ def test_ctypes_signatures_match_the_cuda_sources():
         "const void* audio", "const void* w_img", "const void* fb_img", "void* out", "int B", "int S", "int n_frames",
         "int n_fft", "int hop", "int center", "int n_halves", "int n_passes", "int n_mels", "int mel_n", "int out_bf16",
         "int layout_fm", "float log_offset", "float mean", "float inv_std", "void* stream",
+    ]
+    # the tensor-core stem takes the packed tap image and has one pool
+    assert entries["howl_res8_stem_tc_forward"] == [
+        "const void* mel", "const void* img", "void* out", "int B", "int T", "int n_mels", "int ch", "void* stream",
     ]
     # audio, bank, rows, offs, alpha, out, B, n, n_rows, w_cols, stream
     assert entries["howl_mix_noise_bank_forward"] == [
