@@ -16,9 +16,10 @@ them. In order it:
      cases; then times the main path's case in turns (plain, fma, tc, tc,
      fma, plain) and the two-pass grade (fma, tc, tc, fma); the tensor-core
      kernel must be the faster. Before that it counts the tensor-core and
-     bulk-copy opcodes in the built library: the tensor-core frontend kernel
-     and the stem fold kernel (T2) must hold HGMMA (``wgmma``) and UBLKCP
-     (bulk copies), the tensor-core stem kernel HMMA or HGMMA;
+     bulk-copy opcodes in the built library: the tensor-core frontend kernel,
+     the stem fold kernel (T2), the trunk proto (T1) and the frontend study's
+     GEMM (M2) must hold HGMMA (``wgmma``) and UBLKCP (bulk copies), the
+     tensor-core stem kernel HMMA or HGMMA;
   4. holds both res8 stem kernels, the tensor-core one ("tc",
      ``csrc/stem_tc.cu``: bf16) and the float32-FMA one ("fma",
      ``csrc/stem.cu``: bf16 and float32), against their plain version on
@@ -32,10 +33,10 @@ them. In order it:
      (``howl_tpu_torch.tools.bench_trunk_kernel_micro``) at 512 x 8 s in
      bf16 and prints its seven legs' times; the trunk proto (T1) and stem
      fold (T2) kernels' launch counts are zeroed just before and read just
-     after, and both must have grown. Then it holds T1, both variants,
-     and T2 (``wgmma`` on a resident, swizzled image of W), bf16 and float32
-     output, against their plain versions on the study's inputs and times T2
-     alone;
+     after, and both must have grown. Then it holds T1 (``wgmma`` on slot
+     rows, each layer's weights by a bulk copy), both variants, and T2
+     (``wgmma`` on a resident, swizzled image of W), bf16 and float32 output,
+     against their plain versions on the study's inputs and times T2 alone;
   7. drives the frontend cost study
      (``howl_tpu_torch.tools.bench_pallas_micro``) at 512 x 8 s and prints
      its six legs and three library legs; the stream (M1), GEMM (M2) and
@@ -43,7 +44,8 @@ them. In order it:
      just after, and each must have grown; three products must take over
      1.5 times one product's time, since two of them are thrown away and a
      compiler might drop them. Then it holds M1 (bit for bit),
-     M2 and M3 (one and three products) against their plain versions on the
+     M2 (``wgmma``, W and x by bulk copies) and M3 (one and three products)
+     against their plain versions on the
      study's inputs with a nonzero scalar, and runs
      ``howl_tpu_torch.tools.validate_pallas_precision``: the frontend kernel
      at every grade against the float64 goldens, the "f32" grade inside the
@@ -423,6 +425,7 @@ def drive_trunk_study(dev) -> dict:
     ops = b * 2 * ch * pos_pad * (6 * inp.ws_full.shape[1] + inp.pool_t.shape[0])
     n_bytes = _nbytes(inp.x_pm, inp.ws_full, inp.pool_t, inp.bn_scale, inp.bn_shift) + b * inp.pool_t.shape[0] * ch * 4
     t1 = {"max_abs_err": t1_err, "ms": float(np.mean(leg3["ms"])), "plain_ms": float(np.mean(leg3["plain_ms"])),
+          "ms_gemm_only": float(np.mean(legs["cuda gemm-only (im2col built once)"]["ms"])),
           **_bound(n_bytes, ops, PEAK_BF16_FLOPS)}
     print(f"T1 bound {t1['bound_ms']:.4f} ms by {t1['bound_by']}")
     return {"launches": launches, "t1": t1, "t2": t2}
@@ -431,13 +434,13 @@ def drive_trunk_study(dev) -> dict:
 def print_sass_counts(library) -> None:
     """Count the tensor-core (HGMMA for ``wgmma``, HMMA for ``mma.sync``),
     cp.async (LDGSTS) and bulk-copy (UBLKCP) opcodes that the compiler left
-    in each kernel of the frontend, the stem, the stem fold, the frontend
-    study and the bandwidth sweep, from ``cuobjdump -sass`` of the built
-    library. The studies' kernels move and compute what nobody reads, and
-    this shows that the work and the asynchronous copy paths are still
-    there. The run fails unless the tensor-core frontend kernel and the stem
-    fold kernel hold HGMMA and UBLKCP and the tensor-core stem kernel holds
-    HMMA or HGMMA."""
+    in each kernel of the frontend, the stem, the two trunk study kernels,
+    the frontend study and the bandwidth sweep, from ``cuobjdump -sass`` of
+    the built library. The studies' kernels move and compute what nobody
+    reads, and this shows that the work and the asynchronous copy paths are
+    still there. The run fails unless the tensor-core frontend kernel, the
+    stem fold kernel, the trunk proto and the frontend study's GEMM hold
+    HGMMA and UBLKCP and the tensor-core stem kernel holds HMMA or HGMMA."""
     import re
     import shutil
     from pathlib import Path
@@ -451,10 +454,12 @@ def print_sass_counts(library) -> None:
     opcodes = ("HGMMA", "HMMA", "LDGSTS", "UBLKCP")
     # the kernels that must be in the library, and the opcodes each must hold ("A|B": either)
     required = {"logmel_tc_kernel": ("HGMMA", "UBLKCP"), "stem_fold_kernel": ("HGMMA", "UBLKCP"),
+                "trunk_proto_kernel": ("HGMMA", "UBLKCP"), "micro_gemm_kernel": ("HGMMA", "UBLKCP"),
                 "stem_tc_kernel": ("HMMA|HGMMA",)}
     found = dict.fromkeys(required, 0)
     for name, body in re.findall(r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)", sass, flags=re.S):
-        kernel = re.findall(r"(?:micro_[a-z]+|hbm_[a-z_]+?|hbm2hbm|logmel(?:_tc)?|stem(?:_tc|_fold)?)_kernel", name)
+        kernel = re.findall(r"(?:micro_[a-z]+|hbm_[a-z_]+?|hbm2hbm|logmel(?:_tc)?|stem(?:_tc|_fold)?|trunk_proto)_kernel",
+                            name)
         if kernel:
             variant = {"ILb0E": " (float32)", "ILb1E": " (bf16)", "ILi40E": " (mel width 40)",
                        "ILi80E": " (mel width 80)"}.get((re.findall(r"ILb[01]E|ILi[48]0E", name) or [""])[0], "")

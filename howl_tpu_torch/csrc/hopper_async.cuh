@@ -1,7 +1,9 @@
 // Hopper's asynchronous machinery as inline PTX, shared by the bandwidth
-// sweep's kernels (through hbm_common.cuh) and the tensor-core log-mel
-// frontend (frontend_tc.cu). Everything lives in namespace hopper, so that a
-// source may include micro_common.cuh beside it.
+// sweep's kernels (through hbm_common.cuh), the tensor-core log-mel frontend
+// (frontend_tc.cu), the stem fold proto (stem_fold.cu), the trunk proto
+// (trunk_proto.cu) and the frontend study's GEMM (micro_gemm.cu). Everything
+// lives in namespace hopper, so that a source may include micro_common.cuh
+// beside it.
 //
 //   1. mbarrier: init, arrive, arrive.expect_tx and a wait on the phase
 //      parity that traps instead of hanging.
@@ -12,7 +14,8 @@
 //      copy are multiples of 16.
 //   3. Warpgroup matrix products (wgmma, sm_90a only): four warps start
 //      D (64, N) += A (64, 16) @ B (16, N) in bf16 with float32 sums, A from
-//      registers, B from shared memory through a 64-bit descriptor.
+//      registers ("rs") or from shared memory ("ss"), B from shared memory,
+//      each operand in shared memory through a 64-bit descriptor.
 //
 // The wgmma operand layouts used here (PTX ISA, "Asynchronous warpgroup
 // level matrix operations"), with w = warp of the warpgroup, g = lane / 4,
@@ -35,6 +38,16 @@
 //   holds the first core's address, the byte offset between the two cores
 //   that are neighbours in k (the "leading" offset) and between cores that
 //   are neighbours in n (the "stride" offset), all in units of 16 bytes.
+//   A (64, 16) in shared memory is described the same way, its rows m in
+//   place of the columns n: a core is 8 rows by 8 consecutive k.
+//
+//   Either operand "K-major" in the 128-byte swizzle: a row (of n for B, of
+//   m for A) holds 64 consecutive k in 128 bytes, eight rows make a
+//   1,024-byte atom whose 16-byte chunks are permuted by chunk ^ (row % 8),
+//   atoms follow each other along the rows (the stride offset, 1,024 bytes)
+//   and a k16 step within the atom moves the start by 32 bytes. The swizzle
+//   is a function of address bits 4-9: each 64-k block of such an operand
+//   starts on a 1,024-byte boundary.
 
 #pragma once
 
@@ -170,10 +183,74 @@ __device__ __forceinline__ uint64_t wgmma_desc(uint32_t smem_addr, uint32_t k_co
          (static_cast<uint64_t>(n_core_bytes >> 4) << 32);
 }
 
+// The descriptor of a K-major operand in the 128-byte swizzle (see the top of the file); the leading offset is
+// unused.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t smem_addr) {
+  return static_cast<uint64_t>((smem_addr & 0x3FFFFu) >> 4) | (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
 #define HOWL_ACC8(d, b)                                                                                     \
   "+f"(d[b]), "+f"(d[b + 1]), "+f"(d[b + 2]), "+f"(d[b + 3]), "+f"(d[b + 4]), "+f"(d[b + 5]), "+f"(d[b + 6]), \
       "+f"(d[b + 7])
 #define HOWL_ACC32(d, b) HOWL_ACC8(d, b), HOWL_ACC8(d, b + 8), HOWL_ACC8(d, b + 16), HOWL_ACC8(d, b + 24)
+#define HOWL_ACC24(d) HOWL_ACC8(d, 0), HOWL_ACC8(d, 8), HOWL_ACC8(d, 16)
+
+// d (64, 48) = a (64, 16) @ b (16, 48) + (scale_d ? d : 0): bf16 operands, float32 sums, a from registers
+__device__ __forceinline__ void wgmma_m64n48k16_rs(float (&d)[24], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, "
+      "%23}, {%24, %25, %26, %27}, %28, p, 1, 1, 0;\n}\n"
+      : HOWL_ACC24(d)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(scale_d));
+}
+
+// the same with a from shared memory, K-major, through its descriptor
+__device__ __forceinline__ void wgmma_m64n48k16_ss(float (&d)[24], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, "
+      "%23}, %24, %25, p, 1, 1, 0, 0;\n}\n"
+      : HOWL_ACC24(d)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64, 128) = a (64, 16) @ b (16, 128) + (scale_d ? d : 0): bf16 operands, float32 sums, a from registers
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                                 uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : HOWL_ACC32(d, 0), HOWL_ACC32(d, 32)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64, 256) = a (64, 16) @ b (16, 256) + (scale_d ? d : 0): bf16 operands, float32 sums, both from shared memory
+__device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 0;\n}\n"
+      : HOWL_ACC32(d, 0), HOWL_ACC32(d, 32), HOWL_ACC32(d, 64), HOWL_ACC32(d, 96)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
 
 // d (64, 256) = a (64, 16) @ b (16, 256) + (scale_d ? d : 0): bf16 operands, float32 sums, a from registers,
 // b K-major in shared memory
@@ -220,6 +297,7 @@ __device__ __forceinline__ void wgmma_m64nNk16(float (&d)[40], uint32_t a0, uint
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(scale_d));
 }
 
+#undef HOWL_ACC24
 #undef HOWL_ACC32
 #undef HOWL_ACC8
 

@@ -77,35 +77,6 @@ constexpr int kSmemBytes = 1024 + kWBytes + kSlots * kStageBytes + (kSlots + 1) 
 
 __device__ __forceinline__ uint32_t ld32(const unsigned char* p) { return *reinterpret_cast<const uint32_t*>(p); }
 
-// The descriptor of a K-major operand in the 128-byte swizzle: rows of n are 128 bytes (64 k), eight rows make a
-// 1,024-byte atom whose 16-byte chunks are permuted by chunk ^ (row % 8); atoms follow each other in n (the stride
-// offset, 1,024 bytes); a k16 step within the atom advances the start by 32 bytes. The leading offset is unused.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t smem_addr) {
-  return static_cast<uint64_t>((smem_addr & 0x3FFFFu) >> 4) | (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
-}
-
-#define HOWL_D8(b)                                                                                          \
-  "+f"(d[b]), "+f"(d[b + 1]), "+f"(d[b + 2]), "+f"(d[b + 3]), "+f"(d[b + 4]), "+f"(d[b + 5]), "+f"(d[b + 6]), \
-      "+f"(d[b + 7])
-
-// d (64, 128) = a (64, 16) @ b (16, 128) + (scale_d ? d : 0): bf16 operands, float32 sums, a from registers
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
-                                                 uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-      : HOWL_D8(0), HOWL_D8(8), HOWL_D8(16), HOWL_D8(24), HOWL_D8(32), HOWL_D8(40), HOWL_D8(48), HOWL_D8(56)
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(scale_d));
-}
-
-#undef HOWL_D8
-
 __global__ void __launch_bounds__(kThreads, 1)
 stem_fold_kernel(const unsigned char* __restrict__ xpre, const unsigned char* __restrict__ w_img,
                  void* __restrict__ out, int q_rows, int n_items, int n_groups, int out_bf16) {

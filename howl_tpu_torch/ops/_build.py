@@ -58,13 +58,13 @@ SIGNATURES = {
     "howl_res8_stem_tc_forward": (_P, _P, _P, _I, _I, _I, _I, _P),
     # audio, bank, rows, offs, alpha, out, B, n, n_rows, w_cols, stream
     "howl_mix_noise_bank_forward": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # x, ws, pool_t, scale, shift, out, B, pos, pos_pad, n_win_pad, full_build, stream
+    # x, w_img, pool_img, scale, shift, out, B, pos, pos_pad, n_win_pad, full_build, stream
     "howl_trunk_proto_forward": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # xpre, w_img, out, B, q_rows, out_bf16, stream
     "howl_stem_fold_forward": (_P, _P, _P, _I, _I, _I, _P),
     # x, out, total, s, stream
     "howl_micro_stream_forward": (_P, _P, _I, _F, _P),
-    # x, w, out, total, s, n_dots, keep, stream
+    # x, w_img, out, total, s, n_dots, keep, stream
     "howl_micro_gemm_forward": (_P, _P, _P, _I, _F, _I, _I, _P),
     # h, w, out, B, rows, t_pad, s, n_dots, keep, stream
     "howl_micro_poly_forward": (_P, _P, _P, _I, _I, _I, _F, _I, _I, _P),
@@ -190,11 +190,13 @@ _packed: dict = {}
 
 def packed_operand(pack, tensor: torch.Tensor) -> torch.Tensor:
     """``pack(tensor)``, the image of an operand that a kernel reads, packed
-    again only when ``tensor`` is another tensor than last time or was
-    changed in place (a weight served for many launches is packed once)."""
-    key = (pack, tensor.device)
+    again only when ``tensor`` was changed in place (a weight served for many
+    launches is packed once). Images are kept per function and tensor, so
+    that calls which alternate two weights do not pack each time; an image
+    goes when its tensor does."""
+    key = (pack, id(tensor))
     ref, version, image = _packed.get(key, (None, None, None))
     if ref is None or ref() is not tensor or version != tensor._version:
         image = pack(tensor)
-        _packed[key] = (weakref.ref(tensor), tensor._version, image)
+        _packed[key] = (weakref.ref(tensor, lambda _, key=key: _packed.pop(key, None)), tensor._version, image)
     return image

@@ -13,7 +13,9 @@ every row of x is staged on chip whole; out = x[:, :128] + s, (total, 128).
 
 M2, the GEMM legs (``csrc/micro_gemm.cu``, replacing ``gemm_kernel``):
 xb = bf16(x + s); acc = the sum over ``n_dots`` of xb @ W, float32 sums, the
-whole 512-wide product; out = acc[:, :128], (total, 128) float32.
+whole 512-wide product; out = acc[:, :128], (total, 128) float32. The kernel
+reads W as the image ``pack_gemm_w_image`` builds: stages of 64 k by 256 n,
+each the operand of a ``wgmma`` descriptor in the 128-byte swizzle.
 
 M3, the polyphase legs (``csrc/micro_poly.cu``, replacing ``poly_kernel``):
 hb = bf16(H + s); acc[t] = sum over j < 3 of hb[t + j] @ W_j for t < t_pad,
@@ -42,6 +44,8 @@ from howl_tpu_torch.ops.frontend import FrontendConfig
 STREAM_FB = 256  # frame rows per block of the stream and GEMM legs: `total` is a multiple of it
 POLY_FB = 128  # frames per block of the polyphase legs: `t_pad` is a multiple of it
 OUT_COLS = 128  # columns every leg stores
+GEMM_PASS_N = 256  # columns of one pass of the M2 kernel, and of a stage of its W image
+GEMM_STAGE_K = 64  # k of a stage of the M2 kernel's W image: one 128-byte row of the swizzle
 
 
 @dataclass(frozen=True)
@@ -177,6 +181,35 @@ def gemm_plain(x: torch.Tensor, w: torch.Tensor, s: float, n_dots: int = 1) -> t
     return acc[:, :OUT_COLS].contiguous()
 
 
+def _swizzle_index(rows: int, device) -> torch.Tensor:
+    """(rows, 8): for row n of a 128-byte-swizzled image, the 16-byte chunk
+    stored at each place, c ^ (n % 8); the map is its own inverse."""
+    return torch.arange(8, device=device)[None, :] ^ (torch.arange(rows, device=device)[:, None] % 8)
+
+
+def pack_gemm_w_image(w: torch.Tensor) -> torch.Tensor:
+    """(512, 512) bf16 W -> the flat image the M2 kernel's ``wgmma``
+    descriptors read, 16 stages of 32 KB.
+
+    Stage 8 h + kb is the B operand of the pass over columns [256 h, 256 h +
+    256) and rows k in [64 kb, 64 kb + 64): element (k, n) lies at byte
+    ``(8 h + kb) * 32768 + nl * 128 + 16 * ((k % 64 // 8) ^ (nl % 8)) +
+    2 * (k % 8)``, nl = n - 256 h: K-major rows of 128 bytes, their 16-byte
+    chunks permuted by the row's place in its 1,024-byte atom (T2's layout).
+    """
+    n_k, n_n = w.shape
+    v = w.t().reshape(n_n // GEMM_PASS_N, GEMM_PASS_N, n_k // GEMM_STAGE_K, 8, 8).permute(0, 2, 1, 3, 4)
+    idx = _swizzle_index(GEMM_PASS_N, w.device)[None, None, :, :, None].expand(v.shape)
+    return v.gather(3, idx).contiguous().reshape(-1)
+
+
+def unpack_gemm_w_image(img: torch.Tensor, n_fft: int = 512) -> torch.Tensor:
+    """The inverse of :func:`pack_gemm_w_image`: (n_fft, n_fft)."""
+    v = img.reshape(n_fft // GEMM_PASS_N, n_fft // GEMM_STAGE_K, GEMM_PASS_N, 8, 8)
+    v = v.gather(3, _swizzle_index(GEMM_PASS_N, img.device)[None, None, :, :, None].expand(v.shape))
+    return v.permute(0, 2, 1, 3, 4).reshape(n_fft, n_fft).t()
+
+
 def gemm_cuda(x: torch.Tensor, w: torch.Tensor, s: float, n_dots: int = 1) -> torch.Tensor:
     """x (total, 512) float32 and w (512, 512) bf16 -> (total, 128) float32.
     On a CPU tensor this is :func:`gemm_plain`; on a CUDA tensor it launches
@@ -195,8 +228,9 @@ def gemm_cuda(x: torch.Tensor, w: torch.Tensor, s: float, n_dots: int = 1) -> to
         return out  # nothing to launch
     lib = _build.kernel_library()
     with torch.cuda.device(x.device):
+        w_img = _build.packed_operand(pack_gemm_w_image, w)
         status = lib.howl_micro_gemm_forward(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), x.shape[0], _scalar(s), n_dots, 0,
+            x.data_ptr(), w_img.data_ptr(), out.data_ptr(), x.shape[0], _scalar(s), n_dots, 0,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check_launch(status, "micro gemm")

@@ -1,0 +1,212 @@
+"""Time variants of one kernel source, each with a piece of its work taken
+out, to see where the kernel's time goes.
+
+    python -m howl_tpu_torch.tools.probe_kernel_variants --probe t1-mma-sync --source OLD/csrc/trunk_proto.cu
+    python -m howl_tpu_torch.tools.probe_kernel_variants --probe t1-wgmma [--source howl_tpu_torch/csrc/trunk_proto.cu]
+    python -m howl_tpu_torch.tools.probe_kernel_variants --probe m2-wgmma [--source howl_tpu_torch/csrc/micro_gemm.cu]
+
+A probe names a kernel source, its C entry, the study inputs it runs on and a
+list of variants; a variant is a list of exact text edits to the source (each
+must match once), such as a loop bound multiplied by a condition that is
+false at run time, so the compiler keeps the code and the launch skips it.
+Every variant is built alone with nvcc (sm_90a, one shared library each,
+under ``howl_tpu_torch/_build/probes``) and timed at the study's full size
+with CUDA events over 20 calls, the variants in turns, twice over
+(A B C ... C B A). Only the first variant computes the function; the others
+are for timing. An edit that no longer matches its source once stops the
+probe before anything is built.
+
+Probes:
+  t1-mma-sync  the trunk proto T1 as it was on ``mma.sync`` (its source from
+               an earlier checkout, given by ``--source``), full build, at the
+               trunk study's inputs (512 clips x 8 s): as it was; the weights
+               staged once, for layer 0 of the first tile only; no window
+               load; no epilogue.
+  t1-wgmma     T1 on ``wgmma`` (``csrc/trunk_proto.cu``), full build, at the
+               same inputs: as it is; no epilogue (no layer's output stored);
+               each layer's weights copied only for the first two layers (the
+               others reuse those slots); no pool product.
+  m2-wgmma     the frontend study's GEMM M2 on ``wgmma``
+               (``csrc/micro_gemm.cu``), n_dots 1 and 3, at the frontend
+               study's inputs (328,192 frame rows): as it is; W staged once
+               per tile and reused for every stage (no refills).
+
+Needs a CUDA device and nvcc.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+from pathlib import Path
+
+import torch
+
+from howl_tpu_torch.ops import _build
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+T1_EDITS = {
+    "as it was": [],
+    "weights staged once": [("i < kK * kCh; i += kThreads)", "i < kK * kCh * (layer == 0 && p0 == 0); i += kThreads)")],
+    "no window load": [("i < kWin * (kCh / 8); i += kThreads)", "i < kWin * (kCh / 8) * (pos < 0); i += kThreads)")],
+    "no epilogue": [(
+        "for (int mt = 0; mt < kMTiles; ++mt)\n#pragma unroll\n        for (int h = 0; h < 2; ++h) {\n          const int row",
+        "for (int mt = 0; mt < kMTiles * (pos < 0); ++mt)\n#pragma unroll\n        for (int h = 0; h < 2; ++h) {\n          const int row",
+    )],
+}
+
+T1_WGMMA_EDITS = {
+    "as it is": [],
+    "no epilogue": [("if (m >= m_tiles(L) || !store) return;", "if (m >= m_tiles(L) || !store || cx.pos >= 0) return;")],
+    "two weight copies": [
+        ("if (cx.tid == 0 && c + 1 < cx.n_layers) issue_w(cx, c + 1);", "if (cx.tid == 0 && c + 1 < 2) issue_w(cx, c + 1);"),
+        ("  mbar_wait(&cx.w_full[c & 1], (c >> 1) & 1);", "  if (c < 2) mbar_wait(&cx.w_full[c & 1], (c >> 1) & 1);"),
+        ("if (tid == 0 && c + 6 < cx.n_layers) issue_w(cx, c + 6);", "if (tid == 0 && c + 6 < 2) issue_w(cx, c + 6);"),
+        ("mbar_wait(&cx.w_full[(c + 5) & 1], ((c + 5) >> 1) & 1);", "if (c + 5 < 2) mbar_wait(&cx.w_full[(c + 5) & 1], 0);"),
+    ],
+    "no pool product": [("for (int e = 0; e < kPoolBatch; ++e) {\n          const int ks",
+                         "for (int e = 0; e < kPoolBatch * (pos < 0); ++e) {\n          const int ks")],
+}
+
+M2_EDITS = {
+    "as it is": [],
+    "no W refills": [("const bool refill = next < n_stages;", "const bool refill = next < n_stages && next < kWSlots;"),
+                     ("mbar_wait(&w_full[slot], (w_par >> slot) & 1u);\n          w_par ^= 1u << slot;",
+                      "if (qq < kWSlots) {\n          mbar_wait(&w_full[slot], (w_par >> slot) & 1u);\n"
+                      "          w_par ^= 1u << slot;\n          }")],
+}
+
+
+ITERS = 20  # calls a timed run
+
+
+def apply_edits(text: str, edits: list, name: str) -> str:
+    """``text`` with each (old, new) of ``edits`` replaced; each old text
+    must occur exactly once."""
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise ValueError(f"variant {name!r}: the edit's text occurs {text.count(old)} times, not once")
+        text = text.replace(old, new)
+    return text
+
+
+def build_variant(source: Path, edits: list, name: str) -> Path:
+    """The source with ``edits`` applied, built alone into a shared library."""
+    text = apply_edits(source.read_text(), edits, f"{name}, {source}")
+    out_dir = _build.BUILD_DIR / "probes"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    stem = f"{source.stem}_{''.join(c if c.isalnum() else '_' for c in name)}"
+    src = out_dir / f"{stem}.cu"
+    src.write_text(text)
+    lib = out_dir / f"lib{stem}.so"
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", str(_build.CSRC), "-o", str(lib), str(src)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(_build._failure(cmd, proc.returncode, proc.stdout, proc.stderr))
+    return lib
+
+
+def _events_ms(fn) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(ITERS):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / ITERS
+
+
+def _t1_runner(dev, images: bool):
+    """T1's full build at the study's inputs; ``images``: the wgmma body,
+    which reads packed images of the weights and of pool_t."""
+    from howl_tpu_torch.tools import bench_trunk_kernel_micro as study
+    from howl_tpu_torch.tools.trunk_kernels import pack_trunk_pool_image, pack_trunk_w_image
+
+    inp = study.make_inputs(512, 8.0, 0, dev)
+    b, pos_pad, ch = inp.x_pm.shape
+    out = torch.empty((b, inp.pool_t.shape[0], ch), dtype=torch.float32, device=dev)
+    w, pool = inp.ws_full, inp.pool_t
+    if images:
+        w, pool = pack_trunk_w_image(w), pack_trunk_pool_image(pool)
+    argtypes = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
+
+    def make(lib):
+        fn = getattr(lib, "howl_trunk_proto_forward")
+        fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+
+        def run():
+            status = fn(inp.x_pm.data_ptr(), w.data_ptr(), pool.data_ptr(), inp.bn_scale.data_ptr(),
+                        inp.bn_shift.data_ptr(), out.data_ptr(), b, inp.geom.pos, pos_pad, inp.pool_t.shape[0], 1,
+                        torch.cuda.current_stream(dev).cuda_stream)
+            _build.check_launch(status, "probe")
+        return [("full build", run)]
+
+    return make
+
+
+def _m2_runner(dev):
+    from howl_tpu_torch.tools import bench_pallas_micro as study
+    from howl_tpu_torch.tools.frontend_micro_kernels import OUT_COLS, pack_gemm_w_image
+
+    inp = study.make_inputs(512, 8.0, 0, dev)
+    x, w_img = inp.frames, pack_gemm_w_image(inp.w)
+    out = torch.empty((x.shape[0], OUT_COLS), dtype=torch.float32, device=dev)
+    argtypes = (_P, _P, _P, _I, _F, _I, _I, _P)
+
+    def make(lib):
+        fn = getattr(lib, "howl_micro_gemm_forward")
+        fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+
+        def call(n_dots):
+            def run():
+                status = fn(x.data_ptr(), w_img.data_ptr(), out.data_ptr(), x.shape[0], 0.25, n_dots, 0,
+                            torch.cuda.current_stream(dev).cuda_stream)
+                _build.check_launch(status, "probe")
+            return run
+        return [("n_dots 1", call(1)), ("n_dots 3", call(3))]
+
+    return make
+
+
+PROBES = {
+    "t1-mma-sync": (None, T1_EDITS, lambda dev: _t1_runner(dev, images=False)),
+    "t1-wgmma": (_build.CSRC / "trunk_proto.cu", T1_WGMMA_EDITS, lambda dev: _t1_runner(dev, images=True)),
+    "m2-wgmma": (_build.CSRC / "micro_gemm.cu", M2_EDITS, _m2_runner),
+}
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--probe", choices=sorted(PROBES), required=True)
+    ap.add_argument("--source", type=Path, default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("probe_kernel_variants needs a CUDA device")
+    default_source, edits, runner = PROBES[args.probe]
+    source = args.source or default_source
+    if source is None:
+        raise SystemExit(f"--probe {args.probe} needs --source")
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    libs = {name: ctypes.CDLL(str(build_variant(source, e, name))) for name, e in edits.items()}
+    make = runner(dev)
+    cases = {name: make(lib) for name, lib in libs.items()}
+    names = list(cases)
+    times: dict = {}
+    for name in names + names[::-1]:
+        for case, fn in cases[name]:
+            times.setdefault(f"{name}, {case}", []).append(_events_ms(fn))
+    print(f"{args.probe} on {torch.cuda.get_device_name(dev)}, {source}, {ITERS} calls a run, two runs each:")
+    for key, ms in times.items():
+        print(f"  {key:40s} {ms[0]:.4f} / {ms[1]:.4f} ms")
+    print(json.dumps({"probe": args.probe, "ms": times}))
+    return times
+
+
+if __name__ == "__main__":
+    main()

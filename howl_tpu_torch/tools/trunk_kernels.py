@@ -17,7 +17,11 @@ r6 = r at L = 5. res starts as the layer-0 input, whose tail rows
 [pos, pos_pad) are used as given. The output is
 (pool_t @ bf16(r6) - shift[6]) * scale[7], (B, n_win_pad, 48) float32.
 With ``full_build=False`` (the tool's gemm-only variant) every layer's GEMM
-reads the taps of the layer-0 input; the updated x feeds only res.
+reads the taps of the layer-0 input; the updated x feeds only res. The kernel
+reads W as the image ``pack_trunk_w_image`` builds (each layer the K-major
+operand of a ``wgmma`` descriptor) and pool_t as ``pack_trunk_pool_image``
+builds it (each thread's A fragments over a tile's slot rows, 12 rows a
+pooled frame: ``trunk_slot_rows``).
 
 T2, the banded-fold stem proto (``csrc/stem_fold.cu``, replacing
 ``stem_kernel``): for xpre (B, 3, 224, 120) and w0fold (120, 4 * 512), both
@@ -62,6 +66,10 @@ STEM_N = 512  # one f-pool block of the fold's columns; w0fold has 4
 FOLD_SLICE = 32  # columns of each j-block one block of the T2 kernel owns
 FOLD_SLICES = STEM_N // FOLD_SLICE  # 16
 FOLD_K_PAD = 128  # STEM_K padded to whole k16 steps
+TRUNK_SLOTS = 12  # rows of a pooled frame in the T1 kernel's shared memory: a zero slot each side of its 10
+TRUNK_TILE = 44  # pooled frames a T1 tile keeps (kT in csrc/trunk_proto.cu)
+TRUNK_POOL_WINDOWS = 128  # windows the T1 kernel's pool product covers: two warpgroups of 64
+TRUNK_POOL_STEPS = TRUNK_TILE * TRUNK_SLOTS // 16  # k16 steps of a tile's pool product (33)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -177,6 +185,67 @@ def trunk_proto_plain(x, ws, pool_t, bn_scale, bn_shift, pos: int, full_build: b
     return (pooled - bn_shift[6]) * bn_scale[7]
 
 
+def pack_trunk_w_image(ws: torch.Tensor) -> torch.Tensor:
+    """(6, 432, 48) weights -> the flat image the T1 kernel's ``wgmma`` B
+    descriptors read, 41,472 bytes a layer: element (k, n) of layer L at
+    element ``L * 20736 + (k // 8) * 384 + (n // 8) * 64 + (n % 8) * 8 + k % 8``,
+    cores of 8 n by 8 consecutive k (K-major, no swizzle)."""
+    return ws.reshape(6, K_ROWS // 8, 8, CH_PAD // 8, 8).permute(0, 1, 3, 4, 2).contiguous().reshape(-1)
+
+
+def unpack_trunk_w_image(img: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`pack_trunk_w_image`: (6, 432, 48)."""
+    return img.reshape(6, K_ROWS // 8, CH_PAD // 8, 8, 8).permute(0, 1, 4, 2, 3).reshape(6, K_ROWS, CH_PAD)
+
+
+def trunk_tiles(pos_pad: int) -> int:
+    """Tiles of ``TRUNK_TILE`` pooled frames the T1 kernel walks a clip in."""
+    n_frames = -(-pos_pad // F_OUT)
+    return -(-n_frames // TRUNK_TILE)
+
+
+def trunk_slot_rows(pos_pad: int, device=None) -> tuple:
+    """(position, valid) of each slot row of the T1 kernel's tiles, for all
+    ``trunk_tiles(pos_pad) * TRUNK_TILE * 12`` of them: row q is slot q % 12
+    of pooled frame q // 12 and holds position 10 (q // 12) + q % 12 - 1
+    when its slot is 1-10 and that position is below pos_pad; otherwise it
+    is zero."""
+    q = torch.arange(trunk_tiles(pos_pad) * TRUNK_TILE * TRUNK_SLOTS, device=device)
+    slot = q % TRUNK_SLOTS
+    p = q // TRUNK_SLOTS * F_OUT + slot - 1
+    return p, (slot >= 1) & (slot <= F_OUT) & (p < pos_pad)
+
+
+def pack_trunk_pool_image(pool_t: torch.Tensor) -> torch.Tensor:
+    """(n_win_pad, pos_pad) pool_t -> the A fragments of the T1 kernel's pool
+    product, flat. A is pool_t over the slot rows of :func:`trunk_slot_rows`
+    (zero columns at the slots and past pos_pad, zero rows past n_win_pad,
+    128 rows). For tile j, k16 step ks, warpgroup wg and thread 32 w + 4 g + t
+    of it, 16 bytes hold its four registers e = 0..3, two bf16 each:
+    A[64 wg + 16 w + g + 8 (e % 2), 528 j + 16 ks + 2 t + 8 (e // 2) + h] at
+    h = 0, 1, the order of the ``wgmma`` A fragment."""
+    n_win_pad, pos_pad = pool_t.shape
+    n_tiles = trunk_tiles(pos_pad)
+    p, valid = trunk_slot_rows(pos_pad, pool_t.device)
+    a = torch.zeros((TRUNK_POOL_WINDOWS, p.numel()), dtype=pool_t.dtype, device=pool_t.device)
+    a[:n_win_pad, valid] = pool_t[:, p[valid]]
+    # rows (wg, w, e % 2, g), columns (tile, ks, e // 2, t, h) -> (tile, ks, wg, w, g, t, e // 2, e % 2, h)
+    v = a.reshape(2, 4, 2, 8, n_tiles, TRUNK_POOL_STEPS, 2, 4, 2).permute(4, 5, 0, 1, 3, 7, 6, 2, 8)
+    return v.contiguous().reshape(-1)
+
+
+def unpack_trunk_pool_image(img: torch.Tensor, pos_pad: int) -> torch.Tensor:
+    """The inverse of :func:`pack_trunk_pool_image` on the clip's positions:
+    (128, pos_pad), the rows past n_win_pad zero."""
+    n_tiles = trunk_tiles(pos_pad)
+    v = img.reshape(n_tiles, TRUNK_POOL_STEPS, 2, 4, 8, 4, 2, 2, 2).permute(2, 3, 7, 4, 0, 1, 6, 5, 8)
+    a = v.reshape(TRUNK_POOL_WINDOWS, -1)
+    p, valid = trunk_slot_rows(pos_pad, img.device)
+    out = torch.zeros((TRUNK_POOL_WINDOWS, pos_pad), dtype=img.dtype, device=img.device)
+    out[:, p[valid]] = a[:, valid]
+    return out
+
+
 def trunk_proto_cuda(x, ws, pool_t, bn_scale, bn_shift, pos: int, full_build: bool = True) -> torch.Tensor:
     """x (B, pos_pad, 48) bf16, ws (6, 432, 48) bf16, pool_t (n_win_pad,
     pos_pad) bf16, bn_scale and bn_shift (8, 48) float32 -> (B, n_win_pad,
@@ -195,11 +264,15 @@ def trunk_proto_cuda(x, ws, pool_t, bn_scale, bn_shift, pos: int, full_build: bo
                          f"got {pos_pad} and {n_win_pad}")
     if not all(t.is_contiguous() for t in (x, ws, pool_t, bn_scale, bn_shift)):
         raise ValueError("trunk_proto_cuda's operands must be contiguous")
+    if x.data_ptr() % 16:
+        raise ValueError("the trunk proto kernel copies x in 16-byte pieces: x must be 16-byte aligned")
     out = torch.empty((b, n_win_pad, CH_PAD), dtype=torch.float32, device=x.device)
     lib = _build.kernel_library()
     with torch.cuda.device(x.device):
+        w_img = _build.packed_operand(pack_trunk_w_image, ws)
+        pool_img = _build.packed_operand(pack_trunk_pool_image, pool_t)
         status = lib.howl_trunk_proto_forward(
-            x.data_ptr(), ws.data_ptr(), pool_t.data_ptr(), bn_scale.data_ptr(), bn_shift.data_ptr(),
+            x.data_ptr(), w_img.data_ptr(), pool_img.data_ptr(), bn_scale.data_ptr(), bn_shift.data_ptr(),
             out.data_ptr(), b, pos, pos_pad, n_win_pad, int(full_build),
             torch.cuda.current_stream(x.device).cuda_stream,
         )

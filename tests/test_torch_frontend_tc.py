@@ -158,7 +158,8 @@ def test_route_constants_are_the_cuda_sources():
     assert consts["kStepBytes"] == "16 * 2 * kHalfBins * 2" and fc.TC_STAGE_BYTES == 4 * 16 * 2 * fc.TC_HALF_BINS * 2
     assert sorted(int(n) for n in re.findall(r"launch<(\d+)>", src)) == sorted(fc.TC_MEL_WIDTHS)
     header = (_build.CSRC / "hopper_async.cuh").read_text()
-    assert sorted(int(n) for n in re.findall(r"m64n(\d+)k16\.f32\.bf16\.bf16", header)) == [40, 80, 256]
+    # the frontend's three product shapes (the header holds the trunk proto's, the stem fold's and M2's too)
+    assert {40, 80, 256} <= {int(n) for n in re.findall(r"m64n(\d+)k16\.f32\.bf16\.bf16", header)}
 
 
 @pytest.mark.parametrize("name", GEOMETRIES)

@@ -17,12 +17,14 @@ kernels at frame counts whose pooled frames are no multiple of the
 tensor-core kernel's 24-frame tile, at batches of 1, 3 and 512, at other
 mel and channel counts, and on clips whose output starts off a 16-byte
 boundary; the stem fold proto (T2) at row counts whose last 64-row item is
-not full.
+not full; the trunk proto (T1) at batches of 1 to 512, 2 s and 8 s, pos at
+pos_pad and inside a frame and a tile, with two weight tensors in turn.
 Tolerances are tests/test_torch_frontend.py's and tests/test_torch_stem.py's;
 the noise-bank mix is held to its plain version bit for bit. The frontend
 cost study's kernels (stream, GEMM, polyphase) run at the study's CPU size
 and at its full size, 512 clips of 8 s, with totals and frame counts that
-end inside a staging round, a block and a tile. The bandwidth sweep's seven
+end inside a staging round, a block and a tile (M2: totals of 1, 63, 129
+rows and the study's 328,192, one to three products). The bandwidth sweep's seven
 kernels are held to their plain versions bit for bit over the whole output,
 in float32 and bf16, at block heights from 8 rows to the whole array and at
 row counts whose last ring stage and last bulk-copy chunk are not full; the
@@ -473,6 +475,58 @@ def test_trunk_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                        w0fold)
 
 
+@pytest.mark.parametrize("pos_cut", [0, 37], ids=["pos-is-pos_pad", "pos-below-pos_pad"])
+@pytest.mark.parametrize("full_build", [True, False], ids=["full-build", "gemm-only"])
+@pytest.mark.parametrize("clip_seconds", [2.0, 8.0])
+@pytest.mark.parametrize("b", [1, 3, 512])
+def test_trunk_proto_kernel_at_pos_pad_and_below(cuda, b, clip_seconds, full_build, pos_cut):
+    """pos = pos_pad (no position masked) and pos 37 below it, inside a
+    pooled frame and inside a 44-frame tile, with a nonzero tail."""
+    from howl_tpu_torch.tools.trunk_kernels import trunk_proto_cuda, trunk_proto_plain
+
+    geom, ops = _trunk_operands(cuda, b, clip_seconds)
+    pos = geom.pos_pad - pos_cut
+    before = trunk_proto_cuda.launches
+    got, want = trunk_proto_cuda(*ops, pos, full_build), trunk_proto_plain(*ops, pos, full_build)
+    torch.cuda.synchronize()
+    assert trunk_proto_cuda.launches == before + 1
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 2e-3 * float(want.abs().max())
+
+
+def test_trunk_proto_kernel_alternates_weights_and_packs_again_after_a_change(cuda):
+    """The study's legs 3 and 4 alternate two weight tensors; each keeps its
+    image, and an in-place change to the weights or to pool_t is packed again."""
+    from howl_tpu_torch.tools.trunk_kernels import trunk_proto_cuda, trunk_proto_plain
+
+    geom, (x, ws, pool_t, scale, shift) = _trunk_operands(cuda, 3, 2.0)
+    ws2 = (ws.float() * -0.5).bfloat16()
+
+    def hold(w, full_build):
+        got = trunk_proto_cuda(x, w, pool_t, scale, shift, geom.pos, full_build)
+        want = trunk_proto_plain(x, w, pool_t, scale, shift, geom.pos, full_build)
+        torch.cuda.synchronize()
+        assert float((got - want).abs().max()) <= 2e-3 * float(want.abs().max())
+
+    for w, full_build in ((ws, True), (ws2, False), (ws, True), (ws2, False)):
+        hold(w, full_build)
+    ws.mul_(-1.0)
+    hold(ws, True)
+    pool_t[:, :100] = 1.0
+    hold(ws2, False)
+
+
+def test_trunk_proto_kernel_refuses_misaligned_x(cuda):
+    from howl_tpu_torch.tools.trunk_kernels import trunk_proto_cuda
+
+    geom, (x, ws, pool_t, scale, shift) = _trunk_operands(cuda, 2, 2.0)
+    flat = torch.zeros(x.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    before = trunk_proto_cuda.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        trunk_proto_cuda(flat[1:].view(x.shape), ws, pool_t, scale, shift, geom.pos)
+    assert trunk_proto_cuda.launches == before
+
+
 @functools.lru_cache(maxsize=2)
 def _micro_operands(cuda, batch, clip_seconds):
     """The study's seeded operands, made once per size (about 1 GB at the full size)."""
@@ -517,6 +571,40 @@ def test_micro_gemm_kernel_matches_plain(cuda, batch, clip_seconds, cut, n_dots)
     assert gemm_cuda.launches == before + 1
     assert got.shape == want.shape == (inp.geom.total - cut, 128) and got.dtype == torch.float32
     assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("n_dots", [1, 2, 3])
+@pytest.mark.parametrize("total", [1, 63, 129, 328192])
+def test_micro_gemm_kernel_at_totals_off_the_row_tile(cuda, total, n_dots):
+    """The kernel's tiles are 128 rows: a total of one row, a partial tile, a
+    tile and one row, and the study's 2,564 tiles."""
+    from howl_tpu_torch.tools.frontend_micro_kernels import gemm_cuda, gemm_plain
+
+    inp = _micro_operands(cuda, 512, 8.0)
+    x = inp.frames[:total]
+    before = gemm_cuda.launches
+    got, want = gemm_cuda(x, inp.w, MICRO_S, n_dots), gemm_plain(x, inp.w, MICRO_S, n_dots)
+    torch.cuda.synchronize()
+    assert gemm_cuda.launches == before + 1
+    assert got.shape == want.shape == (total, 128) and bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_micro_gemm_kernel_refuses_misaligned_x_and_packs_w_again_after_a_change(cuda):
+    from howl_tpu_torch.tools.frontend_micro_kernels import gemm_cuda, gemm_plain
+
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((300, 512)).astype(np.float32)).to(cuda)
+    w = torch.from_numpy(rng.standard_normal((512, 512)).astype(np.float32)).to(cuda).bfloat16()
+    before = gemm_cuda.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        gemm_cuda(torch.zeros(300 * 512 + 1, device=cuda)[1:].view(300, 512), w, 0.0)
+    assert gemm_cuda.launches == before
+    gemm_cuda(x, w, MICRO_S)
+    w[:, :64].mul_(-2.0)
+    got, want = gemm_cuda(x, w, MICRO_S, 2), gemm_plain(x, w, MICRO_S, 2)
+    torch.cuda.synchronize()
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 

@@ -262,4 +262,6 @@ def test_stem_fold_constants_are_the_cuda_source():
     assert int(c["kKIn"]) == tk.STEM_K and int(c["kKPad"]) == tk.FOLD_K_PAD and int(c["kNOut"]) == tk.STEM_N
     assert int(c["kSliceCols"]) == tk.FOLD_SLICE and c["kSlices"] == "kNOut / kSliceCols"
     assert c["kWBlockBytes"] == "64 * kN * 2" and c["kN"] == "kJ * kSliceCols" and int(c["kJ"]) == 4
-    assert "m64n128k16.f32.bf16.bf16" in src and "(static_cast<uint64_t>(1) << 62)" in src  # 128-byte swizzle
+    header = (_build.CSRC / "hopper_async.cuh").read_text()  # the wgmma and swizzle helpers it includes
+    assert '#include "hopper_async.cuh"' in src and "wgmma_m64n128k16(" in src and "desc_sw128(" in src
+    assert "m64n128k16.f32.bf16.bf16" in header and "(static_cast<uint64_t>(1) << 62)" in header  # 128-byte swizzle
