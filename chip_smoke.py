@@ -18,8 +18,9 @@ them. In order it:
      kernel must be the faster. Before that it counts the tensor-core and
      bulk-copy opcodes in the built library: the tensor-core frontend kernel,
      the stem fold kernel (T2), the trunk proto (T1) and the frontend study's
-     GEMM (M2) must hold HGMMA (``wgmma``) and UBLKCP (bulk copies), the
-     tensor-core stem kernel HMMA or HGMMA;
+     GEMM (M2) and polyphase kernel (M3) must hold HGMMA (``wgmma``) and
+     UBLKCP (bulk copies), M3 no HMMA, the tensor-core stem kernel HMMA or
+     HGMMA;
   4. holds both res8 stem kernels, the tensor-core one ("tc",
      ``csrc/stem_tc.cu``: bf16) and the float32-FMA one ("fma",
      ``csrc/stem.cu``: bf16 and float32), against their plain version on
@@ -44,7 +45,8 @@ them. In order it:
      just after, and each must have grown; three products must take over
      1.5 times one product's time, since two of them are thrown away and a
      compiler might drop them. Then it holds M1 (bit for bit),
-     M2 (``wgmma``, W and x by bulk copies) and M3 (one and three products)
+     M2 (``wgmma``, W and x by bulk copies) and M3 (``wgmma`` on hop rows
+     read by descriptor, W and H by bulk copies; one and three products)
      against their plain versions on the
      study's inputs with a nonzero scalar, and runs
      ``howl_tpu_torch.tools.validate_pallas_precision``: the frontend kernel
@@ -439,8 +441,9 @@ def print_sass_counts(library) -> None:
     the built library. The studies' kernels move and compute what nobody
     reads, and this shows that the work and the asynchronous copy paths are
     still there. The run fails unless the tensor-core frontend kernel, the
-    stem fold kernel, the trunk proto and the frontend study's GEMM hold
-    HGMMA and UBLKCP and the tensor-core stem kernel holds HMMA or HGMMA."""
+    stem fold kernel, the trunk proto and the frontend study's GEMM and
+    polyphase kernels hold HGMMA and UBLKCP, the polyphase kernel no HMMA,
+    and the tensor-core stem kernel holds HMMA or HGMMA."""
     import re
     import shutil
     from pathlib import Path
@@ -455,7 +458,8 @@ def print_sass_counts(library) -> None:
     # the kernels that must be in the library, and the opcodes each must hold ("A|B": either)
     required = {"logmel_tc_kernel": ("HGMMA", "UBLKCP"), "stem_fold_kernel": ("HGMMA", "UBLKCP"),
                 "trunk_proto_kernel": ("HGMMA", "UBLKCP"), "micro_gemm_kernel": ("HGMMA", "UBLKCP"),
-                "stem_tc_kernel": ("HMMA|HGMMA",)}
+                "micro_poly_kernel": ("HGMMA", "UBLKCP"), "stem_tc_kernel": ("HMMA|HGMMA",)}
+    forbidden = {"micro_poly_kernel": "HMMA"}  # every product on wgmma
     found = dict.fromkeys(required, 0)
     for name, body in re.findall(r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)", sass, flags=re.S):
         kernel = re.findall(r"(?:micro_[a-z]+|hbm_[a-z_]+?|hbm2hbm|logmel(?:_tc)?|stem(?:_tc|_fold)?|trunk_proto)_kernel",
@@ -470,6 +474,8 @@ def print_sass_counts(library) -> None:
                 for need in required[kernel[-1]]:
                     if not any(counts[op] for op in need.split("|")):
                         raise AssertionError(f"{kernel[-1]}{variant} holds {counts}: no {need}")
+                if counts.get(forbidden.get(kernel[-1]), 0):
+                    raise AssertionError(f"{kernel[-1]}{variant} holds {counts}: {forbidden[kernel[-1]]} as well")
     if min(found.values()) < 1:
         raise AssertionError(f"the built library lacks a tensor-core kernel: {found}")
 

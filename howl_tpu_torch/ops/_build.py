@@ -66,7 +66,7 @@ SIGNATURES = {
     "howl_micro_stream_forward": (_P, _P, _I, _F, _P),
     # x, w_img, out, total, s, n_dots, keep, stream
     "howl_micro_gemm_forward": (_P, _P, _P, _I, _F, _I, _I, _P),
-    # h, w, out, B, rows, t_pad, s, n_dots, keep, stream
+    # h, w_img, out, B, rows, t_pad, s, n_dots, keep, stream
     "howl_micro_poly_forward": (_P, _P, _P, _I, _I, _I, _F, _I, _I, _P),
     # x, out, rows, bn, is_bf16, s, stream
     "howl_hbm_auto_read_forward": (_P, _P, _I, _I, _I, _F, _P),

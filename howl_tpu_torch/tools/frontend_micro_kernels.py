@@ -23,7 +23,10 @@ W_j the rows [200 j, 200 j + 200) of W, zero below row 512; repeated
 ``n_dots`` times, every pass from zero; out = acc[..., :128], (B, t_pad, 128)
 float32. Frame t of a clip is the 512 samples from hop row t on, so M3 on H
 equals M2 on those frames (up to the order of the sums) without the frames
-tensor ever being written.
+tensor ever being written. The kernel holds a tile's hop rows chunk-major
+and reads W as the image ``pack_poly_w_image`` builds: per pass of 256
+columns the 33 k16 steps of ``POLY_STEPS``, each the operand of a ``wgmma``
+descriptor without swizzle.
 
 None of them is a function the frontend calls: they model its costs, as the
 JAX tool's kernels do. Each ``*_cuda`` wrapper runs its plain version for a
@@ -46,6 +49,11 @@ POLY_FB = 128  # frames per block of the polyphase legs: `t_pad` is a multiple o
 OUT_COLS = 128  # columns every leg stores
 GEMM_PASS_N = 256  # columns of one pass of the M2 kernel, and of a stage of its W image
 GEMM_STAGE_K = 64  # k of a stage of the M2 kernel's W image: one 128-byte row of the swizzle
+POLY_PASS_N = 256  # columns of one pass of the M3 kernel, and of a pass of its W image
+# k16 steps of an M3 pass per W_j: a hop row's 200 samples and a chunk of zeros for W_0 and W_1, W_2's 112
+# nonzero rows alone
+POLY_STEPS = (13, 13, 7)
+POLY_CHUNKS = 26  # 16-byte chunks of a hop row in the M3 kernel's A: 25 of samples, one of zeros
 
 
 @dataclass(frozen=True)
@@ -272,11 +280,41 @@ def poly_plain(h: torch.Tensor, w: torch.Tensor, s: float, t_pad: int, n_dots: i
     return acc[..., :OUT_COLS].contiguous()
 
 
+def poly_k_rows(w: torch.Tensor, hop: int = 200) -> torch.Tensor:
+    """W (512, n) -> (528, n), the rows of K in the order the M3 kernel's
+    k16 steps take them: W_0 and W_1 each with 8 zero rows below (the zero
+    chunk of a hop row), then W_2's first 112 rows, the only nonzero ones."""
+    blocks = F.pad(poly_weight_blocks(w, hop), (0, 0, 0, 16 * max(POLY_STEPS) - hop))
+    return torch.cat([blocks[j, : 16 * n] for j, n in enumerate(POLY_STEPS)])
+
+
+def pack_poly_w_image(w: torch.Tensor) -> torch.Tensor:
+    """(512, 512) bf16 W -> the flat image the M3 kernel's ``wgmma``
+    descriptors read, 2 passes x 33 steps of 8 KB.
+
+    Row k of :func:`poly_k_rows` and column n lie at byte ``(33 hp + k // 16)
+    * 8192 + (k % 16 // 8) * 4096 + nl * 16 + 2 * (k % 8)``, hp = n // 256,
+    nl = n % 256: each step is 16 k by 256 n, K-major without swizzle, two
+    k-cores of 4 KB whose 8-n cores are 128 bytes (T1's layout)."""
+    kr = poly_k_rows(w)
+    n_steps = kr.shape[0] // 16
+    v = kr.reshape(n_steps, 2, 8, w.shape[1] // POLY_PASS_N, POLY_PASS_N).permute(3, 0, 1, 4, 2)
+    return v.contiguous().reshape(-1)
+
+
+def unpack_poly_w_image(img: torch.Tensor, n_fft: int = 512, hop: int = 200) -> torch.Tensor:
+    """The inverse of :func:`pack_poly_w_image`: (n_fft, n_fft)."""
+    n_steps = sum(POLY_STEPS)
+    kr = img.reshape(n_fft // POLY_PASS_N, n_steps, 2, POLY_PASS_N, 8).permute(1, 2, 4, 0, 3).reshape(-1, n_fft)
+    starts = [16 * sum(POLY_STEPS[:j]) for j in range(len(POLY_STEPS))]
+    return torch.cat([kr[a : a + hop] for a in starts])[:n_fft]
+
+
 def poly_cuda(h: torch.Tensor, w: torch.Tensor, s: float, t_pad: int, n_dots: int = 1) -> torch.Tensor:
     """h (B, rows, 200) float32 and w (512, 512) bf16 -> (B, t_pad, 128)
     float32, t_pad + 2 <= rows. On a CPU tensor this is :func:`poly_plain`;
     on a CUDA tensor it launches ``howl_micro_poly_forward`` or raises. The
-    kernel multiplies by W's 512 rows and skips the W_j blocks' zero rows."""
+    kernel reads W as :func:`pack_poly_w_image`, packed once per tensor."""
     _build.refuse_grad("poly_cuda", h, w)
     if h.device.type == "cpu":
         return poly_plain(h, w, s, t_pad, n_dots)
@@ -294,8 +332,9 @@ def poly_cuda(h: torch.Tensor, w: torch.Tensor, s: float, t_pad: int, n_dots: in
         return out  # nothing to launch
     lib = _build.kernel_library()
     with torch.cuda.device(h.device):
+        w_img = _build.packed_operand(pack_poly_w_image, w)
         status = lib.howl_micro_poly_forward(
-            h.data_ptr(), w.data_ptr(), out.data_ptr(), b, rows, t_pad, _scalar(s), n_dots, 0,
+            h.data_ptr(), w_img.data_ptr(), out.data_ptr(), b, rows, t_pad, _scalar(s), n_dots, 0,
             torch.cuda.current_stream(h.device).cuda_stream,
         )
     _build.check_launch(status, "micro poly")

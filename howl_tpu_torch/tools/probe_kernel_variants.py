@@ -1,9 +1,9 @@
 """Time variants of one kernel source, each with a piece of its work taken
 out, to see where the kernel's time goes.
 
-    python -m howl_tpu_torch.tools.probe_kernel_variants --probe t1-mma-sync --source OLD/csrc/trunk_proto.cu
     python -m howl_tpu_torch.tools.probe_kernel_variants --probe t1-wgmma [--source howl_tpu_torch/csrc/trunk_proto.cu]
     python -m howl_tpu_torch.tools.probe_kernel_variants --probe m2-wgmma [--source howl_tpu_torch/csrc/micro_gemm.cu]
+    python -m howl_tpu_torch.tools.probe_kernel_variants --probe m3-wgmma [--source howl_tpu_torch/csrc/micro_poly.cu]
 
 A probe names a kernel source, its C entry, the study inputs it runs on and a
 list of variants; a variant is a list of exact text edits to the source (each
@@ -17,19 +17,26 @@ are for timing. An edit that no longer matches its source once stops the
 probe before anything is built.
 
 Probes:
-  t1-mma-sync  the trunk proto T1 as it was on ``mma.sync`` (its source from
-               an earlier checkout, given by ``--source``), full build, at the
-               trunk study's inputs (512 clips x 8 s): as it was; the weights
-               staged once, for layer 0 of the first tile only; no window
-               load; no epilogue.
-  t1-wgmma     T1 on ``wgmma`` (``csrc/trunk_proto.cu``), full build, at the
-               same inputs: as it is; no epilogue (no layer's output stored);
-               each layer's weights copied only for the first two layers (the
-               others reuse those slots); no pool product.
+  t1-wgmma     the trunk proto T1 on ``wgmma`` (``csrc/trunk_proto.cu``),
+               full build, at the trunk study's inputs (512 clips x 8 s): as
+               it is; no epilogue (no layer's output stored); each layer's
+               weights copied only for the first two layers (the others reuse
+               those slots); no pool product.
   m2-wgmma     the frontend study's GEMM M2 on ``wgmma``
                (``csrc/micro_gemm.cu``), n_dots 1 and 3, at the frontend
                study's inputs (328,192 frame rows): as it is; W staged once
                per tile and reused for every stage (no refills).
+  m3-wgmma     the frontend study's polyphase kernel M3 on ``wgmma``
+               (``csrc/micro_poly.cu``), n_dots 1 and 3, at the frontend
+               study's inputs (H (512, 768, 200)): as it is; no H staging
+               after the first tile (every tile multiplies the first one's
+               hop rows); W staged once, its first three stages reused for
+               every stage; no stores of the output (those under ``keep``
+               stay, so every product still runs); four W slots with H in
+               13-row stages, the other way to share the same shared
+               memory; A read in the 128-byte swizzle, and W likewise (the
+               same shared-memory reads in another pattern); H's slot
+               refilled without waiting for the other warps.
 
 Needs a CUDA device and nvcc.
 """
@@ -47,16 +54,6 @@ import torch
 from howl_tpu_torch.ops import _build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-
-T1_EDITS = {
-    "as it was": [],
-    "weights staged once": [("i < kK * kCh; i += kThreads)", "i < kK * kCh * (layer == 0 && p0 == 0); i += kThreads)")],
-    "no window load": [("i < kWin * (kCh / 8); i += kThreads)", "i < kWin * (kCh / 8) * (pos < 0); i += kThreads)")],
-    "no epilogue": [(
-        "for (int mt = 0; mt < kMTiles; ++mt)\n#pragma unroll\n        for (int h = 0; h < 2; ++h) {\n          const int row",
-        "for (int mt = 0; mt < kMTiles * (pos < 0); ++mt)\n#pragma unroll\n        for (int h = 0; h < 2; ++h) {\n          const int row",
-    )],
-}
 
 T1_WGMMA_EDITS = {
     "as it is": [],
@@ -77,6 +74,29 @@ M2_EDITS = {
                      ("mbar_wait(&w_full[slot], (w_par >> slot) & 1u);\n          w_par ^= 1u << slot;",
                       "if (qq < kWSlots) {\n          mbar_wait(&w_full[slot], (w_par >> slot) & 1u);\n"
                       "          w_par ^= 1u << slot;\n          }")],
+}
+
+M3_EDITS = {
+    "as it is": [],
+    "no H staging": [("if (k % kHEvery == 0 && k / kHEvery < kHStages && d == 0 && has_next) round_h(v++);",
+                      "if (k % kHEvery == 0 && k / kHEvery < kHStages && d == 0 && has_next && n_dots < 0) round_h(v++);")],
+    "W staged once": [("if (next >= n_w) return;", "if (next >= n_w || next >= kWSlots) return;"),
+                      ("mbar_wait(&w_full[slot], (q / kWSlots) & 1u);",
+                       "if (q < kWSlots) mbar_wait(&w_full[slot], (q / kWSlots) & 1u);")],
+    "no stores": [("if ((hp == 0 && j < kOutCols / 8 && last) || keep)",
+                   "if ((hp == 0 && j < kOutCols / 8 && last && n_dots < 0) || keep)")],
+    "four W slots, 13-row H stages": [("constexpr int kWSlots = 3;", "constexpr int kWSlots = 4;"),
+                                      ("constexpr int kHRows = 26; ", "constexpr int kHRows = 13; ")],
+    # 130 rows of 128 bytes, padded to whole 1,024-byte atoms, a 64-k block: four blocks fill the two A buffers
+    "A swizzled": [("wgmma_m64n256k16_ss(acc, da + (buf * kABytes + step_a_bytes(step)) / 16,",
+                    "wgmma_m64n256k16_ss(acc, desc_sw128(a_u + (64 * wg + step_shift(step)) * 128 + "
+                    "step_k16(step) % 4 * 32 + step_k16(step) / 4 * 17408),")],
+    # a step as 256 rows of 128 bytes, each k16 step 32 bytes on: the slots' room read in M2's pattern
+    "W swizzled": [("db + (slot * kWStageBytes + u * kStepBytes) / 16, step > 0);",
+                    "desc_sw128(ring_u + slot * kWStageBytes + u * 32), step > 0);")],
+    # the refill of an H slot issued without waiting for the other warps to finish with it
+    "H refill unwaited": [("      mbar_wait(&h_empty[slot], (v / kHSlots) & 1u);\n      if (lane == 0) issue_h",
+                           "      if (lane == 0) issue_h")],
 }
 
 
@@ -121,18 +141,16 @@ def _events_ms(fn) -> float:
     return start.elapsed_time(end) / ITERS
 
 
-def _t1_runner(dev, images: bool):
-    """T1's full build at the study's inputs; ``images``: the wgmma body,
-    which reads packed images of the weights and of pool_t."""
+def _t1_runner(dev):
+    """T1's full build at the study's inputs, the weights and pool_t as
+    their packed images."""
     from howl_tpu_torch.tools import bench_trunk_kernel_micro as study
     from howl_tpu_torch.tools.trunk_kernels import pack_trunk_pool_image, pack_trunk_w_image
 
     inp = study.make_inputs(512, 8.0, 0, dev)
     b, pos_pad, ch = inp.x_pm.shape
     out = torch.empty((b, inp.pool_t.shape[0], ch), dtype=torch.float32, device=dev)
-    w, pool = inp.ws_full, inp.pool_t
-    if images:
-        w, pool = pack_trunk_w_image(w), pack_trunk_pool_image(pool)
+    w, pool = pack_trunk_w_image(inp.ws_full), pack_trunk_pool_image(inp.pool_t)
     argtypes = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
 
     def make(lib):
@@ -173,10 +191,34 @@ def _m2_runner(dev):
     return make
 
 
+def _m3_runner(dev):
+    from howl_tpu_torch.tools import bench_pallas_micro as study
+    from howl_tpu_torch.tools.frontend_micro_kernels import OUT_COLS, pack_poly_w_image
+
+    inp = study.make_inputs(512, 8.0, 0, dev)
+    h, w_img, g = inp.h, pack_poly_w_image(inp.w), inp.geom
+    out = torch.empty((g.batch, g.t_pad, OUT_COLS), dtype=torch.float32, device=dev)
+    argtypes = (_P, _P, _P, _I, _I, _I, _F, _I, _I, _P)
+
+    def make(lib):
+        fn = getattr(lib, "howl_micro_poly_forward")
+        fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+
+        def call(n_dots):
+            def run():
+                status = fn(h.data_ptr(), w_img.data_ptr(), out.data_ptr(), g.batch, h.shape[1], g.t_pad, 0.25, n_dots,
+                            0, torch.cuda.current_stream(dev).cuda_stream)
+                _build.check_launch(status, "probe")
+            return run
+        return [("n_dots 1", call(1)), ("n_dots 3", call(3))]
+
+    return make
+
+
 PROBES = {
-    "t1-mma-sync": (None, T1_EDITS, lambda dev: _t1_runner(dev, images=False)),
-    "t1-wgmma": (_build.CSRC / "trunk_proto.cu", T1_WGMMA_EDITS, lambda dev: _t1_runner(dev, images=True)),
+    "t1-wgmma": (_build.CSRC / "trunk_proto.cu", T1_WGMMA_EDITS, _t1_runner),
     "m2-wgmma": (_build.CSRC / "micro_gemm.cu", M2_EDITS, _m2_runner),
+    "m3-wgmma": (_build.CSRC / "micro_poly.cu", M3_EDITS, _m3_runner),
 }
 
 
@@ -189,8 +231,6 @@ def main(argv=None) -> dict:
         raise SystemExit("probe_kernel_variants needs a CUDA device")
     default_source, edits, runner = PROBES[args.probe]
     source = args.source or default_source
-    if source is None:
-        raise SystemExit(f"--probe {args.probe} needs --source")
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     libs = {name: ctypes.CDLL(str(build_variant(source, e, name))) for name, e in edits.items()}

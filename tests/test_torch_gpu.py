@@ -24,7 +24,8 @@ the noise-bank mix is held to its plain version bit for bit. The frontend
 cost study's kernels (stream, GEMM, polyphase) run at the study's CPU size
 and at its full size, 512 clips of 8 s, with totals and frame counts that
 end inside a staging round, a block and a tile (M2: totals of 1, 63, 129
-rows and the study's 328,192, one to three products). The bandwidth sweep's seven
+rows and the study's 328,192, one to three products; M3: 1 to 512 clips of 1
+to 641 frames, 135 tiles over 132 persistent blocks). The bandwidth sweep's seven
 kernels are held to their plain versions bit for bit over the whole output,
 in float32 and bf16, at block heights from 8 rows to the whole array and at
 row counts whose last ring stage and last bulk-copy chunk are not full; the
@@ -635,6 +636,44 @@ def test_micro_poly_kernel_reads_no_row_past_the_clip(cuda):
     t_pad = 100
     h = inp.h[:, : t_pad + 2].contiguous()
     got, want = poly_cuda(h, inp.w, MICRO_S, t_pad), poly_plain(h, inp.w, MICRO_S, t_pad)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("n_dots", [1, 2])
+@pytest.mark.parametrize("batch,t_pad", [(1, 1), (1, 129), (1, 640), (3, 641), (27, 640), (133, 257), (512, 641)],
+                         ids=lambda v: str(v))
+def test_micro_poly_kernel_at_tiles_off_the_card_and_the_clip(cuda, batch, t_pad, n_dots):
+    """The kernel's tiles are 128 frames and its blocks persistent, one to an
+    SM: a clip of one frame, tiles that leave one frame in the last, one
+    clip, 135 tiles (a few blocks take two, so the next tile's staging runs
+    on some blocks only) and the study's batch at 641 frames."""
+    from howl_tpu_torch.tools.frontend_micro_kernels import poly_cuda, poly_plain
+
+    h = _micro_operands(cuda, 512, 8.0).h[:batch]
+    w = _micro_operands(cuda, 512, 8.0).w
+    before = poly_cuda.launches
+    got, want = poly_cuda(h, w, MICRO_S, t_pad, n_dots), poly_plain(h, w, MICRO_S, t_pad, n_dots)
+    torch.cuda.synchronize()
+    assert poly_cuda.launches == before + 1
+    assert got.shape == want.shape == (batch, t_pad, 128) and bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_micro_poly_kernel_ignores_nan_past_the_clip_and_packs_w_again_after_a_change(cuda):
+    """Hop rows from t_pad + 2 on hold NaN: the tile reads them, and only
+    the frames >= t_pad that are computed and not stored may meet them. W
+    changed in place is packed anew."""
+    from howl_tpu_torch.tools.frontend_micro_kernels import poly_cuda, poly_plain
+
+    inp = _micro_operands(cuda, 4, 2.0)
+    h = inp.h.clone()
+    h[:, 102:] = float("nan")
+    w = inp.w.clone()
+    got, want = poly_cuda(h, w, MICRO_S, 100), poly_plain(h, w, MICRO_S, 100)
+    assert bool(torch.isfinite(got).all()) and float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    w[:, :64].mul_(-2.0)
+    got, want = poly_cuda(inp.h, w, MICRO_S, 128, 2), poly_plain(inp.h, w, MICRO_S, 128, 2)
     torch.cuda.synchronize()
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
