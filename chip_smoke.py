@@ -12,8 +12,8 @@ them. In order it:
      ``csrc/frontend_tc.cu``: the two bf16 grades) and the float32-FMA one
      ("fma", ``csrc/frontend.cu``: every grade), against their plain PyTorch
      version at the serving path's shape, B=512 x 128,000 samples, 40 mels,
-     in every precision grade with float32 and bf16 output, plus two "fm"
-     cases; then times the main path's case in turns (plain, fma, tc, tc,
+     in every precision grade with float32 and bf16 output, plus four "fm"
+     cases (the per-window scorer's layout); then times the main path's case in turns (plain, fma, tc, tc,
      fma, plain) and the two-pass grade (fma, tc, tc, fma); the tensor-core
      kernel must be the faster. Before that it counts the tensor-core and
      bulk-copy opcodes in the built library: the tensor-core frontend kernel,
@@ -77,11 +77,21 @@ them. In order it:
      stem's launch must each be the tensor-core kernel's, one of each per
      batch. Its decisions must equal the
      float32 engine's on the same card, on a batch where some clips fire
-     and some do not. Then it times a batch (CUDA events, after warm-up)
-     and prints the realtime factor;
- 10. holds one float32 train step with the bank on the card against the
+     and some do not. Then it times chains of 32 batches through the
+     bench's ``chained_batch_ms`` (each input bumped by the last detections,
+     CUDA events, 3 repeats) and prints the median realtime factor;
+ 10. drives the per-window mega-batch scorer (``fused_trunk=False``) at the
+     same size, 61,952 windows of 41 frames: one bf16 batch between zeroed
+     counters must launch the frontend kernel and the tensor-core stem
+     kernel once each; its posteriors must be (512, 121, 4), finite and sum
+     to 1; its decisions must equal the exact float32 scorer's on a batch
+     where some clips fire and some do not. The stem kernel is held against
+     its plain version on that window batch, chunk by chunk;
+ 11. runs the decision gate ``howl_tpu_torch.tools.validate_tpu_decisions``
+     on the card: every row that runs must be OK;
+ 12. holds one float32 train step with the bank on the card against the
      same step on the CPU (batch 16, the same variables and draws);
- 11. drives the training path: ``make_classification_train_step`` at the
+ 13. drives the training path: ``make_classification_train_step`` at the
      JAX train bench's width (res8 45 maps, batch 1024 x 8,000 samples,
      bf16 compute over float32 masters, VTLP, augmentation, a (512, 32,000)
      noise bank with replace_prob 0.1, AdamW), from seeded numpy variables
@@ -89,10 +99,14 @@ them. In order it:
      mix kernel's count is zeroed before 30 steps and must equal 30 after;
      the loss must be finite and fall; every parameter, conv0 included,
      must get a nonzero gradient; the BatchNorm running stats must move;
-     a float32 step must run and be finite. Then it times the bf16 step
-     with and without the bank, in turns, and the float32 step (CUDA
-     events, 20 steps after warm-up) and prints examples per second;
- 12. prints one JSON line with each of the fifteen kernels' launches, error and times
+     a float32 step must run and be finite. Then it times the bench's three
+     steps (bf16 with and without the bank, float32) in chains of 64, in
+     turns, 3 repeats (``bench.time_train_steps``) and prints the medians;
+ 14. runs the bench, ``howl_tpu_torch.bench.main``, which prints its JSON
+     line (``bench.py``'s keys, each measured key the median of 5 repeats
+     with its spread); every measured key must be finite and positive, the
+     online keys null;
+ 15. prints one JSON line with each of the fifteen kernels' launches, error and times
      beside its plain version's and its bound on this card (the larger of
      its bytes over 3.35 TB/s and its operations over the peak rate of
      their type, both counted from this run's shapes: what the function
@@ -101,8 +115,9 @@ them. In order it:
      one, then the device line last.
 
 ``--profile DIR`` adds a stage breakdown and a ``torch.profiler`` kernel
-table, with the device's idle share, of the bf16 serving batch
-(``DIR/serve_profile.txt``) and of the bf16 noise-bank train step
+table, with the device's idle share, of the bf16 serving batch through the
+fused-trunk scorer (``DIR/serve_profile.txt``) and the per-window scorer
+(``DIR/legacy_profile.txt``), and of the bf16 noise-bank train step
 (``DIR/train_profile.txt``). ``--profile-only DIR`` builds the kernels, writes
 the two profiles and the device line, and runs none of the checks.
 
@@ -120,6 +135,8 @@ import time
 
 import numpy as np
 
+from howl_tpu_torch import bench
+
 BATCH = 512
 CLIP_SECONDS = 8.0
 SAMPLE_RATE = 16000
@@ -131,7 +148,7 @@ TRAIN_WINDOW = 8000
 BANK_SHAPE = (512, 32000)
 REPLACE_PROB = 0.1
 TRAIN_STEPS = 30
-TIMED_STEPS = 20
+SMOKE_REPEATS = 3  # chained timings of the main and train paths (the bench's line takes its own five)
 STUDY_ITERS = 16  # calls per timed repeat of each leg of the two kernel studies
 MICRO_S = 0.25  # the nonzero scalar of the frontend cost study's comparisons
 HBM_MB = 256  # the bandwidth sweep's array, the JAX tool's size
@@ -147,7 +164,7 @@ HBM_PHASE_LIMIT_S = 300  # the sweep phase's watchdog
 HBM_RATE_MARGIN = 1.1
 # published peaks of one H100 SXM at its full power limit (NVIDIA's data sheet)
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_BF16_FLOPS = 989e12  # dense, tensor cores, float32 accumulate
+PEAK_BF16_FLOPS = bench.H100_SXM_BF16_FLOPS  # dense, tensor cores, float32 accumulate
 PEAK_F32_FLOPS = 67e12  # CUDA cores
 
 
@@ -207,7 +224,9 @@ def check_frontend(audio, cfg, zmuv) -> dict:
 
     mean, std = zmuv
     cases = [(g, d, "tm") for g in ("f32", "bf16x2", "bf16") for d in (torch.float32, torch.bfloat16)]
-    cases += [("bf16", torch.float32, "fm"), ("bf16x2", torch.bfloat16, "fm")]
+    # "fm": the per-window scorer's layout ("bf16", bf16 out in the bf16 engine; "f32" in the float32 one)
+    cases += [("bf16", torch.float32, "fm"), ("bf16", torch.bfloat16, "fm"), ("bf16x2", torch.bfloat16, "fm"),
+              ("f32", torch.float32, "fm")]
     errs = {}
     for grade, out_dtype, layout in cases:
         kw = dict(precision=grade, out_dtype=out_dtype, layout=layout)
@@ -743,23 +762,6 @@ def drive_hbm_sweep(dev) -> dict:
     return out
 
 
-def res8_numpy_variables(rng: np.random.Generator, num_labels: int, maps: int = 45) -> dict:
-    """Seeded res8 variables in the JAX package's layout (HWIO convs, (in,
-    out) dense), lecun-normal like flax's initializers, with nonzero
-    BatchNorm running stats."""
-    params, stats = {}, {}
-    for i in range(7):
-        cin = 1 if i == 0 else maps
-        params[f"conv{i}"] = {"kernel": rng.standard_normal((3, 3, cin, maps)) / np.sqrt(9 * cin)}
-    for i in range(1, 7):
-        stats[f"bn{i}"] = {"mean": rng.normal(0.0, 0.1, maps), "var": rng.uniform(0.5, 1.5, maps)}
-    params["output"] = {
-        "kernel": rng.standard_normal((maps, num_labels)) / np.sqrt(maps),
-        "bias": rng.normal(0.0, 0.1, num_labels),
-    }
-    return {"params": params, "batch_stats": stats}
-
-
 def smoke_audio(rng: np.random.Generator, batch: int, samples: int) -> np.ndarray:
     """Half loud tones over noise, half quiet noise: inputs far enough apart
     that a random res8 labels them differently, so some clips fire."""
@@ -806,7 +808,7 @@ def drive_main_path(dev, batch: int, clip_seconds: float) -> dict:
         negative_label=3, num_labels=num_labels, sample_rate=SAMPLE_RATE,
     )
     model = create_model("res8", num_labels=num_labels)
-    state = res8_variables_to_state_dict(res8_numpy_variables(rng, num_labels))
+    state = res8_variables_to_state_dict(bench.res8_numpy_variables(rng, num_labels))
     samples = int(clip_seconds * SAMPLE_RATE)
     audio = torch.from_numpy(smoke_audio(rng, batch, samples)).to(dev)
 
@@ -852,10 +854,104 @@ def drive_main_path(dev, batch: int, clip_seconds: float) -> dict:
     prob_err = float((probs - ref["probs"]).abs().max())
     print(f"bf16 vs f32 engine: decisions equal; max |dprob| = {prob_err:.3e}")
 
-    batch_ms = _cuda_ms(lambda: bf16.infer_batch(audio), iters=10)
+    # the bench's chained timing: each batch's input bumped by the last detections
+    runs = [bench.chained_batch_ms(bf16, audio, bench.CARD.iters) for _ in range(SMOKE_REPEATS)]
+    batch_ms = float(np.median(runs))
     rtf = batch * clip_seconds / (batch_ms / 1000.0)
-    print(f"main path: {batch_ms:.3f} ms per batch of {batch} x {clip_seconds:g} s; realtime factor {rtf:.1f}")
-    return {"launches": launches, "batch_ms": batch_ms, "realtime_factor": rtf}
+    print(f"main path: median {batch_ms:.3f} ms per batch of {batch} x {clip_seconds:g} s over {SMOKE_REPEATS} chains "
+          f"of {bench.CARD.iters} ({', '.join(f'{m:.3f}' for m in runs)}); realtime factor {rtf:.1f}")
+    return {"launches": launches, "batch_ms": batch_ms, "batch_ms_runs": runs, "realtime_factor": rtf}
+
+
+def check_stem_on_windows(mel_tm, taps, chunk: int = 8192) -> float:
+    """The stem kernel on the per-window scorer's (B * n_windows, 41, F)
+    bf16 mels against its plain version, chunk by chunk (the plain version's
+    float32 pre-pool activation of a whole batch would take ~18 GB): one bf16
+    ulp of the output's magnitude."""
+    import torch
+
+    from howl_tpu_torch.ops.stem_cuda import res8_stem_cuda, res8_stem_plain
+
+    got = res8_stem_cuda(mel_tm, taps)
+    err, tol = 0.0, 0.0
+    for lo in range(0, mel_tm.shape[0], chunk):
+        ref = res8_stem_plain(mel_tm[lo : lo + chunk], taps)
+        part = got[lo : lo + chunk]
+        if not bool(torch.isfinite(part.float()).all()):
+            raise AssertionError("the stem kernel wrote a value that is not finite on the window batch")
+        err, tol = max(err, float((part.float() - ref.float()).abs().max())), max(tol, _bf16_ulp(ref))
+    print(f"K2 tc on the window batch {tuple(mel_tm.shape)} -> {tuple(got.shape)}: max_abs_err={err:.3e} tol={tol:.3e}")
+    if not err <= tol:
+        raise AssertionError("the stem kernel disagrees with its plain version on the window batch")
+    return err
+
+
+def drive_legacy_path(dev, batch: int, clip_seconds: float) -> dict:
+    """The per-window mega-batch scorer (``fused_trunk=False``) at the bench's
+    size, bf16 against the exact float32 engine on a batch that splits."""
+    import torch
+
+    from howl_tpu_torch.compat import res8_variables_to_state_dict
+    from howl_tpu_torch.inference import EngineConfig, StreamingEngine
+    from howl_tpu_torch.models import create_model
+    from howl_tpu_torch.ops.frontend import FrontendConfig
+    from howl_tpu_torch.ops.frontend_cuda import log_mel_spectrogram_cuda
+    from howl_tpu_torch.ops.stem_cuda import res8_stem_cuda
+
+    rng = np.random.default_rng(SEED + 6)
+    num_labels = 4
+    frontend = FrontendConfig(n_mels=N_MELS)
+    base_cfg = EngineConfig(
+        inference_sequence=(0, 1, 2), max_window_size_ms=500.0, eval_stride_size_ms=62.5,
+        negative_label=3, num_labels=num_labels, sample_rate=SAMPLE_RATE,
+    )
+    state = res8_variables_to_state_dict(bench.res8_numpy_variables(rng, num_labels))
+    samples = int(clip_seconds * SAMPLE_RATE)
+    audio = torch.from_numpy(smoke_audio(rng, batch, samples)).to(dev)
+
+    def engine(cfg, dtype):
+        return StreamingEngine(create_model("res8", num_labels=num_labels), state, cfg, frontend, zmuv_mean=-6.0,
+                               zmuv_std=4.0, compute_dtype=dtype, fused_trunk=False, frontend_precision="auto",
+                               device=dev)
+
+    cfg = firing_config(engine(base_cfg, None).score_batch(audio)["probs"].cpu().numpy(), base_cfg)
+    f32, bf16 = engine(cfg, None), engine(cfg, torch.bfloat16)
+    ref = f32.infer_batch(audio)
+    for fn in (log_mel_spectrogram_cuda, res8_stem_cuda):
+        fn.launches = fn.launches_tc = 0
+    out = bf16.infer_batch(audio)
+    torch.cuda.synchronize()
+    launches = {"k1": log_mel_spectrogram_cuda.launches, "k1_tc": log_mel_spectrogram_cuda.launches_tc,
+                "k2": res8_stem_cuda.launches, "k2_tc": res8_stem_cuda.launches_tc}
+    print(f"legacy path launches (one bf16 batch): frontend kernel {launches['k1']} ({launches['k1_tc']} the tensor-core "
+          f"kernel), stem kernel {launches['k2']} ({launches['k2_tc']} the tensor-core kernel)")
+    if launches["k1"] < 1 or launches["k2"] != 1 or launches["k2_tc"] != 1:
+        raise AssertionError(f"a bf16 legacy batch must launch the frontend kernel and the tensor-core stem once: {launches}")
+
+    probs, n_win = out["probs"], bf16.n_windows(samples)
+    if tuple(probs.shape) != (batch, n_win, num_labels) or not bool(torch.isfinite(probs).all()):
+        raise AssertionError(f"legacy posteriors of shape {tuple(probs.shape)}, finite={bool(torch.isfinite(probs).all())}")
+    if float((probs.sum(-1) - 1).abs().max()) > 1e-3:
+        raise AssertionError("legacy posteriors do not sum to 1")
+    fired = int(ref["detected"].sum())
+    print(f"legacy f32 engine: {fired}/{batch} clips fire on sequence {cfg.inference_sequence}; {n_win} windows a clip")
+    if not 0 < fired < batch:
+        raise AssertionError("the legacy decision check needs a batch where some clips fire and some do not")
+    for key in ("detected", "first_fire_step", "labels"):
+        if not torch.equal(out[key].cpu(), ref[key].cpu()):
+            diff = int((out[key].cpu() != ref[key].cpu()).sum())
+            raise AssertionError(f"legacy bf16 {key} differ from the legacy f32 engine's in {diff} places")
+    print(f"legacy bf16 vs f32 engine: decisions equal; max |dprob| = {float((probs - ref['probs']).abs().max()):.3e}")
+
+    # the stem kernel on the window batch the bf16 scorer gives it: 41-frame clips, 13 pooled frames in a tile of 24
+    with torch.no_grad():
+        feats = bf16._features(audio, "fm")
+        idx = (torch.arange(n_win, device=dev) * bf16.stride_frames)[:, None] + torch.arange(bf16.window_frames, device=dev)
+        mel_tm = feats[:, :, idx].permute(0, 2, 3, 1).reshape(-1, bf16.window_frames, N_MELS).contiguous()
+        k2_err = check_stem_on_windows(mel_tm, bf16._stem_taps)
+    del feats, mel_tm, out, ref
+    torch.cuda.empty_cache()
+    return {"launches": launches, "fired": fired, "k2_windows_max_abs_err": k2_err}
 
 
 def train_audio(rng: np.random.Generator, batch: int, samples: int):
@@ -873,53 +969,10 @@ def train_audio(rng: np.random.Generator, batch: int, samples: int):
 
 
 def _train_setup(dev):
-    """The slice's configuration: seeded numpy res8 variables, tone data, a
-    seeded (512, 32000) bank on the card, ZMUV fit on the data."""
-    import torch
-
-    from howl_tpu_torch.models import create_model
-    from howl_tpu_torch.ops.augment import AugmentConfig
-    from howl_tpu_torch.ops.frontend import FrontendConfig
-    from howl_tpu_torch.ops.zmuv import fit_zmuv
-    from howl_tpu_torch.training.state import create_train_state
-    from howl_tpu_torch.training.step import StepConfig
-
-    rng = np.random.default_rng(SEED + 3)
-    variables = res8_numpy_variables(rng, 4)
-    audio, labels = train_audio(rng, TRAIN_BATCH, TRAIN_WINDOW)
-    audio, labels = torch.from_numpy(audio).to(dev), torch.from_numpy(labels).to(dev)
-    bank = torch.randn(BANK_SHAPE, generator=torch.Generator(device=dev).manual_seed(SEED + 4), device=dev) * 0.05
-    frontend = FrontendConfig(n_mels=N_MELS)
-    zmuv = fit_zmuv([audio[:256]], frontend)
-    cfg = StepConfig(
-        frontend, zmuv.mean, zmuv.std, augment=AugmentConfig(), use_vtlp=True, replace_prob=REPLACE_PROB,
-        negative_label=3, use_deltas=False,
-    )
-
-    def state_for(dtype):
-        model = create_model("res8", num_labels=4, dtype=dtype)
-        return model, create_train_state(
-            model, 0.01, lr_decay=0.99, steps_per_epoch=100, variables=variables, device=dev
-        )
-
-    return audio, labels, bank, cfg, state_for
-
-
-def _examples_per_sec(step, state, audio, labels) -> tuple[float, float]:
-    """(examples/s, ms per step) over TIMED_STEPS steps after 3 of warm-up."""
-    import torch
-
-    for _ in range(3):
-        step(state, audio, labels, None, SEED)
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(TIMED_STEPS):
-        step(state, audio, labels, None, SEED)
-    end.record()
-    end.synchronize()
-    ms = start.elapsed_time(end) / TIMED_STEPS
-    return audio.shape[0] / (ms / 1000.0), ms
+    """The bench's train configuration (``bench.train_setup``) on tone data
+    whose labels a res8 learns within a few steps."""
+    audio, labels = train_audio(np.random.default_rng(SEED + 3), TRAIN_BATCH, TRAIN_WINDOW)
+    return bench.train_setup(dev, audio, labels, BANK_SHAPE, SEED + 4)
 
 
 def _to(draws, dev):
@@ -947,7 +1000,7 @@ def check_train_step_against_cpu(dev) -> None:
     from howl_tpu_torch.training.step import StepConfig, draw_step, make_classification_train_step
 
     rng = np.random.default_rng(SEED + 5)
-    variables = res8_numpy_variables(rng, 4)
+    variables = bench.res8_numpy_variables(rng, 4)
     audio, labels = (torch.from_numpy(x) for x in train_audio(rng, 16, TRAIN_WINDOW))
     bank = torch.from_numpy((rng.standard_normal((4, 9000)) * 0.05).astype(np.float32))
     cfg = StepConfig(FrontendConfig(n_mels=N_MELS), -0.5, 2.0, augment=AugmentConfig(), replace_prob=0.3,
@@ -1022,27 +1075,69 @@ def drive_train_path(dev) -> dict:
     if not np.isfinite(f32_loss):
         raise AssertionError("the float32 step's loss is not finite")
 
-    # with and without the bank in turns (bank, none, none, bank), so the
-    # two rates share the card's state; each rate is the mean of its turns
-    steps = {"train_noise_examples_per_sec": noise_step,
-             "train_examples_per_sec": make_classification_train_step(model, cfg)}
-    turns = {key: [] for key in steps}
-    for key in (*steps, *reversed(steps)):
-        turns[key].append(_examples_per_sec(steps[key], state, audio, labels))
-    turns["train_examples_per_sec_f32"] = [
-        _examples_per_sec(make_classification_train_step(f32_model, cfg), f32_state, audio, labels)
-    ]
+    # the bench's three steps (bf16 without and with the bank, float32), chains of its 64 steps in turns
+    steps = bench.train_steps(model, f32_model, cfg, bank)
+    states = {key: f32_state if key.endswith("_f32") else state for key in steps}
+    runs = bench.time_train_steps(steps, states, audio, labels, bench.CARD.train_steps, SMOKE_REPEATS)
     rates = {}
-    for key, runs in turns.items():
-        rates[key] = float(np.mean([rate for rate, _ in runs]))
-        ms = ", ".join(f"{m:.3f}" for _, m in runs)
-        print(f"{key}: {rates[key]:.1f} (ms per step of {TRAIN_BATCH} in each turn of {TIMED_STEPS} steps: {ms})")
+    for key, ms in runs.items():
+        per_run = [TRAIN_BATCH / (m / 1000.0) for m in ms]
+        rates[key], rates[f"{key}_spread"] = float(np.median(per_run)), [min(per_run), max(per_run)]
+        print(f"{key}: median {rates[key]:.1f} over {SMOKE_REPEATS} chains of {bench.CARD.train_steps} steps "
+              f"(ms per step of {TRAIN_BATCH}: {', '.join(f'{m:.3f}' for m in ms)})")
     return {"k3_launches": k3, "losses": losses, "eval_accuracy": eval_acc, **rates}
+
+
+def check_bench_record(record: dict) -> None:
+    """The bench's line: every measured key finite and positive with a
+    [min, max] spread around it, the online keys null, the card named."""
+    measured = ("value", "mfu", "legacy_realtime_factor", "train_examples_per_sec", "train_mfu",
+                "train_noise_examples_per_sec", "train_examples_per_sec_f32")
+    for key in measured:
+        value, spread = record[key], record["spread"][key]
+        if value is None or not (np.isfinite(value) and value > 0):
+            raise AssertionError(f"the bench's {key} is {value}")
+        if spread is None or not (np.isfinite(spread).all() and 0 < spread[0] <= spread[1]):
+            raise AssertionError(f"the bench's {key} has the spread {spread}")
+    if not (record["mfu"] < 1 and record["train_mfu"] < 1):
+        raise AssertionError(f"utilizations above the peak: mfu {record['mfu']}, train_mfu {record['train_mfu']}")
+    if any(record[key] is not None for key in bench.ONLINE_KEYS) or not record["device"]:
+        raise AssertionError("the bench's online keys must be null and its device named")
+    print(f"bench: realtime factor {record['value']} (legacy {record['legacy_realtime_factor']}), mfu {record['mfu']}, "
+          f"train {record['train_examples_per_sec']} ex/s (mfu {record['train_mfu']})")
+
+
+def _profile(out_dir, file_name: str, title: str, stages: dict, batch_fn, n_batches: int) -> None:
+    """Each stage's ms (CUDA events, 3 repeats of 10 calls), then a
+    torch.profiler kernel table with the device's idle share over
+    ``n_batches`` calls of ``batch_fn``, into ``out_dir/file_name``."""
+    import torch
+
+    lines = [f"{title}; stage ms (CUDA events, 3 x 10 calls)"]
+    for name, fn in stages.items():
+        times = [_cuda_ms(fn, 10) for _ in range(3)]
+        lines.append(f"  {name}: " + ", ".join(f"{t:.3f}" for t in times))
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_batches):
+            batch_fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1000
+    events = prof.key_averages()
+    busy_us = sum(getattr(e, "self_device_time_total", 0) for e in events if e.device_type == torch.autograd.DeviceType.CUDA)
+    lines.append(f"profiled {n_batches} calls: wall {wall_ms:.3f} ms, device busy {busy_us / 1000:.3f} ms, "
+                 f"idle share {1 - busy_us / 1000 / wall_ms:.3f}")
+    lines.append(events.table(sort_by="self_device_time_total", row_limit=30, max_name_column_width=70))
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / file_name).write_text("\n".join(lines) + "\n")
+    print("\n".join(lines[: len(stages) + 2]), flush=True)
 
 
 def profile_train_step(dev, out_dir) -> None:
     """Stage times (CUDA events) of the bf16 noise-bank train step, and a
-    torch.profiler kernel table over 5 steps, into ``out_dir``."""
+    torch.profiler kernel table over 5 steps, into ``out_dir/train_profile.txt``."""
     import torch
 
     from howl_tpu_torch.ops import augment as aug
@@ -1074,93 +1169,73 @@ def profile_train_step(dev, out_dir) -> None:
         "AdamW update": state.optimizer.step,
         "whole step": lambda: noise_step(state, audio, labels, None, SEED),
     }
-    lines = [f"bf16 noise-bank train step, batch {TRAIN_BATCH} x {TRAIN_WINDOW}; stage ms (CUDA events, 3 x 10 calls)"]
-    for name, fn in stages.items():
-        times = [_cuda_ms(fn, 10) for _ in range(3)]
-        lines.append(f"  {name}: " + ", ".join(f"{t:.3f}" for t in times))
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        for _ in range(5):
-            noise_step(state, audio, labels, None, SEED)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1000
-    events = prof.key_averages()
-    busy_us = sum(getattr(e, "self_device_time_total", 0) for e in events if e.device_type == torch.autograd.DeviceType.CUDA)
-    lines.append(f"profiled 5 steps: wall {wall_ms:.3f} ms, device busy {busy_us / 1000:.3f} ms, "
-                 f"idle share {1 - busy_us / 1000 / wall_ms:.3f}")
-    lines.append(events.table(sort_by="self_device_time_total", row_limit=30, max_name_column_width=70))
-    out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "train_profile.txt").write_text("\n".join(lines) + "\n")
-    print("\n".join(lines[:10]))
+    _profile(out_dir, "train_profile.txt", f"bf16 noise-bank train step, batch {TRAIN_BATCH} x {TRAIN_WINDOW}", stages,
+             lambda: noise_step(state, audio, labels, None, SEED), 5)
 
 
 def profile_serving(dev, out_dir) -> None:
-    """Stage times (CUDA events) of the bf16 serving batch, 512 clips of 8 s,
-    and a torch.profiler kernel table with the device's idle share over 5
-    batches, into ``out_dir/serve_profile.txt``."""
+    """Stage times and a profile of the bf16 serving batch, 512 clips of 8 s,
+    through the fused-trunk scorer (``out_dir/serve_profile.txt``, 5 batches
+    profiled) and the per-window mega-batch scorer
+    (``out_dir/legacy_profile.txt``, 3 batches)."""
     import torch
 
     from howl_tpu_torch.compat import res8_variables_to_state_dict
     from howl_tpu_torch.inference import EngineConfig, StreamingEngine
-    from howl_tpu_torch.inference.detect import _smooth_and_detect_parallel
     from howl_tpu_torch.models import create_model
     from howl_tpu_torch.ops.frontend import FrontendConfig
-    from howl_tpu_torch.ops.frontend_cuda import log_mel_spectrogram_cuda
     from howl_tpu_torch.ops.stem_cuda import res8_stem_cuda
 
     rng = np.random.default_rng(SEED + 1)
     frontend = FrontendConfig(n_mels=N_MELS)
     cfg = EngineConfig(inference_sequence=(0, 1, 2), max_window_size_ms=500.0, eval_stride_size_ms=62.5,
                        negative_label=3, num_labels=4, sample_rate=SAMPLE_RATE)
-    state = res8_variables_to_state_dict(res8_numpy_variables(rng, 4))
+    state = res8_variables_to_state_dict(bench.res8_numpy_variables(rng, 4))
     samples = int(CLIP_SECONDS * SAMPLE_RATE)
     audio = torch.from_numpy(smoke_audio(rng, BATCH, samples)).to(dev)
-    eng = StreamingEngine(create_model("res8", num_labels=4), state, cfg, frontend, zmuv_mean=-6.0, zmuv_std=4.0,
-                          compute_dtype=torch.bfloat16, device=dev)
+    eng, legacy = (StreamingEngine(create_model("res8", num_labels=4), state, cfg, frontend, zmuv_mean=-6.0,
+                                   zmuv_std=4.0, compute_dtype=torch.bfloat16, fused_trunk=fused, device=dev)
+                   for fused in (True, False))
     geom = eng._step_geometry(BATCH, samples)
     lengths = eng._as_lengths(None, BATCH, samples)
-    static_cfg = dataclasses.replace(cfg, inference_threshold=0.0)
+    n_win, wf = geom["n_win"], legacy.window_frames
 
-    def frontend_stage():
-        return log_mel_spectrogram_cuda(audio, frontend, eng.zmuv_mean, eng.zmuv_std, precision=eng.frontend_precision,
-                                        out_dtype=torch.bfloat16, layout="tm")
+    def gather(feats):  # the per-window scorer's (B * n_windows, 1, F, wf) windows
+        idx = (torch.arange(n_win, device=dev) * legacy.stride_frames)[:, None] + torch.arange(wf, device=dev)
+        return feats[:, None][:, :, :, idx].permute(0, 3, 1, 2, 4).reshape(-1, 1, N_MELS, wf)
 
     with torch.no_grad():
-        mel = frontend_stage()
+        mel = eng._features(audio, "tm")
         stem = res8_stem_cuda(mel, eng._stem_taps, eng.model.pooling)
-        probs, valid = eng._score_weight_mask(audio, lengths, geom["n_win"])
-        stages = {
-            "1. frontend (K1)": frontend_stage,
+        probs = eng._score(audio, n_win)
+        _profile(out_dir, "serve_profile.txt", f"bf16 serving batch, fused trunk, {BATCH} x {CLIP_SECONDS:g} s", {
+            "1. frontend (K1)": lambda: eng._features(audio, "tm"),
             "2. stem (K2)": lambda: res8_stem_cuda(mel, eng._stem_taps, eng.model.pooling),
             "3. residual convs + BN": lambda: eng.model.residual_features(stem),
-            "1-4. scoring (_score)": lambda: eng._score(audio, geom["n_win"]),
-            "5. smoothing + FSM alone": lambda: _smooth_and_detect_parallel(
-                probs, valid, cfg.inference_threshold, static_cfg, geom["s_steps"], geom["w_steps"], geom["stride"],
-                geom["check_offset"]),
+            "1-4. scoring (_score)": lambda: eng._score(audio, n_win),
+            "5. smoothing + FSM alone": lambda: eng._decide(probs, lengths, geom),
             "infer_batch": lambda: eng.infer_batch(audio),
-        }
-        lines = [f"bf16 serving batch, {BATCH} x {CLIP_SECONDS:g} s; stage ms (CUDA events, 3 x 10 calls)"]
-        for name, fn in stages.items():
-            times = [_cuda_ms(fn, 10) for _ in range(3)]
-            lines.append(f"  {name}: " + ", ".join(f"{t:.3f}" for t in times))
-        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=activities) as prof:
-            t0 = time.perf_counter()
-            for _ in range(5):
-                eng.infer_batch(audio)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1000
-    events = prof.key_averages()
-    busy_us = sum(getattr(e, "self_device_time_total", 0) for e in events if e.device_type == torch.autograd.DeviceType.CUDA)
-    lines.append(f"profiled 5 batches: wall {wall_ms:.3f} ms, device busy {busy_us / 1000:.3f} ms, "
-                 f"idle share {1 - busy_us / 1000 / wall_ms:.3f}")
-    lines.append(events.table(sort_by="self_device_time_total", row_limit=20, max_name_column_width=70))
-    out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "serve_profile.txt").write_text("\n".join(lines) + "\n")
-    print("\n".join(lines[:8]))
+        }, lambda: eng.infer_batch(audio), 5)
+
+        feats = legacy._features(audio, "fm")
+        windows = gather(feats)
+        w_mel = windows[:, 0].transpose(-1, -2).contiguous()
+        w_stem = res8_stem_cuda(w_mel, legacy._stem_taps, legacy.model.pooling)
+        w_trunk = legacy.model.residual_features(w_stem)
+        w_probs = legacy._score(audio, n_win)
+        _profile(out_dir, "legacy_profile.txt",
+                 f"bf16 serving batch, per-window mega-batch, {BATCH} x {CLIP_SECONDS:g} s, {BATCH * n_win} windows", {
+                     "1. frontend (K1, fm)": lambda: legacy._features(audio, "fm"),
+                     "window gather + flatten": lambda: gather(feats),
+                     "time-major copy of the windows": lambda: windows[:, 0].transpose(-1, -2).contiguous(),
+                     "2. stem (K2) on the windows": lambda: res8_stem_cuda(w_mel, legacy._stem_taps, legacy.model.pooling),
+                     "3. residual convs + BN": lambda: legacy.model.residual_features(w_stem),
+                     "4. mean, head, softmax": lambda: torch.softmax(
+                         legacy.model.head(w_trunk.mean(dim=(1, 2))).float(), -1).reshape(BATCH, n_win, -1),
+                     "1-4. scoring (_score)": lambda: legacy._score(audio, n_win),
+                     "5. smoothing + FSM alone": lambda: legacy._decide(w_probs, lengths, geom),
+                     "infer_batch": lambda: legacy.infer_batch(audio),
+                 }, lambda: legacy.infer_batch(audio), 3)
 
 
 def main() -> int:
@@ -1171,11 +1246,7 @@ def main() -> int:
     from howl_tpu_torch.ops import _build
     from howl_tpu_torch.ops.frontend import FrontendConfig
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    print(smi)
+    print(bench.card_line())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -1215,8 +1286,15 @@ def main() -> int:
     micro = drive_frontend_study(dev)
     sweep = drive_hbm_sweep(dev)
     main_path = drive_main_path(dev, BATCH, CLIP_SECONDS)
+    legacy_path = drive_legacy_path(dev, BATCH, CLIP_SECONDS)
+    k2["max_abs_err_windows"] = legacy_path["k2_windows_max_abs_err"]
+    from howl_tpu_torch.tools import validate_tpu_decisions
+
+    if validate_tpu_decisions.main(["--device", "cuda"]) != 0:
+        raise AssertionError("the decision gate found a mismatch")
     check_train_step_against_cpu(dev)
     train_path = drive_train_path(dev)
+    check_bench_record(bench.main(["--device", "cuda"]))
     if "--profile" in sys.argv[1:]:
         from pathlib import Path
 

@@ -1,0 +1,413 @@
+"""The port's benchmark: batched res8 wake-word scoring and the res8 train
+step on one NVIDIA GPU (counterpart of the JAX package's ``bench.py``).
+
+    python -m howl_tpu_torch.bench [--device cuda|cpu] [--repeats R] [--seed S]
+
+Prints ONE JSON line with ``bench.py``'s keys, measured on the card:
+
+  * ``value``: the realtime factor of offline scoring, seconds of audio per
+    second, of ``StreamingEngine.infer_batch`` on 512 clips of 8 s in bf16
+    with the fused trunk (the frontend kernel K1 at its "bf16" grade, the
+    stem kernel K2, cuDNN's residual convs), decisions included;
+    ``vs_baseline`` is value / 1000, ``bench.py``'s north star;
+  * ``mfu``: the analytic FLOPs of that path (:func:`path_flops_per_clip`)
+    over the time and the card's dense bf16 peak (:func:`peak_bf16_flops`);
+    ``null`` on a card with no peak on record;
+  * ``legacy_realtime_factor``: the same batch through the per-window
+    mega-batch scorer (``fused_trunk=False``);
+  * ``train_examples_per_sec`` / ``train_mfu``: the bf16 res8 train step over
+    float32 masters at batch 1024 x 8,000 samples (VTLP, augmentation,
+    AdamW); ``train_noise_examples_per_sec`` the same step mixing from a
+    (512, 32000) noise bank (the kernel K3) with replace_prob 0.1;
+    ``train_examples_per_sec_f32`` the float32 step;
+  * the seven online keys: ``null`` until the online engines are ported
+    (ROADMAP Queue 1, item 9);
+
+and three keys of its own: ``spread``, the [min, max] of each measured key
+over the repeats; ``rungs``, what ran (each kernel's route, grade and
+launches per batch or step); ``device``, the card's ``nvidia-smi`` name and
+power limit. Each measured key is the median over ``--repeats`` (5)
+repeats, the headline and the legacy scorer (then the three train steps) in
+turns.
+
+Method: as in ``bench.py``, iterations are chained: after each batch the
+detections' sum times 1e-30 is added in place to ``audio[0, 0]``, so each
+input depends on the last decisions; a train step depends on the last
+through the state. A chain of 32 batches (8 for the legacy scorer; 64 train
+steps) is timed by CUDA events after a warm-up, audio already on the card.
+Float32 products and convolutions run in full float32 (TF32 off).
+
+Weights are random from the seed: numpy variables in the JAX package's
+layout carried across by ``compat.res8_variables_to_state_dict``, so the
+JAX engine can run the same weights. Audio is seeded noise.
+
+``--device cpu`` runs ``bench.py``'s CPU sizes (batch 4 x 2 s, 2 batches a
+chain, train batch 8, 2 steps, a (4, 2048) bank) on the kernels' plain
+versions, with the card's dtypes and scorers; ``mfu`` and ``train_mfu`` are
+0.0 there, as ``bench.py`` gives them off the accelerator. Without
+``--device cpu`` and without a card it raises.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+SAMPLE_RATE = 16000
+N_MELS = 40
+NUM_LABELS = 4
+TRAIN_WINDOW = 8000
+REPLACE_PROB = 0.1
+ONLINE_KEYS = (
+    "online_streams_per_chip", "online_streams_full_window", "online_step_latency_ms",
+    "online_streams_per_chip_trunk", "online_step_latency_ms_trunk", "online_streams_per_chip_trunk_blocked",
+    "online_step_latency_ms_trunk_blocked",
+)
+NOT_PORTED_INT8 = "not ported (ROADMAP Queue 1, item 10)"
+# dense bf16 with float32 sums, from NVIDIA's data sheet, at the full 700 W
+H100_SXM_BF16_FLOPS = 989e12
+_BF16_PEAKS = (("H100 80GB HBM3", H100_SXM_BF16_FLOPS), ("H100 SXM", H100_SXM_BF16_FLOPS))
+
+
+class Sizes(NamedTuple):
+    batch: int
+    clip_seconds: float
+    iters: int  # batches in a timed chain of the headline engine
+    legacy_iters: int  # of the per-window scorer
+    train_batch: int
+    train_steps: int  # steps in a timed chain
+    bank_shape: tuple
+
+
+CARD = Sizes(512, 8.0, 32, 8, 1024, 64, (512, 32000))
+CPU = Sizes(4, 2.0, 2, 1, 8, 2, (4, 2048))  # bench.py's CPU sizes
+
+
+def peak_bf16_flops(device_name: str) -> Optional[float]:
+    """The card's dense bf16 peak in FLOP/s by the name
+    ``torch.cuda.get_device_name`` gives, or None for a card not on record."""
+    return next((peak for part, peak in _BF16_PEAKS if part in device_name), None)
+
+
+def path_flops_per_clip(clip_samples: int, engine, num_labels: int, maps=45):
+    """Analytic FLOPs (2*MACs) of one clip through the fused serving path,
+    with the window/stride/frontend geometry taken from the constructed
+    engine (``bench.py``'s count, term for term)."""
+    fe = engine.frontend
+    frames = fe.num_frames(clip_samples)
+    frontend = frames * (2 * fe.n_fft * fe.n_freqs + fe.n_freqs * fe.n_mels)
+    conv0 = frames * fe.n_mels * maps * 9  # in-ch 1
+    pooled = frames // engine.model.pooling[0]
+    trunk = pooled * (fe.n_mels // engine.model.pooling[1]) * maps * maps * 9 * 6
+    head = engine.n_windows(clip_samples) * maps * num_labels
+    return 2 * (frontend + conv0 + trunk + head)
+
+
+def train_flops_per_example(window_samples: int, frontend, maps=45, num_labels=4, pool=(3, 4)):
+    """Analytic train-step FLOPs per example: the forward work of the VTLP
+    frontend + res8 + head, times 3 for the backward (``bench.py``'s count,
+    term for term)."""
+    frames = frontend.num_frames(window_samples)
+    fe = frames * (2 * frontend.n_fft * frontend.n_freqs + frontend.n_freqs * frontend.n_mels)
+    conv0 = frames * frontend.n_mels * maps * 9
+    trunk = (frames // pool[0]) * (frontend.n_mels // pool[1]) * maps * maps * 9 * 6
+    head = maps * num_labels
+    return 3 * 2 * (fe + conv0 + trunk + head)
+
+
+def res8_numpy_variables(rng: np.random.Generator, num_labels: int, maps: int = 45) -> dict:
+    """Seeded res8 variables in the JAX package's layout (HWIO convs, (in,
+    out) dense), lecun-normal like flax's initializers, with nonzero
+    BatchNorm running stats."""
+    params, stats = {}, {}
+    for i in range(7):
+        cin = 1 if i == 0 else maps
+        params[f"conv{i}"] = {"kernel": rng.standard_normal((3, 3, cin, maps)) / np.sqrt(9 * cin)}
+    for i in range(1, 7):
+        stats[f"bn{i}"] = {"mean": rng.normal(0.0, 0.1, maps), "var": rng.uniform(0.5, 1.5, maps)}
+    params["output"] = {
+        "kernel": rng.standard_normal((maps, num_labels)) / np.sqrt(maps),
+        "bias": rng.normal(0.0, 0.1, num_labels),
+    }
+    return {"params": params, "batch_stats": stats}
+
+
+def card_line() -> str:
+    """``nvidia-smi``'s name and power limit of the first card."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+# ---- serving ----
+
+
+def serving_config():
+    """``bench.py``'s engine configuration: res8, 4 labels, 500 ms windows
+    every 62.5 ms."""
+    from howl_tpu_torch.inference import EngineConfig
+
+    return EngineConfig(
+        inference_sequence=(0, 1, 2), max_window_size_ms=500.0, eval_stride_size_ms=62.5,
+        negative_label=3, num_labels=NUM_LABELS, sample_rate=SAMPLE_RATE,
+    )
+
+
+def serving_engines(dev, state_dict):
+    """(headline, legacy): the bf16 fused-trunk engine and the bf16
+    per-window mega-batch engine on the same weights, both at the engines'
+    default frontend grade ("bf16"), ZMUV 0 / 1 as ``bench.py`` serves."""
+    from howl_tpu_torch.inference import StreamingEngine
+    from howl_tpu_torch.models import create_model
+    from howl_tpu_torch.ops.frontend import FrontendConfig
+
+    cfg, frontend = serving_config(), FrontendConfig(n_mels=N_MELS)
+    return tuple(
+        StreamingEngine(create_model("res8", num_labels=NUM_LABELS), state_dict, cfg, frontend, 0.0, 1.0,
+                        compute_dtype=torch.bfloat16, fused_trunk=fused, device=dev)
+        for fused in (True, False)
+    )
+
+
+def chained_batch_ms(engine, audio: torch.Tensor, n_iters: int) -> float:
+    """Milliseconds per batch of a chain of ``n_iters`` ``infer_batch``
+    calls, each input bumped in place by the last detections (CUDA events
+    on a card, the host clock on the CPU)."""
+    from howl_tpu_torch.tools._study import chain_ms
+
+    def chain():
+        for _ in range(n_iters):
+            out = engine.infer_batch(audio)
+            audio[:1, :1] += out["detected"].sum().float() * 1e-30
+
+    return chain_ms(chain, audio.device) / n_iters
+
+
+def _scorer_rung(engine, audio: torch.Tensor) -> dict:
+    """What one batch of ``engine`` runs, read from the launch counters
+    around it on a card (the plain versions on the CPU count nothing)."""
+    from howl_tpu_torch.ops.frontend_cuda import frontend_grade, frontend_route, log_mel_spectrogram_cuda
+    from howl_tpu_torch.ops.stem_cuda import res8_stem_cuda, stem_route
+
+    on_card = audio.device.type == "cuda"
+    counters = (log_mel_spectrogram_cuda, res8_stem_cuda)
+    for fn in counters:
+        fn.launches = fn.launches_tc = 0
+    engine.infer_batch(audio)
+    if on_card:
+        torch.cuda.synchronize(audio.device)
+    grade, dtype = frontend_grade(engine.frontend_precision), engine.compute_dtype or torch.float32
+    return {
+        "scorer": "fused trunk" if engine.fused_trunk else "per-window mega-batch",
+        "compute_dtype": str(dtype).replace("torch.", ""),
+        "frontend": {"kernel": "K1", "route": frontend_route(engine.frontend, grade) if on_card else "plain",
+                     "grade": grade, "layout": "tm" if engine.fused_trunk else "fm",
+                     "launches_per_batch": log_mel_spectrogram_cuda.launches},
+        "stem": {"kernel": "K2", "route": stem_route(dtype, engine.frontend.n_mels, engine.model.num_maps,
+                                                     engine.model.pooling) if on_card else "plain",
+                 "launches_per_batch": res8_stem_cuda.launches},
+        "residual_convs": "cuDNN (F.conv2d)" if on_card else "F.conv2d",
+    }
+
+
+def bench_serving(dev, sizes: Sizes, repeats: int, seed: int) -> dict:
+    """{"batch_ms", "legacy_batch_ms": one value per repeat, "rungs",
+    "flops_per_batch", "audio_seconds"}."""
+    from howl_tpu_torch.compat import res8_variables_to_state_dict
+
+    rng = np.random.default_rng(seed)
+    state = res8_variables_to_state_dict(res8_numpy_variables(rng, NUM_LABELS))
+    clip_samples = int(sizes.clip_seconds * SAMPLE_RATE)
+    audio = torch.from_numpy((rng.standard_normal((sizes.batch, clip_samples)) * 0.1).astype(np.float32)).to(dev)
+    engine, legacy = serving_engines(dev, state)
+    # one batch each, untimed: the warm-up, and what ran
+    rungs = {"headline": _scorer_rung(engine, audio), "legacy": _scorer_rung(legacy, audio)}
+    runs = {"batch_ms": [], "legacy_batch_ms": []}
+    for _ in range(repeats):
+        runs["batch_ms"].append(chained_batch_ms(engine, audio, sizes.iters))
+        runs["legacy_batch_ms"].append(chained_batch_ms(legacy, audio, sizes.legacy_iters))
+    return {**runs, "rungs": rungs, "audio_seconds": sizes.batch * sizes.clip_seconds,
+            "flops_per_batch": path_flops_per_clip(clip_samples, engine, NUM_LABELS) * sizes.batch}
+
+
+# ---- training ----
+
+
+def train_setup(dev, audio: np.ndarray, labels: np.ndarray, bank_shape: Optional[tuple], seed: int):
+    """The train bench's configuration on ``audio`` and ``labels`` (numpy):
+    seeded numpy res8 variables, a seeded noise bank on the device (None
+    for ``bank_shape=None``), ZMUV fit
+    on the first 256 clips, 40 mels, VTLP, default augmentation,
+    replace_prob 0.1 (it acts only with the bank). Returns (audio, labels,
+    bank, cfg, state_for), ``state_for(dtype)`` giving a fresh (model,
+    AdamW state) at that compute dtype over float32 masters."""
+    from howl_tpu_torch.models import create_model
+    from howl_tpu_torch.ops.augment import AugmentConfig
+    from howl_tpu_torch.ops.frontend import FrontendConfig
+    from howl_tpu_torch.ops.zmuv import fit_zmuv
+    from howl_tpu_torch.training.state import create_train_state
+    from howl_tpu_torch.training.step import StepConfig
+
+    variables = res8_numpy_variables(np.random.default_rng(seed), NUM_LABELS)
+    audio, labels = torch.from_numpy(audio).to(dev), torch.from_numpy(labels).to(dev)
+    bank = None
+    if bank_shape is not None:
+        bank = torch.randn(bank_shape, generator=torch.Generator(device=dev).manual_seed(seed + 1), device=dev) * 0.05
+    frontend = FrontendConfig(n_mels=N_MELS)
+    zmuv = fit_zmuv([audio[:256]], frontend)
+    cfg = StepConfig(
+        frontend, zmuv.mean, zmuv.std, augment=AugmentConfig(), use_vtlp=True, replace_prob=REPLACE_PROB,
+        negative_label=3, use_deltas=False,
+    )
+
+    def state_for(dtype):
+        model = create_model("res8", num_labels=NUM_LABELS, dtype=dtype)
+        return model, create_train_state(
+            model, 0.01, lr_decay=0.99, steps_per_epoch=100, variables=variables, device=dev
+        )
+
+    return audio, labels, bank, cfg, state_for
+
+
+def chained_step_ms(step, state, audio: torch.Tensor, labels: torch.Tensor, n_steps: int) -> float:
+    """Milliseconds per step of a chain of ``n_steps`` train steps through
+    ``state`` (CUDA events on a card, the host clock on the CPU)."""
+    from howl_tpu_torch.tools._study import chain_ms
+
+    def chain():
+        for _ in range(n_steps):
+            step(state, audio, labels, None, 0)  # the step's draws follow (0, state.step)
+
+    return chain_ms(chain, audio.device) / n_steps
+
+
+def train_steps(model, f32_model, cfg, bank) -> dict:
+    """The three timed steps by the key of the rate each gives."""
+    from howl_tpu_torch.training.step import make_classification_train_step
+
+    return {
+        "train_examples_per_sec": make_classification_train_step(model, cfg),
+        "train_noise_examples_per_sec": make_classification_train_step(model, cfg, bank),
+        "train_examples_per_sec_f32": make_classification_train_step(f32_model, cfg),
+    }
+
+
+def time_train_steps(steps: dict, states: dict, audio, labels, n_steps: int, repeats: int) -> dict:
+    """{key: ms per step, one value per repeat}: each step warmed with one
+    step, then chains of ``n_steps`` in turns, the order reversed on every
+    other repeat."""
+    for key, step in steps.items():
+        step(states[key], audio, labels, None, 0)
+    runs = {key: [] for key in steps}
+    for r in range(repeats):
+        for key in (list(steps) if r % 2 == 0 else list(reversed(steps))):
+            runs[key].append(chained_step_ms(steps[key], states[key], audio, labels, n_steps))
+    return runs
+
+
+def bench_train_step(dev, sizes: Sizes, repeats: int, seed: int) -> dict:
+    """{rate key: ms per step, one value per repeat} for the three train
+    steps on seeded noise with random labels, as ``bench.py`` trains."""
+    rng = np.random.default_rng(seed + 2)
+    audio = (rng.standard_normal((sizes.train_batch, TRAIN_WINDOW)) * 0.1).astype(np.float32)
+    labels = rng.integers(0, NUM_LABELS, sizes.train_batch)
+    audio, labels, bank, cfg, state_for = train_setup(dev, audio, labels, sizes.bank_shape, seed + 3)
+    (model, state), (f32_model, f32_state) = state_for(torch.bfloat16), state_for(None)
+    steps = train_steps(model, f32_model, cfg, bank)
+    states = {key: f32_state if key.endswith("_f32") else state for key in steps}
+    return time_train_steps(steps, states, audio, labels, sizes.train_steps, repeats)
+
+
+# ---- the record ----
+
+
+def make_record(serve: dict, train: dict, sizes: Sizes, on_card: bool, peak: Optional[float], mix_launches_per_step,
+                device: Optional[str]) -> dict:
+    """The bench's record from the serving and train timings (one value per
+    repeat each): every measured key the median over the repeats, rounded as
+    ``bench.py`` rounds it, with its [min, max] under ``spread``. ``mfu`` and
+    ``train_mfu`` are 0.0 off the card, as ``bench.py`` gives them, and null
+    on a card with no ``peak``."""
+    from howl_tpu_torch.ops.frontend import FrontendConfig
+
+    train_flops = train_flops_per_example(TRAIN_WINDOW, FrontendConfig(n_mels=N_MELS))
+
+    def util(flops_per_s):
+        return (flops_per_s / peak if peak else None) if on_card else 0.0
+
+    per_repeat = {
+        "value": [serve["audio_seconds"] / (ms / 1e3) for ms in serve["batch_ms"]],
+        "mfu": [util(serve["flops_per_batch"] / (ms / 1e3)) for ms in serve["batch_ms"]],
+        "legacy_realtime_factor": [serve["audio_seconds"] / (ms / 1e3) for ms in serve["legacy_batch_ms"]],
+        **{key: [sizes.train_batch / (ms / 1e3) for ms in runs] for key, runs in train.items()},
+    }
+    per_repeat["train_mfu"] = [util(train_flops * rate) for rate in per_repeat["train_examples_per_sec"]]
+    med, spread = {}, {}
+    for key, values in per_repeat.items():
+        measured = None not in values
+        med[key] = statistics.median(values) if measured else None
+        spread[key] = [min(values), max(values)] if measured else None
+    digits = {"mfu": 4, "train_mfu": 4}
+    out = {key: None if value is None else round(value, digits.get(key, 1)) for key, value in med.items()}
+    rungs = {**serve["rungs"], "int8": NOT_PORTED_INT8, "online": "not ported (ROADMAP Queue 1, item 9)",
+             "train": {"noise_bank_mix": {"kernel": "K3", "route": "cuda" if on_card else "plain",
+                                          "launches_per_step": mix_launches_per_step},
+                       "frontend": "VTLP log-mel in float32 (torch)", "model": "cuDNN (F.conv2d)" if on_card else "F.conv2d"}}
+    return {
+        "metric": "mel_res8_streaming_realtime_factor",
+        "value": out["value"],
+        "unit": f"x_realtime_per_{'gpu' if on_card else 'cpu'}_chip",
+        "vs_baseline": round(med["value"] / 1000.0, 3),
+        "mfu": out["mfu"],
+        "legacy_realtime_factor": out["legacy_realtime_factor"],
+        **dict.fromkeys(ONLINE_KEYS),
+        "train_examples_per_sec": out["train_examples_per_sec"],
+        "train_mfu": out["train_mfu"],
+        "train_noise_examples_per_sec": out["train_noise_examples_per_sec"],
+        "train_examples_per_sec_f32": out["train_examples_per_sec_f32"],
+        "spread": spread,
+        "rungs": rungs,
+        "device": device,
+    }
+
+
+def run(dev, sizes: Sizes, repeats: int, seed: int) -> dict:
+    """Measure and return the bench's record (see the module's docstring)."""
+    from howl_tpu_torch.ops.augment_cuda import mix_noise_bank_cuda
+
+    on_card = dev.type == "cuda"
+    peak = peak_bf16_flops(torch.cuda.get_device_name(dev)) if on_card else None
+    if on_card and peak is None:
+        print(f"mfu, train_mfu: null: no bf16 peak on record for {torch.cuda.get_device_name(dev)!r}", file=sys.stderr)
+    serve = bench_serving(dev, sizes, repeats, seed)
+    mix_noise_bank_cuda.launches = 0
+    train = bench_train_step(dev, sizes, repeats, seed)
+    noise_steps = 1 + repeats * sizes.train_steps  # the warm-up and the chains
+    return make_record(serve, train, sizes, on_card, peak, mix_noise_bank_cuda.launches / noise_steps,
+                       card_line() if on_card else None)
+
+
+def main(argv=None) -> dict:
+    from howl_tpu_torch.tools._study import device_parser, pick_device
+
+    p = device_parser(__doc__)
+    p.add_argument("--repeats", type=int, default=5)
+    p.add_argument("--seed", type=int, default=0)
+    args = p.parse_args(argv)
+    dev = pick_device(args.device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    record = run(dev, CARD if dev.type == "cuda" else CPU, args.repeats, args.seed)
+    print(json.dumps(record), flush=True)
+    return record
+
+
+if __name__ == "__main__":
+    main()

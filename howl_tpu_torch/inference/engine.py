@@ -1,7 +1,8 @@
 """Batched offline wake-word scoring (counterpart of
-``howl_tpu/inference/engine.py``'s ``StreamingEngine``, fused-trunk res8).
+``howl_tpu/inference/engine.py``'s ``StreamingEngine`` for res8).
 
-A batch of clips is scored in five stages, each over the whole batch:
+A batch of clips is scored in five stages, each over the whole batch, by
+the fused-trunk scorer (the default):
 
   1. audio -> ZMUV'd time-major log-mels: ``ops/frontend_cuda.py`` (kernel:
      on the tensor cores for the bf16 engine, float32 FMA for the float32
@@ -13,9 +14,17 @@ A batch of clips is scored in five stages, each over the whole batch:
   5. smoothing and the sequence FSM (``inference/detect.py``).
 
 The trunk runs once over each whole clip and every sliding window's logits
-come from window means of its output, as in the JAX package. On a CUDA
-device stages 1 and 2 always launch the hand-written kernels; on the CPU the
-same functions run their plain PyTorch versions.
+come from window means of its output, as in the JAX package.
+
+``fused_trunk=False`` is the per-window mega-batch scorer instead: the
+frontend writes feature-major mels (B, 1, F, T), every 41-frame window is
+gathered at the window stride, and the (B * n_windows, 1, F, 41) windows go
+through the whole res8 (its stem kernel included) as one batch (in chunks of
+``WINDOW_CHUNK`` windows past the stem kernel's grid), into a float32
+softmax. Stage 5 is shared.
+
+On a CUDA device the frontend and the stem always launch the hand-written
+kernels; on the CPU the same functions run their plain PyTorch versions.
 
 Deviations from the reference that the JAX package documents hold here too:
 windows are cut from clip-level mel frames, and the window stride is
@@ -47,6 +56,11 @@ from howl_tpu_torch.models.base import ModelSpec, model_spec
 from howl_tpu_torch.ops.frontend import FrontendConfig
 from howl_tpu_torch.ops.frontend_cuda import log_mel_spectrogram_cuda
 from howl_tpu_torch.ops.stem_cuda import res8_stem_cuda
+
+
+# the per-window scorer runs its windows through the model in chunks of at
+# most this many: the stem kernel's grid holds 65,535 clips
+WINDOW_CHUNK = 65535
 
 
 def _not_ported(what: str, item: str):
@@ -84,23 +98,27 @@ class StreamingEngine:
         for float32 serving and "bf16" for bf16) and writes its mels in the
         compute dtype.
 
+        ``fused_trunk`` (None or True: the fused-trunk scorer; False: the
+        per-window mega-batch scorer) picks the scorer; see the module's
+        docstring.
+
         ``device`` is where the engine runs: the card unless the caller
         passes ``"cpu"``. A CUDA device that does not exist raises; the
         engine never falls back to the CPU.
         """
         self.spec = spec or model_spec(getattr(model, "registered_name", "res8"))
         if not self.spec.supports_trunk:
-            raise _not_ported(f"scoring model {self.spec.name!r}", "item 8 (non-trunk scorers)")
-        if fused_trunk is not None and not fused_trunk:
-            raise _not_ported("fused_trunk=False (the per-window mega-batch scorer)", "item 8")
+            # res8's fused and per-window scorers are ported; the other models' wait
+            raise _not_ported(f"scoring model {self.spec.name!r}", "item 8 (the non-res8 scorers)")
         if carry_windows:
-            raise _not_ported("carry_windows (recurrent window carry)", "item 8")
+            raise _not_ported("carry_windows (the recurrent scorers' window carry)", "item 8")
         if use_int8_trunk:
             raise _not_ported("use_int8_trunk (the int8 residual stack)", "item 10")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {device!r} requested but CUDA is not available")
         self.compute_dtype = compute_dtype
+        self.fused_trunk = fused_trunk is None or bool(fused_trunk)
         self.cfg = cfg
         self.frontend = frontend
         self.zmuv_mean = float(zmuv_mean)
@@ -132,22 +150,25 @@ class StreamingEngine:
 
     # ---- scoring ----
 
+    def _features(self, audio: torch.Tensor, layout: str) -> torch.Tensor:
+        """(B, samples) audio -> ZMUV'd log-mels in the compute dtype:
+        (B, T, F) for ``layout="tm"``, (B, F, T) for ``"fm"``."""
+        return log_mel_spectrogram_cuda(
+            audio, self.frontend, self.zmuv_mean, self.zmuv_std,
+            precision=self.frontend_precision, out_dtype=self.compute_dtype or torch.float32, layout=layout,
+        )
+
     def _pooled_stem(self, audio: torch.Tensor) -> torch.Tensor:
         """(B, samples) audio -> (B, T', F', maps) pooled stem activations:
         the frontend in time-major layout straight into the stem."""
-        mel_tm = log_mel_spectrogram_cuda(
-            audio, self.frontend, self.zmuv_mean, self.zmuv_std,
-            precision=self.frontend_precision, out_dtype=self.compute_dtype or torch.float32,
-            layout="tm",
-        )
-        return res8_stem_cuda(mel_tm, self._stem_taps, self.model.pooling)
+        return res8_stem_cuda(self._features(audio, "tm"), self._stem_taps, self.model.pooling)
 
-    @torch.no_grad()
-    def _score(self, audio: torch.Tensor, n_windows: int) -> torch.Tensor:
-        """(B, samples) -> (B, n_windows, L) posteriors."""
+    def _window_posteriors(self, trunk: torch.Tensor, n_windows: int) -> torch.Tensor:
+        """(B, T', F', maps) clip-level trunk output -> (B, n_windows, L)
+        posteriors: the frequency mean, window means by cumsum over pooled
+        frames, the head and a float32 softmax."""
         pool_t = self.model.pooling[0]
         span = max(self.window_frames // pool_t, 1)
-        trunk = self.model.residual_features(self._pooled_stem(audio))
         # float32 before the cumsum: bf16 running sums over long clips would
         # leak precision into every window mean
         tf = trunk.float().mean(dim=2)  # (B, T', maps)
@@ -160,6 +181,25 @@ class StreamingEngine:
         starts = torch.from_numpy(starts.astype(np.int64)).to(tf.device)
         wmean = (csum[:, starts + eff] - csum[:, starts]) / eff  # (B, n_windows, maps)
         return torch.softmax(self.model.head(wmean), dim=-1)
+
+    def _score_windows(self, audio: torch.Tensor, n_windows: int) -> torch.Tensor:
+        """The per-window mega-batch scorer: (B, samples) -> (B, n_windows, L)."""
+        feats = self._features(audio, "fm")[:, None]  # (B, 1, F, T)
+        b, c, f, _ = feats.shape
+        wf = self.window_frames
+        starts = torch.arange(n_windows, device=feats.device) * self.stride_frames
+        idx = starts[:, None] + torch.arange(wf, device=feats.device)[None, :]  # (n_windows, wf)
+        windows = feats[:, :, :, idx].permute(0, 3, 1, 2, 4)  # (B, n_windows, C, F, wf)
+        flat = windows.reshape(b * n_windows, c, f, wf)
+        logits = torch.cat([self.model(chunk) for chunk in flat.split(WINDOW_CHUNK)])
+        return torch.softmax(logits.float(), dim=-1).reshape(b, n_windows, -1)
+
+    @torch.no_grad()
+    def _score(self, audio: torch.Tensor, n_windows: int) -> torch.Tensor:
+        """(B, samples) -> (B, n_windows, L) posteriors."""
+        if not self.fused_trunk:
+            return self._score_windows(audio, n_windows)
+        return self._window_posteriors(self.model.residual_features(self._pooled_stem(audio)), n_windows)
 
     def n_windows(self, num_samples: int) -> int:
         total_frames = self.frontend.num_frames(num_samples)
@@ -212,10 +252,20 @@ class StreamingEngine:
         )
         return (lengths[:, None] - win_start) >= self.window_samples
 
-    def _score_weight_mask(self, audio, lengths, n_windows):
-        """Posteriors with inference weights applied, and the validity mask."""
-        probs = apply_inference_weights(self._score(audio, n_windows), self.cfg)
-        return probs, self._valid_mask(lengths, probs.shape[1])
+    def _decide(self, probs: torch.Tensor, lengths: torch.Tensor, geom: dict, threshold=None) -> dict:
+        """Stage 5 of ``infer_batch`` on the scorer's (B, T, L) posteriors:
+        inference weights, the validity mask, smoothing and the FSM."""
+        probs = apply_inference_weights(probs, self.cfg)
+        valid = self._valid_mask(lengths, probs.shape[1])
+        thr = self.cfg.inference_threshold if threshold is None else float(threshold)
+        static_cfg = dataclasses.replace(self.cfg, inference_threshold=0.0)
+        out = _smooth_and_detect_parallel(
+            probs, valid, thr, static_cfg,
+            geom["s_steps"], geom["w_steps"], geom["stride"], geom["check_offset"],
+        )
+        out["probs"] = probs
+        out["times_ms"] = geom["times"]
+        return out
 
     # ---- public API ----
 
@@ -260,16 +310,7 @@ class StreamingEngine:
         batch, num_samples = audio.shape
         geom = self._step_geometry(batch, num_samples)
         lengths = self._as_lengths(lengths, batch, num_samples)
-        thr = self.cfg.inference_threshold if threshold is None else float(threshold)
-        probs, valid = self._score_weight_mask(audio, lengths, geom["n_win"])
-        static_cfg = dataclasses.replace(self.cfg, inference_threshold=0.0)
-        out = _smooth_and_detect_parallel(
-            probs, valid, thr, static_cfg,
-            geom["s_steps"], geom["w_steps"], geom["stride"], geom["check_offset"],
-        )
-        out["probs"] = probs
-        out["times_ms"] = geom["times"]
-        return out
+        return self._decide(self._score(audio, geom["n_win"]), lengths, geom, threshold)
 
     def infer(self, audio) -> bool:
         """Single-clip convenience: True when the clip fires."""

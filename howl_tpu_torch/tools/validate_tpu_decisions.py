@@ -1,0 +1,121 @@
+"""The hardware decision gate: the port's fast serving engines against its
+exact engine, on the card (counterpart of ``tools/validate_tpu_decisions.py``).
+
+    python -m howl_tpu_torch.tools.validate_tpu_decisions [--device cuda]
+
+CPU tests cannot run the CUDA kernels, so this is their decision-level
+check: each row scores the same clips (16 x 4 s of seeded noise, threshold
+0.35, the JAX tool's setup) with an exact engine and a fast one and
+compares detections, first-fire steps and per-step labels. A row is OK when
+the detections and the first-fire steps are equal and at least 99 % of the
+labels agree.
+
+The exact engine is res8 in float32 with the frontend at its "f32" grade
+(the float32 products, ``csrc/frontend.cu`` on the card). It is not the JAX
+tool's three-pass bf16 grade: that grade has no kernel in the port yet
+(ROADMAP F11), so its row prints as not ported. The rows that run:
+
+    res8+k1[bf16]+k2      the bf16 serving engine: the frontend kernel at
+                          "bf16" ("tc", ``csrc/frontend_tc.cu``) and the
+                          stem kernel ("tc", ``csrc/stem_tc.cu``), the
+                          bench's headline;
+    res8+k1[bf16x2]+k2    the same with the frontend at "bf16x2";
+    res8 legacy[bf16]     the per-window mega-batch scorer in bf16 against
+                          the same scorer in float32.
+
+Rows the port cannot run yet print ``not ported (ROADMAP ...)`` and count
+as neither OK nor a mismatch: the three-pass grade, ``+int8`` (item 10),
+the online, trunk and full-window engines (item 9) and the other model
+families (item 8).
+
+It runs on the card: with ``--device cuda`` (the default) and no CUDA
+device it raises. ``--device cpu`` runs the plain versions at 4 clips of
+2 s. ``main`` returns the exit code: 0 when every row that ran is OK.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import sys
+
+import numpy as np
+import torch
+
+from howl_tpu_torch.tools._study import CPU_SIZE, device_parser, pick_device
+
+FAMILIES = ("small-cnn", "lstm", "gru", "las", "mobilenet")
+THRESHOLD = 0.35
+CARD_SIZE = (16, 4.0)  # clips, seconds: the JAX tool's
+
+
+def compare(exact_out: dict, fast_out: dict) -> dict:
+    """The JAX tool's rule: detections equal, first-fire steps equal, label
+    agreement at least 0.99."""
+    det_eq = torch.equal(exact_out["detected"].cpu(), fast_out["detected"].cpu())
+    fire_eq = torch.equal(exact_out["first_fire_step"].cpu(), fast_out["first_fire_step"].cpu())
+    lab_frac = float((exact_out["labels"].cpu() == fast_out["labels"].cpu()).double().mean())
+    return {"detected_eq": det_eq, "first_fire_eq": fire_eq, "label_agreement": lab_frac,
+            "ok": det_eq and fire_eq and lab_frac >= 0.99}
+
+
+def not_ported(why: str) -> dict:
+    return {"ok": None, "status": f"not ported ({why})"}
+
+
+def run(dev: torch.device, batch: int, clip_seconds: float, seed: int = 0) -> dict:
+    """{row tag: record}; a record that ran has ``ok`` True or False, one
+    that did not has ``ok`` None and its ``status``."""
+    from howl_tpu_torch.bench import res8_numpy_variables, serving_config
+    from howl_tpu_torch.compat import res8_variables_to_state_dict
+    from howl_tpu_torch.inference import StreamingEngine
+    from howl_tpu_torch.models import create_model
+    from howl_tpu_torch.ops.frontend import FrontendConfig
+
+    cfg = dataclasses.replace(serving_config(), inference_threshold=THRESHOLD)
+    frontend = FrontendConfig(n_mels=40)
+    rng = np.random.default_rng(seed)
+    audio = torch.from_numpy(
+        (rng.standard_normal((batch, int(clip_seconds * cfg.sample_rate))) * 0.1).astype(np.float32)).to(dev)
+    state = res8_variables_to_state_dict(res8_numpy_variables(rng, cfg.num_labels))
+
+    def engine(dtype=None, **kw):
+        return StreamingEngine(create_model("res8", num_labels=cfg.num_labels), state, cfg, frontend,
+                               compute_dtype=dtype, device=dev, **kw)
+
+    bf16 = torch.bfloat16
+    exact = engine(frontend_precision="f32").infer_batch(audio)
+    rows = {
+        "res8+k1[bf16]+k2": compare(exact, engine(bf16).infer_batch(audio)),
+        "res8+k1[bf16x2]+k2": compare(exact, engine(bf16, frontend_precision="bf16x2").infer_batch(audio)),
+        "res8+k1[bf16x3]+k2": not_ported("ROADMAP Queue 2, follow-up 1: the three-pass grade; F11"),
+        "res8+k1[bf16]+k2+int8": not_ported("ROADMAP Queue 1, item 10"),
+        "res8 legacy[bf16]": compare(engine(fused_trunk=False, frontend_precision="f32").infer_batch(audio),
+                                     engine(bf16, fused_trunk=False).infer_batch(audio)),
+        **{f"res8+{tag}[bf16]": not_ported("ROADMAP Queue 1, item 9") for tag in ("online", "trunk", "full-window")},
+        **{name: not_ported("ROADMAP Queue 1, item 8") for name in FAMILIES},
+    }
+    for tag, rec in rows.items():
+        if rec["ok"] is None:
+            print(f"{tag:22s}: {rec['status']}", flush=True)
+        else:
+            print(f"{tag:22s}: detected_eq={rec['detected_eq']} first_fire_eq={rec['first_fire_eq']} "
+                  f"label_agreement={rec['label_agreement']:.4f} -> {'OK' if rec['ok'] else 'MISMATCH'}", flush=True)
+    return rows
+
+
+def main(argv=None) -> int:
+    p = device_parser(__doc__)
+    p.add_argument("--seed", type=int, default=0)
+    args = p.parse_args(argv)
+    dev = pick_device(args.device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    batch, clip_seconds = CARD_SIZE if dev.type == "cuda" else CPU_SIZE[:2]
+    rows = run(dev, batch, clip_seconds, args.seed)
+    all_ok = all(rec["ok"] for rec in rows.values() if rec["ok"] is not None)
+    print("ALL OK" if all_ok else "MISMATCHES FOUND", flush=True)
+    return 0 if all_ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

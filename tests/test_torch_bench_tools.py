@@ -1,0 +1,112 @@
+"""The port's decision gate and its three ablation tools
+(howl_tpu_torch/tools/) at their CPU size, against the JAX tools they port.
+
+* ``validate_tpu_decisions``: the JAX tool's comparison rule, its rows (the
+  ones the port cannot run print as not ported and count for nothing), and
+  exit code 0 on the CPU, where the plain versions score every row.
+* ``ablate_serving_slope``: the JAX tool's legs by their counterparts' names,
+  the int8 leg as not ported, every timed leg finite and positive.
+* ``ablate_train_step``: the JAX tool's five variants.
+* ``reconcile_train_f32``: both precisions through the bench, one JSON line,
+  and none of the JAX tool's recorded TPU rates.
+"""
+
+import json
+import math
+
+import pytest
+import torch
+
+from howl_tpu_torch.tools import ablate_serving_slope, ablate_train_step, reconcile_train_f32, validate_tpu_decisions
+
+torch.set_num_threads(1)
+
+
+def _out(detected, first_fire, labels):
+    return {"detected": torch.tensor(detected), "first_fire_step": torch.tensor(first_fire),
+            "labels": torch.tensor(labels)}
+
+
+def test_compare_holds_the_jax_tools_rule():
+    labels = [[0] * 100, [1] * 100]
+    exact = _out([True, False], [3, -1], labels)
+    assert validate_tpu_decisions.compare(exact, _out([True, False], [3, -1], labels))["ok"]
+    assert not validate_tpu_decisions.compare(exact, _out([True, True], [3, 7], labels))["ok"]
+    assert not validate_tpu_decisions.compare(exact, _out([True, False], [4, -1], labels))["ok"]
+    one_off = [[0] * 99 + [2], [1] * 100]  # 199 of 200 labels agree: 0.995
+    assert validate_tpu_decisions.compare(exact, _out([True, False], [3, -1], one_off))["label_agreement"] == 0.995
+    assert validate_tpu_decisions.compare(exact, _out([True, False], [3, -1], one_off))["ok"]
+    three_off = [[0] * 97 + [2] * 3, [1] * 100]  # 0.985
+    assert not validate_tpu_decisions.compare(exact, _out([True, False], [3, -1], three_off))["ok"]
+
+
+def test_decision_gate_runs_on_the_cpu_and_names_what_is_not_ported(capsys):
+    assert validate_tpu_decisions.main(["--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    rows = validate_tpu_decisions.run(torch.device("cpu"), 2, 1.0)
+    ran = [tag for tag, rec in rows.items() if rec["ok"] is not None]
+    assert ran == ["res8+k1[bf16]+k2", "res8+k1[bf16x2]+k2", "res8 legacy[bf16]"]
+    assert all(rows[tag]["ok"] for tag in ran)
+    # the three-pass grade is F11's: never run under the float32 grade's name
+    assert "F11" in rows["res8+k1[bf16x3]+k2"]["status"] and "item 10" in rows["res8+k1[bf16]+k2+int8"]["status"]
+    for tag in ("online", "trunk", "full-window"):
+        assert "item 9" in rows[f"res8+{tag}[bf16]"]["status"]
+    for name in validate_tpu_decisions.FAMILIES:
+        assert "item 8" in rows[name]["status"]
+    assert out.count("-> OK") == 3 and out.count("not ported") == 10 and out.rstrip().endswith("ALL OK")
+
+
+def test_decision_gate_exits_1_on_a_mismatch(monkeypatch, capsys):
+    monkeypatch.setattr(validate_tpu_decisions, "compare", lambda exact, fast: {
+        "detected_eq": False, "first_fire_eq": True, "label_agreement": 1.0, "ok": False})
+    assert validate_tpu_decisions.main(["--device", "cpu"]) == 1
+    assert capsys.readouterr().out.rstrip().endswith("MISMATCHES FOUND")
+
+
+def test_serving_ablation_runs_its_legs_on_the_cpu():
+    legs = ablate_serving_slope.main(["--device", "cpu"])
+    assert list(legs) == [
+        "full fused step (frontend kernel + stem kernel)",
+        "full fused step (torch frontend + stem kernel)",
+        ablate_serving_slope.INT8_LEG,
+        "frontend: kernel K1 bf16 (time-major, bf16 out)",
+        "frontend: torch gemm chain (float32)",
+        "trunk alone (on precomputed features)",
+        "post-frontend remainder (stem kernel + trunk + pool + head)",
+        "head: frequency mean, cumsum window pooling + dense",
+    ]
+    assert legs[ablate_serving_slope.INT8_LEG] is None
+    for name, ms in legs.items():
+        if name != ablate_serving_slope.INT8_LEG:
+            assert math.isfinite(ms), name
+
+
+def test_serving_ablation_chain_feeds_each_output_back_into_the_input():
+    x = torch.zeros(3, 2, dtype=torch.bfloat16)
+    calls = []
+
+    def fn(t):
+        calls.append(float(t[0, 0]))
+        return torch.full((2,), 1e30)
+
+    ablate_serving_slope._make_chain(fn, x)(3)()
+    assert calls == [0.0, 1.0, 2.0] and float(x[0, 0]) == 3.0 and not x.view(-1)[1:].any()
+
+
+def test_train_ablation_runs_its_variants_on_the_cpu():
+    rates = ablate_train_step.main(["--device", "cpu"])
+    assert list(rates) == ["full step", "no wave/spec aug", "static frontend (no VTLP)",
+                           "forward only (no grad/opt)", "model fwd/bwd only"]
+    assert all(math.isfinite(r) and r > 0 for r in rates.values())
+
+
+def test_reconcile_prints_both_precisions_and_no_tpu_numbers(capsys):
+    record = reconcile_train_f32.main(["--device", "cpu", "--repeats", "1"])
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert json.loads(line) == record
+    assert set(record) == {"train_examples_per_sec_bf16", "spread_bf16", "train_examples_per_sec_f32", "spread_f32",
+                           "device"}
+    assert record["device"] is None
+    for name in ("bf16", "f32"):
+        assert record[f"train_examples_per_sec_{name}"] > 0
+        assert record[f"spread_{name}"][0] == pytest.approx(record[f"train_examples_per_sec_{name}"])

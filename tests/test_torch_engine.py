@@ -164,9 +164,7 @@ def test_new_variables_change_scores(slice_setup):
 
 def test_unported_options_raise(slice_setup):
     variables, _, _, cfg_kw = slice_setup
-    for kw, item in (
-        ({"fused_trunk": False}, "item 8"), ({"carry_windows": True}, "item 8"), ({"use_int8_trunk": True}, "item 10"),
-    ):
+    for kw, item in (({"carry_windows": True}, "item 8"), ({"use_int8_trunk": True}, "item 10")):
         with pytest.raises(NotImplementedError, match=item):
             _port_engine(variables, cfg_kw, **kw)
     with pytest.raises(NotImplementedError, match="WholeClipEngine"):

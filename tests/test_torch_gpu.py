@@ -1000,3 +1000,82 @@ def test_sweep_tool_runs_on_the_card(cuda, capsys, tmp_path):
     bench_hbm_sweep.main(["--mb", "16", "--iters", "2", "--quick", "--json", str(out_file)])
     out = capsys.readouterr().out
     assert "not ported" not in out and "CTAs to an SM" in out and out_file.exists()
+
+
+# ---- the per-window mega-batch scorer and the bench ----
+
+
+def _tone_clips(batch, samples, seed=0):
+    """Loud tones over noise for the first half, quiet noise for the rest:
+    clips a random res8 scores far apart, so some fire and some do not."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(samples) / 16000
+    tones = 0.5 * np.sin(2 * np.pi * rng.uniform(200.0, 4000.0, (batch, 1)) * t)
+    noise = rng.standard_normal((batch, samples))
+    loud = np.arange(batch)[:, None] < batch // 2
+    return np.where(loud, tones + 0.05 * noise, 0.002 * noise).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype,atol", [(None, 1e-4), (torch.bfloat16, 2e-2)], ids=["f32", "bf16"])
+def test_legacy_engine_on_cuda_matches_cpu(cuda, dtype, atol):
+    """The per-window scorer on the card (frontend "fm" and stem kernels on
+    41-frame windows) against the same engine on the CPU (their plain
+    versions): posteriors within the tolerance, decisions equal at a
+    threshold midway between the loud and the quiet clips' peaks."""
+    from howl_tpu_torch import bench
+    from howl_tpu_torch.compat import res8_variables_to_state_dict
+    from howl_tpu_torch.inference import EngineConfig, StreamingEngine
+    from howl_tpu_torch.models import create_model
+
+    state = res8_variables_to_state_dict(bench.res8_numpy_variables(np.random.default_rng(3), 4))
+    audio = _tone_clips(6, 40000)
+
+    def engine(cfg, device):
+        return StreamingEngine(create_model("res8", num_labels=4), state, cfg, FrontendConfig(n_mels=40), -6.0, 4.0,
+                               compute_dtype=dtype, fused_trunk=False, frontend_precision="auto", device=device)
+
+    base = EngineConfig(inference_sequence=(0,), negative_label=3, num_labels=4)
+    probe = engine(base, "cpu").score_batch(audio)["probs"].numpy()
+    word = int(np.bincount(probe[:3].argmax(-1).ravel(), minlength=4).argmax())
+    peak = probe.max(-1).max(-1)
+    cfg = EngineConfig(inference_sequence=(word,), negative_label=(word + 1) % 4, num_labels=4,
+                       inference_threshold=float(peak[3:].max() + peak[:3].min()) / 2)
+    want, got = engine(cfg, "cpu").infer_batch(audio), engine(cfg, cuda).infer_batch(audio)
+    assert got["probs"].device.type == "cuda" and tuple(got["probs"].shape) == (6, 33, 4)
+    torch.testing.assert_close(got["probs"].cpu(), want["probs"], rtol=0, atol=atol)
+    for key in ("detected", "first_fire_step", "labels"):
+        assert torch.equal(got[key].cpu(), want[key]), key
+    assert want["detected"].any() and not want["detected"].all()
+
+
+@pytest.mark.parametrize("b", [1, 121, 4099])
+def test_stem_tc_kernel_on_41_frame_windows(cuda, b):
+    """The per-window scorer's stem: 41-frame clips, 13 pooled frames in a
+    tile of 24, the 41st frame dropped by the floor; at batch counts that
+    are no multiple of anything the launch geometry likes."""
+    mel, taps = _stem_operands(cuda, b, 41)
+    got = res8_stem_cuda(mel, taps)
+    ref = res8_stem_plain(mel, taps)
+    assert tuple(got.shape) == (b, 13, 10, 45) and stem_route(mel.dtype, 40, 45) == "tc"
+    assert float((got.float() - ref.float()).abs().max()) <= _bf16_ulp(ref)
+
+
+def test_bench_cpu_sized_run_on_the_card(cuda):
+    """``bench.run`` at its CPU sizes on the card: every measured key finite
+    and positive, the kernels of both scorers launched once a batch."""
+    from howl_tpu_torch import bench
+
+    record = bench.run(cuda, bench.CPU, 2, 0)
+    assert record["unit"] == "x_realtime_per_gpu_chip" and record["device"]
+    known = bench.peak_bf16_flops(torch.cuda.get_device_name(cuda)) is not None
+    for key in ("value", "legacy_realtime_factor", "train_examples_per_sec", "train_noise_examples_per_sec",
+                "train_examples_per_sec_f32", *(("mfu", "train_mfu") if known else ())):
+        assert np.isfinite(record[key]) and record[key] > 0, key
+        assert 0 < record["spread"][key][0] <= record["spread"][key][1], key
+    if not known:
+        assert record["mfu"] is None and record["train_mfu"] is None
+    for scorer in ("headline", "legacy"):
+        rung = record["rungs"][scorer]
+        assert rung["frontend"]["route"] == "tc" and rung["frontend"]["launches_per_batch"] == 1
+        assert rung["stem"] == {"kernel": "K2", "route": "tc", "launches_per_batch": 1}
+    assert record["rungs"]["train"]["noise_bank_mix"]["launches_per_step"] == 1.0

@@ -34,6 +34,10 @@ from howl_tpu_torch.tools import bench_pallas_micro as port_tool
 from howl_tpu_torch.tools import bench_trunk_kernel_micro as trunk_tool
 from howl_tpu_torch.tools import frontend_micro_kernels as mk
 from howl_tpu_torch.tools import validate_pallas_precision as precision_tool
+from howl_tpu_torch.tools import ablate_serving_slope as serving_ablation
+from howl_tpu_torch.tools import ablate_train_step as train_ablation
+from howl_tpu_torch.tools import reconcile_train_f32 as reconcile_tool
+from howl_tpu_torch.tools import validate_tpu_decisions as decisions_tool
 
 torch.set_num_threads(1)
 TOOLS = Path(__file__).resolve().parent.parent / "tools"
@@ -264,9 +268,11 @@ def test_precision_tool_runs_on_the_cpu_and_the_f32_grade_meets_the_golden_bound
             assert rec["above_floor_max"] < 3e-3 and rec["global_max"] < 0.02
 
 
-@pytest.mark.parametrize("tool", [port_tool, trunk_tool, precision_tool, sweep_tool],
+@pytest.mark.parametrize("tool", [port_tool, trunk_tool, precision_tool, sweep_tool, decisions_tool, serving_ablation,
+                                  train_ablation, reconcile_tool],
                          ids=["bench_pallas_micro", "bench_trunk_kernel_micro", "validate_pallas_precision",
-                              "bench_hbm_sweep"])
+                              "bench_hbm_sweep", "validate_tpu_decisions", "ablate_serving_slope", "ablate_train_step",
+                              "reconcile_train_f32"])
 def test_tools_refuse_to_run_without_a_card_unless_asked_for_the_cpu(tool, monkeypatch):
     """The default device is the card: without one the tool raises and names
     the flag, and picks no CPU by itself."""
