@@ -79,7 +79,7 @@ them. In order it:
      float32 engine's on the same card, on a batch where some clips fire
      and some do not. Then it times chains of 32 batches through the
      bench's ``chained_batch_ms`` (each input bumped by the last detections,
-     CUDA events, 3 repeats) and prints the median realtime factor;
+     CUDA events, 2 repeats) and prints the median realtime factor;
  10. drives the per-window mega-batch scorer (``fused_trunk=False``) at the
      same size, 61,952 windows of 41 frames: one bf16 batch between zeroed
      counters must launch the frontend kernel and the tensor-core stem
@@ -88,10 +88,29 @@ them. In order it:
      where some clips fire and some do not. The stem kernel is held against
      its plain version on that window batch, chunk by chunk;
  11. runs the decision gate ``howl_tpu_torch.tools.validate_tpu_decisions``
-     on the card: every row that runs must be OK;
- 12. holds one float32 train step with the bank on the card against the
+     on the card: every row that runs must be OK, the three live engines'
+     rows included;
+ 12. drives the live serving path (a): the ``OnlineEngine`` at 512 streams
+     in bf16, 16 hops between zeroed counters, which must launch the
+     tensor-core frontend kernel and the tensor-core stem kernel once a hop
+     each; then holds K1 ("fm", grade "bf16", bf16 out) on the (512, 8,000)
+     windows and K2 on their (512, 41, 40) mels against their plain
+     versions, in ``check_frontend``'s and ``check_stem``'s bounds, and
+     times each against its plain version in turns;
+ 13. (b) the ``IncrementalOnlineEngine`` at 65,536 streams for 3 hops: the
+     tensor-core stem kernel launches once a hop on 65,536 clips, and on the
+     last hop's windows it agrees with its plain version chunk by chunk;
+ 14. (c) each live engine at 512 streams of 63,200 samples whose loud half
+     fires, on a word and threshold that leave every decision 0.01 from
+     flipping (``live_config``): bf16 labels and fire flags equal float32's
+     at every hop, and equal the offline ``StreamingEngine``'s on the same
+     streams (the per-window scorer for the ``OnlineEngine`` and the
+     incremental engine, the fused scorer on a silent preroll + the hops
+     for the trunk engine, per hop and with ``hop_block`` 3, each window
+     ``lag`` hops late);
+ 15. holds one float32 train step with the bank on the card against the
      same step on the CPU (batch 16, the same variables and draws);
- 13. drives the training path: ``make_classification_train_step`` at the
+ 16. drives the training path: ``make_classification_train_step`` at the
      JAX train bench's width (res8 45 maps, batch 1024 x 8,000 samples,
      bf16 compute over float32 masters, VTLP, augmentation, a (512, 32,000)
      noise bank with replace_prob 0.1, AdamW), from seeded numpy variables
@@ -101,12 +120,13 @@ them. In order it:
      must get a nonzero gradient; the BatchNorm running stats must move;
      a float32 step must run and be finite. Then it times the bench's three
      steps (bf16 with and without the bank, float32) in chains of 64, in
-     turns, 3 repeats (``bench.time_train_steps``) and prints the medians;
- 14. runs the bench, ``howl_tpu_torch.bench.main``, which prints its JSON
-     line (``bench.py``'s keys, each measured key the median of 5 repeats
-     with its spread); every measured key must be finite and positive, the
-     online keys null;
- 15. prints one JSON line with each of the fifteen kernels' launches, error and times
+     turns, 2 repeats (``bench.time_train_steps``) and prints the medians;
+ 17. (d) runs the bench, ``howl_tpu_torch.bench.main``, which prints its
+     JSON line (``bench.py``'s keys, each measured key the median of 5
+     repeats with its spread); every measured key must be finite and
+     positive, the seven online keys included, each latency at every
+     stream count of ``bench.py``;
+ 18. prints one JSON line with each of the fifteen kernels' launches, error and times
      beside its plain version's and its bound on this card (the larger of
      its bytes over 3.35 TB/s and its operations over the peak rate of
      their type, both counted from this run's shapes: what the function
@@ -117,7 +137,9 @@ them. In order it:
 ``--profile DIR`` adds a stage breakdown and a ``torch.profiler`` kernel
 table, with the device's idle share, of the bf16 serving batch through the
 fused-trunk scorer (``DIR/serve_profile.txt``) and the per-window scorer
-(``DIR/legacy_profile.txt``), and of the bf16 noise-bank train step
+(``DIR/legacy_profile.txt``), of a hop of each live engine at 512 streams
+and of the incremental and trunk engines at 65,536
+(``DIR/online_*_profile.txt``), and of the bf16 noise-bank train step
 (``DIR/train_profile.txt``). ``--profile-only DIR`` builds the kernels, writes
 the two profiles and the device line, and runs none of the checks.
 
@@ -148,7 +170,7 @@ TRAIN_WINDOW = 8000
 BANK_SHAPE = (512, 32000)
 REPLACE_PROB = 0.1
 TRAIN_STEPS = 30
-SMOKE_REPEATS = 3  # chained timings of the main and train paths (the bench's line takes its own five)
+SMOKE_REPEATS = 2  # chained timings of the main and train paths (the bench's line takes its own five)
 STUDY_ITERS = 16  # calls per timed repeat of each leg of the two kernel studies
 MICRO_S = 0.25  # the nonzero scalar of the frontend cost study's comparisons
 HBM_MB = 256  # the bandwidth sweep's array, the JAX tool's size
@@ -166,6 +188,12 @@ HBM_RATE_MARGIN = 1.1
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = bench.H100_SXM_BF16_FLOPS  # dense, tensor cores, float32 accumulate
 PEAK_F32_FLOPS = 67e12  # CUDA cores
+# the live engines: (a) the OnlineEngine's hops between zeroed counters, (b) the incremental engine's at 65,536
+# streams, (c) the decision checks on 512 streams of 63,200 samples (56 whole windows, 63 hops)
+ONLINE_STREAMS, ONLINE_STEPS, ONLINE_ZMUV = 512, 16, (-6.0, 4.0)
+BIG_STREAMS, BIG_STEPS = 65536, 3
+LIVE_SAMPLES = 63200
+LIVE_MARGIN = 0.01  # how far from flipping the decision checks' decisions are picked
 
 
 def _bound(n_bytes: float, ops: float, peak_flops: float) -> dict:
@@ -954,6 +982,242 @@ def drive_legacy_path(dev, batch: int, clip_seconds: float) -> dict:
     return {"launches": launches, "fired": fired, "k2_windows_max_abs_err": k2_err}
 
 
+# ---- live serving: the three online engines ----
+
+
+def _live_engine(kind: str, dev, state, cfg, dtype, streams: int, **kw):
+    from howl_tpu_torch.inference.online import IncrementalOnlineEngine, OnlineEngine
+    from howl_tpu_torch.inference.streaming_trunk import FusedStreamingOnlineEngine
+    from howl_tpu_torch.models import create_model
+    from howl_tpu_torch.ops.frontend import FrontendConfig
+
+    cls = {"full-window": OnlineEngine, "incremental": IncrementalOnlineEngine, "trunk": FusedStreamingOnlineEngine}
+    return cls[kind](create_model("res8", num_labels=4), state, cfg, FrontendConfig(n_mels=N_MELS), ONLINE_ZMUV[0],
+                     ONLINE_ZMUV[1], num_streams=streams, compute_dtype=dtype, device=dev, **kw)
+
+
+def drive_online_path(dev) -> dict:
+    """(a) The ``OnlineEngine`` at 512 streams in bf16, ``ONLINE_STEPS``
+    hops between zeroed counters: one launch of K1's tensor-core kernel and
+    one of K2's a hop. Then K1 ("fm", the "bf16" grade, bf16 out) on the
+    (512, 8,000) windows and K2 on their (512, 41, 40) mels, each held
+    against its plain version within ``check_frontend``'s and
+    ``check_stem``'s bounds and timed against it in turns."""
+    import torch
+
+    from howl_tpu_torch.compat import res8_variables_to_state_dict
+    from howl_tpu_torch.ops.frontend_cuda import log_mel_spectrogram_cuda, log_mel_spectrogram_plain
+    from howl_tpu_torch.ops.stem_cuda import res8_stem_cuda, res8_stem_plain
+
+    rng = np.random.default_rng(SEED + 7)
+    state = res8_variables_to_state_dict(bench.res8_numpy_variables(rng, 4))
+    eng = _live_engine("full-window", dev, state, bench.serving_config(), torch.bfloat16, ONLINE_STREAMS)
+    hop, window = eng.hop_samples, eng.window_samples
+    audio = torch.from_numpy(smoke_audio(rng, ONLINE_STREAMS, window + ONLINE_STEPS * hop)).to(dev)
+    eng.ingest(audio[:, :window])  # the warm-up
+    for fn in (log_mel_spectrogram_cuda, res8_stem_cuda):
+        fn.launches = fn.launches_tc = 0
+    for k in range(ONLINE_STEPS):
+        eng.ingest(audio[:, k * hop : k * hop + window])
+    torch.cuda.synchronize()
+    launches = {"k1": log_mel_spectrogram_cuda.launches, "k1_tc": log_mel_spectrogram_cuda.launches_tc,
+                "k2": res8_stem_cuda.launches, "k2_tc": res8_stem_cuda.launches_tc}
+    print(f"online path (OnlineEngine, {ONLINE_STREAMS} streams, bf16, {ONLINE_STEPS} hops) launches: frontend kernel "
+          f"{launches['k1']} ({launches['k1_tc']} the tensor-core kernel), stem kernel {launches['k2']} "
+          f"({launches['k2_tc']} the tensor-core kernel)")
+    if set(launches.values()) != {ONLINE_STEPS}:
+        raise AssertionError(f"a hop must launch the tensor-core frontend and stem kernels once each: {launches}")
+
+    mean, std = ONLINE_ZMUV
+    windows = audio[:, :window].contiguous()
+    kw = dict(precision="bf16", out_dtype=torch.bfloat16, layout="fm")
+    mel = log_mel_spectrogram_cuda(windows, eng.frontend, mean, std, **kw)
+    ref = log_mel_spectrogram_plain(windows, eng.frontend, mean, std, **kw)
+    torch.cuda.synchronize()
+    k1_err, k1_tol = float((mel.float() - ref.float()).abs().max()), 2e-2 / std + _bf16_ulp(ref)
+    print(f"K1 tc on the online windows {tuple(windows.shape)} -> {tuple(mel.shape)} (fm): max_abs_err={k1_err:.3e} "
+          f"tol={k1_tol:.3e}")
+    if mel.shape != ref.shape or not k1_err <= k1_tol:
+        raise AssertionError("K1 disagrees with its plain version on the online windows")
+    k1_ms, k1_plain_ms = _ab_ms(lambda: log_mel_spectrogram_plain(windows, eng.frontend, mean, std, **kw),
+                                lambda: log_mel_spectrogram_cuda(windows, eng.frontend, mean, std, **kw), iters=50)
+    fe = eng.frontend
+    frames, n_bins = mel.shape[0] * mel.shape[2], fe.n_fft // 2
+    k1_ops = frames * (2 * fe.n_fft * 2 * n_bins + 3 * n_bins + 2 * n_bins * fe.n_mels)
+    k1 = {"shape": list(windows.shape), "launches": launches["k1_tc"], "max_abs_err": k1_err, "ms": k1_ms,
+          "plain_ms": k1_plain_ms,
+          **_bound(_nbytes(windows, mel) + 4 * (fe.n_fft * 2 * n_bins + n_bins * fe.n_mels), k1_ops, PEAK_BF16_FLOPS)}
+    # a 128-frame tile holds a window's 41 frames: 87 of 128 rows of every product are empty
+    print(f"K1 online case: kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms a hop; bound {k1['bound_ms']:.4f} ms by "
+          f"{k1['bound_by']}: {k1['bound_ms'] / k1_ms:.3f} of the bound's rate; frames fill "
+          f"{mel.shape[2] / 128:.3f} of a tile")
+
+    mel_tm = mel.transpose(1, 2).contiguous()
+    got, ref = res8_stem_cuda(mel_tm, eng._stem_taps), res8_stem_plain(mel_tm, eng._stem_taps)
+    torch.cuda.synchronize()
+    k2_err, k2_tol = float((got.float() - ref.float()).abs().max()), _bf16_ulp(ref)
+    print(f"K2 tc on the online windows {tuple(mel_tm.shape)} -> {tuple(got.shape)}: max_abs_err={k2_err:.3e} "
+          f"tol={k2_tol:.3e}")
+    if got.shape != ref.shape or not k2_err <= k2_tol:
+        raise AssertionError("K2 disagrees with its plain version on the online windows")
+    k2_ms, k2_plain_ms = _ab_ms(lambda: res8_stem_plain(mel_tm, eng._stem_taps),
+                                lambda: res8_stem_cuda(mel_tm, eng._stem_taps), iters=50)
+    k2_ops = mel_tm.numel() * got.shape[-1] * 9 * 2 + got.numel() * 12
+    k2 = {"shape": list(mel_tm.shape), "launches": launches["k2_tc"], "max_abs_err": k2_err, "ms": k2_ms,
+          "plain_ms": k2_plain_ms, **_bound(_nbytes(mel_tm, eng._stem_taps, got), k2_ops, PEAK_BF16_FLOPS)}
+    print(f"K2 online case: kernel {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms a hop; bound {k2['bound_ms']:.5f} ms by "
+          f"{k2['bound_by']}: {k2['bound_ms'] / k2_ms:.3f} of the bound's rate")
+    return {"launches": launches, "k1": k1, "k2": k2}
+
+
+def drive_incremental_at_scale(dev) -> dict:
+    """(b) The ``IncrementalOnlineEngine`` at 65,536 streams in bf16 for
+    ``BIG_STEPS`` hops: K2's tensor-core kernel launches once a hop on
+    65,536 clips of 41 frames, and on the engine's last window batch it
+    agrees with its plain version chunk by chunk."""
+    import torch
+
+    from howl_tpu_torch.compat import res8_variables_to_state_dict
+    from howl_tpu_torch.ops.stem_cuda import res8_stem_cuda
+
+    state = res8_variables_to_state_dict(bench.res8_numpy_variables(np.random.default_rng(SEED + 8), 4))
+    eng = _live_engine("incremental", dev, state, bench.serving_config(), torch.bfloat16, BIG_STREAMS)
+    audio = torch.randn((BIG_STREAMS, BIG_STEPS * eng.hop_samples), generator=torch.Generator(device=dev).manual_seed(8),
+                        device=dev) * 0.1
+    res8_stem_cuda.launches = res8_stem_cuda.launches_tc = 0
+    for k in range(BIG_STEPS):
+        eng.push(audio[:, k * eng.hop_samples : (k + 1) * eng.hop_samples])
+    torch.cuda.synchronize()
+    launches = {"k2": res8_stem_cuda.launches, "k2_tc": res8_stem_cuda.launches_tc}
+    print(f"incremental engine at {BIG_STREAMS} streams, {BIG_STEPS} hops: stem kernel {launches['k2']} launches "
+          f"({launches['k2_tc']} the tensor-core kernel), {BIG_STREAMS} clips each; labels {eng.last_labels.shape}")
+    if launches != {"k2": BIG_STEPS, "k2_tc": BIG_STEPS}:
+        raise AssertionError(f"a hop at {BIG_STREAMS} streams must launch the tensor-core stem kernel once: {launches}")
+    with torch.no_grad():
+        mel_tm = eng.mel_ring.transpose(1, 2).to(torch.bfloat16).contiguous()  # (65536, 41, 40), the last hop's windows
+        err = check_stem_on_windows(mel_tm, eng._stem_taps)
+        out = res8_stem_cuda(mel_tm, eng._stem_taps)
+        ms = _cuda_ms(lambda: res8_stem_cuda(mel_tm, eng._stem_taps), 20)
+    ops = mel_tm.numel() * out.shape[-1] * 9 * 2 + out.numel() * 12
+    rec = {"shape": list(mel_tm.shape), "launches": launches["k2_tc"], "max_abs_err": err, "ms": ms,
+           **_bound(_nbytes(mel_tm, eng._stem_taps, out), ops, PEAK_BF16_FLOPS)}
+    print(f"K2 at {BIG_STREAMS} clips: kernel {ms:.4f} ms; bound {rec['bound_ms']:.4f} ms by {rec['bound_by']}: "
+          f"{rec['bound_ms'] / ms:.3f} of the bound's rate")
+    del eng, audio, mel_tm, out
+    torch.cuda.empty_cache()
+    return rec
+
+
+def live_config(probs: list, base):
+    """A one-word configuration on float32 per-hop posteriors (arrays (T, N,
+    L) of the streams: the engine's and the offline scorer's) that fires on
+    the loud half of the streams, every decision ``LIVE_MARGIN`` from
+    flipping (``validate_tpu_decisions.margin_word_threshold``)."""
+    from howl_tpu_torch.tools.validate_tpu_decisions import margin_word_threshold
+
+    pick = margin_word_threshold(np.concatenate(probs), LIVE_MARGIN)
+    print(f"live config: word label {pick['word']}, threshold {pick['threshold']:.4f}, every posterior at least "
+          f"{pick['distance']:.4f} from it")
+    return dataclasses.replace(base, inference_sequence=(pick["word"],), negative_label=(pick["word"] + 1) % 4,
+                               inference_threshold=pick["threshold"])
+
+
+def _live_run(kind: str, eng, audio) -> tuple:
+    """Push ``audio`` through a live engine hop by hop ("full-window": the
+    whole windows at every hop's start, k * hop); per hop (labels, fire
+    flags, float32 posteriors), each (hops, streams[, L])."""
+    step = eng.hop_samples * getattr(eng, "hop_block", 1)  # a push's samples
+    first = eng.window_samples if kind == "full-window" else step
+    out = []
+    for end in range(first, audio.shape[1] + 1, eng.hop_samples if kind == "full-window" else step):
+        if kind == "full-window":
+            eng.ingest(audio[:, end - eng.window_samples : end])
+        else:
+            eng.push(audio[:, end - step : end])
+        probs = (eng.last_probs if kind == "trunk" else eng.state.pred_ring[:, -1]).float().cpu().numpy()
+        labels, fired = eng.last_labels, eng.last_fired
+        if labels.ndim == 1:
+            probs, labels, fired = probs[:, None], labels[:, None], fired[:, None]
+        for h in range(labels.shape[1]):
+            out.append((labels[:, h], fired[:, h], probs[:, h]))
+    return tuple(np.stack(x) for x in zip(*out))
+
+
+def check_live_decisions(dev) -> dict:
+    """(c) Each live engine at 512 streams on audio whose loud half fires:
+    bf16 decisions equal float32's at every hop, and every hop's decisions
+    equal the offline ``StreamingEngine``'s on the same streams: the
+    per-window scorer (``fused_trunk=False``) for the two per-window engines
+    (the incremental one fed the stream from its 200th sample, so that its
+    ring holds the scorer's window n - 8 after push n; its fire flags
+    compared once the startup hops are out of the FSM's 2 s), and the fused
+    scorer on the silent preroll + the hops for the trunk engine, per hop
+    and blocked, each window ``lag`` hops late."""
+    import torch
+
+    from howl_tpu_torch.compat import res8_variables_to_state_dict
+    from howl_tpu_torch.inference import StreamingEngine
+    from howl_tpu_torch.models import create_model
+    from howl_tpu_torch.ops.frontend import FrontendConfig
+
+    rng = np.random.default_rng(SEED + 9)
+    state = res8_variables_to_state_dict(bench.res8_numpy_variables(rng, 4))
+    base = bench.serving_config()
+    audio = torch.from_numpy(smoke_audio(rng, ONLINE_STREAMS, LIVE_SAMPLES)).to(dev)
+    hops = audio[:, : LIVE_SAMPLES // 1000 * 1000]  # the trunk's hops: 63, a multiple of its period
+    preroll = torch.zeros((ONLINE_STREAMS, 8200), device=dev)
+
+    def offline(cfg, fused):
+        return StreamingEngine(create_model("res8", num_labels=4), state, cfg, FrontendConfig(n_mels=N_MELS),
+                               *ONLINE_ZMUV, fused_trunk=fused, frontend_precision="auto", device=dev)
+
+    window_out = offline(base, False).infer_batch(audio)  # the per-window scorer's windows k * 1000 + [0, 8000)
+    fused_out = offline(base, True).infer_batch(torch.cat([preroll, hops], 1))
+    result = {}
+    for kind in ("full-window", "incremental", "trunk"):
+        feed = audio[:, 200:] if kind == "incremental" else hops if kind == "trunk" else audio
+        probe_engine = _live_engine(kind, dev, state, base, None, ONLINE_STREAMS)
+        probe = _live_run(kind, probe_engine, feed)[2]
+        ref_probs = (fused_out if kind == "trunk" else window_out)["probs"].cpu().numpy().transpose(1, 0, 2)
+        cfg = live_config([probe, ref_probs], base)
+        ref = offline(cfg, kind == "trunk").infer_batch(torch.cat([preroll, hops], 1) if kind == "trunk" else audio)
+        ref_labels, ref_fired = (ref[key].cpu().numpy().T for key in ("labels", "fired"))  # (windows, streams)
+        variants = [("per-hop", {})] + ([("blocked", {"hop_block": 3})] if kind == "trunk" else [])
+        for variant, kw in variants:
+            tag = f"{kind} {variant}" if kind == "trunk" else kind
+            f32, b16 = (_live_run(kind, _live_engine(kind, dev, state, cfg, dtype, ONLINE_STREAMS, **kw), feed)
+                        for dtype in (None, torch.bfloat16))
+            for name, a, b in (("labels", f32[0], b16[0]), ("fire flags", f32[1], b16[1])):
+                if not np.array_equal(a, b):
+                    raise AssertionError(f"{tag}: bf16 {name} differ from float32's in {int((a != b).sum())} places")
+            # entry i of the engine's run against window k of the offline scorer
+            n = f32[0].shape[0]
+            if kind == "full-window":
+                pairs, fire_from = [(i, i) for i in range(n)], 0
+            elif kind == "incremental":
+                pairs, fire_from = [(i, i - 7) for i in range(8, n)], 1 + 31  # push i + 1 holds window i - 7
+            else:
+                lag = probe_engine.schedule.lag  # push i + 1 decides window i + 1 - lag
+                pairs = [(i, i + 1 - lag) for i in range(lag - 1, n) if i + 1 - lag < n - lag - 2]
+                fire_from = 0  # the offline scorer's last windows clamp their spans at the clip's edge: left out
+            hop_idx, win_idx = (np.array(x) for x in zip(*pairs))
+            labels_eq = np.array_equal(f32[0][hop_idx], ref_labels[win_idx])
+            keep = win_idx >= fire_from
+            fired_eq = np.array_equal(f32[1][hop_idx[keep]], ref_fired[win_idx[keep]])
+            dprob = float(np.abs(f32[2][hop_idx] - ref_probs[win_idx]).max())
+            detected = f32[1].any(0)
+            print(f"{tag}: bf16 decisions equal float32's over {n} hops (max |dprob| "
+                  f"{float(np.abs(b16[2] - f32[2]).max()):.3e}); against the offline scorer on {len(pairs)} windows: "
+                  f"labels equal {labels_eq}, fire flags equal {fired_eq} (from window {fire_from}), max |dprob| "
+                  f"{dprob:.3e}; {int(detected.sum())}/{ONLINE_STREAMS} streams fire")
+            if not (labels_eq and fired_eq):
+                raise AssertionError(f"{tag}: per-hop decisions differ from the offline scorer's")
+            if not 0 < detected.sum() < ONLINE_STREAMS:
+                raise AssertionError(f"{tag}: the check needs streams that fire and streams that do not")
+            result[tag] = {"hops": n, "windows": len(pairs), "fired": int(detected.sum()), "dprob_offline": dprob}
+    return result
+
+
 def train_audio(rng: np.random.Generator, batch: int, samples: int):
     """Tones in three frequency bands take labels 0-2 and quiet noise takes
     label 3: data whose labels a res8 learns within a few steps."""
@@ -1089,8 +1353,9 @@ def drive_train_path(dev) -> dict:
 
 
 def check_bench_record(record: dict) -> None:
-    """The bench's line: every measured key finite and positive with a
-    [min, max] spread around it, the online keys null, the card named."""
+    """(d) The bench's line: every measured key finite and positive with a
+    [min, max] spread around it, the seven online keys included (the
+    latencies at every stream count of ``bench.py``), the card named."""
     measured = ("value", "mfu", "legacy_realtime_factor", "train_examples_per_sec", "train_mfu",
                 "train_noise_examples_per_sec", "train_examples_per_sec_f32")
     for key in measured:
@@ -1101,10 +1366,23 @@ def check_bench_record(record: dict) -> None:
             raise AssertionError(f"the bench's {key} has the spread {spread}")
     if not (record["mfu"] < 1 and record["train_mfu"] < 1):
         raise AssertionError(f"utilizations above the peak: mfu {record['mfu']}, train_mfu {record['train_mfu']}")
-    if any(record[key] is not None for key in bench.ONLINE_KEYS) or not record["device"]:
-        raise AssertionError("the bench's online keys must be null and its device named")
+    if not record["device"]:
+        raise AssertionError("the bench's device must be named")
+    counts = {"online_step_latency_ms": bench.CARD.online.latency_counts}
+    for key in bench.ONLINE_KEYS:
+        value, spread = record[key], record["spread"].get(key)
+        if key.startswith("online_streams"):
+            if not (isinstance(value, int) and value > 0 and spread and 0 < spread[0] <= spread[1]):
+                raise AssertionError(f"the bench's {key} is {value} (spread {spread})")
+            continue
+        want = [str(n) for n in counts.get(key, bench.CARD.online.trunk_counts)]
+        if value is None or list(value) != want or any(not (0 < v["p50"] <= v["p99"]) for v in value.values()):
+            raise AssertionError(f"the bench's {key} is {value}")
     print(f"bench: realtime factor {record['value']} (legacy {record['legacy_realtime_factor']}), mfu {record['mfu']}, "
-          f"train {record['train_examples_per_sec']} ex/s (mfu {record['train_mfu']})")
+          f"train {record['train_examples_per_sec']} ex/s (mfu {record['train_mfu']}); online streams "
+          f"{record['online_streams_per_chip']} (full window {record['online_streams_full_window']}, trunk "
+          f"{record['online_streams_per_chip_trunk']}, blocked {record['online_streams_per_chip_trunk_blocked']}); "
+          f"step latency {record['online_step_latency_ms']}")
 
 
 def _profile(out_dir, file_name: str, title: str, stages: dict, batch_fn, n_batches: int) -> None:
@@ -1238,6 +1516,95 @@ def profile_serving(dev, out_dir) -> None:
                  }, lambda: legacy.infer_batch(audio), 3)
 
 
+def profile_online(dev, out_dir) -> None:
+    """Stage times and a profile of a hop of each live engine in bf16, the
+    bench's configuration: the ``OnlineEngine`` at 512 streams, the
+    incremental and the trunk engine (per hop and with ``hop_block`` 3) at
+    512 and at 65,536 streams, into ``online_<engine>_<streams>_profile.txt``
+    (20 chained hops profiled: the device's busy and idle share)."""
+    import torch
+
+    from howl_tpu_torch.compat import res8_variables_to_state_dict
+    from howl_tpu_torch.inference.detect import detect_step
+    from howl_tpu_torch.ops.frontend import log_mel_spectrogram
+    from howl_tpu_torch.ops.stem_cuda import res8_stem_cuda
+
+    state = res8_variables_to_state_dict(bench.res8_numpy_variables(np.random.default_rng(SEED), 4))
+    cfg = bench.serving_config()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    ring = 4  # hops of audio a stream replays
+    for n in (ONLINE_STREAMS, BIG_STREAMS):
+        with torch.no_grad():
+            buf = torch.randn((n, 8000 + ring * 1000), generator=gen, device=dev) * 0.1
+            full = bench.online_engine("full_window", dev, state, n)
+            win = buf[:, : full.window_samples].contiguous()
+            mel = full._features(win)
+            stem = res8_stem_cuda(mel.transpose(1, 2).contiguous(), full._stem_taps)
+            trunk = full.model.residual_features(stem)
+            probs = torch.softmax(full.model.head(trunk.mean(dim=(1, 2))).float(), -1)
+
+            def tail(eng):
+                return {
+                    "3. residual convs + BN": lambda: eng.model.residual_features(stem),
+                    "4. mean, head, softmax": lambda: torch.softmax(eng.model.head(trunk.mean(dim=(1, 2))).float(), -1),
+                    "5. detect_step (smoothing + FSM)": lambda: detect_step(eng.state, probs, 62.5, True, cfg,
+                                                                            eng.stride_ms),
+                }
+
+            if n == ONLINE_STREAMS:
+                _profile(out_dir, f"online_full_window_{n}_profile.txt", f"bf16 OnlineEngine hop, {n} streams", {
+                    "1. K1 on the windows (fm)": lambda: full._features(win),
+                    "2. time-major copy + K2": lambda: res8_stem_cuda(mel.transpose(1, 2).contiguous(), full._stem_taps),
+                    **tail(full),
+                    "whole hop (_step)": lambda: full._step(win, full.state, 62.5),
+                }, bench.hop_chain(full, buf, 20, ring), 1)
+            del full, win
+
+            inc = bench.online_engine("incremental", dev, state, n)
+            hop_buf = torch.cat([inc.tail, buf[:, : inc.hop_samples]], -1)
+            feats = inc.mel_ring[:, None].to(torch.bfloat16)
+            _profile(out_dir, f"online_incremental_{n}_profile.txt", f"bf16 IncrementalOnlineEngine hop, {n} streams", {
+                "1. log-mel chain on tail + hop (5 frames)": lambda: log_mel_spectrogram(hop_buf, inc._frontend_nc,
+                                                                                         "bf16"),
+                "2. time-major copy + K2 on the ring's windows": lambda: inc.model.stem_features(feats, inc._stem_taps),
+                **tail(inc),
+                "whole hop (_step)": lambda: inc._step(buf[:, : inc.hop_samples], inc.tail, inc.mel_ring, inc.state,
+                                                       62.5),
+            }, bench.hop_chain(inc, buf, 20, ring), 1)
+            del inc, hop_buf, feats, mel, stem, trunk
+
+            for hop_block in (1, 3):
+                eng = bench.online_engine("trunk", dev, state, n, hop_block=hop_block)
+                H, period = eng.hop_block, eng.schedule.period
+                new = buf[:, : H * eng.hop_samples]
+                consts = eng.schedule.by_phase[1] if H == 1 else eng.block
+                slab_frames = eng.schedule.slab_frames if H == 1 else eng.block["slab_frames"]
+                slab = eng.mel_cache[:, consts["slab_start"] : consts["slab_start"] + slab_frames][..., None]
+                slab = slab.to(torch.bfloat16)
+                if H == 1:
+                    def hop_fn(eng=eng, new=new):
+                        return eng._hop_step(1, new, eng.tail, eng.mel_cache, eng.rings, eng.s6_ring, eng.state, 62.5,
+                                             True)
+                else:
+                    def hop_fn(eng=eng, new=new):
+                        return eng._block_step(new, eng.tail, eng.mel_cache, eng.rings, eng.s6_ring, eng.state, 1, 62.5)
+                ring_hops = period + 1 if H == 1 else 2
+                _profile(out_dir, f"online_trunk{'_blocked' if H > 1 else ''}_{n}_profile.txt",
+                         f"bf16 FusedStreamingOnlineEngine, hop_block {H}, {n} streams (times per call of {H} hops)", {
+                             "1. log-mel chain on tail + hops": lambda: eng._mels(torch.cat([eng.tail, new], -1),
+                                                                                   eng._frontend_nc),
+                             "2-3. trunk_stream_step (slab stem by F.conv2d, six layers)":
+                                 lambda: eng.model.trunk_stream_step(slab, eng.rings, consts["delta"]),
+                             "4-5. head, softmax, detect_step": lambda: eng._decide(
+                                 eng.model.head(eng.s6_ring[:, -eng.span :].mean(1)), eng.state, 62.5, True),
+                             f"whole call ({H} hops)": hop_fn,
+                         }, bench.trunk_chain(eng, buf[:, : ring_hops * H * eng.hop_samples], ring_hops,
+                                              max(21 // (period if H == 1 else H), 1)), 1)
+                del eng, new, slab
+            del buf
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -1263,10 +1630,21 @@ def main() -> int:
 
         out_dir = Path(sys.argv[sys.argv.index("--profile-only") + 1])
         profile_serving(dev, out_dir)
+        profile_online(dev, out_dir)
         profile_train_step(dev, out_dir)
         print(device_line)
         return 0
     print_sass_counts(_build.library_path())
+    print(f"cut for the run's time: the main and train paths' own chained timings take {SMOKE_REPEATS} repeats "
+          f"(3 before the live engines' phases); the bench's line keeps its 5 and bench.py's sizes")
+    laps = [("build", time.perf_counter() - t0)]
+    t_lap = time.perf_counter()
+
+    def lap(name: str) -> None:
+        nonlocal t_lap
+        now = time.perf_counter()
+        laps.append((name, now - t_lap))
+        t_lap = now
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     samples = int(CLIP_SECONDS * SAMPLE_RATE)
@@ -1282,23 +1660,38 @@ def main() -> int:
     k2 = check_stem(k1.pop("mel"), taps)
     del audio
     k3 = check_noise_mix(dev)
+    lap("frontend, stem and mix kernels")
     study = drive_trunk_study(dev)
+    lap("trunk-kernel study")
     micro = drive_frontend_study(dev)
+    lap("frontend cost study")
     sweep = drive_hbm_sweep(dev)
+    lap("bandwidth sweep")
     main_path = drive_main_path(dev, BATCH, CLIP_SECONDS)
     legacy_path = drive_legacy_path(dev, BATCH, CLIP_SECONDS)
     k2["max_abs_err_windows"] = legacy_path["k2_windows_max_abs_err"]
+    lap("offline scorers")
     from howl_tpu_torch.tools import validate_tpu_decisions
 
     if validate_tpu_decisions.main(["--device", "cuda"]) != 0:
         raise AssertionError("the decision gate found a mismatch")
+    lap("decision gate")
+    online_path = drive_online_path(dev)
+    k1["online_full_window"], k2["online_full_window"] = online_path["k1"], online_path["k2"]
+    k2["online_incremental_65536"] = drive_incremental_at_scale(dev)
+    check_live_decisions(dev)
+    lap("live engines (a)-(c)")
     check_train_step_against_cpu(dev)
     train_path = drive_train_path(dev)
+    lap("train path")
     check_bench_record(bench.main(["--device", "cuda"]))
+    lap("bench (d)")
+    print("phase seconds: " + ", ".join(f"{name} {sec:.1f}" for name, sec in laps))
     if "--profile" in sys.argv[1:]:
         from pathlib import Path
 
         profile_serving(dev, Path(sys.argv[sys.argv.index("--profile") + 1]))
+        profile_online(dev, Path(sys.argv[sys.argv.index("--profile") + 1]))
         profile_train_step(dev, Path(sys.argv[sys.argv.index("--profile") + 1]))
 
     kernels = [

@@ -20,32 +20,48 @@ Prints ONE JSON line with ``bench.py``'s keys, measured on the card:
     AdamW); ``train_noise_examples_per_sec`` the same step mixing from a
     (512, 32000) noise bank (the kernel K3) with replace_prob 0.1;
     ``train_examples_per_sec_f32`` the float32 step;
-  * the seven online keys: ``null`` until the online engines are ported
-    (ROADMAP Queue 1, item 9);
+  * the seven online keys, live serving at the client's 62.5 ms hop, bf16,
+    ``bench.py``'s sizes: ``online_streams_per_chip`` (the
+    ``IncrementalOnlineEngine``, which featurizes only each hop) and
+    ``online_streams_full_window`` (the ``OnlineEngine``, K1 on every whole
+    window), each 512 streams x 256 steps on a ring of 16 hops, streams =
+    n * steps / time / 16; ``online_step_latency_ms``, the incremental
+    step's p50 / p99 at 1,024, 16,384 and 65,536 streams, a sample one
+    chain of 32 steps / 32, 12 samples; ``online_streams_per_chip_trunk``
+    and ``online_step_latency_ms_trunk``, the ``FusedStreamingOnlineEngine``
+    at 16,384 and 65,536 streams, a sample 11 periods of hops, 8 samples
+    (streams: the better count's n / (p50 * 16)); and ``..._trunk_blocked``,
+    the same with ``hop_block`` = the schedule's period, latencies per hop;
 
 and three keys of its own: ``spread``, the [min, max] of each measured key
-over the repeats; ``rungs``, what ran (each kernel's route, grade and
-launches per batch or step); ``device``, the card's ``nvidia-smi`` name and
-power limit. Each measured key is the median over ``--repeats`` (5)
-repeats, the headline and the legacy scorer (then the three train steps) in
-turns.
+over the repeats (of each latency's samples, by stream count); ``rungs``,
+what ran (each kernel's route, grade and launches per batch or step);
+``device``, the card's ``nvidia-smi`` name and power limit. Each measured
+offline and train key is the median over ``--repeats`` (5) repeats, the
+headline and the legacy scorer (then the three train steps) in turns; the
+two per-window online rates too, their engines in turns.
 
 Method: as in ``bench.py``, iterations are chained: after each batch the
 detections' sum times 1e-30 is added in place to ``audio[0, 0]``, so each
 input depends on the last decisions; a train step depends on the last
 through the state. A chain of 32 batches (8 for the legacy scorer; 64 train
 steps) is timed by CUDA events after a warm-up, audio already on the card.
-Float32 products and convolutions run in full float32 (TF32 off).
+An online chain steps through the engine's state, each step taking the
+last one's, with every stream's audio read from a ring on the card at the
+step's offset, as ``bench.py`` replays it; nothing is copied to the host
+inside a chain. Float32 products and convolutions run in full float32 (TF32
+off).
 
 Weights are random from the seed: numpy variables in the JAX package's
 layout carried across by ``compat.res8_variables_to_state_dict``, so the
 JAX engine can run the same weights. Audio is seeded noise.
 
 ``--device cpu`` runs ``bench.py``'s CPU sizes (batch 4 x 2 s, 2 batches a
-chain, train batch 8, 2 steps, a (4, 2048) bank) on the kernels' plain
-versions, with the card's dtypes and scorers; ``mfu`` and ``train_mfu`` are
-0.0 there, as ``bench.py`` gives them off the accelerator. Without
-``--device cpu`` and without a card it raises.
+chain, train batch 8, 2 steps, a (4, 2048) bank; online 8 streams x 4
+steps, latencies and trunks at 8 streams, 2 samples of 2 steps or periods)
+on the kernels' plain versions, with the card's dtypes and scorers; ``mfu``
+and ``train_mfu`` are 0.0 there, as ``bench.py`` gives them off the
+accelerator. Without ``--device cpu`` and without a card it raises.
 """
 
 from __future__ import annotations
@@ -75,6 +91,17 @@ H100_SXM_BF16_FLOPS = 989e12
 _BF16_PEAKS = (("H100 80GB HBM3", H100_SXM_BF16_FLOPS), ("H100 SXM", H100_SXM_BF16_FLOPS))
 
 
+class OnlineSizes(NamedTuple):
+    streams: int  # of the two per-window rates
+    steps: int  # in one of their chains
+    latency_counts: tuple  # stream counts of the incremental step's latency
+    latency_steps: int  # steps a latency sample
+    latency_samples: int
+    trunk_counts: tuple  # stream counts of the trunk engines
+    trunk_periods: int  # schedule periods (per-hop) or blocks (blocked) a sample
+    trunk_samples: int
+
+
 class Sizes(NamedTuple):
     batch: int
     clip_seconds: float
@@ -83,10 +110,16 @@ class Sizes(NamedTuple):
     train_batch: int
     train_steps: int  # steps in a timed chain
     bank_shape: tuple
+    online: OnlineSizes
 
 
-CARD = Sizes(512, 8.0, 32, 8, 1024, 64, (512, 32000))
-CPU = Sizes(4, 2.0, 2, 1, 8, 2, (4, 2048))  # bench.py's CPU sizes
+HOP_MS = 62.5  # the client's hop: a live stream asks for 16 steps a second
+RING_HOPS = 16  # the per-window rates' audio ring, in hops
+LATENCY_RING_HOPS = 4
+# bench.py's sizes
+CARD = Sizes(512, 8.0, 32, 8, 1024, 64, (512, 32000), OnlineSizes(512, 256, (1024, 16384, 65536), 32, 12,
+                                                                 (16384, 65536), 11, 8))
+CPU = Sizes(4, 2.0, 2, 1, 8, 2, (4, 2048), OnlineSizes(8, 4, (8,), 2, 2, (8,), 2, 2))
 
 
 def peak_bf16_flops(device_name: str) -> Optional[float]:
@@ -237,6 +270,187 @@ def bench_serving(dev, sizes: Sizes, repeats: int, seed: int) -> dict:
             "flops_per_batch": path_flops_per_clip(clip_samples, engine, NUM_LABELS) * sizes.batch}
 
 
+# ---- online serving ----
+
+
+def online_engine(kind: str, dev, state_dict, num_streams: int, **kw):
+    """One of the bench's live engines on ``serving_config()``, bf16, ZMUV 0
+    / 1 as ``bench.py`` serves: "full_window" (``OnlineEngine``),
+    "incremental" (``IncrementalOnlineEngine``) or "trunk"
+    (``FusedStreamingOnlineEngine``, ``hop_block`` in ``kw``)."""
+    from howl_tpu_torch.inference.online import IncrementalOnlineEngine, OnlineEngine
+    from howl_tpu_torch.inference.streaming_trunk import FusedStreamingOnlineEngine
+    from howl_tpu_torch.models import create_model
+    from howl_tpu_torch.ops.frontend import FrontendConfig
+
+    cls = {"full_window": OnlineEngine, "incremental": IncrementalOnlineEngine, "trunk": FusedStreamingOnlineEngine}
+    return cls[kind](create_model("res8", num_labels=NUM_LABELS), state_dict, serving_config(),
+                     FrontendConfig(n_mels=N_MELS), 0.0, 1.0, num_streams=num_streams, compute_dtype=torch.bfloat16,
+                     device=dev, **kw)
+
+
+def hop_chain(engine, buf: torch.Tensor, n_steps: int, ring_hops: int):
+    """A chain of ``n_steps`` hops through a per-window engine, each step
+    taking the last one's state (kept on the engine): step k reads its
+    streams' audio at offset ``(k % ring_hops) * hop_samples`` of ``buf``,
+    the window ending there (``OnlineEngine``) or the hop (the incremental
+    engine), at time (k + 1) * 62.5 ms, as ``bench.py`` replays it."""
+    hop = engine.hop_samples
+    full = hasattr(engine, "window_samples")
+
+    def chain():
+        for k in range(n_steps):
+            off, t_now = (k % ring_hops) * hop, (k + 1) * HOP_MS
+            if full:
+                engine.state, *_ = engine._step(buf[:, off : off + engine.window_samples].contiguous(), engine.state,
+                                                t_now)
+            else:
+                engine.tail, engine.mel_ring, engine.state, *_ = engine._step(
+                    buf[:, off : off + hop], engine.tail, engine.mel_ring, engine.state, t_now)
+
+    return chain
+
+
+def trunk_chain(engine, buf: torch.Tensor, ring_hops: int, super_steps: int):
+    """A chain of ``make_chained_runner``'s replay through a trunk engine,
+    the carry kept between calls."""
+    from howl_tpu_torch.inference.streaming_trunk import make_chained_runner
+
+    run, carry = make_chained_runner(engine, ring_hops, super_steps)
+    holder = [carry]
+
+    def chain():
+        holder[0], _ = run(buf, *holder[0])
+
+    return chain
+
+
+def _counted(fn, on_card: bool) -> tuple:
+    """(``fn()``, K1's and K2's launches while it ran: {"k1", "k2", "k1_tc",
+    "k2_tc"}), the counters zeroed just before and read just after."""
+    from howl_tpu_torch.ops.frontend_cuda import log_mel_spectrogram_cuda
+    from howl_tpu_torch.ops.stem_cuda import res8_stem_cuda
+
+    counters = {"k1": log_mel_spectrogram_cuda, "k2": res8_stem_cuda}
+    for c in counters.values():
+        c.launches = c.launches_tc = 0
+    out = fn()
+    if on_card:
+        torch.cuda.synchronize()
+    return out, {**{k: c.launches for k, c in counters.items()}, **{f"{k}_tc": c.launches_tc for k, c in counters.items()}}
+
+
+def _online_rungs(counts: dict, on_card: bool, period: int) -> dict:
+    """What each live engine runs, from the launch counts of one step of
+    each per-window engine and of the trunk engine's prefill."""
+    def kernel(kind, k, launches_key):
+        route = ("tc" if counts[kind][f"{k}_tc"] else "fma") if on_card else "plain"
+        return {"kernel": k.upper(), "route": route, launches_key: counts[kind][k]}
+
+    chain = "the log-mel chain (torch.matmul, grade bf16, center=False)"
+    return {
+        "compute_dtype": "bfloat16",
+        "full_window": {"engine": "OnlineEngine",
+                        "frontend": {**kernel("full_window", "k1", "launches_per_step"), "grade": "bf16", "layout": "fm"},
+                        "stem": kernel("full_window", "k2", "launches_per_step")},
+        "incremental": {"engine": "IncrementalOnlineEngine", "frontend": chain,
+                        "stem": kernel("incremental", "k2", "launches_per_step")},
+        "trunk": {"engine": "FusedStreamingOnlineEngine", "frontend": chain, "stem": "F.conv2d over each hop's slab",
+                  "prefill_stem": kernel("trunk", "k2", "launches"), "hop_block": {"per-hop": 1, "blocked": period}},
+        "residual_convs": "cuDNN (F.conv2d)" if on_card else "F.conv2d",
+        "decisions": "detect_step (the scan form, torch)",
+    }
+
+
+def bench_online(dev, sizes: Sizes, repeats: int, seed: int, state_dict) -> dict:
+    """The seven online keys' timings: {"per_window": {key: streams, one per
+    repeat}, "latency" / "trunk" / "trunk_blocked": {count: ms per hop, one
+    per sample}, "hop_block", "rungs"}."""
+    from howl_tpu_torch.tools._study import chain_ms
+
+    o, on_card = sizes.online, dev.type == "cuda"
+    gen = torch.Generator(device=dev).manual_seed(seed + 10)
+
+    def noise(n, samples):
+        return torch.randn((n, samples), generator=gen, device=dev) * 0.1
+
+    kinds = {"online_streams_full_window": "full_window", "online_streams_per_chip": "incremental"}
+    engines = {key: online_engine(kind, dev, state_dict, o.streams) for key, kind in kinds.items()}
+    full = engines["online_streams_full_window"]
+    buf = noise(o.streams, full.window_samples + RING_HOPS * full.hop_samples)
+    chains = {key: hop_chain(eng, buf, o.steps, RING_HOPS) for key, eng in engines.items()}
+    # one step each, untimed: the warm-up, and what ran
+    counts = {kind: _counted(hop_chain(engines[key], buf, 1, RING_HOPS), on_card)[1] for key, kind in kinds.items()}
+    per_window = {key: [] for key in engines}
+    for r in range(repeats):
+        for key in (list(engines) if r % 2 == 0 else list(reversed(engines))):
+            ms = chain_ms(chains[key], dev)
+            per_window[key].append(o.streams * o.steps / (ms / 1e3) / (1000.0 / HOP_MS))
+    del engines, chains, full, buf
+
+    latency = {}
+    for n in o.latency_counts:
+        eng = online_engine("incremental", dev, state_dict, n)
+        chain = hop_chain(eng, noise(n, LATENCY_RING_HOPS * eng.hop_samples), o.latency_steps, LATENCY_RING_HOPS)
+        chain()  # the warm-up
+        latency[str(n)] = [chain_ms(chain, dev) / o.latency_steps for _ in range(o.latency_samples)]
+        del eng, chain
+        _free(dev)
+
+    # the trunk engines last, the earlier ones freed: at 65,536 streams one keeps ~2 GB, its prefill more
+    trunk, blocked, period = {}, {}, None
+    for n in o.trunk_counts:
+        eng, counted = _counted(lambda: online_engine("trunk", dev, state_dict, n), on_card)
+        counts.setdefault("trunk", counted)
+        period = eng.schedule.period
+        # period + 1 hops of ring: the runner refuses a multiple of the period
+        chain = trunk_chain(eng, noise(n, (period + 1) * eng.hop_samples), period + 1, o.trunk_periods)
+        chain()
+        trunk[str(n)] = [chain_ms(chain, dev) / (o.trunk_periods * period) for _ in range(o.trunk_samples)]
+        del eng, chain
+        _free(dev)
+        eng = online_engine("trunk", dev, state_dict, n, hop_block=period)
+        chain = trunk_chain(eng, noise(n, 2 * period * eng.hop_samples), 2, o.trunk_periods)  # trunk_periods blocks
+        chain()
+        blocked[str(n)] = [chain_ms(chain, dev) / (o.trunk_periods * period) for _ in range(o.trunk_samples)]
+        del eng, chain
+        _free(dev)
+    return {"per_window": per_window, "latency": latency, "trunk": trunk, "trunk_blocked": blocked,
+            "hop_block": period, "rungs": _online_rungs(counts, on_card, period)}
+
+
+def _free(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def online_record(online: dict) -> tuple:
+    """(the seven keys, their spreads) from ``bench_online``'s timings:
+    streams as ints as ``bench.py`` gives them (the per-window rates the
+    median over the repeats, the trunk rates n / (p50 * 16) at the better
+    count), latencies {count: {"p50", "p99"}} in ms per hop, rounded to 3
+    digits."""
+    keys, spread = {}, {}
+    for key, values in online["per_window"].items():
+        keys[key], spread[key] = int(statistics.median(values)), [min(values), max(values)]
+    keys["online_step_latency_ms"], spread["online_step_latency_ms"] = _latencies(online["latency"])
+    for suffix, runs in (("trunk", online["trunk"]), ("trunk_blocked", online["trunk_blocked"])):
+        lat, lat_spread = _latencies(runs, hop_block=online["hop_block"] if suffix == "trunk_blocked" else None)
+        rates = {n: int(n) / (float(np.percentile(ms, 50)) / 1e3 * (1000.0 / HOP_MS)) for n, ms in runs.items()}
+        best = max(rates, key=rates.get)
+        keys[f"online_streams_per_chip_{suffix}"] = int(rates[best])
+        spread[f"online_streams_per_chip_{suffix}"] = [int(best) / (max(runs[best]) / 1e3 * (1000.0 / HOP_MS)),
+                                                        int(best) / (min(runs[best]) / 1e3 * (1000.0 / HOP_MS))]
+        keys[f"online_step_latency_ms_{suffix}"], spread[f"online_step_latency_ms_{suffix}"] = lat, lat_spread
+    return keys, spread
+
+
+def _latencies(runs: dict, hop_block=None) -> tuple:
+    lat = {n: {"p50": round(float(np.percentile(ms, 50)), 3), "p99": round(float(np.percentile(ms, 99)), 3),
+               **({"hop_block": hop_block} if hop_block else {})} for n, ms in runs.items()}
+    return lat, {n: [min(ms), max(ms)] for n, ms in runs.items()}
+
+
 # ---- training ----
 
 
@@ -329,12 +543,13 @@ def bench_train_step(dev, sizes: Sizes, repeats: int, seed: int) -> dict:
 
 
 def make_record(serve: dict, train: dict, sizes: Sizes, on_card: bool, peak: Optional[float], mix_launches_per_step,
-                device: Optional[str]) -> dict:
+                device: Optional[str], online: Optional[dict] = None) -> dict:
     """The bench's record from the serving and train timings (one value per
     repeat each): every measured key the median over the repeats, rounded as
-    ``bench.py`` rounds it, with its [min, max] under ``spread``. ``mfu`` and
-    ``train_mfu`` are 0.0 off the card, as ``bench.py`` gives them, and null
-    on a card with no ``peak``."""
+    ``bench.py`` rounds it, with its [min, max] under ``spread``; the online
+    keys from ``online`` (``bench_online``'s timings; null without).
+    ``mfu`` and ``train_mfu`` are 0.0 off the card, as ``bench.py`` gives
+    them, and null on a card with no ``peak``."""
     from howl_tpu_torch.ops.frontend import FrontendConfig
 
     train_flops = train_flops_per_example(TRAIN_WINDOW, FrontendConfig(n_mels=N_MELS))
@@ -356,7 +571,9 @@ def make_record(serve: dict, train: dict, sizes: Sizes, on_card: bool, peak: Opt
         spread[key] = [min(values), max(values)] if measured else None
     digits = {"mfu": 4, "train_mfu": 4}
     out = {key: None if value is None else round(value, digits.get(key, 1)) for key, value in med.items()}
-    rungs = {**serve["rungs"], "int8": NOT_PORTED_INT8, "online": "not ported (ROADMAP Queue 1, item 9)",
+    online_keys, online_spread = online_record(online) if online else (dict.fromkeys(ONLINE_KEYS), {})
+    spread.update(online_spread)
+    rungs = {**serve["rungs"], "int8": NOT_PORTED_INT8, "online": online["rungs"] if online else None,
              "train": {"noise_bank_mix": {"kernel": "K3", "route": "cuda" if on_card else "plain",
                                           "launches_per_step": mix_launches_per_step},
                        "frontend": "VTLP log-mel in float32 (torch)", "model": "cuDNN (F.conv2d)" if on_card else "F.conv2d"}}
@@ -367,7 +584,7 @@ def make_record(serve: dict, train: dict, sizes: Sizes, on_card: bool, peak: Opt
         "vs_baseline": round(med["value"] / 1000.0, 3),
         "mfu": out["mfu"],
         "legacy_realtime_factor": out["legacy_realtime_factor"],
-        **dict.fromkeys(ONLINE_KEYS),
+        **{key: online_keys[key] for key in ONLINE_KEYS},
         "train_examples_per_sec": out["train_examples_per_sec"],
         "train_mfu": out["train_mfu"],
         "train_noise_examples_per_sec": out["train_noise_examples_per_sec"],
@@ -380,6 +597,7 @@ def make_record(serve: dict, train: dict, sizes: Sizes, on_card: bool, peak: Opt
 
 def run(dev, sizes: Sizes, repeats: int, seed: int) -> dict:
     """Measure and return the bench's record (see the module's docstring)."""
+    from howl_tpu_torch.compat import res8_variables_to_state_dict
     from howl_tpu_torch.ops.augment_cuda import mix_noise_bank_cuda
 
     on_card = dev.type == "cuda"
@@ -387,11 +605,13 @@ def run(dev, sizes: Sizes, repeats: int, seed: int) -> dict:
     if on_card and peak is None:
         print(f"mfu, train_mfu: null: no bf16 peak on record for {torch.cuda.get_device_name(dev)!r}", file=sys.stderr)
     serve = bench_serving(dev, sizes, repeats, seed)
+    state = res8_variables_to_state_dict(res8_numpy_variables(np.random.default_rng(seed), NUM_LABELS))
+    online = bench_online(dev, sizes, repeats, seed, state)  # the serving weights
     mix_noise_bank_cuda.launches = 0
     train = bench_train_step(dev, sizes, repeats, seed)
     noise_steps = 1 + repeats * sizes.train_steps  # the warm-up and the chains
     return make_record(serve, train, sizes, on_card, peak, mix_noise_bank_cuda.launches / noise_steps,
-                       card_line() if on_card else None)
+                       card_line() if on_card else None, online)
 
 
 def main(argv=None) -> dict:

@@ -84,8 +84,10 @@ logmel_kernel(const float* __restrict__ audio, const float* __restrict__ w,
   float* s_w = s_audio + round_up4(span);                  // kChunk x w_cols
   float* s_power = s_w + kChunk * w_cols;                  // kFramesPerBlock x n_bins_pad
 
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * kFramesPerBlock;
+  // one grid axis of clips x tiles, the tiles of a clip adjacent: up to 2^31 - 1 blocks, so no cap on the clips
+  const int n_tiles = (n_frames + kFramesPerBlock - 1) / kFramesPerBlock;
+  const int b = blockIdx.x / n_tiles;
+  const int t0 = (blockIdx.x % n_tiles) * kFramesPerBlock;
   const float* row = audio + static_cast<size_t>(b) * S;
   const long p0 = static_cast<long>(t0) * hop;
   for (int i = threadIdx.x; i < span; i += kThreads) {
@@ -194,7 +196,9 @@ extern "C" int howl_logmel_forward(const void* audio, const void* w, const void*
   cudaError_t err = cudaFuncSetAttribute(logmel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n_frames + kFramesPerBlock - 1) / kFramesPerBlock, B);
+  const long long blocks = static_cast<long long>((n_frames + kFramesPerBlock - 1) / kFramesPerBlock) * B;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(blocks));
   logmel_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(audio), static_cast<const float*>(w),
       static_cast<const float*>(fb), out, S, n_frames, n_fft, hop, center ? n_fft / 2 : 0,

@@ -124,8 +124,10 @@ logmel_tc_kernel(const float* __restrict__ audio, const unsigned char* __restric
   const int tid = threadIdx.x;
   const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);  // the same in every lane, and the compiler knows it
   const int lane = tid & 31;
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * kTile;
+  // one grid axis of clips x tiles, the tiles of a clip adjacent: up to 2^31 - 1 blocks, so no cap on the clips
+  const int n_tiles = (n_frames + kTile - 1) / kTile;
+  const int b = blockIdx.x / n_tiles;
+  const int t0 = (blockIdx.x % n_tiles) * kTile;
 
   // The stages of W in the order they are consumed, which is the order of the image: per half, per pass, 64 rows
   // of k at a time; the last stage of a pass is short when n_fft is no multiple of 64.
@@ -331,7 +333,9 @@ int launch(const void* audio, const void* w_img, const void* fb_img, void* out, 
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(logmel_tc_kernel<kMelN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n_frames + kTile - 1) / kTile, B);
+  const long long blocks = static_cast<long long>((n_frames + kTile - 1) / kTile) * B;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(blocks));
   logmel_tc_kernel<kMelN><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(audio), static_cast<const unsigned char*>(w_img),
       static_cast<const unsigned char*>(fb_img), out, S, n_frames, n_fft, hop, center ? n_fft / 2 : 0, n_halves,
@@ -355,7 +359,7 @@ extern "C" int howl_logmel_tc_forward(const void* audio, const void* w_img, cons
                                       float log_offset, float mean, float inv_std, void* stream) {
   if (B == 0 || n_frames == 0) return 0;
   if (n_fft < 16 || n_fft % 16 != 0 || hop < 2 || hop % 2 != 0 || n_mels < 8 || n_mels % 8 != 0 || n_mels > mel_n ||
-      n_halves < 1 || n_passes < 1 || n_passes > 2 || B > 65535)
+      n_halves < 1 || n_passes < 1 || n_passes > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   if (mel_n == 40)
     return launch<40>(audio, w_img, fb_img, out, B, S, n_frames, n_fft, hop, center, n_halves, n_passes, n_mels,

@@ -48,8 +48,10 @@ stem_kernel(const void* __restrict__ mel, const float* __restrict__ taps, void* 
   float* s_mel = smem;                // rows x cols, zero outside the clip
   float* s_taps = smem + rows * cols;  // 9 x ch
 
-  const int b = blockIdx.y;
-  const int tp0 = blockIdx.x * kPooledPerBlock;
+  // one grid axis of clips x tiles, the tiles of a clip adjacent: up to 2^31 - 1 blocks, so no cap on the clips
+  const int n_tiles = (t_out + kPooledPerBlock - 1) / kPooledPerBlock;
+  const int b = blockIdx.x / n_tiles;
+  const int tp0 = (blockIdx.x % n_tiles) * kPooledPerBlock;
   const int r0 = tp0 * pool_t - 1;  // mel row held in s_mel row 0
   const size_t clip = static_cast<size_t>(b) * T * n_mels;
   for (int i = threadIdx.x; i < rows * cols; i += kThreads) {
@@ -118,7 +120,9 @@ extern "C" int howl_res8_stem_forward(const void* mel, const void* taps, void* o
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid((t_out + kPooledPerBlock - 1) / kPooledPerBlock, B);
+  const long long blocks = static_cast<long long>((t_out + kPooledPerBlock - 1) / kPooledPerBlock) * B;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(blocks));
   stem_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       mel, static_cast<const float*>(taps), out, T, n_mels, ch, pool_t, pool_f, in_bf16);
   return static_cast<int>(cudaGetLastError());

@@ -111,8 +111,10 @@ stem_tc_kernel(const __nv_bfloat16* __restrict__ mel, const __nv_bfloat16* __res
   unsigned char* s_out = smem + mel_bytes(n_mels);
   const int t_out = T / kPoolT;
   const int f_out = n_mels / kPoolF;
-  const int b = blockIdx.y;
-  const int tp0 = blockIdx.x * kTile;
+  // one grid axis of clips x tiles, the tiles of a clip adjacent: up to 2^31 - 1 blocks, so no cap on the clips
+  const int n_tiles = (t_out + kTile - 1) / kTile;
+  const int b = blockIdx.x / n_tiles;
+  const int tp0 = (blockIdx.x % n_tiles) * kTile;
   const int n_pooled = min(kTile, t_out - tp0);
   const int tid = threadIdx.x;
   const int n_threads = blockDim.x;  // a warp per 8 bins
@@ -233,12 +235,13 @@ extern "C" int howl_res8_stem_tc_forward(const void* mel, const void* img, void*
   if (n_mels < kPoolF || n_mels % kPoolF != 0 || n_mels > kMaxBins || ch < 1 || ch > kN)
     return static_cast<int>(cudaErrorInvalidValue);
   const int smem = shared_bytes(n_mels, ch);
-  if (smem > kMaxSmem || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = static_cast<long long>((t_out + kTile - 1) / kTile) * B;
+  if (smem > kMaxSmem || blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(stem_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid((t_out + kTile - 1) / kTile, B);
+  const dim3 grid(static_cast<unsigned>(blocks));
   stem_tc_kernel<<<grid, 32 * ((n_mels + 7) / 8), smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(mel), static_cast<const __nv_bfloat16*>(img),
       static_cast<__nv_bfloat16*>(out), T, n_mels, ch);

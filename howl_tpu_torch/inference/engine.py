@@ -19,8 +19,7 @@ come from window means of its output, as in the JAX package.
 ``fused_trunk=False`` is the per-window mega-batch scorer instead: the
 frontend writes feature-major mels (B, 1, F, T), every 41-frame window is
 gathered at the window stride, and the (B * n_windows, 1, F, 41) windows go
-through the whole res8 (its stem kernel included) as one batch (in chunks of
-``WINDOW_CHUNK`` windows past the stem kernel's grid), into a float32
+through the whole res8 (its stem kernel included) as one batch, into a float32
 softmax. Stage 5 is shared.
 
 On a CUDA device the frontend and the stem always launch the hand-written
@@ -49,18 +48,15 @@ from howl_tpu_torch.inference.config import (
 from howl_tpu_torch.inference.detect import (
     _ring_geometry,
     _smooth_and_detect_parallel,
+    _smooth_and_detect_sweep,
     apply_inference_weights,
     smooth_and_detect,
+    smooth_and_detect_sweep,
 )
 from howl_tpu_torch.models.base import ModelSpec, model_spec
 from howl_tpu_torch.ops.frontend import FrontendConfig
 from howl_tpu_torch.ops.frontend_cuda import log_mel_spectrogram_cuda
 from howl_tpu_torch.ops.stem_cuda import res8_stem_cuda
-
-
-# the per-window scorer runs its windows through the model in chunks of at
-# most this many: the stem kernel's grid holds 65,535 clips
-WINDOW_CHUNK = 65535
 
 
 def _not_ported(what: str, item: str):
@@ -191,7 +187,7 @@ class StreamingEngine:
         idx = starts[:, None] + torch.arange(wf, device=feats.device)[None, :]  # (n_windows, wf)
         windows = feats[:, :, :, idx].permute(0, 3, 1, 2, 4)  # (B, n_windows, C, F, wf)
         flat = windows.reshape(b * n_windows, c, f, wf)
-        logits = torch.cat([self.model(chunk) for chunk in flat.split(WINDOW_CHUNK)])
+        logits = self.model(flat)
         return torch.softmax(logits.float(), dim=-1).reshape(b, n_windows, -1)
 
     @torch.no_grad()
@@ -258,14 +254,17 @@ class StreamingEngine:
         probs = apply_inference_weights(probs, self.cfg)
         valid = self._valid_mask(lengths, probs.shape[1])
         thr = self.cfg.inference_threshold if threshold is None else float(threshold)
-        static_cfg = dataclasses.replace(self.cfg, inference_threshold=0.0)
         out = _smooth_and_detect_parallel(
-            probs, valid, thr, static_cfg,
+            probs, valid, thr, self._static_cfg(),
             geom["s_steps"], geom["w_steps"], geom["stride"], geom["check_offset"],
         )
         out["probs"] = probs
         out["times_ms"] = geom["times"]
         return out
+
+    def _static_cfg(self) -> EngineConfig:
+        """The configuration with the threshold taken out: it is passed on its own."""
+        return dataclasses.replace(self.cfg, inference_threshold=0.0)
 
     # ---- public API ----
 
@@ -317,15 +316,31 @@ class StreamingEngine:
         out = self.infer_batch(self._as_audio(audio)[None, :])
         return bool(out["detected"][0])
 
-    def infer_sweep_batch(self, audio, lengths=None, thresholds=()):
-        raise _not_ported("infer_sweep_batch (threshold sweeps)", "item 4")
+    def detect_sweep_from_scores(self, scores: dict, thresholds) -> dict:
+        """Smoothing + FSM over cached posteriors at every threshold at once;
+        the outputs carry a leading (K,) thresholds axis."""
+        return smooth_and_detect_sweep(
+            scores["probs"], scores["times_ms"], scores["valid"], thresholds, self.cfg,
+            scores["check_offset_is_stride"],
+        )
 
-    def detect_sweep_from_scores(self, scores: dict, thresholds):
-        raise _not_ported("detect_sweep_from_scores (threshold sweeps)", "item 4")
+    def infer_sweep_batch(self, audio, lengths=None, thresholds=()) -> np.ndarray:
+        """Score B clips once and decide at K thresholds; returns detected
+        (K, B) as a host array."""
+        audio, lengths = self._pad_short_clips(self._as_audio(audio), lengths)
+        batch, num_samples = audio.shape
+        geom = self._step_geometry(batch, num_samples)
+        lengths = self._as_lengths(lengths, batch, num_samples)
+        probs = apply_inference_weights(self._score(audio, geom["n_win"]), self.cfg)
+        out = _smooth_and_detect_sweep(
+            probs, self._valid_mask(lengths, probs.shape[1]), thresholds, self._static_cfg(),
+            geom["s_steps"], geom["w_steps"], geom["stride"], geom["check_offset"],
+        )
+        return out["detected"].cpu().numpy()
 
 
 class WholeClipEngine(StreamingEngine):
     """The whole-clip engine of sequential models; not ported yet."""
 
     def __init__(self, *args, **kwargs):
-        raise _not_ported("WholeClipEngine (sequential models)", "item 4")
+        raise _not_ported("WholeClipEngine (sequential models)", "item 8")

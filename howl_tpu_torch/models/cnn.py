@@ -102,15 +102,17 @@ class Res8(nn.Module):
         grad mode on and conv0 requiring grad."""
         return self.training or (torch.is_grad_enabled() and self.conv0.weight.requires_grad)
 
-    def stem_features(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, C, F, T) features -> (B, T', F', maps) pooled stem activations."""
+    def stem_features(self, x: torch.Tensor, taps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B, C, F, T) features -> (B, T', F', maps) pooled stem activations.
+        ``taps``: the stem kernel's tap table when the caller keeps one
+        (``stem_taps``), so that it is packed once for many calls."""
         dt = self.compute_dtype()
         if self.stem_trains():
             mel = x[:, :1].transpose(-1, -2).to(dt)  # (B, 1, T, F): time is H
             y = F.relu(F.conv2d(mel, self.conv0.weight.to(dt), padding=1))
             return F.avg_pool2d(y, self.pooling, stride=self.pooling).permute(0, 2, 3, 1)
         mel_tm = x[:, 0].transpose(-1, -2).to(dt).contiguous()  # (B, T, F)
-        return res8_stem_cuda(mel_tm, self.stem_taps(mel_tm.shape[-1]), self.pooling)
+        return res8_stem_cuda(mel_tm, self.stem_taps(mel_tm.shape[-1]) if taps is None else taps, self.pooling)
 
     # ---- residual trunk ----
 
@@ -142,13 +144,102 @@ class Res8(nn.Module):
             x = self._batch_norm(i, x)
         return x.permute(0, 2, 3, 1)
 
-    def trunk_features(self, x: torch.Tensor) -> torch.Tensor:
+    def trunk_features(self, x: torch.Tensor, taps: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(B, C, F, T) features -> (B, T', F', maps) pre-mean trunk output."""
-        return self.residual_features(self.stem_features(x))
+        return self.residual_features(self.stem_features(x, taps))
 
     def head(self, pooled: torch.Tensor) -> torch.Tensor:
         """Mean trunk features (..., maps) -> logits, in float32."""
         return F.linear(pooled.float(), self.output.weight.float(), self.output.bias.float())
+
+    # ---- streaming-trunk support (FusedStreamingOnlineEngine) ----
+    #
+    # The trunk is a stack of 3x3 SAME convs that look one frame ahead, so a
+    # live stream can compute only the newly final frames of every layer each
+    # hop from a short ring per stage. Residuals add the pre-BatchNorm sums
+    # (old_x in residual_features), so those sums (r2, r4) are kept beside the
+    # post-BN stage outputs (s0..s5). Rings and stage outputs are (B, T', F',
+    # maps), time on axis 1, as in the JAX package.
+
+    def _conv_relu(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """relu(conv_i(x)) on (B, T, F, maps) stage frames, same layout out."""
+        w = getattr(self, f"conv{i}").weight.to(self.compute_dtype())
+        return F.relu(F.conv2d(x.permute(0, 3, 1, 2), w, padding=1)).permute(0, 2, 3, 1)
+
+    def _stage_norm(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """bn_i over (B, T, F, maps) stage frames, same layout out."""
+        return self._batch_norm(i, x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+    def trunk_intermediates(self, x: torch.Tensor, taps: Optional[torch.Tensor] = None) -> dict:
+        """Whole-clip trunk forward returning every kept stage: s0 (the pooled
+        stem, ``stem_features``: the stem kernel on a card), s1..s6 (post-BN
+        outputs), r2 and r4 (pre-BN residual sums), each (B, T', F', maps).
+        It prefills the streaming-trunk rings, so a stream starts from the
+        offline clip's left-edge SAME padding."""
+        y = self.stem_features(x, taps).to(self.compute_dtype())
+        outs = {"s0": y}
+        x = old_x = y
+        for i in range(1, 7):
+            y = self._conv_relu(i, x)
+            if i % 2 == 0:
+                x = y + old_x
+                old_x = x
+                if i < 6:
+                    outs[f"r{i}"] = x
+            else:
+                x = y
+            x = self._stage_norm(i, x)
+            outs[f"s{i}"] = x
+        return outs
+
+    @staticmethod
+    def _ingest(ring: torch.Tensor, new: torch.Tensor, delta: int) -> torch.Tensor:
+        """Shift the ``delta`` newest of ``new``'s frames into a newest-last
+        time ring (axis 1); when delta is below the new frame count, the
+        leading new frames recompute frames already in the ring and are
+        dropped."""
+        n_new = new.shape[1]
+        return torch.cat([ring[:, delta:], new[:, n_new - delta :]], dim=1)
+
+    def trunk_stream_step(self, mel_slab: torch.Tensor, rings: dict, delta: int):
+        """One streaming-trunk step: the n_new newest pooled-trunk frames from
+        per-stage rings.
+
+        mel_slab: (B, n_new * pool_t + 2, F, 1) ZMUV'd mel frames covering
+        conv0's support of the new pooled frames. rings: (B, n_new + 2, F',
+        maps) newest-last stage rings s0..s5, r2, r4. delta: how many of the
+        computed frames are new this step.
+
+        conv0 runs over the slab with ``F.conv2d`` (where the JAX package runs
+        an XLA conv), then rows [1, 1 + n_new * pool_t) are kept and pooled;
+        every layer after it runs its SAME conv over its input ring's n_new +
+        2 newest frames and keeps the interior. Returns (updated rings, the
+        s6 frequency mean (B, n_new, maps) in float32).
+        """
+        dt = self.compute_dtype()
+        pool_t = self.pooling[0]
+        n_new = (mel_slab.shape[1] - 2) // pool_t
+        mel = mel_slab[..., 0][:, None].to(dt)  # (B, 1, T, F): time is H
+        y = F.relu(F.conv2d(mel, self.conv0.weight.to(dt), padding=1))[:, :, 1 : 1 + n_new * pool_t]
+        y = F.avg_pool2d(y, self.pooling, stride=self.pooling).permute(0, 2, 3, 1)  # (B, n_new, F', maps)
+        rings = dict(rings)
+        rings["s0"] = self._ingest(rings["s0"], y, delta)
+        s6_mean = None
+        for i in range(1, 7):
+            y = self._conv_relu(i, rings[f"s{i - 1}"][:, -(n_new + 2) :])[:, 1 : 1 + n_new]
+            if i % 2 == 0:
+                res_src = "s0" if i == 2 else f"r{i - 2}"
+                x = y + rings[res_src][:, -(n_new + 2) : -2]
+                if i < 6:
+                    rings[f"r{i}"] = self._ingest(rings[f"r{i}"], x, delta)
+            else:
+                x = y
+            s = self._stage_norm(i, x)
+            if i < 6:
+                rings[f"s{i}"] = self._ingest(rings[f"s{i}"], s, delta)
+            else:
+                s6_mean = s.float().mean(dim=2)
+        return rings, s6_mean
 
     def windowed_logits(self, x: torch.Tensor, span_lo: int, span_hi: int) -> torch.Tensor:
         """Logits of the window over trunk frames [span_lo, span_hi) of a
@@ -156,5 +247,5 @@ class Res8(nn.Module):
         fused clip-level scoring of the serving engine."""
         return self.head(self.trunk_features(x)[:, span_lo:span_hi].mean(dim=(1, 2)))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.head(self.trunk_features(x).mean(dim=(1, 2)))
+    def forward(self, x: torch.Tensor, taps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.head(self.trunk_features(x, taps).mean(dim=(1, 2)))

@@ -354,8 +354,6 @@ def log_mel_spectrogram_cuda(
     if not audio.is_contiguous():
         raise ValueError("audio must be contiguous")
     b, num_samples = audio.shape
-    if b > 65535:
-        raise ValueError(f"batch {b} exceeds the kernel grid's 65535 clips")
     served = frontend_route(config, grade)
     if route == "tc" and served != "tc":
         raise ValueError(f"route='tc' cannot serve grade {grade!r} with {config}: see frontend_route")

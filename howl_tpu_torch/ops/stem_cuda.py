@@ -150,8 +150,6 @@ def res8_stem_cuda(mel_tm: torch.Tensor, taps: torch.Tensor, pool=(3, 4), route:
     if not (mel_tm.is_contiguous() and taps.is_contiguous()):
         raise ValueError("mels and taps must be contiguous")
     b, t, n_mels = mel_tm.shape
-    if b > 65535:
-        raise ValueError(f"batch {b} exceeds the kernel grid's 65535 clips")
     pool_t, pool_f = pool
     ch = taps.shape[-1]
     served = stem_route(mel_tm.dtype, n_mels, ch, pool)

@@ -5,9 +5,10 @@
   port's own engine and frontend.
 * ``python -m howl_tpu_torch.bench --device cpu`` prints one JSON line whose
   keys are exactly those of ``bench.py``'s ``json.dumps`` (parsed from its
-  source) plus ``spread``, ``rungs`` and ``device``; the online keys are
-  null, ``mfu`` and ``train_mfu`` 0.0 off the card as in ``bench.py``, every
-  other measured key finite and positive.
+  source) plus ``spread``, ``rungs`` and ``device``; ``mfu`` and
+  ``train_mfu`` 0.0 off the card as in ``bench.py``, every other measured
+  key finite and positive, the seven online keys included (their latencies
+  by stream count, as ``bench.py`` gives them).
 * Without ``--device cpu`` and without a card it raises and names the flag;
   a card with no bf16 peak on record gives ``mfu: null``.
 """
@@ -15,6 +16,7 @@
 import ast
 import json
 import math
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -46,9 +48,12 @@ def _bench_py_keys() -> set:
 
 @pytest.fixture(scope="module")
 def cpu_record():
+    # one thread, as this file's own torch: the live engines' hops are thousands of tiny ops, and a process
+    # that spreads them over every core beside the other test workers can slow a hop past 0.5 s, which the
+    # stream rates' int() (as bench.py gives them) would print as 0
     proc = subprocess.run(
         [sys.executable, "-m", "howl_tpu_torch.bench", "--device", "cpu", "--repeats", "2"],
-        cwd=REPO, capture_output=True, text=True, timeout=300,
+        cwd=REPO, capture_output=True, text=True, timeout=300, env={**os.environ, "OMP_NUM_THREADS": "1"},
     )
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.strip().splitlines()
@@ -81,8 +86,19 @@ def test_cpu_run_prints_bench_py_keys_and_three_of_its_own(cpu_record):
 
 
 def test_cpu_run_has_null_online_keys_and_finite_positive_rates(cpu_record):
+    """(The name is the test's earlier claim: since the online engines are
+    ported, the seven online keys are measured too.) Every key finite and
+    positive at the CPU sizes, with its spread."""
     for key in bench.ONLINE_KEYS:
-        assert cpu_record[key] is None, key
+        value, spread = cpu_record[key], cpu_record["spread"][key]
+        if key.startswith("online_streams"):
+            assert isinstance(value, int) and value > 0 and 0 < spread[0] <= spread[1], key
+            continue
+        assert list(value) == ["8"] and list(spread) == ["8"], key  # bench.py's CPU stream count
+        lat = value["8"]
+        assert math.isfinite(lat["p50"]) and 0 < lat["p50"] <= lat["p99"], key
+        assert 0 < spread["8"][0] <= spread["8"][1], key
+        assert lat.get("hop_block") == (3 if key.endswith("_blocked") else None), key
     for key in MEASURED:
         value, spread = cpu_record[key], cpu_record["spread"][key]
         assert math.isfinite(value) and len(spread) == 2 and spread[0] <= spread[1], key
@@ -91,7 +107,7 @@ def test_cpu_run_has_null_online_keys_and_finite_positive_rates(cpu_record):
         else:
             assert value > 0 and spread[0] > 0, key
     assert cpu_record["vs_baseline"] == pytest.approx(cpu_record["value"] / 1000, abs=1e-3)
-    assert set(cpu_record["spread"]) == set(MEASURED)
+    assert set(cpu_record["spread"]) == set(MEASURED) | set(bench.ONLINE_KEYS)
 
 
 def test_cpu_run_names_its_rungs(cpu_record):
@@ -103,6 +119,12 @@ def test_cpu_run_names_its_rungs(cpu_record):
                                              "launches_per_batch": 0}
         assert rungs[scorer]["stem"] == {"kernel": "K2", "route": "plain", "launches_per_batch": 0}
     assert rungs["int8"] == "not ported (ROADMAP Queue 1, item 10)"
+    online = rungs["online"]
+    assert online["full_window"]["frontend"] == {"kernel": "K1", "route": "plain", "launches_per_step": 0,
+                                                 "grade": "bf16", "layout": "fm"}
+    for kind in ("full_window", "incremental"):
+        assert online[kind]["stem"] == {"kernel": "K2", "route": "plain", "launches_per_step": 0}
+    assert online["trunk"]["hop_block"] == {"per-hop": 1, "blocked": 3}
     assert rungs["train"]["noise_bank_mix"]["route"] == "plain"
 
 

@@ -14,6 +14,7 @@
 import json
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -25,6 +26,38 @@ torch.set_num_threads(1)
 def _out(detected, first_fire, labels):
     return {"detected": torch.tensor(detected), "first_fire_step": torch.tensor(first_fire),
             "labels": torch.tensor(labels)}
+
+
+def test_compare_online_holds_the_jax_tools_rule_for_the_live_engines():
+    fired, labels = np.zeros((100, 2), bool), np.zeros((100, 2), np.int32)
+    fired[5, 1] = True
+    assert validate_tpu_decisions.compare_online((fired, labels), (fired.copy(), labels.copy()))["ok"]
+    moved = fired.copy()
+    moved[6, 1], moved[5, 1] = True, False
+    assert not validate_tpu_decisions.compare_online((fired, labels), (moved, labels))["ok"]
+    one_off = labels.copy()
+    one_off[:2, 0] = 3  # 198 of 200 labels agree: 0.99
+    assert validate_tpu_decisions.compare_online((fired, labels), (fired, one_off))["ok"]
+    one_off[:3, 0] = 3  # 0.985
+    assert not validate_tpu_decisions.compare_online((fired, labels), (fired, one_off))["ok"]
+
+
+def test_margin_word_threshold_keeps_every_decision_off_its_edge():
+    """Two loud streams whose word 1 peaks at 0.9 and 0.8, two quiet ones at
+    0.45 on word 1 and a near tie (0.41 / 0.40) on word 2: word 1, the
+    threshold in the widest gap between the halves' top posteriors that no
+    near tie reaches."""
+    probs = np.full((3, 4, 3), 0.05)
+    probs[:, 0] = [0.05, 0.9, 0.05]
+    probs[:, 1] = [0.1, 0.8, 0.1]
+    probs[:, 2] = [0.35, 0.45, 0.2]
+    probs[:, 3] = [0.19, 0.40, 0.41]
+    pick = validate_tpu_decisions.margin_word_threshold(probs, 0.01)
+    assert pick["word"] == 1 and 0.45 + 0.01 <= pick["threshold"] <= 0.8 - 0.01
+    assert pick["distance"] == pytest.approx(min(pick["threshold"] - 0.45, 0.8 - pick["threshold"]))
+    assert pick["threshold"] == pytest.approx(0.625, abs=0.002)  # the middle of the widest gap
+    with pytest.raises(ValueError, match="no word"):
+        validate_tpu_decisions.margin_word_threshold(probs[:, ::-1], 0.01)  # the quiet half peaks higher
 
 
 def test_compare_holds_the_jax_tools_rule():
@@ -45,15 +78,17 @@ def test_decision_gate_runs_on_the_cpu_and_names_what_is_not_ported(capsys):
     out = capsys.readouterr().out
     rows = validate_tpu_decisions.run(torch.device("cpu"), 2, 1.0)
     ran = [tag for tag, rec in rows.items() if rec["ok"] is not None]
-    assert ran == ["res8+k1[bf16]+k2", "res8+k1[bf16x2]+k2", "res8 legacy[bf16]"]
+    assert ran == ["res8+k1[bf16]+k2", "res8+k1[bf16x2]+k2", "res8 legacy[bf16]", "res8+online[bf16]",
+                   "res8+trunk[bf16]", "res8+full-window[bf16]"]
     assert all(rows[tag]["ok"] for tag in ran)
+    # the live engines' rows hold the JAX tool's rule for them: fire flags equal, labels 99 %
+    for tag in ran[3:]:
+        assert set(rows[tag]) == {"fired_eq", "label_agreement", "ok"}
     # the three-pass grade is F11's: never run under the float32 grade's name
     assert "F11" in rows["res8+k1[bf16x3]+k2"]["status"] and "item 10" in rows["res8+k1[bf16]+k2+int8"]["status"]
-    for tag in ("online", "trunk", "full-window"):
-        assert "item 9" in rows[f"res8+{tag}[bf16]"]["status"]
     for name in validate_tpu_decisions.FAMILIES:
         assert "item 8" in rows[name]["status"]
-    assert out.count("-> OK") == 3 and out.count("not ported") == 10 and out.rstrip().endswith("ALL OK")
+    assert out.count("-> OK") == 6 and out.count("not ported") == 7 and out.rstrip().endswith("ALL OK")
 
 
 def test_decision_gate_exits_1_on_a_mismatch(monkeypatch, capsys):

@@ -167,8 +167,10 @@ def test_unported_options_raise(slice_setup):
     for kw, item in (({"carry_windows": True}, "item 8"), ({"use_int8_trunk": True}, "item 10")):
         with pytest.raises(NotImplementedError, match=item):
             _port_engine(variables, cfg_kw, **kw)
-    with pytest.raises(NotImplementedError, match="WholeClipEngine"):
+    with pytest.raises(NotImplementedError, match="WholeClipEngine.*item 8"):
         WholeClipEngine()
+    # the threshold sweep is ported: it decides, and at one threshold as infer_batch does
     pt = _port_engine(variables, cfg_kw)
-    with pytest.raises(NotImplementedError, match="sweep"):
-        pt.infer_sweep_batch(np.zeros((1, 8000), np.float32), thresholds=(0.5,))
+    clip = np.zeros((1, 8000), np.float32)
+    np.testing.assert_array_equal(pt.infer_sweep_batch(clip, thresholds=(0.5,))[0],
+                                  pt.infer_batch(clip, threshold=0.5)["detected"].numpy())

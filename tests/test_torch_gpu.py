@@ -31,6 +31,10 @@ in float32 and bf16, at block heights from 8 rows to the whole array and at
 row counts whose last ring stage and last bulk-copy chunk are not full; the
 manual legs at every ring depth from 2 to 8, with chunks shorter than the
 ring, chunks that wrap it many times and bf16 chunks that end inside a stage.
+The frontend and stem kernels take 65,536 clips in one launch (the online
+bench's largest window batch), held against their plain versions chunk by
+chunk; each live engine's bf16 decisions equal its float32 decisions on
+streams whose loud half fires.
 """
 
 import functools
@@ -1079,3 +1083,101 @@ def test_bench_cpu_sized_run_on_the_card(cuda):
         assert rung["frontend"]["route"] == "tc" and rung["frontend"]["launches_per_batch"] == 1
         assert rung["stem"] == {"kernel": "K2", "route": "tc", "launches_per_batch": 1}
     assert record["rungs"]["train"]["noise_bank_mix"]["launches_per_step"] == 1.0
+    for key in bench.ONLINE_KEYS:
+        assert record[key], key
+    online = record["rungs"]["online"]
+    assert online["full_window"]["frontend"]["route"] == "tc" and online["full_window"]["frontend"]["launches_per_step"] == 1
+    for kind in ("full_window", "incremental"):
+        assert online[kind]["stem"] == {"kernel": "K2", "route": "tc", "launches_per_step": 1}
+
+
+# ---- 65,536 clips a launch, and the live engines ----
+
+
+@pytest.mark.parametrize("route", ["tc", "fma"])
+def test_frontend_kernel_at_65536_clips(cuda, route):
+    """65,536 windows of 8,000 samples in one launch ("fm", the "bf16"
+    grade, bf16 out), the plain version chunk by chunk."""
+    cfg, mean, std = FrontendConfig(n_mels=40), -6.0, 4.0
+    audio = torch.randn((65536, 8000), generator=torch.Generator(device=cuda).manual_seed(7), device=cuda) * 0.1
+    kw = dict(precision="bf16", out_dtype=torch.bfloat16, layout="fm")
+    before = log_mel_spectrogram_cuda.launches
+    got = log_mel_spectrogram_cuda(audio, cfg, mean, std, route=route, **kw)
+    torch.cuda.synchronize()
+    assert log_mel_spectrogram_cuda.launches == before + 1 and tuple(got.shape) == (65536, 40, 41)
+    for lo in range(0, 65536, 8192):
+        want = log_mel_spectrogram_plain(audio[lo : lo + 8192], cfg, mean, std, **kw)
+        part = got[lo : lo + 8192]
+        assert bool(torch.isfinite(part.float()).all())
+        assert float((part.float() - want.float()).abs().max()) <= 2e-2 / std + _bf16_ulp(want), lo
+
+
+@pytest.mark.parametrize("route", ["tc", "fma"])
+def test_stem_kernel_at_65536_clips(cuda, route):
+    """65,536 clips of 41 frames in one launch, the plain version chunk by
+    chunk; the last clip's output lands where the first's would."""
+    mel, taps = _stem_operands(cuda, 65536, 41)
+    before = res8_stem_cuda.launches
+    got = res8_stem_cuda(mel, taps, route=route)
+    torch.cuda.synchronize()
+    assert res8_stem_cuda.launches == before + 1 and tuple(got.shape) == (65536, 13, 10, 45)
+    for lo in range(0, 65536, 8192):
+        want = res8_stem_plain(mel[lo : lo + 8192], taps)
+        assert float((got[lo : lo + 8192].float() - want.float()).abs().max()) <= _bf16_ulp(want), lo
+    torch.testing.assert_close(res8_stem_cuda(mel[-1:].contiguous(), taps, route=route), got[-1:], rtol=0, atol=0)
+
+
+def _live_config(probs: np.ndarray, base):
+    """A one-word configuration on float32 per-hop posteriors (T, N, L) that
+    fires on the loud half of the streams, every decision 0.01 from
+    flipping (``validate_tpu_decisions.margin_word_threshold``)."""
+    import dataclasses
+
+    from howl_tpu_torch.tools.validate_tpu_decisions import margin_word_threshold
+
+    pick = margin_word_threshold(probs, 0.01)
+    return dataclasses.replace(base, inference_sequence=(pick["word"],), negative_label=(pick["word"] + 1) % 4,
+                               inference_threshold=pick["threshold"])
+
+
+@pytest.mark.parametrize("kind", ["full_window", "incremental", "trunk"])
+def test_live_engine_bf16_decisions_equal_float32(cuda, kind):
+    """Each live engine on the card, bf16 against float32 on the same
+    streams (8 tone streams, 8 quiet, 3 s pushed hop by hop): every hop's
+    labels and fire flags equal, some streams fire and some do not."""
+    from howl_tpu_torch import bench
+    from howl_tpu_torch.compat import res8_variables_to_state_dict
+
+    state = res8_variables_to_state_dict(bench.res8_numpy_variables(np.random.default_rng(5), 4))
+    rng = np.random.default_rng(4)
+    t = np.arange(48000) / 16000
+    tones = 0.5 * np.sin(2 * np.pi * rng.uniform(200.0, 4000.0, (16, 1)) * t) + 0.05 * rng.standard_normal((16, 48000))
+    audio = torch.from_numpy(np.where(np.arange(16)[:, None] < 8, tones, 0.002 * rng.standard_normal((16, 48000)))
+                             .astype(np.float32)).to(cuda)
+
+    def run(cfg, dtype):
+        from howl_tpu_torch.inference.online import IncrementalOnlineEngine, OnlineEngine
+        from howl_tpu_torch.inference.streaming_trunk import FusedStreamingOnlineEngine
+        from howl_tpu_torch.models import create_model
+
+        cls = {"full_window": OnlineEngine, "incremental": IncrementalOnlineEngine,
+               "trunk": FusedStreamingOnlineEngine}[kind]
+        eng = cls(create_model("res8", num_labels=4), state, cfg, FrontendConfig(n_mels=40), -6.0, 4.0,
+                  num_streams=16, compute_dtype=dtype, device=cuda)
+        out = []
+        for end in range(eng.hop_samples, 48000 + 1, eng.hop_samples):
+            if kind == "full_window":
+                eng.ingest(audio[:, max(0, end - eng.window_samples) : end])
+            else:
+                eng.push(audio[:, end - eng.hop_samples : end])
+            probs = eng.last_probs if kind == "trunk" else eng.state.pred_ring[:, -1]
+            out.append((eng.last_labels, eng.last_fired, probs.float().cpu().numpy()))
+        return [np.stack(x) for x in zip(*out)]
+
+    cfg = _live_config(run(bench.serving_config(), None)[2], bench.serving_config())
+    labels, fired, probs = run(cfg, None)
+    labels16, fired16, probs16 = run(cfg, torch.bfloat16)
+    np.testing.assert_array_equal(labels16, labels)
+    np.testing.assert_array_equal(fired16, fired)
+    assert float(np.abs(probs16 - probs).max()) <= 2e-2
+    assert fired.any(0).any() and not fired.any(0).all()

@@ -115,17 +115,16 @@ def test_legacy_engine_scores_no_valid_window_on_a_short_clip(legacy_setup):
 
 
 def test_legacy_engine_scores_past_the_stem_grid_in_chunks(legacy_setup, monkeypatch):
-    """More windows than the stem kernel's grid holds go through the model
-    in chunks, with the same posteriors as one batch."""
-    import howl_tpu_torch.inference.engine as engine_module
-
+    """Every window goes through the model as one batch: the stem kernel's
+    grid no longer caps the clips of a launch, so the scorer no longer
+    splits its windows into chunks of 65,535 (the name is the test's
+    earlier claim); the posteriors are the per-clip scorer's."""
     variables, audio, cfg_kw = legacy_setup
     pt = _port_legacy(variables, cfg_kw)
-    whole = pt.score_batch(audio)["probs"]
     batches = []
     forward = pt.model.forward
-    monkeypatch.setattr(pt.model, "forward", lambda x: batches.append(x.shape[0]) or forward(x))
-    monkeypatch.setattr(engine_module, "WINDOW_CHUNK", 7)
-    chunked = pt.score_batch(audio)["probs"]
-    assert batches == [7] * 14 + [2]  # 4 clips x 25 windows
-    torch.testing.assert_close(chunked, whole, rtol=0, atol=1e-6)
+    monkeypatch.setattr(pt.model, "forward", lambda x, *a: batches.append(x.shape[0]) or forward(x, *a))
+    whole = pt.score_batch(audio)["probs"]
+    assert batches == [4 * 25]
+    per_clip = torch.cat([pt.score_batch(audio[i : i + 1])["probs"] for i in range(4)])
+    torch.testing.assert_close(whole, per_clip, rtol=0, atol=1e-6)

@@ -49,7 +49,8 @@ def test_imports_without_jax_or_flax():
     assert len(names) >= 22  # every module of every slice, training and the tools included, was imported
     for module in ("inference.engine", "training.step", "tools.bench_pallas_micro", "tools.bench_hbm_sweep",
                    "tools.hbm_sweep_kernels", "tools._study", "bench", "tools.validate_tpu_decisions",
-                   "tools.ablate_serving_slope", "tools.ablate_train_step", "tools.reconcile_train_f32"):
+                   "tools.ablate_serving_slope", "tools.ablate_train_step", "tools.reconcile_train_f32",
+                   "inference.online", "inference.streaming_trunk", "inference.detect"):
         assert f"howl_tpu_torch.{module}" in names
 
 
