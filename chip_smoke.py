@@ -121,12 +121,26 @@ them. In order it:
      a float32 step must run and be finite. Then it times the bench's three
      steps (bf16 with and without the bank, float32) in chains of 64, in
      turns, 2 repeats (``bench.time_train_steps``) and prints the medians;
- 17. (d) runs the bench, ``howl_tpu_torch.bench.main``, which prints its
+ 17. drives the training entry point (``python -m howl_tpu_torch.training.run.train``, called as
+     ``train.run``) on the card at res8's full width, ``envs/res8.env``'s recipe (batch 16, LR 0.01, decay
+     0.955, weight decay 1e-5, 0.5 s windows, 40 mels, sequence [0, 1, 2]) with the noise corpus on and
+     augmentation on, on a tone corpus of 24 positives and 24 negatives and 12 noise clips of 3 s that it
+     writes to a temporary directory: 60 epochs of 10 steps, then ``--eval`` on the same workspace, a
+     2-epoch ``--resume`` under ``torch.profiler``, and 2 epochs of ``--bf16 --fused-trunk``. Around each
+     call the launch counts are zeroed and read: K3 must launch once a train step, K1 and K2 once an
+     evaluator batch. Every dev and test positive must fire and no negative; the noisy sweeps must be
+     there; ``--eval`` from ``model-best.pt`` must give the run's confusion matrices; ``--resume`` must
+     carry the step count and AdamW's state on. F9: on the trained weights the bf16 engine (K1 "tc" at the
+     "bf16" grade, K2 "tc") must decide as the float32 engine at the exact grade on every dev and test
+     clip. It prints the loop's steps/s and examples/s, the shares of host batch preparation and the train
+     step (host timers that wait for the device), the device's busy time a step inside the loop and its
+     idle share, the evaluator's realtime factor and the max |dprob| of F9;
+ 18. (d) runs the bench, ``howl_tpu_torch.bench.main``, which prints its
      JSON line (``bench.py``'s keys, each measured key the median of 5
      repeats with its spread); every measured key must be finite and
      positive, the seven online keys included, each latency at every
      stream count of ``bench.py``;
- 18. prints one JSON line with each of the fifteen kernels' launches, error and times
+ 19. prints one JSON line with each of the fifteen kernels' launches, error and times
      beside its plain version's and its bound on this card (the larger of
      its bytes over 3.35 TB/s and its operations over the peak rate of
      their type, both counted from this run's shapes: what the function
@@ -194,6 +208,9 @@ ONLINE_STREAMS, ONLINE_STEPS, ONLINE_ZMUV = 512, 16, (-6.0, 4.0)
 BIG_STREAMS, BIG_STEPS = 65536, 3
 LIVE_SAMPLES = 63200
 LIVE_MARGIN = 0.01  # how far from flipping the decision checks' decisions are picked
+# the training entry point: envs/res8.env on a tone corpus of 24 positives and 24 negatives (12 train clips
+# of each, 6 dev and 6 test of each) and 12 noise clips; 60 epochs of 10 steps separate it on the CPU by 40
+ENTRY_CORPUS, ENTRY_EPOCHS, ENTRY_STEPS, ENTRY_RESUME_EPOCHS = 24, 60, 10, 2
 
 
 def _bound(n_bytes: float, ops: float, peak_flops: float) -> dict:
@@ -1352,6 +1369,241 @@ def drive_train_path(dev) -> dict:
     return {"k3_launches": k3, "losses": losses, "eval_accuracy": eval_acc, **rates}
 
 
+def write_tone_corpus(root, n_positive: int, n_negative: int, seconds: float = 2.0):
+    """A howl-format aligned corpus (``audio/*.wav`` + ``aligned-metadata-{training,dev,test}.jsonl``),
+    as ``tests/fixtures.py``'s ``make_wakeword_corpus`` writes it: positives say "hey fire fox" as three
+    0.3 s tone bursts, a carrier a word, with per-character end timestamps; negatives are noise."""
+    from pathlib import Path
+
+    from howl_tpu_torch.utils.audio_utils import write_wav
+
+    root = Path(root)
+    (root / "audio").mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(0)
+    vocab = ("hey", "fire", "fox")
+    freqs = {w: 500.0 * (i + 1) for i, w in enumerate(vocab)}
+    records = {"training": [], "dev": [], "test": []}
+    split_of = lambda i: "training" if i % 4 < 2 else ("dev", "test")[i % 2]  # noqa: E731
+    n_samples, word_dur = int(seconds * SAMPLE_RATE), 0.3
+    for i in range(n_positive):
+        audio = 0.01 * rng.standard_normal(n_samples).astype(np.float32)
+        ends, cursor = [], 0.2 + 0.1 * rng.random()
+        for w_idx, w in enumerate(vocab):
+            start, dur = int(cursor * SAMPLE_RATE), int(word_dur * SAMPLE_RATE)
+            audio[start : start + dur] += 0.3 * np.sin(2 * np.pi * freqs[w] * np.arange(dur) / SAMPLE_RATE).astype(np.float32)
+            word_ms = (cursor * 1000, (cursor + word_dur) * 1000)
+            ends += [word_ms[0] + (k + 1) * (word_ms[1] - word_ms[0]) / len(w) for k in range(len(w))]
+            if w_idx < len(vocab) - 1:
+                ends.append(ends[-1])  # the space takes the previous character's timestamp
+            cursor += word_dur + 0.15
+        write_wav(root / "audio" / f"pos_{i:03d}.wav", audio, SAMPLE_RATE)
+        records[split_of(i)].append({"path": f"pos_{i:03d}.wav", "transcription": " ".join(vocab), "end_timestamps": ends})
+    for i in range(n_negative):
+        write_wav(root / "audio" / f"neg_{i:03d}.wav", 0.05 * rng.standard_normal(n_samples).astype(np.float32), SAMPLE_RATE)
+        text = "something else entirely"
+        records[split_of(i)].append({"path": f"neg_{i:03d}.wav", "transcription": text,
+                                     "end_timestamps": list(np.linspace(10.0, seconds * 1000 - 10.0, len(text)))})
+    for split, recs in records.items():
+        (root / f"aligned-metadata-{split}.jsonl").write_text("".join(json.dumps(r) + "\n" for r in recs))
+    return root
+
+
+def write_noise_dir(root, n: int = 12, seconds: float = 3.0):
+    """``tests/fixtures.py``'s ``make_noise_dir``: n clips of white noise."""
+    from pathlib import Path
+
+    from howl_tpu_torch.utils.audio_utils import write_wav
+
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(7)
+    for i in range(n):
+        write_wav(root / f"noise_{i}.wav", 0.1 * rng.standard_normal(int(seconds * SAMPLE_RATE)).astype(np.float32), SAMPLE_RATE)
+    return root
+
+
+def _zero_launch_counts() -> None:
+    from howl_tpu_torch.ops.augment_cuda import mix_noise_bank_cuda
+    from howl_tpu_torch.ops.frontend_cuda import log_mel_spectrogram_cuda
+    from howl_tpu_torch.ops.stem_cuda import res8_stem_cuda
+
+    for fn in (mix_noise_bank_cuda, log_mel_spectrogram_cuda, res8_stem_cuda):
+        fn.launches = 0
+    log_mel_spectrogram_cuda.launches_tc = res8_stem_cuda.launches_tc = 0
+
+
+def _launch_counts() -> dict:
+    from howl_tpu_torch.ops.augment_cuda import mix_noise_bank_cuda
+    from howl_tpu_torch.ops.frontend_cuda import log_mel_spectrogram_cuda
+    from howl_tpu_torch.ops.stem_cuda import res8_stem_cuda
+
+    return {"k1": log_mel_spectrogram_cuda.launches, "k1_tc": log_mel_spectrogram_cuda.launches_tc,
+            "k2": res8_stem_cuda.launches, "k2_tc": res8_stem_cuda.launches_tc, "k3": mix_noise_bank_cuda.launches}
+
+
+def _train_entry(argv: list, what: str) -> tuple[dict, dict, object]:
+    """One call of the entry point between zeroed launch counts: (results, counts, the run's loop stats).
+    K3 must have launched once a train step, K1 and K2 once an evaluator batch."""
+    import torch
+
+    from howl_tpu_torch.training.run import train
+
+    stats = train.LoopStats()
+    _zero_launch_counts()
+    results = train.run(argv, stats)
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    print(f"{what}: {stats.steps} train steps, {stats.eval_batches} evaluator batches; launches K1 {counts['k1']} "
+          f"(tc {counts['k1_tc']}), K2 {counts['k2']} (tc {counts['k2_tc']}), K3 {counts['k3']}")
+    if counts["k3"] != stats.steps:
+        raise AssertionError(f"{what}: K3 launched {counts['k3']} times in {stats.steps} augmented steps with a bank")
+    if not counts["k1"] == counts["k2"] == stats.eval_batches:
+        raise AssertionError(f"{what}: K1 {counts['k1']} and K2 {counts['k2']} launches for {stats.eval_batches} evaluator batches")
+    return results, counts, stats
+
+
+def _loop_idle_share(prof, steps: int, loop_s: float) -> str:
+    """The device's busy time inside the profiled run's ``train_epoch`` ranges (the union of its kernels' and
+    copies' intervals; the ranges' own device-side annotations left out), a step, against the profiled
+    ranges' wall time and the unprofiled loop's wall time ``loop_s`` a step."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    spans = [(e.time_range.start, e.time_range.end) for e in events if e.name == "train_epoch" and e.device_type != cuda]
+    work = sorted(
+        (e.time_range.start, e.time_range.end) for e in events
+        if e.device_type == cuda and not getattr(e, "is_user_annotation", False) and e.name != "train_epoch"
+        and any(a <= e.time_range.start < b for a, b in spans)
+    )
+    busy_us, end = 0.0, float("-inf")
+    for a, b in work:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    if not spans or not work:
+        return "device busy a step: not measured (the profiler saw no device time in the loop)"
+    busy_ms, span_ms, wall_ms = busy_us / 1000 / steps, sum(b - a for a, b in spans) / 1000 / steps, loop_s * 1000
+    return (f"{len(work) / steps:.1f} device operations a step, busy {busy_ms:.3f} ms a step; the profiled loop "
+            f"{span_ms:.3f} ms a step (idle share {1 - busy_ms / span_ms:.3f}), the unprofiled loop {wall_ms:.3f} ms "
+            f"a step (idle share {1 - busy_ms / wall_ms:.3f})")
+
+
+def drive_train_entry(dev) -> dict:
+    """The training entry point, ``python -m howl_tpu_torch.training.run.train``, on the card at res8's full
+    width: ``envs/res8.env``'s recipe with the noise corpus on, augmentation on, on a synthetic-tone corpus
+    written here. Then ``--eval`` on the same workspace, a short ``--resume``, a short ``--bf16 --fused-trunk``
+    run, and F9 on the trained weights."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from howl_tpu_torch.context import InferenceContext
+    from howl_tpu_torch.data.dataset.dataset_loader import WakeWordDatasetLoader
+    from howl_tpu_torch.inference.config import EngineConfig
+    from howl_tpu_torch.inference.engine import StreamingEngine
+    from howl_tpu_torch.models import create_model
+    from howl_tpu_torch.ops.frontend import FrontendConfig
+    from howl_tpu_torch.settings import SETTINGS
+
+    recipe = {"WEIGHT_DECAY": "0.00001", "NUM_EPOCHS": str(ENTRY_EPOCHS), "LEARNING_RATE": "0.01",
+              "LR_DECAY": "0.955", "BATCH_SIZE": "16", "MAX_WINDOW_SIZE_SECONDS": "0.5", "USE_NOISE_DATASET": "True",
+              "NUM_MELS": str(N_MELS), "INFERENCE_SEQUENCE": "[0,1,2]", "VOCAB": '["hey","fire","fox"]'}
+    saved_env = {k: os.environ.get(k) for k in (*recipe, "NOISE_DATASET_PATH")}
+    print(bench.card_line())
+    with tempfile.TemporaryDirectory(prefix="howl_train_entry_") as tmp:
+        tmp = Path(tmp)
+        corpus = write_tone_corpus(tmp / "ww", ENTRY_CORPUS, ENTRY_CORPUS)
+        recipe["NOISE_DATASET_PATH"] = str(write_noise_dir(tmp / "noise"))
+        os.environ.update(recipe)
+        SETTINGS.reset()
+        try:
+            ws = tmp / "ws"
+            base = ["--model", "res8", "--workspace", str(ws), "-i", str(corpus), "--device", "cuda"]
+            results, counts, stats = _train_entry(base + ["--eval-freq", "0", "--steps-per-epoch", str(ENTRY_STEPS)], "train")
+            if counts["k1_tc"] or counts["k2_tc"]:
+                raise AssertionError("the float32 evaluator went through a tensor-core kernel: K1 and K2 'fma' expected")
+            loop_s = stats.prep_s + stats.step_s
+            rates = {
+                "steps_per_s": stats.steps / loop_s, "examples_per_s": stats.examples / loop_s,
+                "prep_share": stats.prep_s / loop_s, "step_share": stats.step_s / loop_s,
+                "eval_realtime_factor": stats.eval_audio_ms / 1000 / stats.eval_s,
+            }
+            print(f"train loop at batch 16: {rates['steps_per_s']:.1f} steps/s, {rates['examples_per_s']:.1f} examples/s "
+                  f"over {stats.steps} steps ({loop_s:.3f} s); host batch preparation {stats.prep_s:.3f} s "
+                  f"({rates['prep_share']:.3f}), train step {stats.step_s:.3f} s ({rates['step_share']:.3f}); "
+                  f"evaluator: {stats.eval_audio_ms / 1000:.1f} s of audio in {stats.eval_s:.3f} s, realtime factor "
+                  f"{rates['eval_realtime_factor']:.1f}")
+            print("final sweeps: " + ", ".join(f"{k} tp {v['tp']} fp {v['fp']} tn {v['tn']} fn {v['fn']}" for k, v in results.items()))
+            missing = {"dev_noisy_pos", "dev_noisy_neg", "test_noisy_pos", "test_noisy_neg"} - set(results)
+            if missing:
+                raise AssertionError(f"the noisy sweeps {sorted(missing)} are missing")
+            for key in ("dev_pos", "test_pos"):
+                if results[key]["fn"] or not results[key]["tp"]:
+                    raise AssertionError(f"{key}: a positive was not detected: {results[key]}")
+            for key in ("dev_neg", "test_neg"):
+                if results[key]["fp"] or not results[key]["tn"]:
+                    raise AssertionError(f"{key}: a negative fired: {results[key]}")
+
+            eval_results, _, _ = _train_entry(base + ["--eval"], "--eval from model-best.pt")
+            if eval_results != results:
+                raise AssertionError(f"--eval disagrees with the run's final sweeps: {eval_results} against {results}")
+            if len((ws / "0.0_results.csv").read_text().splitlines()) != 8:
+                raise AssertionError("--eval wrote no 8 rows of 0.0_results.csv")
+
+            before = torch.load(ws / "train_state.pt", weights_only=True)
+            os.environ["NUM_EPOCHS"] = str(ENTRY_RESUME_EPOCHS)
+            SETTINGS.reset()
+            activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=activities) as prof:
+                _, _, resume_stats = _train_entry(
+                    base + ["--resume", "--eval-freq", "0", "--steps-per-epoch", str(ENTRY_STEPS)], "--resume")
+            after = torch.load(ws / "train_state.pt", weights_only=True)
+            want = before["step"] + resume_stats.steps
+            adam_steps = {float(s["step"]) for s in after["optimizer"]["state"].values()}
+            print(f"--resume: step {before['step']} -> {after['step']}; AdamW's step counts {sorted(adam_steps)}")
+            if after["step"] != want or adam_steps != {float(want)}:
+                raise AssertionError(f"--resume did not continue the step count and the AdamW state from step {before['step']}")
+            idle = _loop_idle_share(prof, resume_stats.steps, loop_s / stats.steps)
+            print(f"train loop, batch 16: {idle}")
+
+            _, counts, bf16_stats = _train_entry(
+                ["--model", "res8", "--workspace", str(tmp / "ws_bf16"), "-i", str(corpus), "--device", "cuda",
+                 "--bf16", "--fused-trunk", "--eval-freq", "1", "--steps-per-epoch", "5"], "--bf16 --fused-trunk")
+            if counts["k2_tc"] != bf16_stats.eval_batches or counts["k1_tc"]:
+                raise AssertionError("the bf16 evaluator: K2 'tc' once a batch and K1 at the exact grade ('fma') expected")
+
+            # F9: the bf16 engine as served (K1 "tc" at the "bf16" grade, K2 "tc") against the float32 engine at
+            # the exact grade, on every dev and test clip, on the weights this run trained
+            ctx = InferenceContext(vocab=SETTINGS.training.vocab)
+            zmuv = json.loads((ws / "zmuv.json").read_text())
+            mean, std = zmuv["mean"], float(np.sqrt(zmuv["mean2"] - zmuv["mean"] ** 2))
+            state_dict = torch.load(ws / "model.pt", weights_only=True)
+            engines = {name: StreamingEngine(create_model("res8", num_labels=ctx.num_labels), state_dict,
+                                             EngineConfig.from_settings(ctx), FrontendConfig.from_settings(), mean, std,
+                                             compute_dtype=dtype, frontend_precision=grade, device=dev)
+                       for name, dtype, grade in (("f32", None, None), ("bf16", torch.bfloat16, "bf16"))}
+            _, ww_dev, ww_test = WakeWordDatasetLoader().load_splits(corpus, sample_rate=SAMPLE_RATE, mono=True)
+            audio = np.stack([ds[i].audio_data for ds in (ww_dev, ww_test) for i in range(len(ds))])
+            out = {name: eng.infer_batch(audio) for name, eng in engines.items()}
+            dprob = float((out["bf16"]["probs"] - out["f32"]["probs"]).abs().max())
+            fired = out["f32"]["detected"].tolist()
+            print(f"F9 on the trained weights, {len(audio)} dev and test clips ({sum(fired)} fire): bf16 decisions "
+                  f"{'equal' if fired == out['bf16']['detected'].tolist() else 'DIFFER FROM'} float32's; max |dprob| {dprob:.3e}")
+            if fired != out["bf16"]["detected"].tolist():
+                raise AssertionError("F9: the bf16 engine's decisions differ from the float32 engine's on the trained weights")
+            return {**rates, "steps": stats.steps, "eval_batches": stats.eval_batches, "f9_max_dprob": dprob}
+        finally:
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            SETTINGS.reset()
+
+
 def check_bench_record(record: dict) -> None:
     """(d) The bench's line: every measured key finite and positive with a
     [min, max] spread around it, the seven online keys included (the
@@ -1684,6 +1936,8 @@ def main() -> int:
     check_train_step_against_cpu(dev)
     train_path = drive_train_path(dev)
     lap("train path")
+    drive_train_entry(dev)
+    lap("train entry point")
     check_bench_record(bench.main(["--device", "cuda"]))
     lap("bench (d)")
     print("phase seconds: " + ", ".join(f"{name} {sec:.1f}" for name, sec in laps))

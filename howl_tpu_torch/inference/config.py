@@ -27,6 +27,46 @@ class EngineConfig:
     # argmax before the FSM; None for word mode
     label_color_map: Optional[Tuple[int, ...]] = None
 
+    @classmethod
+    def from_settings(cls, context=None, **overrides) -> "EngineConfig":
+        """The configuration ``SETTINGS`` describes, as the JAX package's
+        ``EngineConfig.from_settings`` reads it: the inference-engine
+        section, the training window and eval stride, the sample rate and,
+        with an ``InferenceContext``, its label space (phone mode colors
+        the labels into words)."""
+        from howl_tpu_torch.settings import SETTINGS
+
+        eng = SETTINGS.inference_engine
+        tr = SETTINGS.training
+        kwargs = dict(
+            inference_sequence=tuple(eng.inference_sequence),
+            inference_window_ms=eng.inference_window_ms,
+            smoothing_window_ms=eng.smoothing_window_ms,
+            tolerance_window_ms=eng.tolerance_window_ms,
+            inference_threshold=eng.inference_threshold,
+            inference_weights=tuple(eng.inference_weights) if eng.inference_weights else None,
+            max_window_size_ms=tr.max_window_size_seconds * 1000,
+            eval_stride_size_ms=tr.eval_stride_size_seconds * 1000,
+            sample_rate=SETTINGS.audio.sample_rate,
+        )
+        if context is not None:
+            negative_label = context.negative_label
+            coloring = getattr(context, "coloring", None)
+            if coloring is not None:
+                # phone mode: the negative label is colored too, and its color
+                # is the fallback of unmapped and below-threshold labels
+                negative_label = coloring.color_map[negative_label]
+                kwargs["label_color_map"] = tuple(
+                    coloring.color_map.get(i, negative_label) for i in range(context.num_labels)
+                )
+            kwargs.update(
+                negative_label=negative_label,
+                blank_label=context.blank_label,
+                num_labels=context.num_labels,
+            )
+        kwargs.update(overrides)
+        return cls(**kwargs)
+
     def padded_weights(self):
         """inference_weights padded with ones to num_labels."""
         if not self.inference_weights:

@@ -96,6 +96,20 @@ class FrontendConfig:
     center: bool = True
     log_offset: float = 1e-7
 
+    @classmethod
+    def from_settings(cls) -> "FrontendConfig":
+        """The geometry ``SETTINGS.audio_transform`` describes;
+        ``use_meyda_spectrogram`` pins f_max at 8 kHz (the browser
+        convention), as in the JAX package."""
+        from howl_tpu_torch.settings import SETTINGS
+
+        s = SETTINGS.audio_transform
+        f_max = 8000.0 if s.use_meyda_spectrogram else None
+        return cls(
+            sample_rate=s.sample_rate, n_fft=s.num_fft, hop_length=s.hop_length, n_mels=s.num_mels,
+            f_max=f_max,
+        )
+
     @property
     def n_freqs(self) -> int:
         return self.n_fft // 2 + 1

@@ -1,3 +1,5 @@
 """Training (counterpart of ``howl_tpu/training``): the train state, the
-objectives and the train and eval steps. The training entry point, datasets
-and checkpoints are not ported yet (ROADMAP Queue 1, item 7)."""
+objectives, the train and eval steps, and the entry point
+``python -m howl_tpu_torch.training.run.train`` with its checkpoints
+(``howl_tpu_torch/workspace.py``). CTC and the models other than res8 wait
+for ROADMAP Queue 1, item 8; ``trainer.py`` and ``config.py`` for item 14."""
