@@ -12,10 +12,12 @@ them. In order it:
      ``csrc/frontend_tc.cu``: the two bf16 grades) and the float32-FMA one
      ("fma", ``csrc/frontend.cu``: every grade), against their plain PyTorch
      version at the serving path's shape, B=512 x 128,000 samples, 40 mels,
-     in every precision grade with float32 and bf16 output, plus four "fm"
-     cases (the per-window scorer's layout); then times the main path's case in turns (plain, fma, tc, tc,
-     fma, plain) and the two-pass grade (fma, tc, tc, fma); the tensor-core
-     kernel must be the faster. Before that it counts the tensor-core and
+     in every precision grade with float32 and bf16 output (the three-pass
+     grade "bf16x3", the JAX kernel's default, on the FMA kernel), plus five
+     "fm" cases (the per-window scorer's layout); then times the main path's
+     case in turns (plain, fma, tc, tc, fma, plain), the two-pass grade (fma,
+     tc, tc, fma) and the three-pass grade (plain, fma, fma, plain, with its
+     bound); the tensor-core kernel must be the faster. Before that it counts the tensor-core and
      bulk-copy opcodes in the built library: the tensor-core frontend kernel,
      the stem fold kernel (T2), the trunk proto (T1) and the frontend study's
      GEMM (M2) and polyphase kernel (M3) must hold HGMMA (``wgmma``) and
@@ -87,9 +89,28 @@ them. In order it:
      to 1; its decisions must equal the exact float32 scorer's on a batch
      where some clips fire and some do not. The stem kernel is held against
      its plain version on that window batch, chunk by chunk;
+ 10b. drives the JAX serving headline's precision ladder at the same size
+     in bf16: K1 "tc" at "bf16", K2 "tc", the int8 residual trunk (the layer
+     kernel ``csrc/int8_trunk.cu``) calibrated on the batch's first 64 clips
+     as the bench builds it. One batch between zeroed counters must launch K1
+     "tc" and K2 "tc" once and the int8 kernel six times; its posteriors must
+     be finite and sum to 1; the kernel trunk must equal the plain int8 trunk
+     on the batch's stem bit for bit (the first layer's s32 sums exact through
+     the kernel's interface), and the engine's decisions an engine's on the
+     plain int8 trunk; it prints the share of decisions that agree with the
+     exact float32 engine (random weights), times the six launches against
+     cuDNN's bf16 stage 3 in turns with their bound, and runs the full-step
+     A/B of the two trunks (``ablate_serving_slope.trunk_ab``: two-point
+     slopes, bf16, int8, int8, bf16) that decided the bench's headline trunk;
+ 10c. runs both int8 tools at their JAX tools' sizes
+     (``howl_tpu_torch.tools.bench_trunk_int8`` at batch 512, three legs;
+     ``howl_tpu_torch.tools.bench_stream_step_int8`` at (16,384, 1) and
+     (65,536, 3), two legs each, chains of 8 and 32 steps); every leg must
+     print a positive time;
  11. runs the decision gate ``howl_tpu_torch.tools.validate_tpu_decisions``
-     on the card: every row that runs must be OK, the three live engines'
-     rows included;
+     on the card: every row that runs must be OK, the three-pass grade's
+     (``res8+k1[bf16x3]+k2``), the int8 trunk's (``res8+k1[bf16]+k2+int8``)
+     and the three live engines' rows included;
  12. drives the live serving path (a): the ``OnlineEngine`` at 512 streams
      in bf16, 16 hops between zeroed counters, which must launch the
      tensor-core frontend kernel and the tensor-core stem kernel once a hop
@@ -132,7 +153,9 @@ them. In order it:
      there; ``--eval`` from ``model-best.pt`` must give the run's confusion matrices; ``--resume`` must
      carry the step count and AdamW's state on. F9: on the trained weights the bf16 engine (K1 "tc" at the
      "bf16" grade, K2 "tc") must decide as the float32 engine at the exact grade on every dev and test
-     clip. It prints the loop's steps/s and examples/s, the shares of host batch preparation and the train
+     clip, and so must the int8 engine (the same with the int8 trunk, calibrated on the train clips): its
+     detections equal, its first fires at most one hop apart (the JAX int8 engine moves one by a hop on
+     weights trained so). It prints the loop's steps/s and examples/s, the shares of host batch preparation and the train
      step (host timers that wait for the device), the device's busy time a step inside the loop and its
      idle share, the evaluator's realtime factor and the max |dprob| of F9;
  18. (d) runs the bench, ``howl_tpu_torch.bench.main``, which prints its
@@ -140,7 +163,7 @@ them. In order it:
      repeats with its spread); every measured key must be finite and
      positive, the seven online keys included, each latency at every
      stream count of ``bench.py``;
- 19. prints one JSON line with each of the fifteen kernels' launches, error and times
+ 19. prints one JSON line with each of the sixteen kernels' launches, error and times
      beside its plain version's and its bound on this card (the larger of
      its bytes over 3.35 TB/s and its operations over the peak rate of
      their type, both counted from this run's shapes: what the function
@@ -150,7 +173,8 @@ them. In order it:
 
 ``--profile DIR`` adds a stage breakdown and a ``torch.profiler`` kernel
 table, with the device's idle share, of the bf16 serving batch through the
-fused-trunk scorer (``DIR/serve_profile.txt``) and the per-window scorer
+fused-trunk scorer (``DIR/serve_profile.txt``; with the int8 trunk
+``DIR/serve_int8_profile.txt``) and the per-window scorer
 (``DIR/legacy_profile.txt``), of a hop of each live engine at 512 streams
 and of the incremental and trunk engines at 65,536
 (``DIR/online_*_profile.txt``), and of the bf16 noise-bank train step
@@ -202,6 +226,7 @@ HBM_RATE_MARGIN = 1.1
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = bench.H100_SXM_BF16_FLOPS  # dense, tensor cores, float32 accumulate
 PEAK_F32_FLOPS = 67e12  # CUDA cores
+PEAK_INT8_OPS = 1979e12  # dense int8, tensor cores, s32 accumulate
 # the live engines: (a) the OnlineEngine's hops between zeroed counters, (b) the incremental engine's at 65,536
 # streams, (c) the decision checks on 512 streams of 63,200 samples (56 whole windows, 63 hops)
 ONLINE_STREAMS, ONLINE_STEPS, ONLINE_ZMUV = 512, 16, (-6.0, 4.0)
@@ -268,20 +293,22 @@ def check_frontend(audio, cfg, zmuv) -> dict:
     )
 
     mean, std = zmuv
-    cases = [(g, d, "tm") for g in ("f32", "bf16x2", "bf16") for d in (torch.float32, torch.bfloat16)]
+    cases = [(g, d, "tm") for g in ("f32", "bf16x3", "bf16x2", "bf16") for d in (torch.float32, torch.bfloat16)]
     # "fm": the per-window scorer's layout ("bf16", bf16 out in the bf16 engine; "f32" in the float32 one)
     cases += [("bf16", torch.float32, "fm"), ("bf16", torch.bfloat16, "fm"), ("bf16x2", torch.bfloat16, "fm"),
-              ("f32", torch.float32, "fm")]
+              ("f32", torch.float32, "fm"), ("bf16x3", torch.bfloat16, "fm")]
     errs = {}
     for grade, out_dtype, layout in cases:
         kw = dict(precision=grade, out_dtype=out_dtype, layout=layout)
         ref = log_mel_spectrogram_plain(audio, cfg, mean, std, **kw)
-        # the tests' bounds: f32 1e-3/std; bf16 operand grades 2e-2/std (the
-        # operands are bit-equal, the float32 sums differ in order and the
-        # tensor cores do not round each partial sum as fmaf does, which can
-        # flip one bf16 rounding of the power); bf16 output adds one bf16 ulp
-        # of its magnitude for the same reason at the final rounding
-        tol = (1e-3 if grade == "f32" else 2e-2) / std
+        # the tests' bounds: f32 and the three-pass grade 1e-3/std (the same
+        # passes on both sides, the float32 sums in another order); bf16
+        # operand grades 2e-2/std (the operands are bit-equal, the float32 sums
+        # differ in order and the tensor cores do not round each partial sum as
+        # fmaf does, which can flip one bf16 rounding of the power); bf16 output
+        # adds one bf16 ulp of its magnitude for the same reason at the final
+        # rounding
+        tol = (1e-3 if grade in ("f32", "bf16x3") else 2e-2) / std
         if out_dtype == torch.bfloat16:
             tol += _bf16_ulp(ref)
         served = frontend_route(cfg, grade)
@@ -313,18 +340,30 @@ def check_frontend(audio, cfg, zmuv) -> dict:
     plain_ms, fma_ms, tc_ms = (turns[0] + turns[5]) / 2, (turns[1] + turns[4]) / 2, (turns[2] + turns[3]) / 2
     x2 = [timed("bf16x2", "fma"), timed("bf16x2", "tc"), timed("bf16x2", "tc"), timed("bf16x2", "fma")]
     tc_x2_ms, fma_x2_ms = (x2[1] + x2[2]) / 2, (x2[0] + x2[3]) / 2
+    # the three-pass grade on its kernel ("fma") against its plain version: plain, fma, fma, plain
+    x3 = [timed("bf16x3", plain=True, iters=2), timed("bf16x3", "fma", iters=2), timed("bf16x3", "fma", iters=2),
+          timed("bf16x3", plain=True, iters=2)]
+    fma_x3_ms, plain_x3_ms = (x3[1] + x3[2]) / 2, (x3[0] + x3[3]) / 2
     # bf16 operands, float32 sums: the DFT as (frames, n_fft) @ (n_fft, 2 bins), power, the mel product; the
     # same work whatever implements it
     frames, n_bins = mel.shape[0] * mel.shape[1], cfg.n_fft // 2
     ops = frames * (2 * cfg.n_fft * 2 * n_bins + 3 * n_bins + 2 * n_bins * cfg.n_mels)
     w_fb_bytes = 4 * (cfg.n_fft * 2 * n_bins + n_bins * cfg.n_mels)
+    # the three-pass grade: three products of bf16 operands with float32 sums, both matrices' hi and lo read
+    x3_bound = _bound(_nbytes(audio, mel) + 2 * w_fb_bytes,
+                      frames * (3 * 2 * cfg.n_fft * 2 * n_bins + 5 * n_bins + 3 * 2 * n_bins * cfg.n_mels), PEAK_BF16_FLOPS)
     record = {"max_abs_err": errs["tc", "bf16", torch.bfloat16, "tm"], "ms": tc_ms, "plain_ms": plain_ms, "mel": mel,
               "route_tc": True, "prev_ms": fma_ms, "prev_source": "howl_tpu_torch/csrc/frontend.cu",
               "prev_max_abs_err": errs["fma", "bf16", torch.bfloat16, "tm"], "ms_bf16x2": tc_x2_ms,
-              "prev_ms_bf16x2": fma_x2_ms, **_bound(_nbytes(audio, mel) + w_fb_bytes, ops, PEAK_BF16_FLOPS)}
+              "prev_ms_bf16x2": fma_x2_ms, "ms_bf16x3": fma_x3_ms, "plain_ms_bf16x3": plain_x3_ms,
+              "max_abs_err_bf16x3": errs["fma", "bf16x3", torch.bfloat16, "tm"], "bound_ms_bf16x3": x3_bound["bound_ms"],
+              "bound_by_bf16x3": x3_bound["bound_by"],
+              **_bound(_nbytes(audio, mel) + w_fb_bytes, ops, PEAK_BF16_FLOPS)}
     print(f"K1 main-path case: tc kernel {tc_ms:.3f} ms, fma kernel {fma_ms:.3f} ms, plain {plain_ms:.3f} ms per batch; "
           f"bound {record['bound_ms']:.4f} ms by {record['bound_by']}: {record['bound_ms'] / tc_ms:.3f} of the bound's rate")
     print(f"K1 grade bf16x2, bf16 out, tm: tc kernel {tc_x2_ms:.3f} ms, fma kernel {fma_x2_ms:.3f} ms")
+    print(f"K1 grade bf16x3, bf16 out, tm: fma kernel {fma_x3_ms:.3f} ms, plain {plain_x3_ms:.3f} ms; bound "
+          f"{x3_bound['bound_ms']:.4f} ms by {x3_bound['bound_by']}: {x3_bound['bound_ms'] / fma_x3_ms:.3f} of its rate")
     if not tc_ms < fma_ms:
         raise AssertionError(f"the tensor-core frontend kernel ({tc_ms:.3f} ms) is not faster than the FMA kernel ({fma_ms:.3f} ms)")
     return record
@@ -999,6 +1038,161 @@ def drive_legacy_path(dev, batch: int, clip_seconds: float) -> dict:
     return {"launches": launches, "fired": fired, "k2_windows_max_abs_err": k2_err}
 
 
+def drive_int8_path(dev, batch: int, clip_seconds: float) -> dict:
+    """The JAX serving headline's precision ladder at 512 x 8 s, bf16: K1 "tc"
+    at "bf16", K2 "tc", the int8 residual trunk (six launches of
+    ``csrc/int8_trunk.cu``), window pooling and the FSM, calibrated on the
+    batch's first 64 clips as the bench builds it. Its launches, its
+    posteriors, the kernel trunk against the plain int8 trunk (exact s32 sums,
+    the output bit for bit), its decisions against an engine on the plain int8
+    trunk and the float32 engine's, the six launches against cuDNN's bf16
+    stage 3 in turns, and the full-step A/B of the two trunks that decides the
+    bench's headline."""
+    import torch
+
+    from howl_tpu_torch.compat import res8_variables_to_state_dict
+    from howl_tpu_torch.inference import EngineConfig, StreamingEngine
+    from howl_tpu_torch.models import create_model
+    from howl_tpu_torch.ops.frontend import FrontendConfig
+    from howl_tpu_torch.ops.frontend_cuda import log_mel_spectrogram_cuda
+    from howl_tpu_torch.ops.int8_trunk import (
+        int8_conv_layer_cuda, int8_conv_sums_plain, quantize_activations, residual_features_int8,
+        residual_features_int8_plain,
+    )
+    from howl_tpu_torch.ops.stem_cuda import res8_stem_cuda
+    from howl_tpu_torch.tools import ablate_serving_slope
+
+    rng = np.random.default_rng(SEED + 7)
+    num_labels = 4
+    frontend = FrontendConfig(n_mels=N_MELS)
+    base_cfg = EngineConfig(
+        inference_sequence=(0, 1, 2), max_window_size_ms=500.0, eval_stride_size_ms=62.5,
+        negative_label=3, num_labels=num_labels, sample_rate=SAMPLE_RATE,
+    )
+    state = res8_variables_to_state_dict(bench.res8_numpy_variables(rng, num_labels))
+    samples = int(clip_seconds * SAMPLE_RATE)
+    audio = torch.from_numpy(smoke_audio(rng, batch, samples)).to(dev)
+    calibration = audio[: bench.CALIBRATION_CLIPS]
+
+    def engine(cfg, dtype, **kw):
+        return StreamingEngine(create_model("res8", num_labels=num_labels), state, cfg, frontend, zmuv_mean=-6.0,
+                               zmuv_std=4.0, compute_dtype=dtype, device=dev, **kw)
+
+    cfg = firing_config(engine(base_cfg, None, frontend_precision="f32").score_batch(audio)["probs"].cpu().numpy(),
+                        base_cfg)
+    ref = engine(cfg, None, frontend_precision="f32").infer_batch(audio)
+    eng = engine(cfg, torch.bfloat16, use_int8_trunk=True, int8_calibration_audio=calibration)
+    p = eng._int8_params
+    print(f"int8 trunk calibrated on {calibration.shape[0]} clips: act scales "
+          f"{', '.join(f'{a:.5f}' for a in p.act_scale)}")
+
+    for fn in (log_mel_spectrogram_cuda, res8_stem_cuda):
+        fn.launches = fn.launches_tc = 0
+    int8_conv_layer_cuda.launches = 0
+    out = eng.infer_batch(audio)
+    torch.cuda.synchronize()
+    launches = {"k1": log_mel_spectrogram_cuda.launches, "k1_tc": log_mel_spectrogram_cuda.launches_tc,
+                "k2": res8_stem_cuda.launches, "k2_tc": res8_stem_cuda.launches_tc, "int8": int8_conv_layer_cuda.launches}
+    print(f"int8 headline launches (one batch): frontend kernel {launches['k1']} ({launches['k1_tc']} tc), stem kernel "
+          f"{launches['k2']} ({launches['k2_tc']} tc), int8 layer kernel {launches['int8']}")
+    if launches != {"k1": 1, "k1_tc": 1, "k2": 1, "k2_tc": 1, "int8": 6}:
+        raise AssertionError(f"the int8 headline must launch K1 'tc' and K2 'tc' once and the int8 kernel six times: {launches}")
+    probs, n_win = out["probs"], eng.n_windows(samples)
+    if tuple(probs.shape) != (batch, n_win, num_labels) or not bool(torch.isfinite(probs).all()):
+        raise AssertionError(f"int8 posteriors of shape {tuple(probs.shape)}, finite={bool(torch.isfinite(probs).all())}")
+    if float((probs.sum(-1) - 1).abs().max()) > 1e-3:
+        raise AssertionError("int8 posteriors do not sum to 1")
+
+    with torch.no_grad():
+        s0 = eng._pooled_stem(audio)
+        # the s32 sums of the first layer on this batch through the kernel's interface: s8 values as float32
+        # activations, s_a = 1 and dq = 1 give relu(acc) exactly, the negated weights relu(-acc)
+        xq = quantize_activations(s0, p.act_scale[0])
+        ones = torch.ones_like(p.w_scale[0])
+        x = xq.float()
+        sums = int8_conv_layer_cuda(x, p.w_i8[0], 1.0, ones)[0] - int8_conv_layer_cuda(x, -p.w_i8[0], 1.0, ones)[0]
+        want_sums = int8_conv_sums_plain(xq, p.w_i8[0])
+        sums_exact = torch.equal(sums.to(torch.int32), want_sums)
+        del x, sums
+        got = residual_features_int8(s0, p, torch.bfloat16)
+        want = residual_features_int8_plain(s0, p, torch.bfloat16)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        print(f"int8 trunk kernel vs plain on the batch's stem {tuple(s0.shape)}: layer-1 s32 sums exact={sums_exact} "
+              f"(|acc| up to {int(want_sums.abs().max())}); output max_abs_err={err:.3e}, stated bound 0 (exact sums, "
+              f"the same bf16 rounding points); finite={bool(torch.isfinite(got.float()).all())}")
+        if not (sums_exact and torch.equal(got, want)):
+            raise AssertionError("the int8 layer kernel disagrees with its plain version")
+        plain_out = eng._decide(eng._window_posteriors(want, n_win), eng._as_lengths(None, batch, samples),
+                                eng._step_geometry(batch, samples))
+    for key in ("detected", "first_fire_step", "labels"):
+        if not torch.equal(out[key].cpu(), plain_out[key].cpu()):
+            raise AssertionError(f"the int8 engine's {key} differ from the engine's on the plain int8 trunk")
+    fired = int(ref["detected"].sum())
+    agree = {key: float((out[key].cpu() == ref[key].cpu()).double().mean()) for key in ("detected", "first_fire_step", "labels")}
+    print(f"int8 engine: decisions equal to the plain int8 trunk's; against the exact float32 engine ({fired}/{batch} "
+          f"fire; random weights, for information): detected {agree['detected']:.4f}, first fire {agree['first_fire_step']:.4f}, "
+          f"labels {agree['labels']:.4f} agree; max |dprob| {float((probs - ref['probs']).abs().max()):.3e}")
+
+    # the six launches against cuDNN's bf16 stage 3 in turns (cudnn, int8, int8, cudnn), the plain int8 trunk beside
+    with torch.no_grad():
+        cudnn = lambda: eng.model.residual_features(s0)  # noqa: E731
+        kernel = lambda: residual_features_int8(s0, p, torch.bfloat16)  # noqa: E731
+        turns = [_cuda_ms(cudnn, 10), _cuda_ms(kernel, 10), _cuda_ms(kernel, 10), _cuda_ms(cudnn, 10)]
+        kernel_ms, cudnn_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+        plain_ms = _cuda_ms(lambda: residual_features_int8_plain(s0, p, torch.bfloat16), 2)
+    positions, ch = s0.shape[0] * s0.shape[1] * s0.shape[2], s0.shape[3]
+    # layers 1-6 read and write 2, 4, 2, 4, 2 and 3 activations; the weight images and per-channel vectors once
+    n_bytes = 17 * _nbytes(s0) + 6 * (21504 + 3 * 4 * ch)
+    record = {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms, "cudnn_bf16_stage3_ms": cudnn_ms,
+              **_bound(n_bytes, 6 * 2 * positions * ch * 9 * ch, PEAK_INT8_OPS)}
+    record["launches"] = launches["int8"]
+    print(f"int8 trunk, six launches: {kernel_ms:.3f} ms against cuDNN's bf16 stage 3 {cudnn_ms:.3f} ms (turns "
+          f"{', '.join(f'{t:.3f}' for t in turns)}); plain {plain_ms:.3f} ms; bound {record['bound_ms']:.4f} ms by "
+          f"{record['bound_by']} ({record['bytes'] / 1e6:.1f} MB, {record['operations'] / 1e9:.2f} GOP): "
+          f"{record['bound_ms'] / kernel_ms:.3f} of the bound's rate")
+    del s0, got, want, out, ref, eng
+    torch.cuda.empty_cache()
+
+    # the A/B that decides bench.HEADLINE_TRUNK: the serving ablation's full fused step, bf16 trunk against int8
+    ab = ablate_serving_slope.trunk_ab(batch, clip_seconds, STUDY_ITERS, SEED, dev, turns=2)
+    med = {who: float(np.median(ms)) for who, ms in ab.items()}
+    verdict = "int8" if med["int8"] <= med["bf16"] else "bf16"
+    print(f"full fused step A/B (two-point slope, in turns): bf16 trunk {', '.join(f'{m:.3f}' for m in ab['bf16'])} ms, "
+          f"int8 trunk {', '.join(f'{m:.3f}' for m in ab['int8'])} ms; the {verdict} trunk is no slower here; the bench's "
+          f"headline trunk is {bench.HEADLINE_TRUNK!r}")
+    record["ab_full_step_ms"] = ab
+    torch.cuda.empty_cache()
+    return record
+
+
+def drive_int8_tools() -> None:
+    """Both int8 tools at their JAX tools' sizes: the trunk legs at batch 512,
+    the stream-step legs at (16,384, 1) and (65,536, 3) (at half the JAX
+    tool's chain length, for the run's time)."""
+    from howl_tpu_torch.tools import bench_stream_step_int8, bench_trunk_int8
+
+    legs = bench_trunk_int8.main(["--batch", str(BATCH)])
+    steps = bench_stream_step_int8.main(["--iters", str(STUDY_ITERS // 2)])  # chains of 8 and 32 steps, for time
+    times = list(legs.values()) + [ms for geom in steps.values() for ms in geom.values()]
+    if len(legs) != 3 or len(steps) != 2 or not all(np.isfinite(ms) and ms > 0 for ms in times):
+        raise AssertionError(f"an int8 tool's leg is missing or not a positive time: {legs} {steps}")
+
+
+def check_decision_gate(dev) -> None:
+    """(11) The decision gate on the card: every row that runs must be OK, the
+    three-pass grade's and the int8 trunk's among them."""
+    from howl_tpu_torch.tools import validate_tpu_decisions
+
+    rows = validate_tpu_decisions.run(dev, *validate_tpu_decisions.CARD_SIZE)
+    bad = [tag for tag, rec in rows.items() if rec["ok"] is False]
+    for tag in ("res8+k1[bf16x3]+k2", "res8+k1[bf16]+k2+int8"):
+        if rows[tag]["ok"] is not True:
+            bad.append(tag)
+    if bad:
+        raise AssertionError(f"the decision gate found a mismatch in {bad}")
+
+
 # ---- live serving: the three online engines ----
 
 
@@ -1584,8 +1778,8 @@ def drive_train_entry(dev) -> dict:
             engines = {name: StreamingEngine(create_model("res8", num_labels=ctx.num_labels), state_dict,
                                              EngineConfig.from_settings(ctx), FrontendConfig.from_settings(), mean, std,
                                              compute_dtype=dtype, frontend_precision=grade, device=dev)
-                       for name, dtype, grade in (("f32", None, None), ("bf16", torch.bfloat16, "bf16"))}
-            _, ww_dev, ww_test = WakeWordDatasetLoader().load_splits(corpus, sample_rate=SAMPLE_RATE, mono=True)
+                       for name, dtype, grade in (("f32", None, "f32"), ("bf16", torch.bfloat16, "bf16"))}
+            ww_train, ww_dev, ww_test = WakeWordDatasetLoader().load_splits(corpus, sample_rate=SAMPLE_RATE, mono=True)
             audio = np.stack([ds[i].audio_data for ds in (ww_dev, ww_test) for i in range(len(ds))])
             out = {name: eng.infer_batch(audio) for name, eng in engines.items()}
             dprob = float((out["bf16"]["probs"] - out["f32"]["probs"]).abs().max())
@@ -1594,7 +1788,29 @@ def drive_train_entry(dev) -> dict:
                   f"{'equal' if fired == out['bf16']['detected'].tolist() else 'DIFFER FROM'} float32's; max |dprob| {dprob:.3e}")
             if fired != out["bf16"]["detected"].tolist():
                 raise AssertionError("F9: the bf16 engine's decisions differ from the float32 engine's on the trained weights")
-            return {**rates, "steps": stats.steps, "eval_batches": stats.eval_batches, "f9_max_dprob": dprob}
+
+            # the int8 headline on the trained weights (tests/test_int8_trunk.py's gate): bf16, K1 "tc", K2 "tc", the
+            # int8 trunk calibrated on the train clips, against the float32 engine at the exact grade. Its detections
+            # must be equal, as F9's; a first fire may move by one hop: the int8 trunk's quantization moves these
+            # weights' posteriors by up to ~0.15, and on weights trained so the JAX package's int8 engine fires one
+            # hop late on a clip where the port's does too (PERF.md)
+            cal = np.stack([ww_train[i].audio_data for i in range(len(ww_train))])
+            int8_eng = StreamingEngine(create_model("res8", num_labels=ctx.num_labels), state_dict,
+                                       EngineConfig.from_settings(ctx), FrontendConfig.from_settings(), mean, std,
+                                       compute_dtype=torch.bfloat16, use_int8_trunk=True, int8_calibration_audio=cal,
+                                       device=dev)
+            got = int8_eng.infer_batch(audio)
+            detected_eq = torch.equal(got["detected"].cpu(), out["f32"]["detected"].cpu())
+            shift = (got["first_fire_step"].cpu() - out["f32"]["first_fire_step"].cpu()).abs()
+            labels = float((got["labels"].cpu() == out["f32"]["labels"].cpu()).double().mean())
+            int8_dprob = float((got["probs"] - out["f32"]["probs"]).abs().max())
+            print(f"int8 engine on the trained weights, calibrated on {len(cal)} train clips: detections equal "
+                  f"{detected_eq}; first fires equal on {int((shift == 0).sum())} of {len(shift)} clips, at most "
+                  f"{int(shift.max())} hop(s) apart; labels agree {labels:.4f}; max |dprob| {int8_dprob:.3e}")
+            if not detected_eq or int(shift.max()) > 1:
+                raise AssertionError("the int8 engine's decisions differ from the float32 engine's on the trained weights")
+            return {**rates, "steps": stats.steps, "eval_batches": stats.eval_batches, "f9_max_dprob": dprob,
+                    "int8_max_dprob": int8_dprob}
         finally:
             for k, v in saved_env.items():
                 if v is None:
@@ -1706,14 +1922,16 @@ def profile_train_step(dev, out_dir) -> None:
 def profile_serving(dev, out_dir) -> None:
     """Stage times and a profile of the bf16 serving batch, 512 clips of 8 s,
     through the fused-trunk scorer (``out_dir/serve_profile.txt``, 5 batches
-    profiled) and the per-window mega-batch scorer
-    (``out_dir/legacy_profile.txt``, 3 batches)."""
+    profiled), the same with the int8 trunk (``serve_int8_profile.txt``) and
+    the per-window mega-batch scorer (``out_dir/legacy_profile.txt``, 3
+    batches)."""
     import torch
 
     from howl_tpu_torch.compat import res8_variables_to_state_dict
     from howl_tpu_torch.inference import EngineConfig, StreamingEngine
     from howl_tpu_torch.models import create_model
     from howl_tpu_torch.ops.frontend import FrontendConfig
+    from howl_tpu_torch.ops.int8_trunk import residual_features_int8
     from howl_tpu_torch.ops.stem_cuda import res8_stem_cuda
 
     rng = np.random.default_rng(SEED + 1)
@@ -1746,6 +1964,21 @@ def profile_serving(dev, out_dir) -> None:
             "5. smoothing + FSM alone": lambda: eng._decide(probs, lengths, geom),
             "infer_batch": lambda: eng.infer_batch(audio),
         }, lambda: eng.infer_batch(audio), 5)
+
+        i8 = StreamingEngine(create_model("res8", num_labels=4), state, cfg, frontend, zmuv_mean=-6.0, zmuv_std=4.0,
+                             compute_dtype=torch.bfloat16, use_int8_trunk=True,
+                             int8_calibration_audio=audio[: bench.CALIBRATION_CLIPS], device=dev)
+        _profile(out_dir, "serve_int8_profile.txt", f"bf16 serving batch, fused trunk, int8 trunk, {BATCH} x "
+                 f"{CLIP_SECONDS:g} s", {
+                     "1. frontend (K1)": lambda: i8._features(audio, "tm"),
+                     "2. stem (K2)": lambda: res8_stem_cuda(mel, i8._stem_taps, i8.model.pooling),
+                     "3. int8 residual trunk (six launches)": lambda: residual_features_int8(stem, i8._int8_params,
+                                                                                             torch.bfloat16),
+                     "1-4. scoring (_score)": lambda: i8._score(audio, n_win),
+                     "5. smoothing + FSM alone": lambda: i8._decide(probs, lengths, geom),
+                     "infer_batch": lambda: i8.infer_batch(audio),
+                 }, lambda: i8.infer_batch(audio), 5)
+        del i8
 
         feats = legacy._features(audio, "fm")
         windows = gather(feats)
@@ -1904,7 +2137,7 @@ def main() -> int:
     cfg = FrontendConfig(n_mels=N_MELS)
     from howl_tpu_torch.ops.frontend_cuda import log_mel_spectrogram_plain
 
-    ref = log_mel_spectrogram_plain(audio, cfg)
+    ref = log_mel_spectrogram_plain(audio, cfg, precision="f32")
     zmuv = (float(ref.mean()), float(ref.std()))
     del ref
     k1 = check_frontend(audio, cfg, zmuv)
@@ -1923,10 +2156,11 @@ def main() -> int:
     legacy_path = drive_legacy_path(dev, BATCH, CLIP_SECONDS)
     k2["max_abs_err_windows"] = legacy_path["k2_windows_max_abs_err"]
     lap("offline scorers")
-    from howl_tpu_torch.tools import validate_tpu_decisions
-
-    if validate_tpu_decisions.main(["--device", "cuda"]) != 0:
-        raise AssertionError("the decision gate found a mismatch")
+    int8 = drive_int8_path(dev, BATCH, CLIP_SECONDS)
+    lap("int8 headline")
+    drive_int8_tools()
+    lap("int8 tools")
+    check_decision_gate(dev)
     lap("decision gate")
     online_path = drive_online_path(dev)
     k1["online_full_window"], k2["online_full_window"] = online_path["k1"], online_path["k2"]
@@ -1956,6 +2190,10 @@ def main() -> int:
         {
             "name": "res8_stem", "route": "cuda", "source": "howl_tpu_torch/csrc/stem_tc.cu",
             "replaces": "howl_tpu/ops/stem_pallas.py:89", "launches": main_path["launches"]["k2_tc"], **k2,
+        },
+        {
+            "name": "int8_residual_layer", "route": "cuda", "source": "howl_tpu_torch/csrc/int8_trunk.cu",
+            "replaces": "howl_tpu/ops/int8_trunk.py:155", **int8,
         },
         {
             "name": "noise_bank_mix", "route": "cuda", "source": "howl_tpu_torch/csrc/augment.cu",

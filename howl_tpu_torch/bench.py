@@ -8,11 +8,15 @@ Prints ONE JSON line with ``bench.py``'s keys, measured on the card:
   * ``value``: the realtime factor of offline scoring, seconds of audio per
     second, of ``StreamingEngine.infer_batch`` on 512 clips of 8 s in bf16
     with the fused trunk (the frontend kernel K1 at its "bf16" grade, the
-    stem kernel K2, cuDNN's residual convs), decisions included;
-    ``vs_baseline`` is value / 1000, ``bench.py``'s north star;
-  * ``mfu``: the analytic FLOPs of that path (:func:`path_flops_per_clip`)
-    over the time and the card's dense bf16 peak (:func:`peak_bf16_flops`);
-    ``null`` on a card with no peak on record;
+    stem kernel K2, and the residual trunk that :data:`HEADLINE_TRUNK`
+    names: the int8 trunk's kernel, calibrated on the batch's first 64
+    clips, as ``bench.py`` builds its headline engine, or cuDNN's bf16
+    convs), decisions included; ``vs_baseline`` is value / 1000,
+    ``bench.py``'s north star;
+  * ``mfu``: the analytic FLOPs of that path (:func:`path_flops_per_clip`,
+    the same count whichever trunk runs, as ``bench.py`` counts it) over the
+    time and the card's dense bf16 peak (:func:`peak_bf16_flops`); ``null``
+    on a card with no peak on record;
   * ``legacy_realtime_factor``: the same batch through the per-window
     mega-batch scorer (``fused_trunk=False``);
   * ``train_examples_per_sec`` / ``train_mfu``: the bf16 res8 train step over
@@ -35,11 +39,13 @@ Prints ONE JSON line with ``bench.py``'s keys, measured on the card:
 
 and three keys of its own: ``spread``, the [min, max] of each measured key
 over the repeats (of each latency's samples, by stream count); ``rungs``,
-what ran (each kernel's route, grade and launches per batch or step);
-``device``, the card's ``nvidia-smi`` name and power limit. Each measured
-offline and train key is the median over ``--repeats`` (5) repeats, the
-headline and the legacy scorer (then the three train steps) in turns; the
-two per-window online rates too, their engines in turns.
+what ran (each kernel's route, grade and launches per batch or step;
+``rungs["int8"]`` names the trunk ``value`` measured and gives both trunks'
+median ms per batch from this run); ``device``, the card's ``nvidia-smi``
+name and power limit. Each measured offline and train key is the median
+over ``--repeats`` (5) repeats, the headline, the same engine with the other
+trunk and the legacy scorer (then the three train steps) in turns; the two
+per-window online rates too, their engines in turns.
 
 Method: as in ``bench.py``, iterations are chained: after each batch the
 detections' sum times 1e-30 is added in place to ``audio[0, 0]``, so each
@@ -85,7 +91,12 @@ ONLINE_KEYS = (
     "online_streams_per_chip_trunk", "online_step_latency_ms_trunk", "online_streams_per_chip_trunk_blocked",
     "online_step_latency_ms_trunk_blocked",
 )
-NOT_PORTED_INT8 = "not ported (ROADMAP Queue 1, item 10)"
+# The residual trunk of the headline engine: "int8" (the int8 trunk's kernel, as bench.py's headline on its
+# accelerator) or "bf16" (cuDNN). Adopted on a same-call A/B of the full fused step, the serving ablation's int8 leg
+# against its bf16-trunk leg in turns (chip_smoke.py's int8 phase; PERF.md); int8 only where it was no slower.
+HEADLINE_TRUNK = "int8"
+TRUNKS = ("int8", "bf16")
+CALIBRATION_CLIPS = 64  # bench.py: int8_calibration_audio=audio[:64]
 # dense bf16 with float32 sums, from NVIDIA's data sheet, at the full 700 W
 H100_SXM_BF16_FLOPS = 989e12
 _BF16_PEAKS = (("H100 80GB HBM3", H100_SXM_BF16_FLOPS), ("H100 SXM", H100_SXM_BF16_FLOPS))
@@ -193,20 +204,29 @@ def serving_config():
     )
 
 
-def serving_engines(dev, state_dict):
-    """(headline, legacy): the bf16 fused-trunk engine and the bf16
-    per-window mega-batch engine on the same weights, both at the engines'
-    default frontend grade ("bf16"), ZMUV 0 / 1 as ``bench.py`` serves."""
+def _engine(dev, state_dict, fused: bool, trunk: str = "bf16", calibration_audio=None):
     from howl_tpu_torch.inference import StreamingEngine
     from howl_tpu_torch.models import create_model
     from howl_tpu_torch.ops.frontend import FrontendConfig
 
-    cfg, frontend = serving_config(), FrontendConfig(n_mels=N_MELS)
-    return tuple(
-        StreamingEngine(create_model("res8", num_labels=NUM_LABELS), state_dict, cfg, frontend, 0.0, 1.0,
-                        compute_dtype=torch.bfloat16, fused_trunk=fused, device=dev)
-        for fused in (True, False)
-    )
+    if trunk not in TRUNKS:
+        raise ValueError(f"trunk must be one of {TRUNKS}, got {trunk!r}")
+    return StreamingEngine(create_model("res8", num_labels=NUM_LABELS), state_dict, serving_config(),
+                           FrontendConfig(n_mels=N_MELS), 0.0, 1.0, compute_dtype=torch.bfloat16, fused_trunk=fused,
+                           use_int8_trunk=trunk == "int8", int8_calibration_audio=calibration_audio, device=dev)
+
+
+def headline_engine(dev, state_dict, trunk: str = "bf16", calibration_audio=None):
+    """The bf16 fused-trunk engine at the engines' default frontend grade
+    ("bf16"), ZMUV 0 / 1 as ``bench.py`` serves, with the residual trunk
+    ``trunk`` names ("int8": calibrated on ``calibration_audio``)."""
+    return _engine(dev, state_dict, True, trunk, calibration_audio)
+
+
+def serving_engines(dev, state_dict, trunk: str = "bf16", calibration_audio=None):
+    """(headline, legacy): :func:`headline_engine` and the bf16 per-window
+    mega-batch engine on the same weights."""
+    return headline_engine(dev, state_dict, trunk, calibration_audio), _engine(dev, state_dict, False)
 
 
 def chained_batch_ms(engine, audio: torch.Tensor, n_iters: int) -> float:
@@ -227,12 +247,14 @@ def _scorer_rung(engine, audio: torch.Tensor) -> dict:
     """What one batch of ``engine`` runs, read from the launch counters
     around it on a card (the plain versions on the CPU count nothing)."""
     from howl_tpu_torch.ops.frontend_cuda import frontend_grade, frontend_route, log_mel_spectrogram_cuda
+    from howl_tpu_torch.ops.int8_trunk import int8_conv_layer_cuda
     from howl_tpu_torch.ops.stem_cuda import res8_stem_cuda, stem_route
 
     on_card = audio.device.type == "cuda"
     counters = (log_mel_spectrogram_cuda, res8_stem_cuda)
     for fn in counters:
         fn.launches = fn.launches_tc = 0
+    int8_conv_layer_cuda.launches = 0
     engine.infer_batch(audio)
     if on_card:
         torch.cuda.synchronize(audio.device)
@@ -246,26 +268,38 @@ def _scorer_rung(engine, audio: torch.Tensor) -> dict:
         "stem": {"kernel": "K2", "route": stem_route(dtype, engine.frontend.n_mels, engine.model.num_maps,
                                                      engine.model.pooling) if on_card else "plain",
                  "launches_per_batch": res8_stem_cuda.launches},
-        "residual_convs": "cuDNN (F.conv2d)" if on_card else "F.conv2d",
+        "residual_convs": ({"kernel": "int8 trunk", "route": "cuda" if on_card else "plain",
+                            "launches_per_batch": int8_conv_layer_cuda.launches}
+                           if engine._int8_params is not None else "cuDNN (F.conv2d)" if on_card else "F.conv2d"),
     }
 
 
 def bench_serving(dev, sizes: Sizes, repeats: int, seed: int) -> dict:
     """{"batch_ms", "legacy_batch_ms": one value per repeat, "rungs",
-    "flops_per_batch", "audio_seconds"}."""
+    "flops_per_batch", "audio_seconds"}; the headline engine's trunk is
+    :data:`HEADLINE_TRUNK`, and the same engine with the other trunk runs in
+    turns with it for ``rungs["int8"]``."""
     from howl_tpu_torch.compat import res8_variables_to_state_dict
 
     rng = np.random.default_rng(seed)
     state = res8_variables_to_state_dict(res8_numpy_variables(rng, NUM_LABELS))
     clip_samples = int(sizes.clip_seconds * SAMPLE_RATE)
     audio = torch.from_numpy((rng.standard_normal((sizes.batch, clip_samples)) * 0.1).astype(np.float32)).to(dev)
-    engine, legacy = serving_engines(dev, state)
+    calibration = audio[:CALIBRATION_CLIPS]
+    engine, legacy = serving_engines(dev, state, HEADLINE_TRUNK, calibration)
+    other_trunk = next(t for t in TRUNKS if t != HEADLINE_TRUNK)
+    other = headline_engine(dev, state, other_trunk, calibration)
     # one batch each, untimed: the warm-up, and what ran
     rungs = {"headline": _scorer_rung(engine, audio), "legacy": _scorer_rung(legacy, audio)}
-    runs = {"batch_ms": [], "legacy_batch_ms": []}
+    _scorer_rung(other, audio)
+    runs = {"batch_ms": [], "other_batch_ms": [], "legacy_batch_ms": []}
     for _ in range(repeats):
         runs["batch_ms"].append(chained_batch_ms(engine, audio, sizes.iters))
+        runs["other_batch_ms"].append(chained_batch_ms(other, audio, sizes.iters))
         runs["legacy_batch_ms"].append(chained_batch_ms(legacy, audio, sizes.legacy_iters))
+    ms = {HEADLINE_TRUNK: runs["batch_ms"], other_trunk: runs.pop("other_batch_ms")}
+    rungs["int8"] = {"value_trunk": HEADLINE_TRUNK, "calibration_clips": int(calibration.shape[0]),
+                     "batch_ms": {t: statistics.median(ms[t]) for t in TRUNKS}}
     return {**runs, "rungs": rungs, "audio_seconds": sizes.batch * sizes.clip_seconds,
             "flops_per_batch": path_flops_per_clip(clip_samples, engine, NUM_LABELS) * sizes.batch}
 
@@ -573,7 +607,7 @@ def make_record(serve: dict, train: dict, sizes: Sizes, on_card: bool, peak: Opt
     out = {key: None if value is None else round(value, digits.get(key, 1)) for key, value in med.items()}
     online_keys, online_spread = online_record(online) if online else (dict.fromkeys(ONLINE_KEYS), {})
     spread.update(online_spread)
-    rungs = {**serve["rungs"], "int8": NOT_PORTED_INT8, "online": online["rungs"] if online else None,
+    rungs = {**serve["rungs"], "online": online["rungs"] if online else None,
              "train": {"noise_bank_mix": {"kernel": "K3", "route": "cuda" if on_card else "plain",
                                           "launches_per_step": mix_launches_per_step},
                        "frontend": "VTLP log-mel in float32 (torch)", "model": "cuDNN (F.conv2d)" if on_card else "F.conv2d"}}

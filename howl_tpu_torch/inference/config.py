@@ -97,11 +97,11 @@ def ring_steps(cfg: EngineConfig, stride_ms: float) -> tuple:
 
 def serving_dft_precision(compute_dtype, override="auto"):
     """The frontend precision an engine serves at: ``override`` unless it is
-    ``"auto"``, which picks the exact float32 grade (None) for float32
+    ``"auto"``, which picks the exact float32 grade (``"f32"``) for float32
     serving and the 1-pass ``"bf16"`` grade once bf16 scoring is asked for."""
     if override != "auto":
         return override
-    return None if compute_dtype in (None, torch.float32) else "bf16"
+    return "f32" if compute_dtype in (None, torch.float32) else "bf16"
 
 
 def cast_compute_dtype(state_dict, compute_dtype):

@@ -8,7 +8,9 @@ the fused-trunk scorer (the default):
      on the tensor cores for the bf16 engine, float32 FMA for the float32
      engine, as ``frontend_route`` picks);
   2. res8 stem, conv0 + ReLU + AvgPool(3, 4): ``ops/stem_cuda.py`` (kernel);
-  3. the six residual convs with affine-less BatchNorm (``F.conv2d``);
+  3. the six residual convs with affine-less BatchNorm (``F.conv2d``), or
+     with ``use_int8_trunk`` the int8 residual trunk (``ops/int8_trunk.py``:
+     six launches of the s8 x s8 -> s32 layer kernel on a card);
   4. the frequency mean of the trunk output, then cumsum window pooling over
      time into the dense head and softmax, in float32;
   5. smoothing and the sequence FSM (``inference/detect.py``).
@@ -22,8 +24,9 @@ gathered at the window stride, and the (B * n_windows, 1, F, 41) windows go
 through the whole res8 (its stem kernel included) as one batch, into a float32
 softmax. Stage 5 is shared.
 
-On a CUDA device the frontend and the stem always launch the hand-written
-kernels; on the CPU the same functions run their plain PyTorch versions.
+On a CUDA device the frontend, the stem and the int8 trunk always launch the
+hand-written kernels; on the CPU the same functions run their plain PyTorch
+versions.
 
 Deviations from the reference that the JAX package documents hold here too:
 windows are cut from clip-level mel frames, and the window stride is
@@ -56,7 +59,8 @@ from howl_tpu_torch.inference.detect import (
 from howl_tpu_torch.models.base import ModelSpec, model_spec
 from howl_tpu_torch.ops.frontend import FrontendConfig
 from howl_tpu_torch.ops.frontend_cuda import log_mel_spectrogram_cuda
-from howl_tpu_torch.ops.stem_cuda import res8_stem_cuda
+from howl_tpu_torch.ops.int8_trunk import calibrate_act_scales, quantize_residual_trunk, residual_features_int8
+from howl_tpu_torch.ops.stem_cuda import fold_stem_weights, res8_stem_cuda
 
 
 def _not_ported(what: str, item: str):
@@ -80,6 +84,7 @@ class StreamingEngine:
         frontend_precision="bf16",
         carry_windows: bool = False,
         use_int8_trunk: bool = False,
+        int8_calibration_audio=None,
         device="cuda",
     ):
         """``model`` gives the architecture (a ``Res8``); the engine keeps its
@@ -98,6 +103,18 @@ class StreamingEngine:
         per-window mega-batch scorer) picks the scorer; see the module's
         docstring.
 
+        ``use_int8_trunk`` (fused-trunk scorer only) runs the six residual
+        convolutions in s8 x s8 -> s32 (``ops/int8_trunk.py``) with static
+        per-layer activation scales calibrated from
+        ``int8_calibration_audio``, a (B, samples) float32 array of
+        representative audio, which it requires. Calibration and weight
+        quantization read the float32 weights as given, not their
+        compute-dtype copy: the calibration stem (the frontend at the exact
+        "f32" grade, the stem in float32) and the float32 residual reference
+        run with TF32 off, so a bf16 engine quantizes the same weights as a
+        float32 one. Assigning ``variables`` quantizes again. Validate
+        decisions per deployment (``howl_tpu_torch.tools.validate_tpu_decisions``).
+
         ``device`` is where the engine runs: the card unless the caller
         passes ``"cpu"``. A CUDA device that does not exist raises; the
         engine never falls back to the CPU.
@@ -108,13 +125,23 @@ class StreamingEngine:
             raise _not_ported(f"scoring model {self.spec.name!r}", "item 8 (the non-res8 scorers)")
         if carry_windows:
             raise _not_ported("carry_windows (the recurrent scorers' window carry)", "item 8")
-        if use_int8_trunk:
-            raise _not_ported("use_int8_trunk (the int8 residual stack)", "item 10")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {device!r} requested but CUDA is not available")
         self.compute_dtype = compute_dtype
         self.fused_trunk = fused_trunk is None or bool(fused_trunk)
+        if use_int8_trunk and not self.fused_trunk:
+            # never silently serve something other than what was asked for
+            raise ValueError(
+                "use_int8_trunk applies to the fused-trunk scorer only (trunk-capable model + fused_trunk enabled); "
+                f"got fused_trunk={self.fused_trunk}, model={self.spec.name!r} "
+                f"(supports_trunk={self.spec.supports_trunk})"
+            )
+        if use_int8_trunk and int8_calibration_audio is None:
+            raise ValueError(
+                "use_int8_trunk requires int8_calibration_audio: a (B, samples) f32 array of representative audio "
+                "for static activation-scale calibration (ops/int8_trunk.py)"
+            )
         self.cfg = cfg
         self.frontend = frontend
         self.zmuv_mean = float(zmuv_mean)
@@ -126,10 +153,14 @@ class StreamingEngine:
         self.window_samples = int(cfg.max_window_size_ms / 1000 * cfg.sample_rate)
         self.model = copy.deepcopy(model).to(device=self.device, dtype=compute_dtype or torch.float32).eval()
         self.model.dtype = None  # the weights' dtype, compute_dtype, governs scoring
+        self._int8_params = None
+        self._int8_cal = None
+        if use_int8_trunk:
+            self._int8_cal = torch.as_tensor(int8_calibration_audio, dtype=torch.float32).to(self.device)
         self.variables = variables
         self._geom_cache: dict = {}
 
-    # ---- weights: the stem taps follow variables reassignment ----
+    # ---- weights: the stem taps and the int8 trunk follow variables reassignment ----
 
     @property
     def variables(self):
@@ -138,11 +169,29 @@ class StreamingEngine:
     @variables.setter
     def variables(self, value):
         """Load a new state dict, rounded to the compute dtype, and re-derive
-        the stem kernel's taps from it, so a new checkpoint never serves with
-        stale taps. Eager PyTorch bakes nothing else."""
+        the stem kernel's taps and, with the int8 trunk, its quantized
+        weights and activation scales from it, so a new checkpoint never
+        serves with stale ones (ROADMAP F2). Eager PyTorch bakes nothing
+        else."""
         self._variables = cast_compute_dtype(value, self.compute_dtype)
         self.model.load_state_dict(self._variables, strict=True)
         self._stem_taps = self.model.stem_taps(self.frontend.n_mels)
+        if self._int8_cal is not None:
+            self._requantize_int8(value)
+
+    @torch.no_grad()
+    def _requantize_int8(self, masters) -> None:
+        """Calibrate the int8 trunk's activation scales on the calibration
+        audio and quantize its weights, both from the float32 weights
+        ``masters`` (ROADMAP F3): the frontend at the exact grade, the stem in
+        float32 and the float32 residual reference (TF32 off)."""
+        masters = {k: torch.as_tensor(v).to(self.device) for k, v in masters.items()}
+        conv0 = masters["conv0.weight"].to(torch.float32).permute(2, 3, 1, 0)  # HWIO
+        taps = fold_stem_weights(conv0, self.frontend.n_mels, self.model.pooling[1])
+        mel = log_mel_spectrogram_cuda(self._int8_cal, self.frontend, self.zmuv_mean, self.zmuv_std,
+                                       precision="f32", out_dtype=torch.float32, layout="tm")
+        act = calibrate_act_scales(res8_stem_cuda(mel, taps, self.model.pooling), masters)
+        self._int8_params = quantize_residual_trunk(masters, act, self.device)
 
     # ---- scoring ----
 
@@ -195,7 +244,12 @@ class StreamingEngine:
         """(B, samples) -> (B, n_windows, L) posteriors."""
         if not self.fused_trunk:
             return self._score_windows(audio, n_windows)
-        return self._window_posteriors(self.model.residual_features(self._pooled_stem(audio)), n_windows)
+        s0 = self._pooled_stem(audio)
+        if self._int8_params is not None:
+            trunk = residual_features_int8(s0, self._int8_params, self.compute_dtype)
+        else:
+            trunk = self.model.residual_features(s0)
+        return self._window_posteriors(trunk, n_windows)
 
     def n_windows(self, num_samples: int) -> int:
         total_frames = self.frontend.num_frames(num_samples)

@@ -87,6 +87,10 @@ class _HopEngine:
         self.frontend = frontend
         self.zmuv_mean = float(zmuv_mean)
         self.zmuv_std = float(zmuv_std)
+        # dft_precision follows the JAX live engines' chain, where None (and, with TF32 off, HIGH) is the exact
+        # float32 grade: the same grade here, for the frontend kernel too
+        if dft_precision is None or (isinstance(dft_precision, str) and dft_precision.lower() == "high"):
+            dft_precision = "f32"
         self._dft_precision = serving_dft_precision(compute_dtype, dft_precision)
         self.num_streams = int(num_streams)
         self.window_frames, self.stride_frames, self.stride_ms = hop_geometry(cfg, frontend)

@@ -40,11 +40,11 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 # scalar a c_float
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
-    # audio, w, fb, out, B, S, n_frames, n_fft, hop, center, n_bins_pad,
-    # n_mels, round_audio, round_power, round_mel, out_bf16, layout_fm,
-    # log_offset, mean, inv_std, stream
+    # audio, w, fb, w_lo, fb_lo, out, B, S, n_frames, n_fft, hop, center,
+    # n_bins_pad, n_mels, round_audio, round_power, round_mel, out_bf16,
+    # layout_fm, log_offset, mean, inv_std, stream
     "howl_logmel_forward": (
-        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P,
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P,
     ),
     # audio, w_img, fb_img, out, B, S, n_frames, n_fft, hop, center, n_halves,
     # n_passes, n_mels, mel_n, out_bf16, layout_fm, log_offset, mean, inv_std,
@@ -52,6 +52,8 @@ SIGNATURES = {
     "howl_logmel_tc_forward": (
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P,
     ),
+    # x, w_img, w_scale, bn_scale, bn_shift, res, out, pre, B, T, F, C, tt, inv_s, s_a, is_bf16, stream
+    "howl_int8_conv_forward": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P),
     # mel, taps, out, B, T, n_mels, ch, pool_t, pool_f, in_bf16, stream
     "howl_res8_stem_forward": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # mel, img, out, B, T, n_mels, ch, stream

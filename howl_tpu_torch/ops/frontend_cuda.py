@@ -12,15 +12,21 @@ memory; see the notes at the top of the two sources.
 
 Precision grades round operands to bf16 and accumulate in float32:
 
-    grade     precision                        audio  W            power, filterbank
-    "f32"     None, "f32", "high", "highest"   f32    f32          f32
-    "bf16x2"  "bf16x2"                         bf16   bf16 hi+lo   bf16
-    "bf16"    "bf16"                           bf16   bf16         bf16
+    grade     precision                audio       W            power, filterbank
+    "f32"     "f32", "highest"         f32         f32          f32
+    "bf16x3"  None, "high", "bf16x3"   bf16 hi+lo  bf16 hi+lo   bf16 hi+lo
+    "bf16x2"  "bf16x2"                 bf16        bf16 hi+lo   bf16
+    "bf16"    "bf16"                   bf16        bf16         bf16
 
 "bf16x2" is the JAX kernel's two-pass grade: W is split into its bf16 part
 and the bf16 rounding of the rest (``split_bf16``) and the product is
-``x @ W_hi + x @ W_lo``. With ``out_dtype=torch.bfloat16`` the pre-log mel is
-rounded to bf16 before the log, as the TPU kernel's bf16 output tiles are.
+``x @ W_hi + x @ W_lo``. "bf16x3" is its three-pass grade, the JAX kernel's
+default (``precision=None`` and ``Precision.HIGH`` there, as here): the audio
+is split the same way and the product is ``x_hi @ W_hi + x_hi @ W_lo + x_lo @
+W_hi``; the power is split too and the mel product is ``p_hi @ fb_hi + p_lo @
+fb_hi + p_hi @ fb_lo``. Only the lo x lo terms are dropped, ~2^-17 relative.
+With ``out_dtype=torch.bfloat16`` the pre-log mel is rounded to bf16 before
+the log, as the TPU kernel's bf16 output tiles are.
 
 ``log_mel_spectrogram_cuda`` runs the plain version for a tensor on the CPU
 and a kernel for a tensor on a CUDA device. Which kernel is decided by the
@@ -28,11 +34,13 @@ grade and the geometry alone (``frontend_route``), never by a failure:
 
     "tc"   ``csrc/frontend_tc.cu``: both products on the tensor cores
            (``wgmma``), W streamed by bulk asynchronous copies. The two bf16
-           grades, when n_fft is a multiple of 16, hop is even, n_mels is a
-           multiple of 8 and at most 80, and the tile's audio span, the ring
-           and the filterbank fit a block's shared memory.
-    "fma"  ``csrc/frontend.cu``: float32 FMA on the CUDA cores. The "f32"
-           grade always, and every geometry the "tc" kernel does not serve.
+           grades "bf16" and "bf16x2", when n_fft is a multiple of 16, hop is
+           even, n_mels is a multiple of 8 and at most 80, and the tile's audio
+           span, the ring and the filterbank fit a block's shared memory.
+    "fma"  ``csrc/frontend.cu``: float32 FMA on the CUDA cores. The "f32" and
+           "bf16x3" grades always (a product of two bf16 values is exact in
+           float32, so FMA on the rounded operands computes each pass), and
+           every geometry the "tc" kernel does not serve.
 
 ``route=`` forces one of the two and raises where it cannot serve.
 """
@@ -55,9 +63,11 @@ from howl_tpu_torch.ops.frontend import (
 )
 
 _GRADES = {
-    None: "f32", "f32": "f32", "high": "f32", "highest": "f32",
+    "f32": "f32", "highest": "f32",
+    None: "bf16x3", "high": "bf16x3", "bf16x3": "bf16x3",
     "bf16x2": "bf16x2", "bf16": "bf16",
 }
+GRADES = ("f32", "bf16x3", "bf16x2", "bf16")
 _LAYOUTS = ("tm", "fm")
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -109,8 +119,12 @@ def frontend_bases(config: FrontendConfig, grade: str, device: torch.device):
     fb is (n_bins_pad, n_mels); n_bins is padded to a multiple of 4. For
     "bf16" W is rounded to bf16; for "bf16x2" it is hi + lo of
     ``split_bf16``, which float32 holds exactly (the two parts themselves:
-    :func:`frontend_w_passes`).
+    :func:`frontend_split_bases`). For "bf16x3" they are W_hi and fb_hi, the
+    parts the three passes share (all four: :func:`frontend_split_bases`).
     """
+    if grade == "bf16x3":
+        w_hi, _, fb_hi, _ = frontend_split_bases(config, device)
+        return w_hi, fb_hi
     w_pad, fb_pad = _padded_bases(config, _round_up(nyquist_crop_bins(config), 4))
     w_t, fb_t = torch.from_numpy(w_pad), torch.from_numpy(fb_pad)
     if grade == "bf16":
@@ -124,13 +138,14 @@ def frontend_bases(config: FrontendConfig, grade: str, device: torch.device):
 
 
 @functools.lru_cache(maxsize=8)
-def frontend_w_passes(config: FrontendConfig, device: torch.device):
-    """(W_hi, W_lo) of the "bf16x2" grade as float32 on ``device``, shaped
-    like :func:`frontend_bases`' W: the operands of the plain version's two
-    passes."""
-    w_pad, _ = _padded_bases(config, _round_up(nyquist_crop_bins(config), 4))
-    hi, lo = split_bf16(w_pad)
-    return hi.to(torch.float32).to(device), lo.to(torch.float32).to(device)
+def frontend_split_bases(config: FrontendConfig, device: torch.device):
+    """(W_hi, W_lo, fb_hi, fb_lo) as float32 on ``device``, shaped like
+    :func:`frontend_bases`' W and fb: the ``split_bf16`` parts of both
+    matrices: the operands of the plain version's passes ("bf16x2": W_hi
+    and W_lo; "bf16x3": all four) and of the "fma" kernel's three."""
+    w_pad, fb_pad = _padded_bases(config, _round_up(nyquist_crop_bins(config), 4))
+    parts = (*split_bf16(w_pad), *split_bf16(fb_pad))
+    return tuple(p.to(torch.float32).to(device) for p in parts)
 
 
 # ---- the "tc" route's geometry and operand images (csrc/frontend_tc.cu) ----
@@ -160,10 +175,10 @@ def tc_shared_bytes(config: FrontendConfig) -> int:
 def frontend_route(config: FrontendConfig, grade: str) -> str:
     """The kernel that serves a geometry and grade on a CUDA tensor: "tc" or
     "fma", by the rule in the module's docstring."""
-    if grade not in ("f32", "bf16x2", "bf16"):
+    if grade not in GRADES:
         raise ValueError(f"unknown grade {grade!r}")
     fits = (
-        grade != "f32"
+        grade in ("bf16x2", "bf16")
         and config.n_fft >= 16 and config.n_fft % 16 == 0
         and config.hop_length >= 2 and config.hop_length % 2 == 0
         and config.n_mels >= 8 and config.n_mels % 8 == 0 and _tc_mel_width(config.n_mels) is not None
@@ -282,33 +297,51 @@ def log_mel_spectrogram_plain(
     b, num_samples = audio.shape
     hop, n_fft = config.hop_length, config.n_fft
     n_frames = config.num_frames(num_samples)
-    if grade != "f32":
-        audio = round_bf16(audio)  # commutes with the reflect and zero padding
-    padded = center_pad(audio, config)
     n_sub = -(-n_fft // hop)
     rows = n_frames + n_sub - 1
-    extra = rows * hop - padded.shape[-1]
-    if extra > 0:
-        padded = torch.nn.functional.pad(padded, (0, extra))
-    hview = padded[:, : rows * hop].reshape(b, rows, hop)
+
+    def hop_rows(x):
+        padded = center_pad(x, config)
+        extra = rows * hop - padded.shape[-1]
+        if extra > 0:
+            padded = torch.nn.functional.pad(padded, (0, extra))
+        return padded[:, : rows * hop].reshape(b, rows, hop)
 
     w, fb = frontend_bases(config, grade, audio.device)
-    # "bf16x2" is two passes: W's bf16 part, then the bf16 rounding of the rest
-    passes = frontend_w_passes(config, audio.device) if grade == "bf16x2" else (w,)
+    # (hop rows, W) of each pass; a rounding to bf16 commutes with the reflect and zero padding
+    if grade == "bf16x3":
+        # x_hi @ W_hi + x_hi @ W_lo + x_lo @ W_hi, as the JAX kernel's three passes
+        hi = round_bf16(audio)
+        x_hi, x_lo = hop_rows(hi), hop_rows(round_bf16(audio - hi))
+        w_hi, w_lo, fb_hi, fb_lo = frontend_split_bases(config, audio.device)
+        passes = ((x_hi, w_hi), (x_hi, w_lo), (x_lo, w_hi))
+    elif grade == "bf16x2":
+        # W's bf16 part, then the bf16 rounding of the rest
+        x = hop_rows(round_bf16(audio))
+        passes = tuple((x, wp) for wp in frontend_split_bases(config, audio.device)[:2])
+    else:
+        passes = ((hop_rows(audio if grade == "f32" else round_bf16(audio)), w),)
     acc = None
     for j in range(n_sub):
         width = min(hop, n_fft - j * hop)
-        for wp in passes:
+        term = None
+        for hview, wp in passes:
             # rows past the block's true width multiply the next hop row by zero
             wj = torch.nn.functional.pad(wp[j * hop : j * hop + width], (0, 0, 0, hop - width))
-            term = hview[:, j : j + n_frames] @ wj
-            acc = term if acc is None else acc + term
+            part = hview[:, j : j + n_frames] @ wj
+            term = part if term is None else term + part
+        acc = term if acc is None else acc + term
     nbp = fb.shape[0]
     re, im = acc[..., :nbp], acc[..., nbp:]
     power = re * re + im * im
-    if grade != "f32":
-        power = round_bf16(power)
-    mel = power @ fb  # (B, T, n_mels)
+    if grade == "bf16x3":
+        p_hi = round_bf16(power)
+        p_lo = round_bf16(power - p_hi)
+        mel = p_hi @ fb_hi + (p_lo @ fb_hi + p_hi @ fb_lo)  # (B, T, n_mels)
+    else:
+        if grade != "f32":
+            power = round_bf16(power)
+        mel = power @ fb  # (B, T, n_mels)
     if out_dtype == torch.bfloat16:
         mel = round_bf16(mel)
     mean, inv_std = _zmuv_scalars(zmuv_mean, zmuv_std)
@@ -376,11 +409,14 @@ def log_mel_spectrogram_cuda(
             )
         else:
             w, fb = frontend_bases(config, grade, audio.device)
+            # "bf16x3" passes the lo parts too, and the kernel splits the audio and the power itself
+            w_lo, fb_lo = frontend_split_bases(config, audio.device)[1::2] if grade == "bf16x3" else (None, None)
+            rounds = int(grade in ("bf16x2", "bf16"))
             status = lib.howl_logmel_forward(
-                audio.data_ptr(), w.data_ptr(), fb.data_ptr(), out.data_ptr(),
-                b, num_samples, n_frames, config.n_fft, config.hop_length, int(config.center),
-                fb.shape[0], n_mels,
-                int(grade != "f32"), int(grade != "f32"), out_bf16, out_bf16, int(layout == "fm"),
+                audio.data_ptr(), w.data_ptr(), fb.data_ptr(),
+                None if w_lo is None else w_lo.data_ptr(), None if fb_lo is None else fb_lo.data_ptr(),
+                out.data_ptr(), b, num_samples, n_frames, config.n_fft, config.hop_length, int(config.center),
+                fb.shape[0], n_mels, rounds, rounds, out_bf16, out_bf16, int(layout == "fm"),
                 config.log_offset, mean, inv_std, stream,
             )
     _build.check_launch(status, f"log-mel ({route})")

@@ -58,6 +58,23 @@ def chain_ms(chain: Callable[[], None], dev: torch.device, clock: Callable[[], f
     return start.elapsed_time(end)
 
 
+def bumped_chain(fn, x: torch.Tensor):
+    """``make_chain(n)`` for :func:`slope_ms`: n calls of ``fn(x)``, each
+    output's first element times 1e-30 added in place to x's first element,
+    so each call depends on the last."""
+    flat = x.view(-1)
+
+    def make_chain(n):
+        def chain():
+            for _ in range(n):
+                out = fn(x)
+                flat[:1] += (out.reshape(-1)[:1].float() * 1e-30).to(x.dtype)
+
+        return chain
+
+    return make_chain
+
+
 def slope_turns(makers: dict, order, lo: int, hi: int, dev: torch.device, clock=time.perf_counter) -> dict:
     """Two-point slopes of several chains timed in turns. ``makers[who](n)``
     returns a chain, a callable that runs n iterations; on a card those are n

@@ -17,8 +17,9 @@ noise):
   * the same step with the frontend as the torch GEMM chain (float32
     products, ``ops/frontend.log_mel_spectrogram``), composed here from the
     engine's stages (the JAX tool's "xla frontend" leg);
-  * the step with the int8 residual stack: not ported (ROADMAP Queue 1,
-    item 10), printed as such;
+  * the same step with the int8 residual trunk (``use_int8_trunk``: six
+    launches of ``csrc/int8_trunk.cu`` in place of cuDNN's convs and BN),
+    calibrated on the step's own audio, as the JAX tool's engine is;
   * the frontend alone: K1 at "bf16" (time-major, bf16 out), and the torch
     GEMM chain;
   * the trunk alone, ``Res8.trunk_features`` and the global mean on
@@ -39,40 +40,50 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from howl_tpu_torch.tools._study import CPU_SIZE, REPEATS, pick_device, slope_ms, study_parser
+from howl_tpu_torch.tools._study import CPU_SIZE, REPEATS, bumped_chain, pick_device, slope_ms, study_parser
 
 INT8_LEG = "full fused step (frontend kernel + stem kernel + int8)"
+BF16_LEG = "full fused step (frontend kernel + stem kernel)"
 
 
-def _make_chain(fn, x: torch.Tensor):
-    """``make_chain(n)`` for ``slope_ms``: n calls of ``fn(x)``, each output's
-    first element times 1e-30 added in place to x's first element."""
-    flat = x.view(-1)
-
-    def make_chain(n):
-        def chain():
-            for _ in range(n):
-                out = fn(x)
-                flat[:1] += (out.reshape(-1)[:1].float() * 1e-30).to(x.dtype)
-
-        return chain
-
-    return make_chain
-
-
-def run(batch: int, clip_seconds: float, iters: int, seed: int, dev: torch.device) -> dict:
-    """{leg name: ms per iteration}; the int8 leg maps to None."""
-    from howl_tpu_torch.bench import SAMPLE_RATE, res8_numpy_variables, serving_engines
+def _setup(batch: int, clip_seconds: float, seed: int, dev: torch.device):
+    """(the bench's bf16 fused engine, the same with the int8 trunk calibrated
+    on the audio, the audio): seeded weights and noise, as the bench's."""
+    from howl_tpu_torch.bench import SAMPLE_RATE, headline_engine, res8_numpy_variables
     from howl_tpu_torch.compat import res8_variables_to_state_dict
-    from howl_tpu_torch.ops.frontend import log_mel_spectrogram
-    from howl_tpu_torch.ops.frontend_cuda import log_mel_spectrogram_cuda
-    from howl_tpu_torch.ops.stem_cuda import res8_stem_cuda
 
     rng = np.random.default_rng(seed)
     state = res8_variables_to_state_dict(res8_numpy_variables(rng, 4))
     clip_samples = int(clip_seconds * SAMPLE_RATE)
     audio = torch.from_numpy((rng.standard_normal((batch, clip_samples)) * 0.1).astype(np.float32)).to(dev)
-    engine, _ = serving_engines(dev, state)
+    engine = headline_engine(dev, state, "bf16")
+    engine_int8 = headline_engine(dev, state, "int8", audio)
+    return engine, engine_int8, audio
+
+
+def trunk_ab(batch: int, clip_seconds: float, iters: int, seed: int, dev: torch.device, turns: int = 2) -> dict:
+    """The full fused step with the bf16 trunk against the same step with the
+    int8 trunk, in turns (bf16, int8, int8, bf16, ... ``turns`` times each):
+    {"bf16": [ms per turn], "int8": [ms per turn]}, each a two-point slope."""
+    engine, engine_int8, audio = _setup(batch, clip_seconds, seed, dev)
+    makers = {"bf16": bumped_chain(lambda a: engine.infer_batch(a)["detected"], audio),
+              "int8": bumped_chain(lambda a: engine_int8.infer_batch(a)["detected"], audio)}
+    out = {"bf16": [], "int8": []}
+    with torch.no_grad():
+        for i in range(turns):
+            for who in (("bf16", "int8") if i % 2 == 0 else ("int8", "bf16")):
+                out[who].append(slope_ms(makers[who], iters, 4 * iters, 1, dev)[0])
+    return out
+
+
+def run(batch: int, clip_seconds: float, iters: int, seed: int, dev: torch.device) -> dict:
+    """{leg name: ms per iteration}."""
+    from howl_tpu_torch.ops.frontend import log_mel_spectrogram
+    from howl_tpu_torch.ops.frontend_cuda import log_mel_spectrogram_cuda
+    from howl_tpu_torch.ops.stem_cuda import res8_stem_cuda
+
+    engine, engine_int8, audio = _setup(batch, clip_seconds, seed, dev)
+    clip_samples = audio.shape[1]
     model, frontend, dtype = engine.model, engine.frontend, engine.compute_dtype
     geom = engine._step_geometry(batch, clip_samples)
     lengths = engine._as_lengths(None, batch, clip_samples)
@@ -91,7 +102,7 @@ def run(batch: int, clip_seconds: float, iters: int, seed: int, dev: torch.devic
     results = {}
 
     def timed(name, fn, x):
-        ms, _ = slope_ms(_make_chain(fn, x), iters, 4 * iters, REPEATS, dev)
+        ms, _ = slope_ms(bumped_chain(fn, x), iters, 4 * iters, REPEATS, dev)
         results[name] = ms
         print(f"{name:60s}: {ms:8.3f} ms/iter  ({batch * clip_seconds / (ms / 1e3):,.0f}x realtime)", flush=True)
 
@@ -99,10 +110,9 @@ def run(batch: int, clip_seconds: float, iters: int, seed: int, dev: torch.devic
         feats = engine._features(audio, "fm")[:, None]  # (B, 1, F, T)
         mel_tm = engine._features(audio, "tm")
         trunk = model.trunk_features(feats)
-        timed("full fused step (frontend kernel + stem kernel)", lambda a: engine.infer_batch(a)["detected"], audio)
+        timed(BF16_LEG, lambda a: engine.infer_batch(a)["detected"], audio)
         timed("full fused step (torch frontend + stem kernel)", torch_frontend_step, audio)
-        results[INT8_LEG] = None
-        print(f"{INT8_LEG:60s}: not ported (ROADMAP Queue 1, item 10)", flush=True)
+        timed(INT8_LEG, lambda a: engine_int8.infer_batch(a)["detected"], audio)
         timed("frontend: kernel K1 bf16 (time-major, bf16 out)",
               lambda a: log_mel_spectrogram_cuda(a, frontend, engine.zmuv_mean, engine.zmuv_std, precision="bf16",
                                                  out_dtype=dtype, layout="tm"), audio)

@@ -8,7 +8,8 @@ the kernels here are CUDA C++, ``csrc/frontend.cu`` and
 The kernel's plain version rounds where the kernel rounds, so holding the
 two against each other says nothing about how far a grade drifts from the
 truth. This tool runs ``log_mel_spectrogram_cuda`` at each grade ("f32",
-"bf16x2", "bf16"; no ZMUV), through the kernel that ``frontend_route`` picks
+"bf16x3", "bf16x2", "bf16": the JAX tool's f32x6, bf16x3, bf16x2 and bf16x1;
+no ZMUV), through the kernel that ``frontend_route`` picks
 for it, which is the one the serving engine runs, on ``tests/golden/frontend_input.npy`` and
 compares with the torchaudio-exact ``frontend_logmel_{40,80}.npy``, printing
 the statistics the golden tests gate on: the largest error above the
@@ -31,7 +32,7 @@ from howl_tpu_torch.tools._study import device_parser, pick_device
 
 GOLDEN = Path(__file__).resolve().parents[2] / "tests" / "golden"
 FLOOR = -10.0
-GRADES = ("f32", "bf16x2", "bf16")
+GRADES = ("f32", "bf16x3", "bf16x2", "bf16")
 
 
 def run(dev: torch.device) -> list:

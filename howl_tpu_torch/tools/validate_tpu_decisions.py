@@ -11,15 +11,21 @@ the detections and the first-fire steps are equal and at least 99 % of the
 labels agree.
 
 The exact engine is res8 in float32 with the frontend at its "f32" grade
-(the float32 products, ``csrc/frontend.cu`` on the card). It is not the JAX
-tool's three-pass bf16 grade: that grade has no kernel in the port yet
-(ROADMAP F11), so its row prints as not ported. The rows that run:
+(the float32 products, ``csrc/frontend.cu`` on the card), where the JAX
+tool's oracle is its float32 engine on the XLA chain at HIGHEST. The rows:
 
     res8+k1[bf16]+k2      the bf16 serving engine: the frontend kernel at
                           "bf16" ("tc", ``csrc/frontend_tc.cu``) and the
-                          stem kernel ("tc", ``csrc/stem_tc.cu``), the
-                          bench's headline;
+                          stem kernel ("tc", ``csrc/stem_tc.cu``);
     res8+k1[bf16x2]+k2    the same with the frontend at "bf16x2";
+    res8+k1[bf16x3]+k2    the same with the frontend at the three-pass
+                          grade, the JAX kernel's default (``precision=None``),
+                          on the FMA kernel ("fma", ``csrc/frontend.cu``);
+    res8+k1[bf16]+k2+int8 the bf16 serving engine with the int8 residual
+                          trunk (``csrc/int8_trunk.cu``), its scales
+                          calibrated on the clips it scores, as the JAX
+                          tool's row calibrates (the best case: a deployment
+                          calibrates on held-out audio and validates again);
     res8 legacy[bf16]     the per-window mega-batch scorer in bf16 against
                           the same scorer in float32;
     res8+online[bf16]     the live engines serving in bf16, their frontend
@@ -34,8 +40,7 @@ tool's three-pass bf16 grade: that grade has no kernel in the port yet
                           fire flags equal, at least 99 % of the labels.
 
 Rows the port cannot run yet print ``not ported (ROADMAP ...)`` and count
-as neither OK nor a mismatch: the three-pass grade, ``+int8`` (item 10) and
-the other model families (item 8).
+as neither OK nor a mismatch: the other model families (item 8).
 
 It runs on the card: with ``--device cuda`` (the default) and no CUDA
 device it raises. ``--device cpu`` runs the plain versions at 4 clips of
@@ -155,8 +160,9 @@ def run(dev: torch.device, batch: int, clip_seconds: float, seed: int = 0) -> di
     rows = {
         "res8+k1[bf16]+k2": compare(exact, engine(bf16).infer_batch(audio)),
         "res8+k1[bf16x2]+k2": compare(exact, engine(bf16, frontend_precision="bf16x2").infer_batch(audio)),
-        "res8+k1[bf16x3]+k2": not_ported("ROADMAP Queue 2, follow-up 1: the three-pass grade; F11"),
-        "res8+k1[bf16]+k2+int8": not_ported("ROADMAP Queue 1, item 10"),
+        "res8+k1[bf16x3]+k2": compare(exact, engine(bf16, frontend_precision="bf16x3").infer_batch(audio)),
+        "res8+k1[bf16]+k2+int8": compare(exact, engine(bf16, use_int8_trunk=True,
+                                                       int8_calibration_audio=audio).infer_batch(audio)),
         "res8 legacy[bf16]": compare(engine(fused_trunk=False, frontend_precision="f32").infer_batch(audio),
                                      engine(bf16, fused_trunk=False).infer_batch(audio)),
         **{f"res8+{kind}[bf16]": compare_online(run_online(kind, dev, state, cfg, frontend, audio, "f32"),

@@ -473,7 +473,7 @@ def run(args=None, stats: Optional[LoopStats] = None) -> dict:
         # touches the float32 masters
         return StreamingEngine(
             model, state.model.state_dict(), EngineConfig.from_settings(ctx), frontend_cfg, zmuv.mean, zmuv.std,
-            spec=spec, compute_dtype=compute_dtype, frontend_precision=None, device=device,
+            spec=spec, compute_dtype=compute_dtype, frontend_precision="f32", device=device,
         )
 
     def evaluate_engine(dataset, prefix: str, positive_set: bool, save: bool = False, mixer_bank=None, epoch_idx: int = 0):

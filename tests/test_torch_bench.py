@@ -118,7 +118,13 @@ def test_cpu_run_names_its_rungs(cpu_record):
         assert rungs[scorer]["frontend"] == {"kernel": "K1", "route": "plain", "grade": "bf16", "layout": layout,
                                              "launches_per_batch": 0}
         assert rungs[scorer]["stem"] == {"kernel": "K2", "route": "plain", "launches_per_batch": 0}
-    assert rungs["int8"] == "not ported (ROADMAP Queue 1, item 10)"
+    # the headline's trunk, as bench.HEADLINE_TRUNK names it, and both trunks' batch times from the same run
+    int8 = rungs["int8"]
+    assert int8["value_trunk"] == bench.HEADLINE_TRUNK and int8["calibration_clips"] == bench.CPU.batch
+    assert set(int8["batch_ms"]) == set(bench.TRUNKS) and all(ms > 0 for ms in int8["batch_ms"].values())
+    want = ({"kernel": "int8 trunk", "route": "plain", "launches_per_batch": 0} if bench.HEADLINE_TRUNK == "int8"
+            else "F.conv2d")
+    assert rungs["headline"]["residual_convs"] == want and rungs["legacy"]["residual_convs"] == "F.conv2d"
     online = rungs["online"]
     assert online["full_window"]["frontend"] == {"kernel": "K1", "route": "plain", "launches_per_step": 0,
                                                  "grade": "bf16", "layout": "fm"}

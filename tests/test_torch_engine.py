@@ -164,9 +164,14 @@ def test_new_variables_change_scores(slice_setup):
 
 def test_unported_options_raise(slice_setup):
     variables, _, _, cfg_kw = slice_setup
-    for kw, item in (({"carry_windows": True}, "item 8"), ({"use_int8_trunk": True}, "item 10")):
-        with pytest.raises(NotImplementedError, match=item):
-            _port_engine(variables, cfg_kw, **kw)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        _port_engine(variables, cfg_kw, carry_windows=True)
+    # the int8 trunk is ported: it raises, as the JAX engine does, only without calibration audio or off the
+    # fused-trunk scorer
+    with pytest.raises(ValueError, match="int8_calibration_audio"):
+        _port_engine(variables, cfg_kw, use_int8_trunk=True)
+    with pytest.raises(ValueError, match="fused-trunk scorer only"):
+        _port_engine(variables, cfg_kw, use_int8_trunk=True, fused_trunk=False, int8_calibration_audio=np.zeros((1, 8000)))
     with pytest.raises(NotImplementedError, match="WholeClipEngine.*item 8"):
         WholeClipEngine()
     # the threshold sweep is ported: it decides, and at one threshold as infer_batch does

@@ -6,7 +6,11 @@ what the kernel's wrapper takes for a CPU tensor. Inputs come from seeded
 numpy generators.
 
 Tolerances: the float32 grade uses test_frontend_pallas.py's bound,
-1e-3/std. In the bf16 operand grades both sides round the same operands to
+1e-3/std. So does the three-pass grade, "bf16x3" (the JAX kernel's
+``precision=None``): both sides split the same float32 audio, W, power and
+filterbank into the same bf16 parts, so only the order of the float32 sums
+differs, as in the float32 grade; the grade's own error against float32,
+~2^-17 relative, is the same on both sides. In the bf16 operand grades both sides round the same operands to
 bf16, so the only difference is float32 accumulation order, which can flip
 one bf16 rounding of the power: 2e-2/std. A bf16 output can flip its final
 rounding for the same reason, so it adds one bf16 ulp of the output's
@@ -33,7 +37,8 @@ from howl_tpu_torch.ops.frontend_cuda import (
 torch.set_num_threads(1)
 
 GOLDEN = Path(__file__).resolve().parent / "golden"
-JAX_PRECISION = {"f32": jax.lax.Precision.HIGHEST, "bf16x2": "bf16x2", "bf16": "bf16"}
+JAX_PRECISION = {"f32": jax.lax.Precision.HIGHEST, "bf16x3": None, "bf16x2": "bf16x2", "bf16": "bf16"}
+EXACT_SUMS = ("f32", "bf16x3")  # the grades whose sides differ only in the order of the float32 sums
 
 
 def _audio(seed, shape, scale=0.1):
@@ -114,7 +119,7 @@ def test_log_mel_chain_matches_jax(n_mels):
 
 @pytest.mark.parametrize("n_mels", [40, 80])
 @pytest.mark.parametrize("layout", ["tm", "fm"])
-@pytest.mark.parametrize("grade", ["f32", "bf16x2", "bf16"])
+@pytest.mark.parametrize("grade", ["f32", "bf16x3", "bf16x2", "bf16"])
 def test_plain_kernel_matches_pallas(grade, layout, n_mels):
     audio = _audio(2, (2, 16000))
     ref = np.asarray(jfe.log_mel_spectrogram(audio, jfe.FrontendConfig(n_mels=n_mels)))
@@ -122,18 +127,18 @@ def test_plain_kernel_matches_pallas(grade, layout, n_mels):
     want = _jax_kernel(audio, n_mels, mean, std, grade, False, layout)
     got = _port_plain(audio, n_mels, mean, std, grade, False, layout)
     assert got.shape == want.shape
-    atol = (1e-3 if grade == "f32" else 2e-2) / std
+    atol = (1e-3 if grade in EXACT_SUMS else 2e-2) / std
     np.testing.assert_allclose(got, want, atol=atol)
 
 
-@pytest.mark.parametrize("grade", ["f32", "bf16x2", "bf16"])
+@pytest.mark.parametrize("grade", ["f32", "bf16x3", "bf16x2", "bf16"])
 def test_plain_kernel_bf16_output_matches_pallas(grade):
     audio = _audio(3, (2, 12000))
     mean, std = -4.0, 3.0
     want = _jax_kernel(audio, 40, mean, std, grade, True, "tm")
     got = _port_plain(audio, 40, mean, std, grade, True, "tm")
     assert got.shape == want.shape == (2, 61, 40)
-    atol = (1e-3 if grade == "f32" else 2e-2) / std + _bf16_ulp(want)
+    atol = (1e-3 if grade in EXACT_SUMS else 2e-2) / std + _bf16_ulp(want)
     np.testing.assert_allclose(got, want, atol=atol)
 
 
@@ -155,7 +160,7 @@ def test_plain_kernel_matches_torchaudio_golden(n_mels):
     gold = np.load(GOLDEN / f"frontend_logmel_{n_mels}.npy")
     audio = torch.from_numpy(np.load(GOLDEN / "frontend_input.npy"))
     cfg = tfe.FrontendConfig(n_mels=n_mels)
-    for ours in (log_mel_spectrogram_plain(audio, cfg), tfe.log_mel_spectrogram(audio, cfg)):
+    for ours in (log_mel_spectrogram_plain(audio, cfg, precision="f32"), tfe.log_mel_spectrogram(audio, cfg)):
         err = np.abs(ours.numpy() - gold)
         assert ours.shape == gold.shape
         assert err.max() < 0.02
@@ -166,7 +171,8 @@ def test_plain_kernel_1d_input_and_bad_requests():
     audio = torch.from_numpy(_audio(5, 16000))
     out = log_mel_spectrogram_plain(audio, tfe.FrontendConfig(n_mels=40))
     assert out.shape == (1, 40, 81) and torch.isfinite(out).all()
-    assert frontend_grade(None) == frontend_grade("HIGHEST") == "f32"
+    assert frontend_grade("f32") == frontend_grade("HIGHEST") == "f32"
+    assert frontend_grade(None) == frontend_grade("high") == frontend_grade("bf16x3") == "bf16x3"
     with pytest.raises(ValueError, match="precision"):
         frontend_grade("tf32")
     with pytest.raises(ValueError, match="layout"):
@@ -175,3 +181,37 @@ def test_plain_kernel_1d_input_and_bad_requests():
         log_mel_spectrogram_plain(audio.double())
     with pytest.raises(ValueError, match="reflect"):
         log_mel_spectrogram_plain(audio[:100])
+
+
+def test_precision_names_resolve_to_the_jax_kernels_grades():
+    """None and "high" name the JAX kernel's three-pass grade, as its
+    ``_passes_for`` maps None and Precision.HIGH to 3 passes; an engine's
+    "auto" names the exact grade by name for float32 serving and "bf16" for
+    bf16 serving; the live engines' ``dft_precision`` follows the JAX chain,
+    where None is the exact grade."""
+    from howl_tpu_torch.inference.config import serving_dft_precision
+    from howl_tpu_torch.inference.online import IncrementalOnlineEngine
+    from howl_tpu_torch.models import create_model
+    from howl_tpu_torch.inference import EngineConfig
+
+    assert [frontend_grade(p) for p in (None, "high", "HIGH", "bf16x3")] == ["bf16x3"] * 4
+    assert [frontend_grade(p) for p in ("f32", "highest", "HIGHEST")] == ["f32"] * 3
+    assert serving_dft_precision(None) == serving_dft_precision(torch.float32) == "f32"
+    assert serving_dft_precision(torch.bfloat16) == "bf16"
+    assert serving_dft_precision(None, None) is None  # an explicit request is served as asked
+    for p in (None, "high", "auto"):
+        eng = IncrementalOnlineEngine(create_model("res8", num_labels=4), create_model("res8", num_labels=4).state_dict(),
+                                      EngineConfig(num_labels=4, negative_label=3), tfe.FrontendConfig(n_mels=40),
+                                      dft_precision=p, device="cpu")
+        assert frontend_grade(eng._dft_precision) == "f32", p
+
+
+def test_three_pass_grade_is_nearer_float32_than_two_passes():
+    """The grade's own error: bf16x3 drops only the lo x lo terms (~2^-17
+    relative), bf16x2 keeps the audio and the power at bf16 (~2^-9)."""
+    audio = torch.from_numpy(_audio(6, (2, 16000)))
+    cfg = tfe.FrontendConfig(n_mels=40)
+    exact = log_mel_spectrogram_plain(audio, cfg, precision="f32")
+    err = {g: float((log_mel_spectrogram_plain(audio, cfg, precision=g) - exact).abs().max())
+           for g in ("bf16x3", "bf16x2")}
+    assert err["bf16x3"] < 1e-3 < err["bf16x2"], err

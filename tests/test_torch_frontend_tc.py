@@ -49,7 +49,7 @@ def test_split_bf16_equals_the_jax_split_bit_for_bit(n_fft, n_bins):
     np.testing.assert_array_equal(both.float().double().numpy(), both.numpy())
     if (n_fft, n_bins) == (512, 256):
         cfg, cpu = tfe.FrontendConfig(n_mels=40), torch.device("cpu")
-        p_hi, p_lo = fc.frontend_w_passes(cfg, cpu)
+        p_hi, p_lo = fc.frontend_split_bases(cfg, cpu)[:2]
         np.testing.assert_array_equal(p_hi.numpy(), hi.float().numpy())
         np.testing.assert_array_equal(p_lo.numpy(), lo.float().numpy())
         np.testing.assert_array_equal(fc.frontend_bases(cfg, "bf16x2", cpu)[0].double().numpy(), both.numpy())
@@ -135,8 +135,10 @@ def test_frontend_route_by_geometry_and_grade(kw, want):
             fc.frontend_bases_tc(cfg, "bf16", torch.device("cpu"))
     with pytest.raises(ValueError, match="does not serve"):
         fc.frontend_bases_tc(cfg, "f32", torch.device("cpu"))
+    # the three-pass grade runs on the FMA kernel at every geometry
+    assert fc.frontend_route(cfg, "bf16x3") == "fma"
     with pytest.raises(ValueError, match="grade"):
-        fc.frontend_route(cfg, "bf16x3")
+        fc.frontend_route(cfg, "bf16x4")
 
 
 @pytest.mark.parametrize("route", ["tc", "fma", "wgmma"])

@@ -34,7 +34,11 @@ ring, chunks that wrap it many times and bf16 chunks that end inside a stage.
 The frontend and stem kernels take 65,536 clips in one launch (the online
 bench's largest window batch), held against their plain versions chunk by
 chunk; each live engine's bf16 decisions equal its float32 decisions on
-streams whose loud half fires.
+streams whose loud half fires. The int8 trunk's layer kernel gives exact s32
+sums (at +-127 extremes too) at pooled frame counts around its 25-frame
+blocks and at 1, 17 and 64 frequency bins, equals its plain version bit for
+bit in float32 and bf16 with each epilogue, and six launches equal the plain
+trunk at the serving batch; the int8 engine on the card matches the CPU's.
 """
 
 import functools
@@ -70,7 +74,9 @@ def _hold_frontend(cuda, audio, cfg, route, grade, out_dtype, layout, mean=-3.0,
     float32 grade 1e-3/std; the bf16 operand grades 2e-2/std (the operands
     are bit-equal, the float32 sums differ in order and the tensor cores do
     not round each partial sum as fmaf does, which can flip one bf16 rounding
-    of the power); bf16 output adds one bf16 ulp of its magnitude."""
+    of the power); bf16 output adds one bf16 ulp of its magnitude. The three-pass grade computes the same passes as the plain
+    version, so as for the float32 grade only the order of the float32 sums
+    differs: 1e-3/std."""
     fn = log_mel_spectrogram_cuda
     args = dict(precision=grade, out_dtype=out_dtype, layout=layout)
     served = frontend_route(cfg, grade)
@@ -85,7 +91,7 @@ def _hold_frontend(cuda, audio, cfg, route, grade, out_dtype, layout, mean=-3.0,
     assert fn.launches == before + 1
     assert fn.launches_tc == before_tc + ((route or served) == "tc")
     assert got.shape == want.shape and got.dtype == want.dtype
-    atol = (1e-3 if grade == "f32" else 2e-2) / std
+    atol = (1e-3 if grade in ("f32", "bf16x3") else 2e-2) / std
     if out_dtype == torch.bfloat16:
         atol += _bf16_ulp(want)
     assert bool(torch.isfinite(got.float()).all())
@@ -97,7 +103,7 @@ def _hold_frontend(cuda, audio, cfg, route, grade, out_dtype, layout, mean=-3.0,
     [({"n_mels": 40}, 16000), ({"n_mels": 80}, 12345), ({"n_mels": 40, "n_fft": 400, "hop_length": 160}, 9000),
      ({"n_mels": 40, "center": False}, 20000)],
 )
-@pytest.mark.parametrize("grade", ["f32", "bf16x2", "bf16"])
+@pytest.mark.parametrize("grade", ["f32", "bf16x3", "bf16x2", "bf16"])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("layout", ["tm", "fm"])
 @pytest.mark.parametrize("route", [None, "tc", "fma"])
@@ -758,7 +764,7 @@ def test_micro_tools_run_on_the_card(cuda, capsys):
     assert all(a > b for a, b in zip((stream_cuda.launches, gemm_cuda.launches, poly_cuda.launches), counts))
     records = validate_pallas_precision.main([])
     f32 = [r for r in records if r["grade"] == "f32"]
-    assert len(records) == 6 and all(r["above_floor_max"] < 3e-3 and r["global_max"] < 0.02 for r in f32)
+    assert len(records) == 8 and all(r["above_floor_max"] < 3e-3 and r["global_max"] < 0.02 for r in f32)
     assert "above_floor_max" in capsys.readouterr().out
 
 
@@ -1181,3 +1187,150 @@ def test_live_engine_bf16_decisions_equal_float32(cuda, kind):
     np.testing.assert_array_equal(fired16, fired)
     assert float(np.abs(probs16 - probs).max()) <= 2e-2
     assert fired.any(0).any() and not fired.any(0).all()
+
+
+# ---- the int8 residual trunk's layer kernel (csrc/int8_trunk.cu) ----
+
+INT8_GEOMETRIES = [(1, 213, 10), (3, 7, 10), (2, 26, 10), (2, 5, 1), (1, 9, 17), (2, 9, 64), (2, 1, 10)]
+
+
+def _int8_params(cuda, seed=0):
+    from howl_tpu_torch import bench
+    from howl_tpu_torch.compat import res8_variables_to_state_dict
+    from howl_tpu_torch.ops.int8_trunk import quantize_residual_trunk
+
+    state = res8_variables_to_state_dict(bench.res8_numpy_variables(np.random.default_rng(seed), 4))
+    return quantize_residual_trunk(state, [0.02, 0.03, 0.025, 0.04, 0.035, 0.05], cuda)
+
+
+@pytest.mark.parametrize("b,t,f", INT8_GEOMETRIES)
+@pytest.mark.parametrize("pattern", ["extremes", "uniform"])
+def test_int8_layer_kernel_sums_are_exact(cuda, b, t, f, pattern):
+    """The s32 sums through the kernel's public interface: float32
+    activations that are already s8 values, s_a = 1 (the quantize is the
+    identity), w_scale = 1 (dq = 1), no residual and no BN, so the output is
+    relu(acc) exactly (|acc| < 2^24); the negated weights give relu(-acc).
+    Their difference must equal the int64 sums, at +-127 extremes too."""
+    from howl_tpu_torch.ops.int8_trunk import int8_conv_layer_cuda, int8_conv_sums_plain
+
+    rng = np.random.default_rng(b * 1000 + t * 10 + f)
+    draw = (lambda s: rng.choice([-127, 127], s)) if pattern == "extremes" else (lambda s: rng.integers(-127, 128, s))
+    xq = torch.from_numpy(draw((b, t, f, 45)).astype(np.int8))
+    w = torch.from_numpy(draw((3, 3, 45, 45)).astype(np.int8))
+    ones = torch.ones(45, device=cuda)
+    x = xq.float().to(cuda)
+    before = int8_conv_layer_cuda.launches
+    pos, _ = int8_conv_layer_cuda(x, w.to(cuda), 1.0, ones)
+    neg, _ = int8_conv_layer_cuda(x, (-w).to(cuda), 1.0, ones)
+    torch.cuda.synchronize()
+    assert int8_conv_layer_cuda.launches == before + 2
+    got = (pos - neg).cpu().to(torch.int64)
+    assert torch.equal(got, int8_conv_sums_plain(xq, w).to(torch.int64))  # the CPU's direct float32 conv
+    assert torch.equal((pos - neg).to(torch.int32), int8_conv_sums_plain(x.to(torch.int8), w.to(cuda)))  # cuDNN off
+
+
+@pytest.mark.parametrize("b,t,f", INT8_GEOMETRIES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("epilogue", ["full", "residual", "conv_relu_dequant"])
+def test_int8_layer_kernel_matches_plain_bitwise(cuda, b, t, f, dtype, epilogue):
+    """One layer, kernel against plain version on the same operands: the s32
+    sums are exact and every later operation rounds to the compute dtype at
+    the same points, so out and pre are equal bit for bit."""
+    from howl_tpu_torch.ops.int8_trunk import int8_conv_layer_cuda, int8_conv_layer_plain
+
+    p = _int8_params(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(t * f)
+    x = (torch.randn((b, t, f, 45), generator=gen, device=cuda) * 1.5).to(dtype)
+    res = (torch.randn((b, t, f, 45), generator=gen, device=cuda)).to(dtype)
+    kw = {"full": dict(bn_scale=p.bn_scale[1], bn_shift=p.bn_shift[1], residual=res),
+          "residual": dict(residual=res), "conv_relu_dequant": {}}[epilogue]
+    out, pre = int8_conv_layer_cuda(x, p.w_i8[1], 0.02, p.w_scale[1], keep_pre=True, **kw)
+    want_out, want_pre = int8_conv_layer_plain(x, p.w_i8[1], 0.02, p.w_scale[1], **kw)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and pre.dtype == dtype and out.shape == x.shape
+    assert torch.equal(out, want_out) and torch.equal(pre, want_pre)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_int8_trunk_kernel_matches_plain_at_the_serving_batch(cuda, dtype):
+    """Six launches at 512 clips of 8 s (213 x 10 pooled frames): the trunk
+    equals its plain version bit for bit, and is close to the float32 trunk."""
+    from howl_tpu_torch.ops.int8_trunk import int8_conv_layer_cuda, residual_features_int8, residual_features_int8_plain
+
+    p = _int8_params(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(512)
+    y = torch.relu(torch.randn((512, 213, 10, 45), generator=gen, device=cuda)).to(dtype)
+    before = int8_conv_layer_cuda.launches
+    got = residual_features_int8(y, p, dtype)
+    torch.cuda.synchronize()
+    assert int8_conv_layer_cuda.launches == before + 6
+    want = residual_features_int8_plain(y, p, dtype)
+    assert bool(torch.isfinite(got.float()).all()) and torch.equal(got, want)
+
+
+def test_int8_layer_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from howl_tpu_torch.ops.int8_trunk import int8_conv_layer_cuda
+
+    p = _int8_params(cuda)
+    x = torch.zeros((1, 9, 10, 45), device=cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        int8_conv_layer_cuda(x.half(), p.w_i8[0], 0.1, p.w_scale[0])
+    with pytest.raises(ValueError, match="int8 weights"):
+        int8_conv_layer_cuda(x, p.w_i8[0].float(), 0.1, p.w_scale[0])
+    with pytest.raises(ValueError, match="int8 weights"):
+        int8_conv_layer_cuda(torch.zeros((1, 9, 10, 44), device=cuda), p.w_i8[0], 0.1, p.w_scale[0])
+    with pytest.raises(ValueError, match="go together"):
+        int8_conv_layer_cuda(x, p.w_i8[0], 0.1, p.w_scale[0], bn_scale=p.bn_scale[0])
+    with pytest.raises(ValueError, match="residual"):
+        int8_conv_layer_cuda(x, p.w_i8[0], 0.1, p.w_scale[0], residual=x.bfloat16())
+    with pytest.raises(ValueError, match="lies on cpu"):
+        int8_conv_layer_cuda(x, p.w_i8[0].cpu(), 0.1, p.w_scale[0])
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_conv_layer_cuda(torch.zeros((1, 10, 9, 45), device=cuda).transpose(1, 2), p.w_i8[0], 0.1, p.w_scale[0])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        int8_conv_layer_cuda(torch.zeros(4051, device=cuda)[1:].view(1, 9, 10, 45), p.w_i8[0], 0.1, p.w_scale[0])
+    with pytest.raises(ValueError, match="frequency bins"):
+        int8_conv_layer_cuda(torch.zeros((1, 2, 257, 45), device=cuda), p.w_i8[0], 0.1, p.w_scale[0])
+
+
+def test_int8_weight_image_follows_in_place_changes(cuda):
+    """The packed weight image is cached per tensor and packed again when the
+    tensor changes in place (ROADMAP F2)."""
+    from howl_tpu_torch.ops.int8_trunk import int8_conv_layer_cuda, int8_conv_layer_plain
+
+    p = _int8_params(cuda)
+    x = torch.randn((2, 9, 10, 45), device=cuda)
+    w = p.w_i8[0].clone()
+    first, _ = int8_conv_layer_cuda(x, w, 0.02, p.w_scale[0])
+    w.neg_()
+    second, _ = int8_conv_layer_cuda(x, w, 0.02, p.w_scale[0])
+    assert torch.equal(second, int8_conv_layer_plain(x, w, 0.02, p.w_scale[0])[0]) and not torch.equal(first, second)
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16], ids=["f32", "bf16"])
+def test_int8_engine_on_cuda_matches_cpu(cuda, dtype):
+    """The int8 engine on the card (K1, K2 and six int8 launches a batch)
+    against the same engine on the CPU: the same calibration (act scales
+    within 1e-5 relative) and, with the card's scales, decisions equal and
+    posteriors within 2e-2."""
+    from howl_tpu_torch import bench
+    from howl_tpu_torch.compat import res8_variables_to_state_dict
+    from howl_tpu_torch.inference import StreamingEngine
+    from howl_tpu_torch.models import create_model
+    from howl_tpu_torch.ops.int8_trunk import int8_conv_layer_cuda, quantize_residual_trunk
+
+    state = res8_variables_to_state_dict(bench.res8_numpy_variables(np.random.default_rng(7), 4))
+    audio = (np.random.default_rng(8).standard_normal((8, 32000)) * 0.1).astype(np.float32)
+    engines = {d: StreamingEngine(create_model("res8", num_labels=4), state, bench.serving_config(),
+                                  FrontendConfig(n_mels=40), compute_dtype=dtype, use_int8_trunk=True,
+                                  int8_calibration_audio=audio[:4], device=d) for d in ("cuda", "cpu")}
+    np.testing.assert_allclose(engines["cuda"]._int8_params.act_scale, engines["cpu"]._int8_params.act_scale, rtol=1e-5)
+    engines["cpu"]._int8_params = quantize_residual_trunk(state, engines["cuda"]._int8_params.act_scale, "cpu")
+    before = int8_conv_layer_cuda.launches
+    got = engines["cuda"].infer_batch(audio)
+    torch.cuda.synchronize()
+    assert int8_conv_layer_cuda.launches == before + 6
+    want = engines["cpu"].infer_batch(audio)
+    assert float((got["probs"].cpu() - want["probs"]).abs().max()) <= 2e-2
+    for key in ("detected", "first_fire_step"):
+        assert torch.equal(got[key].cpu(), want[key]), key

@@ -74,7 +74,7 @@ def test_legacy_engine_matches_jax(legacy_setup, dtype, atol):
     variables, audio, cfg_kw = legacy_setup
     jx = _jax_legacy(variables, cfg_kw, jnp.bfloat16 if dtype else None)
     pt = _port_legacy(variables, cfg_kw, torch.bfloat16 if dtype else None)
-    assert not pt.fused_trunk and pt.frontend_precision == ("bf16" if dtype else None)
+    assert not pt.fused_trunk and pt.frontend_precision == ("bf16" if dtype else "f32")
     want, got = jx.infer_batch(audio), pt.infer_batch(audio)
     assert tuple(got["probs"].shape) == (4, 25, 4) and got["probs"].dtype == torch.float32
     np.testing.assert_allclose(got["probs"].numpy(), np.asarray(want["probs"]), atol=atol)

@@ -133,7 +133,7 @@ def test_ctypes_signatures_match_the_cuda_sources():
     assert set(sources) == {"frontend.cu", "frontend_tc.cu", "stem.cu", "stem_tc.cu", "augment.cu", "trunk_proto.cu", "stem_fold.cu",
                             "micro_stream.cu", "micro_gemm.cu", "micro_poly.cu", "hbm_auto_read.cu",
                             "hbm_auto_copy.cu", "hbm2hbm.cu", "hbm_manual_read.cu", "hbm_manual_write.cu",
-                            "hbm_manual_copy.cu"}
+                            "hbm_manual_copy.cu", "int8_trunk.cu"}
     entries = {}
     for text in sources.values():
         for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text):
@@ -162,6 +162,15 @@ def test_ctypes_signatures_match_the_cuda_sources():
         "const void* audio", "const void* bank", "const void* rows", "const void* offs", "const void* alpha",
         "void* out", "int B", "int n", "int n_rows", "int w_cols", "void* stream",
     ]
+    # the int8 layer: null pointers for the optional BN, residual and pre-BN store; the scale and its inverse
+    assert entries["howl_int8_conv_forward"] == [
+        "const void* x", "const void* w_img", "const void* w_scale", "const void* bn_scale", "const void* bn_shift",
+        "const void* res", "void* out", "void* pre", "int B", "int T_len", "int F", "int C", "int tt", "float inv_s",
+        "float s_a", "int is_bf16", "void* stream",
+    ]
+    # the FMA frontend takes the three-pass grade's lo parts after W and fb (null for the other grades)
+    assert entries["howl_logmel_forward"][:6] == [
+        "const void* audio", "const void* w", "const void* fb", "const void* w_lo", "const void* fb_lo", "void* out"]
     # the sweep's three block legs share one signature; the whole-array copy counts its bytes in 64 bits
     assert entries["howl_hbm_auto_read_forward"] == entries["howl_hbm_auto_copy_forward"] == [
         "const void* x", "void* out", "int rows", "int bn", "int is_bf16", "float s", "void* stream",

@@ -222,7 +222,7 @@ def test_batched_evaluator_equals_jax_on_weights_from_jax(jax_trained, monkeypat
                       JFrontendConfig.from_settings(), mean, std)
     tengine = TEngine(tcreate_model("res8", num_labels=tctx.num_labels), res8_variables_to_state_dict(variables),
                       TEngineConfig.from_settings(tctx), TFrontendConfig.from_settings(), mean, std,
-                      frontend_precision=None, device="cpu")
+                      frontend_precision="f32", device="cpu")
     bank = None
     if with_bank:
         noise_ds = JNoiseLoader().load(runs["noise"], sample_rate=16000, mono=True)
@@ -309,7 +309,7 @@ def test_f9_bf16_decisions_equal_float32_on_the_ports_trained_weights(port_train
         name: TEngine(tcreate_model("res8", num_labels=tctx.num_labels), state_dict, TEngineConfig.from_settings(tctx),
                       TFrontendConfig.from_settings(), mean, std, compute_dtype=dtype, frontend_precision=precision,
                       device="cpu")
-        for name, dtype, precision in (("f32", None, None), ("bf16", torch.bfloat16, "bf16"))
+        for name, dtype, precision in (("f32", None, "f32"), ("bf16", torch.bfloat16, "bf16"))
     }
     dprob = 0.0
     for ds, positive in _eval_sets(TLoader(), tctx, runs["corpus"]):
