@@ -90,20 +90,27 @@ them. In order it:
      where some clips fire and some do not. The stem kernel is held against
      its plain version on that window batch, chunk by chunk;
  10b. drives the JAX serving headline's precision ladder at the same size
-     in bf16: K1 "tc" at "bf16", K2 "tc", the int8 residual trunk (the layer
-     kernel ``csrc/int8_trunk.cu``) calibrated on the batch's first 64 clips
-     as the bench builds it. One batch between zeroed counters must launch K1
-     "tc" and K2 "tc" once and the int8 kernel six times; its posteriors must
-     be finite and sum to 1; the kernel trunk must equal the plain int8 trunk
-     on the batch's stem bit for bit (the first layer's s32 sums exact through
-     the kernel's interface), and the engine's decisions an engine's on the
-     plain int8 trunk; it prints the share of decisions that agree with the
-     exact float32 engine (random weights), times the six launches against
-     cuDNN's bf16 stage 3 in turns with their bound, and runs the full-step
-     A/B of the two trunks (``ablate_serving_slope.trunk_ab``: two-point
-     slopes, bf16, int8, int8, bf16) that decided the bench's headline trunk;
+     in bf16: K1 "tc" at "bf16", K2 "tc", the int8 residual trunk (the fused
+     kernel ``csrc/int8_trunk_fused.cu``, the route the engine takes at this
+     geometry) calibrated on the batch's first 64 clips as the bench builds
+     it. One batch between zeroed counters must launch K1 "tc", K2 "tc" and
+     the fused trunk once each and the int8 layer kernel never; its
+     posteriors must be finite and sum to 1; the fused trunk must equal the
+     plain int8 trunk bit for bit on the batch's stem and on 1 and 3 clips of
+     1, tile - 1, tile, tile + 1 and 213 frames at 10 and 8 bins, in bf16
+     (tiles of 43 frames) and float32 (24); the layer kernel
+     (``route="layer"``, ``csrc/int8_trunk.cu``, six launches) too, its
+     first layer's s32 sums exact through its interface; the engine's
+     decisions must equal an engine's on the plain int8 trunk; it prints the
+     share of decisions that agree with the exact float32 engine (random
+     weights), times the two routes and cuDNN's bf16 stage 3 in turns
+     (fused, layer, cuDNN, layer, fused) with their bounds, and runs the
+     full-step A/B of the bf16 trunk against the int8 trunk on each route
+     (``ablate_serving_slope.trunk_ab``: two-point slopes in turns) that
+     decided the bench's headline trunk;
  10c. runs both int8 tools at their JAX tools' sizes
-     (``howl_tpu_torch.tools.bench_trunk_int8`` at batch 512, three legs;
+     (``howl_tpu_torch.tools.bench_trunk_int8`` at batch 512, three legs: cuDNN's
+     bf16 stack, the int8 trunk on its fused route, the layer kernel's conv rate;
      ``howl_tpu_torch.tools.bench_stream_step_int8`` at (16,384, 1) and
      (65,536, 3), two legs each, chains of 8 and 32 steps); every leg must
      print a positive time;
@@ -153,8 +160,8 @@ them. In order it:
      there; ``--eval`` from ``model-best.pt`` must give the run's confusion matrices; ``--resume`` must
      carry the step count and AdamW's state on. F9: on the trained weights the bf16 engine (K1 "tc" at the
      "bf16" grade, K2 "tc") must decide as the float32 engine at the exact grade on every dev and test
-     clip, and so must the int8 engine (the same with the int8 trunk, calibrated on the train clips): its
-     detections equal, its first fires at most one hop apart (the JAX int8 engine moves one by a hop on
+     clip, and so must the int8 engine (the same with the int8 trunk, calibrated on the train clips, one
+     launch of the fused trunk a batch): its detections equal, its first fires at most one hop apart (the JAX int8 engine moves one by a hop on
      weights trained so). It prints the loop's steps/s and examples/s, the shares of host batch preparation and the train
      step (host timers that wait for the device), the device's busy time a step inside the loop and its
      idle share, the evaluator's realtime factor and the max |dprob| of F9;
@@ -162,8 +169,9 @@ them. In order it:
      JSON line (``bench.py``'s keys, each measured key the median of 5
      repeats with its spread); every measured key must be finite and
      positive, the seven online keys included, each latency at every
-     stream count of ``bench.py``;
- 19. prints one JSON line with each of the sixteen kernels' launches, error and times
+     stream count of ``bench.py``, and its ``rungs["int8"]`` must name the
+     fused kernel, one launch a batch;
+ 19. prints one JSON line with each of the seventeen kernels' launches, error and times
      beside its plain version's and its bound on this card (the larger of
      its bytes over 3.35 TB/s and its operations over the peak rate of
      their type, both counted from this run's shapes: what the function
@@ -1040,14 +1048,17 @@ def drive_legacy_path(dev, batch: int, clip_seconds: float) -> dict:
 
 def drive_int8_path(dev, batch: int, clip_seconds: float) -> dict:
     """The JAX serving headline's precision ladder at 512 x 8 s, bf16: K1 "tc"
-    at "bf16", K2 "tc", the int8 residual trunk (six launches of
-    ``csrc/int8_trunk.cu``), window pooling and the FSM, calibrated on the
-    batch's first 64 clips as the bench builds it. Its launches, its
-    posteriors, the kernel trunk against the plain int8 trunk (exact s32 sums,
-    the output bit for bit), its decisions against an engine on the plain int8
-    trunk and the float32 engine's, the six launches against cuDNN's bf16
-    stage 3 in turns, and the full-step A/B of the two trunks that decides the
-    bench's headline."""
+    at "bf16", K2 "tc", the int8 residual trunk (one launch of
+    ``csrc/int8_trunk_fused.cu``), window pooling and the FSM, calibrated on
+    the batch's first 64 clips as the bench builds it. Its launches, its
+    posteriors, the fused kernel against the plain int8 trunk bit for bit on
+    the batch's stem and on short, ragged and one-past-a-tile geometries in
+    bf16 and float32, the layer kernel (route "layer": exact s32 sums, the
+    trunk bit for bit), the engine's decisions against an engine on the
+    plain int8 trunk and the float32 engine's, both int8 routes and cuDNN's
+    bf16 stage 3 timed in turns, and the full-step A/B of the trunks that
+    decides the bench's headline. Returns the fused and the layer kernel's
+    records."""
     import torch
 
     from howl_tpu_torch.compat import res8_variables_to_state_dict
@@ -1056,8 +1067,8 @@ def drive_int8_path(dev, batch: int, clip_seconds: float) -> dict:
     from howl_tpu_torch.ops.frontend import FrontendConfig
     from howl_tpu_torch.ops.frontend_cuda import log_mel_spectrogram_cuda
     from howl_tpu_torch.ops.int8_trunk import (
-        int8_conv_layer_cuda, int8_conv_sums_plain, quantize_activations, residual_features_int8,
-        residual_features_int8_plain,
+        FUSED_TILE_FRAMES, int8_conv_layer_cuda, int8_conv_sums_plain, int8_trunk_fused_cuda, int8_trunk_route,
+        quantize_activations, residual_features_int8, residual_features_int8_plain,
     )
     from howl_tpu_torch.ops.stem_cuda import res8_stem_cuda
     from howl_tpu_torch.tools import ablate_serving_slope
@@ -1086,17 +1097,23 @@ def drive_int8_path(dev, batch: int, clip_seconds: float) -> dict:
     print(f"int8 trunk calibrated on {calibration.shape[0]} clips: act scales "
           f"{', '.join(f'{a:.5f}' for a in p.act_scale)}")
 
-    for fn in (log_mel_spectrogram_cuda, res8_stem_cuda):
-        fn.launches = fn.launches_tc = 0
-    int8_conv_layer_cuda.launches = 0
+    def zero_counters():
+        for fn in (log_mel_spectrogram_cuda, res8_stem_cuda):
+            fn.launches = fn.launches_tc = 0
+        int8_conv_layer_cuda.launches = int8_trunk_fused_cuda.launches = 0
+
+    zero_counters()
     out = eng.infer_batch(audio)
     torch.cuda.synchronize()
     launches = {"k1": log_mel_spectrogram_cuda.launches, "k1_tc": log_mel_spectrogram_cuda.launches_tc,
-                "k2": res8_stem_cuda.launches, "k2_tc": res8_stem_cuda.launches_tc, "int8": int8_conv_layer_cuda.launches}
+                "k2": res8_stem_cuda.launches, "k2_tc": res8_stem_cuda.launches_tc,
+                "int8_fused": int8_trunk_fused_cuda.launches, "int8": int8_conv_layer_cuda.launches}
     print(f"int8 headline launches (one batch): frontend kernel {launches['k1']} ({launches['k1_tc']} tc), stem kernel "
-          f"{launches['k2']} ({launches['k2_tc']} tc), int8 layer kernel {launches['int8']}")
-    if launches != {"k1": 1, "k1_tc": 1, "k2": 1, "k2_tc": 1, "int8": 6}:
-        raise AssertionError(f"the int8 headline must launch K1 'tc' and K2 'tc' once and the int8 kernel six times: {launches}")
+          f"{launches['k2']} ({launches['k2_tc']} tc), fused int8 trunk {launches['int8_fused']}, int8 layer kernel "
+          f"{launches['int8']}")
+    if launches != {"k1": 1, "k1_tc": 1, "k2": 1, "k2_tc": 1, "int8_fused": 1, "int8": 0}:
+        raise AssertionError(f"the int8 headline must launch K1 'tc', K2 'tc' and the fused int8 trunk once each and "
+                             f"the int8 layer kernel never: {launches}")
     probs, n_win = out["probs"], eng.n_windows(samples)
     if tuple(probs.shape) != (batch, n_win, num_labels) or not bool(torch.isfinite(probs).all()):
         raise AssertionError(f"int8 posteriors of shape {tuple(probs.shape)}, finite={bool(torch.isfinite(probs).all())}")
@@ -1105,8 +1122,34 @@ def drive_int8_path(dev, batch: int, clip_seconds: float) -> dict:
 
     with torch.no_grad():
         s0 = eng._pooled_stem(audio)
-        # the s32 sums of the first layer on this batch through the kernel's interface: s8 values as float32
-        # activations, s_a = 1 and dq = 1 give relu(acc) exactly, the negated weights relu(-acc)
+        want = residual_features_int8_plain(s0, p, torch.bfloat16)
+        got = residual_features_int8(s0, p, torch.bfloat16)  # the route the engine takes: fused
+        torch.cuda.synchronize()
+        fused_err = float((got.float() - want.float()).abs().max())
+        fused_ok = torch.equal(got, want)
+        print(f"fused int8 trunk vs plain on the batch's stem {tuple(s0.shape)}: max_abs_err={fused_err:.3e}, stated "
+              f"bound 0 (exact sums, the same bf16 rounding points); finite={bool(torch.isfinite(got.float()).all())}")
+        # the fused kernel at the geometries that show a tile or padding mistake, both dtypes where it serves them
+        gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+        cases, bad = 0, []
+        for dtype in (torch.bfloat16, torch.float32):
+            tt = FUSED_TILE_FRAMES[dtype]
+            for n_f in (10, 8):
+                if int8_trunk_route(dtype, n_f, s0.shape[3]) != "fused":
+                    continue
+                for b in (1, 3):
+                    for t in (1, tt - 1, tt, tt + 1, 213):
+                        y = (torch.randn((b, t, n_f, s0.shape[3]), generator=gen, device=dev) * 1.5).to(dtype)
+                        cases += 1
+                        if not torch.equal(int8_trunk_fused_cuda(y, p, dtype), residual_features_int8_plain(y, p, dtype)):
+                            bad.append((str(dtype), b, t, n_f))
+        print(f"fused int8 trunk vs plain on {cases} geometries (B 1 and 3; T 1, tile - 1, tile, tile + 1, 213; F 10 "
+              f"and 8; bf16 tiles of {FUSED_TILE_FRAMES[torch.bfloat16]}, float32 of "
+              f"{FUSED_TILE_FRAMES[torch.float32]}): {cases - len(bad)} bit for bit")
+        if not fused_ok or bad:
+            raise AssertionError(f"the fused int8 trunk disagrees with its plain version: batch equal {fused_ok}, {bad}")
+        # the layer kernel, route "layer": the first layer's s32 sums through the kernel's interface (s8 values as
+        # float32 activations, s_a = 1 and dq = 1 give relu(acc) exactly, the negated weights relu(-acc)), the trunk
         xq = quantize_activations(s0, p.act_scale[0])
         ones = torch.ones_like(p.w_scale[0])
         x = xq.float()
@@ -1114,15 +1157,16 @@ def drive_int8_path(dev, batch: int, clip_seconds: float) -> dict:
         want_sums = int8_conv_sums_plain(xq, p.w_i8[0])
         sums_exact = torch.equal(sums.to(torch.int32), want_sums)
         del x, sums
-        got = residual_features_int8(s0, p, torch.bfloat16)
-        want = residual_features_int8_plain(s0, p, torch.bfloat16)
+        int8_conv_layer_cuda.launches = 0
+        got_layer = residual_features_int8(s0, p, torch.bfloat16, route="layer")
         torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
-        print(f"int8 trunk kernel vs plain on the batch's stem {tuple(s0.shape)}: layer-1 s32 sums exact={sums_exact} "
-              f"(|acc| up to {int(want_sums.abs().max())}); output max_abs_err={err:.3e}, stated bound 0 (exact sums, "
-              f"the same bf16 rounding points); finite={bool(torch.isfinite(got.float()).all())}")
-        if not (sums_exact and torch.equal(got, want)):
+        layer_launches = int8_conv_layer_cuda.launches
+        layer_err = float((got_layer.float() - want.float()).abs().max())
+        print(f"int8 layer kernel (route 'layer', {layer_launches} launches) vs plain: layer-1 s32 sums "
+              f"exact={sums_exact} (|acc| up to {int(want_sums.abs().max())}); trunk max_abs_err={layer_err:.3e}")
+        if not (sums_exact and torch.equal(got_layer, want) and layer_launches == 6):
             raise AssertionError("the int8 layer kernel disagrees with its plain version")
+        del got_layer
         plain_out = eng._decide(eng._window_posteriors(want, n_win), eng._as_lengths(None, batch, samples),
                                 eng._step_geometry(batch, samples))
     for key in ("detected", "first_fire_step", "labels"):
@@ -1134,36 +1178,44 @@ def drive_int8_path(dev, batch: int, clip_seconds: float) -> dict:
           f"fire; random weights, for information): detected {agree['detected']:.4f}, first fire {agree['first_fire_step']:.4f}, "
           f"labels {agree['labels']:.4f} agree; max |dprob| {float((probs - ref['probs']).abs().max()):.3e}")
 
-    # the six launches against cuDNN's bf16 stage 3 in turns (cudnn, int8, int8, cudnn), the plain int8 trunk beside
+    # both int8 routes and cuDNN's bf16 stage 3 in turns (fused, layer, cudnn, layer, fused), the plain trunk beside
     with torch.no_grad():
-        cudnn = lambda: eng.model.residual_features(s0)  # noqa: E731
-        kernel = lambda: residual_features_int8(s0, p, torch.bfloat16)  # noqa: E731
-        turns = [_cuda_ms(cudnn, 10), _cuda_ms(kernel, 10), _cuda_ms(kernel, 10), _cuda_ms(cudnn, 10)]
-        kernel_ms, cudnn_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+        fns = {"fused": lambda: residual_features_int8(s0, p, torch.bfloat16, route="fused"),
+               "layer": lambda: residual_features_int8(s0, p, torch.bfloat16, route="layer"),
+               "cudnn": lambda: eng.model.residual_features(s0)}
+        turns = [(who, _cuda_ms(fns[who], 10)) for who in ("fused", "layer", "cudnn", "layer", "fused")]
+        ms = {who: float(np.mean([t for w, t in turns if w == who])) for who in fns}
         plain_ms = _cuda_ms(lambda: residual_features_int8_plain(s0, p, torch.bfloat16), 2)
     positions, ch = s0.shape[0] * s0.shape[1] * s0.shape[2], s0.shape[3]
-    # layers 1-6 read and write 2, 4, 2, 4, 2 and 3 activations; the weight images and per-channel vectors once
-    n_bytes = 17 * _nbytes(s0) + 6 * (21504 + 3 * 4 * ch)
-    record = {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms, "cudnn_bf16_stage3_ms": cudnn_ms,
-              **_bound(n_bytes, 6 * 2 * positions * ch * 9 * ch, PEAK_INT8_OPS)}
-    record["launches"] = launches["int8"]
-    print(f"int8 trunk, six launches: {kernel_ms:.3f} ms against cuDNN's bf16 stage 3 {cudnn_ms:.3f} ms (turns "
-          f"{', '.join(f'{t:.3f}' for t in turns)}); plain {plain_ms:.3f} ms; bound {record['bound_ms']:.4f} ms by "
-          f"{record['bound_by']} ({record['bytes'] / 1e6:.1f} MB, {record['operations'] / 1e9:.2f} GOP): "
-          f"{record['bound_ms'] / kernel_ms:.3f} of the bound's rate")
+    ops = 6 * 2 * positions * ch * 9 * ch
+    weights = 6 * (9 * ch * ch + 3 * 4 * ch)  # the s8 weights and the per-channel vectors, read once
+    # the fused trunk reads y and writes its output once; layers 1-6 of the layer kernel read and write 2, 4, 2,
+    # 4, 2 and 3 activations
+    fused = {"max_abs_err": fused_err, "ms": ms["fused"], "plain_ms": plain_ms, "cudnn_bf16_stage3_ms": ms["cudnn"],
+             **_bound(2 * _nbytes(s0) + weights, ops, PEAK_INT8_OPS), "launches": launches["int8_fused"]}
+    layer = {"max_abs_err": layer_err, "ms": ms["layer"], "plain_ms": plain_ms, "cudnn_bf16_stage3_ms": ms["cudnn"],
+             **_bound(17 * _nbytes(s0) + weights, ops, PEAK_INT8_OPS), "launches": layer_launches}
+    print(f"int8 trunk at {tuple(s0.shape)} bf16, in turns ({', '.join(f'{w} {t:.4f}' for w, t in turns)} ms): fused "
+          f"kernel {ms['fused']:.4f} ms, {fused['bound_ms'] / ms['fused']:.3f} of its bound {fused['bound_ms']:.4f} ms "
+          f"by {fused['bound_by']} ({fused['operations'] / 1e9:.2f} GOP, {fused['bytes'] / 1e6:.1f} MB); layer kernel "
+          f"(six launches) {ms['layer']:.4f} ms, {layer['bound_ms'] / ms['layer']:.3f} of its bound "
+          f"{layer['bound_ms']:.4f} ms by {layer['bound_by']}; cuDNN's bf16 stage 3 {ms['cudnn']:.4f} ms; plain "
+          f"{plain_ms:.3f} ms")
     del s0, got, want, out, ref, eng
     torch.cuda.empty_cache()
 
-    # the A/B that decides bench.HEADLINE_TRUNK: the serving ablation's full fused step, bf16 trunk against int8
+    # the A/B that decides bench.HEADLINE_TRUNK: the serving ablation's full fused step, the bf16 trunk against the
+    # int8 trunk on each route
     ab = ablate_serving_slope.trunk_ab(batch, clip_seconds, STUDY_ITERS, SEED, dev, turns=2)
-    med = {who: float(np.median(ms)) for who, ms in ab.items()}
+    med = {who: float(np.median(v)) for who, v in ab.items()}
     verdict = "int8" if med["int8"] <= med["bf16"] else "bf16"
     print(f"full fused step A/B (two-point slope, in turns): bf16 trunk {', '.join(f'{m:.3f}' for m in ab['bf16'])} ms, "
-          f"int8 trunk {', '.join(f'{m:.3f}' for m in ab['int8'])} ms; the {verdict} trunk is no slower here; the bench's "
+          f"int8 trunk (fused) {', '.join(f'{m:.3f}' for m in ab['int8'])} ms, int8 trunk (layer) "
+          f"{', '.join(f'{m:.3f}' for m in ab['int8_layer'])} ms; the {verdict} trunk is no slower here; the bench's "
           f"headline trunk is {bench.HEADLINE_TRUNK!r}")
-    record["ab_full_step_ms"] = ab
+    fused["ab_full_step_ms"] = ab
     torch.cuda.empty_cache()
-    return record
+    return {"fused": fused, "layer": layer}
 
 
 def drive_int8_tools() -> None:
@@ -1793,13 +1845,20 @@ def drive_train_entry(dev) -> dict:
             # int8 trunk calibrated on the train clips, against the float32 engine at the exact grade. Its detections
             # must be equal, as F9's; a first fire may move by one hop: the int8 trunk's quantization moves these
             # weights' posteriors by up to ~0.15, and on weights trained so the JAX package's int8 engine fires one
-            # hop late on a clip where the port's does too (PERF.md)
+            # hop late on a clip where the port's does too (PERF.md). Its trunk is one launch of the fused kernel.
+            from howl_tpu_torch.ops.int8_trunk import int8_conv_layer_cuda, int8_trunk_fused_cuda
+
             cal = np.stack([ww_train[i].audio_data for i in range(len(ww_train))])
             int8_eng = StreamingEngine(create_model("res8", num_labels=ctx.num_labels), state_dict,
                                        EngineConfig.from_settings(ctx), FrontendConfig.from_settings(), mean, std,
                                        compute_dtype=torch.bfloat16, use_int8_trunk=True, int8_calibration_audio=cal,
                                        device=dev)
+            int8_trunk_fused_cuda.launches = int8_conv_layer_cuda.launches = 0
             got = int8_eng.infer_batch(audio)
+            torch.cuda.synchronize()
+            if (int8_trunk_fused_cuda.launches, int8_conv_layer_cuda.launches) != (1, 0):
+                raise AssertionError(f"the int8 engine's trunk ran {int8_trunk_fused_cuda.launches} fused and "
+                                     f"{int8_conv_layer_cuda.launches} layer launches, not one fused launch")
             detected_eq = torch.equal(got["detected"].cpu(), out["f32"]["detected"].cpu())
             shift = (got["first_fire_step"].cpu() - out["f32"]["first_fire_step"].cpu()).abs()
             labels = float((got["labels"].cpu() == out["f32"]["labels"].cpu()).double().mean())
@@ -1823,7 +1882,8 @@ def drive_train_entry(dev) -> dict:
 def check_bench_record(record: dict) -> None:
     """(d) The bench's line: every measured key finite and positive with a
     [min, max] spread around it, the seven online keys included (the
-    latencies at every stream count of ``bench.py``), the card named."""
+    latencies at every stream count of ``bench.py``), the card named, and
+    the int8 trunk's rung naming the fused kernel, one launch a batch."""
     measured = ("value", "mfu", "legacy_realtime_factor", "train_examples_per_sec", "train_mfu",
                 "train_noise_examples_per_sec", "train_examples_per_sec_f32")
     for key in measured:
@@ -1836,6 +1896,10 @@ def check_bench_record(record: dict) -> None:
         raise AssertionError(f"utilizations above the peak: mfu {record['mfu']}, train_mfu {record['train_mfu']}")
     if not record["device"]:
         raise AssertionError("the bench's device must be named")
+    int8 = record["rungs"]["int8"]
+    want = {"int8_fused": 1, "int8_layer": 0}  # the int8 trunk's route at the serving geometry: one fused launch
+    if int8["route"] != "fused" or int8["launches_per_batch"] != want:
+        raise AssertionError(f"the bench's int8 trunk ran {int8['route']!r} {int8['launches_per_batch']}, not {want}")
     counts = {"online_step_latency_ms": bench.CARD.online.latency_counts}
     for key in bench.ONLINE_KEYS:
         value, spread = record[key], record["spread"].get(key)
@@ -1972,7 +2036,7 @@ def profile_serving(dev, out_dir) -> None:
                  f"{CLIP_SECONDS:g} s", {
                      "1. frontend (K1)": lambda: i8._features(audio, "tm"),
                      "2. stem (K2)": lambda: res8_stem_cuda(mel, i8._stem_taps, i8.model.pooling),
-                     "3. int8 residual trunk (six launches)": lambda: residual_features_int8(stem, i8._int8_params,
+                     "3. int8 residual trunk (one fused launch)": lambda: residual_features_int8(stem, i8._int8_params,
                                                                                              torch.bfloat16),
                      "1-4. scoring (_score)": lambda: i8._score(audio, n_win),
                      "5. smoothing + FSM alone": lambda: i8._decide(probs, lengths, geom),
@@ -2192,8 +2256,12 @@ def main() -> int:
             "replaces": "howl_tpu/ops/stem_pallas.py:89", "launches": main_path["launches"]["k2_tc"], **k2,
         },
         {
+            "name": "int8_residual_trunk_fused", "route": "cuda", "source": "howl_tpu_torch/csrc/int8_trunk_fused.cu",
+            "replaces": "howl_tpu/ops/int8_trunk.py:155", **int8["fused"],
+        },
+        {
             "name": "int8_residual_layer", "route": "cuda", "source": "howl_tpu_torch/csrc/int8_trunk.cu",
-            "replaces": "howl_tpu/ops/int8_trunk.py:155", **int8,
+            "replaces": "howl_tpu/ops/int8_trunk.py:155", **int8["layer"],
         },
         {
             "name": "noise_bank_mix", "route": "cuda", "source": "howl_tpu_torch/csrc/augment.cu",

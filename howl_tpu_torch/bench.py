@@ -40,8 +40,9 @@ Prints ONE JSON line with ``bench.py``'s keys, measured on the card:
 and three keys of its own: ``spread``, the [min, max] of each measured key
 over the repeats (of each latency's samples, by stream count); ``rungs``,
 what ran (each kernel's route, grade and launches per batch or step;
-``rungs["int8"]`` names the trunk ``value`` measured and gives both trunks'
-median ms per batch from this run); ``device``, the card's ``nvidia-smi``
+``rungs["int8"]`` names the trunk ``value`` measured, the int8 trunk's
+kernel route, "fused" or "layer", with both int8 kernels' launches a batch,
+and both trunks' median ms per batch from this run); ``device``, the card's ``nvidia-smi``
 name and power limit. Each measured offline and train key is the median
 over ``--repeats`` (5) repeats, the headline, the same engine with the other
 trunk and the legacy scorer (then the three train steps) in turns; the two
@@ -247,18 +248,21 @@ def _scorer_rung(engine, audio: torch.Tensor) -> dict:
     """What one batch of ``engine`` runs, read from the launch counters
     around it on a card (the plain versions on the CPU count nothing)."""
     from howl_tpu_torch.ops.frontend_cuda import frontend_grade, frontend_route, log_mel_spectrogram_cuda
-    from howl_tpu_torch.ops.int8_trunk import int8_conv_layer_cuda
+    from howl_tpu_torch.ops.int8_trunk import int8_conv_layer_cuda, int8_trunk_fused_cuda
     from howl_tpu_torch.ops.stem_cuda import res8_stem_cuda, stem_route
 
     on_card = audio.device.type == "cuda"
     counters = (log_mel_spectrogram_cuda, res8_stem_cuda)
     for fn in counters:
         fn.launches = fn.launches_tc = 0
-    int8_conv_layer_cuda.launches = 0
+    int8_conv_layer_cuda.launches = int8_trunk_fused_cuda.launches = 0
     engine.infer_batch(audio)
     if on_card:
         torch.cuda.synchronize(audio.device)
     grade, dtype = frontend_grade(engine.frontend_precision), engine.compute_dtype or torch.float32
+    # which int8 kernel ran, read from its counters: "fused" (one launch a batch), "layer" (six) or "plain"
+    int8_route = ("fused" if int8_trunk_fused_cuda.launches else "layer" if int8_conv_layer_cuda.launches
+                  else "plain")
     return {
         "scorer": "fused trunk" if engine.fused_trunk else "per-window mega-batch",
         "compute_dtype": str(dtype).replace("torch.", ""),
@@ -268,8 +272,9 @@ def _scorer_rung(engine, audio: torch.Tensor) -> dict:
         "stem": {"kernel": "K2", "route": stem_route(dtype, engine.frontend.n_mels, engine.model.num_maps,
                                                      engine.model.pooling) if on_card else "plain",
                  "launches_per_batch": res8_stem_cuda.launches},
-        "residual_convs": ({"kernel": "int8 trunk", "route": "cuda" if on_card else "plain",
-                            "launches_per_batch": int8_conv_layer_cuda.launches}
+        "residual_convs": ({"kernel": "int8 trunk", "route": int8_route,
+                            "launches_per_batch": {"int8_fused": int8_trunk_fused_cuda.launches,
+                                                   "int8_layer": int8_conv_layer_cuda.launches}}
                            if engine._int8_params is not None else "cuDNN (F.conv2d)" if on_card else "F.conv2d"),
     }
 
@@ -291,14 +296,17 @@ def bench_serving(dev, sizes: Sizes, repeats: int, seed: int) -> dict:
     other = headline_engine(dev, state, other_trunk, calibration)
     # one batch each, untimed: the warm-up, and what ran
     rungs = {"headline": _scorer_rung(engine, audio), "legacy": _scorer_rung(legacy, audio)}
-    _scorer_rung(other, audio)
+    other_rung = _scorer_rung(other, audio)
+    int8_convs = (rungs["headline"] if HEADLINE_TRUNK == "int8" else other_rung)["residual_convs"]
     runs = {"batch_ms": [], "other_batch_ms": [], "legacy_batch_ms": []}
     for _ in range(repeats):
         runs["batch_ms"].append(chained_batch_ms(engine, audio, sizes.iters))
         runs["other_batch_ms"].append(chained_batch_ms(other, audio, sizes.iters))
         runs["legacy_batch_ms"].append(chained_batch_ms(legacy, audio, sizes.legacy_iters))
     ms = {HEADLINE_TRUNK: runs["batch_ms"], other_trunk: runs.pop("other_batch_ms")}
-    rungs["int8"] = {"value_trunk": HEADLINE_TRUNK, "calibration_clips": int(calibration.shape[0]),
+    rungs["int8"] = {"value_trunk": HEADLINE_TRUNK, "route": int8_convs["route"],
+                     "launches_per_batch": int8_convs["launches_per_batch"],
+                     "calibration_clips": int(calibration.shape[0]),
                      "batch_ms": {t: statistics.median(ms[t]) for t in TRUNKS}}
     return {**runs, "rungs": rungs, "audio_seconds": sizes.batch * sizes.clip_seconds,
             "flops_per_batch": path_flops_per_clip(clip_samples, engine, NUM_LABELS) * sizes.batch}

@@ -1,7 +1,8 @@
 // Hopper's asynchronous machinery as inline PTX, shared by the bandwidth
 // sweep's kernels (through hbm_common.cuh), the tensor-core log-mel frontend
 // (frontend_tc.cu), the stem fold proto (stem_fold.cu), the trunk proto
-// (trunk_proto.cu) and the frontend study's GEMM (micro_gemm.cu). Everything
+// (trunk_proto.cu), the frontend study's GEMM (micro_gemm.cu) and the fused
+// int8 trunk (int8_trunk_fused.cu). Everything
 // lives in namespace hopper, so that a source may include micro_common.cuh
 // beside it.
 //
@@ -15,7 +16,9 @@
 //   3. Warpgroup matrix products (wgmma, sm_90a only): four warps start
 //      D (64, N) += A (64, 16) @ B (16, N) in bf16 with float32 sums, A from
 //      registers ("rs") or from shared memory ("ss"), B from shared memory,
-//      each operand in shared memory through a 64-bit descriptor.
+//      each operand in shared memory through a 64-bit descriptor; and
+//      D (64, N) += A (64, 32) @ B (32, N) in s8 with s32 sums, both operands
+//      from shared memory.
 //
 // The wgmma operand layouts used here (PTX ISA, "Asynchronous warpgroup
 // level matrix operations"), with w = warp of the warpgroup, g = lane / 4,
@@ -40,6 +43,14 @@
 //   are neighbours in n (the "stride" offset), all in units of 16 bytes.
 //   A (64, 16) in shared memory is described the same way, its rows m in
 //   place of the columns n: a core is 8 rows by 8 consecutive k.
+//
+//   An s8 operand K-major without swizzle is laid out in the same bytes: a
+//   core matrix is 8 rows by 16 consecutive k (one byte each), 128
+//   contiguous bytes, so a k32 step spans two cores along k (the leading
+//   offset apart). The PTX ISA takes 8-bit operands K-major only, with no
+//   transpose and no scale on A or B; N = 48 is one of the shapes it lists
+//   for .s8 (8, 16, 24 and the multiples of 16 from 32 to 256). The s32
+//   sums sit in D's registers as the float32 sums do.
 //
 //   Either operand "K-major" in the 128-byte swizzle: a row (of n for B, of
 //   m for A) holds 64 consecutive k in 128 bytes, eight rows make a
@@ -175,6 +186,12 @@ __device__ __forceinline__ void wgmma_keep(uint32_t (&r)[kN]) {
   for (int i = 0; i < kN; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
+template <int kN>
+__device__ __forceinline__ void wgmma_keep(int (&r)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
 // The descriptor of a K-major operand without swizzle (see the top of the file): bits 0-13 the address, 16-29 the
 // offset between cores that are neighbours in k, 32-45 between cores that are neighbours in n, each >> 4; the
 // base offset (49-51) and the swizzle mode (62-63) are 0.
@@ -195,6 +212,10 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t smem_addr) {
       "+f"(d[b + 7])
 #define HOWL_ACC32(d, b) HOWL_ACC8(d, b), HOWL_ACC8(d, b + 8), HOWL_ACC8(d, b + 16), HOWL_ACC8(d, b + 24)
 #define HOWL_ACC24(d) HOWL_ACC8(d, 0), HOWL_ACC8(d, 8), HOWL_ACC8(d, 16)
+#define HOWL_IACC8(d, b)                                                                                    \
+  "+r"(d[b]), "+r"(d[b + 1]), "+r"(d[b + 2]), "+r"(d[b + 3]), "+r"(d[b + 4]), "+r"(d[b + 5]), "+r"(d[b + 6]), \
+      "+r"(d[b + 7])
+#define HOWL_IACC24(d) HOWL_IACC8(d, 0), HOWL_IACC8(d, 8), HOWL_IACC8(d, 16)
 
 // d (64, 48) = a (64, 16) @ b (16, 48) + (scale_d ? d : 0): bf16 operands, float32 sums, a from registers
 __device__ __forceinline__ void wgmma_m64n48k16_rs(float (&d)[24], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
@@ -216,6 +237,18 @@ __device__ __forceinline__ void wgmma_m64n48k16_ss(float (&d)[24], uint64_t desc
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, "
       "%23}, %24, %25, p, 1, 1, 0, 0;\n}\n"
       : HOWL_ACC24(d)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64, 48) = a (64, 32) @ b (32, 48) + (scale_d ? d : 0): s8 operands, s32 sums, both from shared memory,
+// K-major through their descriptors
+__device__ __forceinline__ void wgmma_m64n48k32_s8_ss(int (&d)[24], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, "
+      "%23}, %24, %25, p;\n}\n"
+      : HOWL_IACC24(d)
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
@@ -297,6 +330,8 @@ __device__ __forceinline__ void wgmma_m64nNk16(float (&d)[40], uint32_t a0, uint
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(scale_d));
 }
 
+#undef HOWL_IACC24
+#undef HOWL_IACC8
 #undef HOWL_ACC24
 #undef HOWL_ACC32
 #undef HOWL_ACC8

@@ -19,15 +19,16 @@
 // and sum rounded on its own as the JAX package's and the plain version's
 // separate operations are (no FMA contraction). pre is stored where the caller
 // asks (layers 2 and 4: the next residual reads it). Six launches make the
-// trunk (ops/int8_trunk.residual_features_int8).
+// trunk on its "layer" route (ops/int8_trunk.residual_features_int8).
 //
 // What bounds it on this card: bytes. At the serving batch (512 clips of 8 s:
 // T = 213, F = 10, C = 45, 1,090,560 positions) one bf16 activation is
 // 98.15 MB, and layers 1-6 move 2, 4, 2, 4, 2 and 3 of them: 1,668.6 MB,
 // 0.498 ms at 3.35 TB/s. The products are 6 x 39.75 GOP = 238.5 GOP, 0.121 ms
-// at 1,979 int8 TOPS. A trunk fused over its six layers would be bound by
-// operations (later work: wgmma on s8, TMA, layers fused as the trunk proto
-// csrc/trunk_proto.cu fuses them).
+// at 1,979 int8 TOPS. The trunk fused over its six layers is bound by
+// operations: csrc/int8_trunk_fused.cu (wgmma on s8, one launch), which
+// ops/int8_trunk.int8_trunk_route picks wherever its block holds the
+// geometry; this kernel serves the rest (route "layer").
 //
 // What the design does about it:
 //  * A block owns one clip and TT = 256 / F frames (25 at F = 10): 256

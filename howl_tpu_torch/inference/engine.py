@@ -10,7 +10,8 @@ the fused-trunk scorer (the default):
   2. res8 stem, conv0 + ReLU + AvgPool(3, 4): ``ops/stem_cuda.py`` (kernel);
   3. the six residual convs with affine-less BatchNorm (``F.conv2d``), or
      with ``use_int8_trunk`` the int8 residual trunk (``ops/int8_trunk.py``:
-     six launches of the s8 x s8 -> s32 layer kernel on a card);
+     on a card one launch of the fused s8 x s8 -> s32 trunk kernel at the
+     serving geometry, else six of the layer kernel);
   4. the frequency mean of the trunk output, then cumsum window pooling over
      time into the dense head and softmax, in float32;
   5. smoothing and the sequence FSM (``inference/detect.py``).
@@ -59,6 +60,7 @@ from howl_tpu_torch.inference.detect import (
 from howl_tpu_torch.models.base import ModelSpec, model_spec
 from howl_tpu_torch.ops.frontend import FrontendConfig
 from howl_tpu_torch.ops.frontend_cuda import log_mel_spectrogram_cuda
+from howl_tpu_torch.ops.int8_trunk import ROUTES as INT8_ROUTES
 from howl_tpu_torch.ops.int8_trunk import calibrate_act_scales, quantize_residual_trunk, residual_features_int8
 from howl_tpu_torch.ops.stem_cuda import fold_stem_weights, res8_stem_cuda
 
@@ -85,6 +87,7 @@ class StreamingEngine:
         carry_windows: bool = False,
         use_int8_trunk: bool = False,
         int8_calibration_audio=None,
+        int8_route: Optional[str] = None,
         device="cuda",
     ):
         """``model`` gives the architecture (a ``Res8``); the engine keeps its
@@ -114,6 +117,10 @@ class StreamingEngine:
         run with TF32 off, so a bf16 engine quantizes the same weights as a
         float32 one. Assigning ``variables`` quantizes again. Validate
         decisions per deployment (``howl_tpu_torch.tools.validate_tpu_decisions``).
+        ``int8_route`` names the int8 trunk's kernel on a card ("fused": the
+        six layers in one launch; "layer": six launches); None takes
+        ``ops.int8_trunk.int8_trunk_route``'s, the fused kernel at the
+        serving geometry.
 
         ``device`` is where the engine runs: the card unless the caller
         passes ``"cpu"``. A CUDA device that does not exist raises; the
@@ -137,6 +144,8 @@ class StreamingEngine:
                 f"got fused_trunk={self.fused_trunk}, model={self.spec.name!r} "
                 f"(supports_trunk={self.spec.supports_trunk})"
             )
+        if int8_route not in (None, *INT8_ROUTES):
+            raise ValueError(f"int8_route must be one of {INT8_ROUTES} or None, got {int8_route!r}")
         if use_int8_trunk and int8_calibration_audio is None:
             raise ValueError(
                 "use_int8_trunk requires int8_calibration_audio: a (B, samples) f32 array of representative audio "
@@ -155,6 +164,7 @@ class StreamingEngine:
         self.model.dtype = None  # the weights' dtype, compute_dtype, governs scoring
         self._int8_params = None
         self._int8_cal = None
+        self.int8_route = int8_route
         if use_int8_trunk:
             self._int8_cal = torch.as_tensor(int8_calibration_audio, dtype=torch.float32).to(self.device)
         self.variables = variables
@@ -246,7 +256,7 @@ class StreamingEngine:
             return self._score_windows(audio, n_windows)
         s0 = self._pooled_stem(audio)
         if self._int8_params is not None:
-            trunk = residual_features_int8(s0, self._int8_params, self.compute_dtype)
+            trunk = residual_features_int8(s0, self._int8_params, self.compute_dtype, self.int8_route)
         else:
             trunk = self.model.residual_features(s0)
         return self._window_posteriors(trunk, n_windows)

@@ -54,6 +54,11 @@ SIGNATURES = {
     ),
     # x, w_img, w_scale, bn_scale, bn_shift, res, out, pre, B, T, F, C, tt, inv_s, s_a, is_bf16, stream
     "howl_int8_conv_forward": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P),
+    # y, w_img[6], w_scale[6], bn_scale[6], bn_shift[6] (host arrays of device pointers), s_a[6], inv_s[6] (host
+    # arrays of floats), out, B, T, F, C, is_bf16, stream
+    "howl_int8_trunk_fused_forward": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # F, C, is_bf16, want_tile -> the tile's frames, or the shared memory in bytes (-1: not served)
+    "howl_int8_trunk_fused_geometry": (_I, _I, _I, _I),
     # mel, taps, out, B, T, n_mels, ch, pool_t, pool_f, in_bf16, stream
     "howl_res8_stem_forward": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # mel, img, out, B, T, n_mels, ch, stream

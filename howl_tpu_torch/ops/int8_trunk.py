@@ -1,7 +1,9 @@
 """int8 residual trunk for res8 serving: post-training static quantization of
 the six residual convolutions (counterpart of ``howl_tpu/ops/int8_trunk.py``),
-with the hand-written kernel ``csrc/int8_trunk.cu`` and its plain PyTorch
-version.
+with two hand-written kernels and their plain PyTorch version: the fused
+trunk ``csrc/int8_trunk_fused.cu`` (six layers a launch, ``wgmma`` on s8)
+and the layer kernel ``csrc/int8_trunk.cu`` (one layer a launch,
+``mma.sync`` on s8).
 
 The scheme is the JAX package's:
 
@@ -20,9 +22,10 @@ Layout is the JAX package's: activations (B, T', F', C) channels-last, the
 quantized weights HWIO (3, 3, C_in, C_out) int8 (H = time, W = frequency);
 the port's res8 state dict holds conv weights OIHW, transposed here.
 
-``residual_features_int8`` takes its plain version for a tensor on the CPU
-and launches the kernel, six times, for a tensor on a CUDA device (one
-residual layer a launch: ``int8_conv_layer_cuda``). The plain version runs
+``residual_features_int8`` takes its plain version for a tensor on the CPU.
+On a CUDA device it follows :func:`int8_trunk_route`: "fused" launches
+``int8_trunk_fused_cuda`` once (the six layers in one persistent kernel),
+"layer" launches ``int8_conv_layer_cuda`` six times. The plain version runs
 ``F.conv2d`` in float32 on the integer-valued s8 tensors (cuDNN off, see
 ``int8_conv_sums_plain``) and casts the sums to int32: exact, since |acc| <= 127 * 127 * 405 = 6,532,245 < 2^24 makes every
 product and partial sum an exact float32 integer in any summation order
@@ -35,6 +38,7 @@ operation rounds to the compute dtype on its own.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -50,6 +54,15 @@ C_PAD = 48  # a position's channels in shared memory, and the output channels of
 K_STEPS = 14  # 9 taps x 48 channels = 432 of K in k32 steps, the last half zero
 W_IMAGE_BYTES = K_STEPS * (C_PAD // 8) * 32 * 8  # 21,504
 BLOCK_POSITIONS = 256  # positions a block: tt = 256 // F frames
+# the fused kernel's geometry (csrc/int8_trunk_fused.cu)
+FUSED_TILE_FRAMES = {torch.bfloat16: 43, torch.float32: 24}  # frames a block item keeps: 5 and 9 tiles of 213
+FUSED_HALO = 6  # frames each side of a tile's input: the six layers' reach
+FUSED_CORES = 27  # k16 cores of a layer's K: core n = 3 tap + column, the column's 16 channels at the tap
+FUSED_K_STEPS = (FUSED_CORES + 1) // 2  # 14 k32 steps of two cores, the last one alone
+FUSED_STEP_BYTES = 2 * 6 * 128  # a step's B: two k cores of six n cores, 8 n x 16 k bytes each
+FUSED_W_IMAGE_BYTES = FUSED_K_STEPS * FUSED_STEP_BYTES  # 21,504
+FUSED_GUARD = 1  # s8 rows below a tile's row 0
+MAX_SHARED_BYTES = 232448  # 227 KB a block
 
 
 class Int8TrunkParams(NamedTuple):
@@ -220,6 +233,88 @@ def pack_w_image(w_i8: torch.Tensor) -> torch.Tensor:
     return v.permute(0, 4, 5, 2, 1, 3).contiguous().view(torch.uint8).reshape(-1)
 
 
+def fused_step_cores(step: int) -> Tuple[int, Optional[int]]:
+    """The two k16 cores (n = 3 tap + column: input channels 16 column ..
+    16 column + 15 at tap (kh, kw) = divmod(tap, 3)) of the fused kernel's
+    k32 step ``step``, in K order: cores 2 step and 2 step + 1, the later
+    first where the pair crosses from one tap's column 2 to the next tap's
+    column 0 (so that the second core's rows lie above the first's in shared
+    memory); the last step's second core is None (B's zero rows)."""
+    n = 2 * step
+    if n + 1 >= FUSED_CORES:
+        return n, None
+    return (n + 1, n) if n % 3 == 2 else (n, n + 1)
+
+
+def pack_w_image_wgmma(w_i8: torch.Tensor) -> torch.Tensor:
+    """(3, 3, C, C) s8 HWIO weights -> the fused kernel's 21,504-byte image
+    of one layer, in the order its K-major B descriptors read it.
+
+    k32 step s holds the weights of its two cores (:func:`fused_step_cores`)
+    in its k 0-15 and 16-31, zeros for the last step's missing second core.
+    Within a step, k-core kc (16 k) and n-core nc (8 output channels) are 128
+    bytes at ``1536 s + 768 kc + 128 nc``, byte ``16 (n % 8) + k % 16`` of it
+    the weight of input channel 16 column + k % 16 of core kc's tap and
+    output channel 8 nc + n % 8, zero past C.
+    """
+    if w_i8.ndim != 4 or tuple(w_i8.shape[:2]) != (3, 3) or w_i8.dtype != torch.int8:
+        raise ValueError(f"expected (3, 3, C, C) int8 weights, got {tuple(w_i8.shape)} {w_i8.dtype}")
+    c_in, c_out = w_i8.shape[2:]
+    if c_in > C_PAD or c_out > C_PAD:
+        raise ValueError(f"the kernel serves at most {C_PAD} channels, got {c_in} -> {c_out}")
+    taps = torch.zeros((9, C_PAD, C_PAD), dtype=torch.int8, device=w_i8.device)
+    taps[:, :c_in, :c_out] = w_i8.reshape(9, c_in, c_out)
+    cores = taps.view(FUSED_CORES, 16, C_PAD)  # core 3 tap + column: 16 input channels
+    b = torch.zeros((FUSED_K_STEPS, 32, C_PAD), dtype=torch.int8, device=w_i8.device)  # (step, k, n)
+    for step in range(FUSED_K_STEPS):
+        first, second = fused_step_cores(step)
+        b[step, :16] = cores[first]
+        if second is not None:
+            b[step, 16:] = cores[second]
+    v = b.view(FUSED_K_STEPS, 2, 16, C_PAD // 8, 8)  # s, kc, k, nc, n
+    return v.permute(0, 1, 3, 4, 2).contiguous().view(torch.uint8).reshape(-1)
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def fused_layer_rows(layer: int, n_f: int, tt: int) -> Tuple[int, int]:
+    """(first, count): the s8 rows layer ``layer`` (1..6) of the fused kernel
+    computes, relative to the tile's row 0 (frame a - 6; F + 2 rows a
+    frame): frames [a - 6 + layer, a + tt + 6 - layer)."""
+    s = n_f + 2
+    return s * layer, s * (tt + 2 * FUSED_HALO - 2 * layer)
+
+
+def fused_shared_bytes(dtype, n_f: int, c: int) -> Optional[int]:
+    """The fused kernel's shared memory for F bins of C channels in
+    ``dtype``, or None where it does not fit a block (the layout of
+    ``csrc/int8_trunk_fused.cu``: two weight slots, two s8 buffers of three
+    16-byte chunk columns (channels 0-15, 16-31, 32-47), y's staging run, the residual over layer 2's
+    frames, the per-layer tables and two mbarriers; layer 6's output staged
+    over the first weight slot and s8 buffer)."""
+    if dtype not in FUSED_TILE_FRAMES or not 1 <= c <= C_PAD or n_f < 1:
+        return None
+    tt, size, s = FUSED_TILE_FRAMES[dtype], torch.empty((), dtype=dtype).element_size(), n_f + 2
+    end = max(first + 64 * ((count + 63) // 64) + s + 1
+              for first, count in (fused_layer_rows(layer, n_f, tt) for layer in range(1, N_LAYERS + 1)))
+    buf = 3 * _round_up(FUSED_GUARD + end, 8) * 16
+    staging = _round_up((tt + 2 * FUSED_HALO) * n_f * c * size + 32, 128)
+    residual = _round_up(6 * (tt + 2 * FUSED_HALO - 4) * n_f * 8 * size, 128)
+    total = 2 * FUSED_W_IMAGE_BYTES + 2 * buf + staging + residual + N_LAYERS * 3 * C_PAD * 4 + 16
+    out_staged = tt * n_f * c * size + 16
+    return total if total <= MAX_SHARED_BYTES and out_staged <= FUSED_W_IMAGE_BYTES + buf else None
+
+
+def int8_trunk_route(dtype, n_f: int, c: int) -> str:
+    """The int8 trunk's kernel for activations of ``dtype`` with F bins and C
+    channels: "fused" (``csrc/int8_trunk_fused.cu``) where its block holds
+    them (bf16 and float32 up to C = 48; F up to 10 in bf16, the serving
+    geometry), else "layer" (``csrc/int8_trunk.cu``, six launches)."""
+    return "fused" if fused_shared_bytes(dtype, n_f, c) is not None else "layer"
+
+
 def block_frames(n_f: int) -> int:
     """Frames a block of the kernel owns: 256 positions of F bins."""
     return max(BLOCK_POSITIONS // n_f, 1)
@@ -320,9 +415,73 @@ def residual_features_int8_plain(y: torch.Tensor, p: Int8TrunkParams, compute_dt
     return _layers(y, p, compute_dtype, layer)
 
 
-def residual_features_int8(y: torch.Tensor, p: Int8TrunkParams, compute_dtype=None) -> torch.Tensor:
+def int8_trunk_fused_cuda(y: torch.Tensor, p: Int8TrunkParams, compute_dtype=None) -> torch.Tensor:
+    """The six int8 residual layers in one launch: (B, T', F', C) pooled stem
+    activations -> the trunk output in ``compute_dtype`` (float32 for None),
+    equal to :func:`residual_features_int8_plain` bit for bit.
+
+    On a CPU tensor this is :func:`residual_features_int8_plain`. On a CUDA
+    tensor it launches ``howl_int8_trunk_fused_forward``
+    (``csrc/int8_trunk_fused.cu``) or raises; ``launches`` counts its
+    launches. The kernel has no backward.
+    """
+    _build.refuse_grad("int8_trunk_fused_cuda", y)
+    if y.device.type == "cpu":
+        return residual_features_int8_plain(y, p, compute_dtype)
+    if y.device.type != "cuda":
+        raise ValueError(f"int8_trunk_fused_cuda takes CPU or CUDA tensors, got {y.device}")
+    cdt = compute_dtype or torch.float32
+    x = y.to(cdt).contiguous()
+    for i in range(N_LAYERS):
+        _check_layer(x, p.w_i8[i], p.w_scale[i], p.bn_scale[i], p.bn_shift[i], None)
+    vectors = (*p.w_i8, *p.w_scale, *p.bn_scale, *p.bn_shift)
+    if not all(t.is_contiguous() for t in vectors):
+        raise ValueError("the fused int8 trunk's weights and vectors must be contiguous")
+    if x.data_ptr() % 16:
+        raise ValueError("the fused int8 trunk reads y as 16-byte vectors: y must be 16-byte aligned")
+    b, t, n_f, c = x.shape
+    if fused_shared_bytes(cdt, n_f, c) is None:
+        raise ValueError(f"the fused int8 trunk does not serve {n_f} frequency bins of {c} channels in {cdt}: "
+                         f"its block would not fit in shared memory (int8_trunk_route gives 'layer')")
+    out = torch.empty_like(x)
+    imgs = [_build.packed_operand(pack_w_image_wgmma, w) for w in p.w_i8]
+
+    def ptrs(tensors):
+        return (ctypes.c_void_p * N_LAYERS)(*(tensor.data_ptr() for tensor in tensors))
+
+    def floats(values):
+        return (ctypes.c_float * N_LAYERS)(*values)
+
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    lib = _build.kernel_library()
+    with torch.cuda.device(x.device):
+        status = lib.howl_int8_trunk_fused_forward(
+            x.data_ptr(), ptrs(imgs), ptrs(p.w_scale), ptrs(p.bn_scale), ptrs(p.bn_shift), floats(p.act_scale),
+            floats(_inv_scale(s) for s in p.act_scale), out.data_ptr(), b, t, n_f, c, int(cdt == torch.bfloat16),
+            stream,
+        )
+    _build.check_launch(status, "fused int8 trunk")
+    int8_trunk_fused_cuda.launches += 1
+    return out
+
+
+int8_trunk_fused_cuda.launches = 0
+
+ROUTES = ("fused", "layer")
+
+
+def residual_features_int8(y: torch.Tensor, p: Int8TrunkParams, compute_dtype=None,
+                           route: Optional[str] = None) -> torch.Tensor:
     """(B, T', F', C) pooled stem activations -> the trunk output in
-    ``compute_dtype`` (float32 for None), every conv in s8 x s8 -> s32:
-    six launches of the layer kernel on a CUDA tensor, the plain version on
-    a CPU tensor."""
-    return _layers(y, p, compute_dtype, int8_conv_layer_cuda)
+    ``compute_dtype`` (float32 for None), every conv in s8 x s8 -> s32. On a
+    CUDA tensor ``route`` picks the kernel ("fused": one launch of
+    :func:`int8_trunk_fused_cuda`; "layer": six of
+    :func:`int8_conv_layer_cuda`), by default :func:`int8_trunk_route`'s;
+    on a CPU tensor either wrapper takes the plain version."""
+    if route is None:
+        route = int8_trunk_route(compute_dtype or torch.float32, y.shape[2], y.shape[3])
+    if route == "fused":
+        return int8_trunk_fused_cuda(y, p, compute_dtype)
+    if route == "layer":
+        return _layers(y, p, compute_dtype, int8_conv_layer_cuda)
+    raise ValueError(f"route must be one of {ROUTES} or None, got {route!r}")

@@ -17,9 +17,9 @@ noise):
   * the same step with the frontend as the torch GEMM chain (float32
     products, ``ops/frontend.log_mel_spectrogram``), composed here from the
     engine's stages (the JAX tool's "xla frontend" leg);
-  * the same step with the int8 residual trunk (``use_int8_trunk``: six
-    launches of ``csrc/int8_trunk.cu`` in place of cuDNN's convs and BN),
-    calibrated on the step's own audio, as the JAX tool's engine is;
+  * the same step with the int8 residual trunk (``use_int8_trunk``: one
+    launch of ``csrc/int8_trunk_fused.cu`` in place of cuDNN's convs and
+    BN), calibrated on the step's own audio, as the JAX tool's engine is;
   * the frontend alone: K1 at "bf16" (time-major, bf16 out), and the torch
     GEMM chain;
   * the trunk alone, ``Res8.trunk_features`` and the global mean on
@@ -36,6 +36,8 @@ device it raises. ``--device cpu`` runs the plain versions at 4 clips of
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -63,15 +65,20 @@ def _setup(batch: int, clip_seconds: float, seed: int, dev: torch.device):
 
 def trunk_ab(batch: int, clip_seconds: float, iters: int, seed: int, dev: torch.device, turns: int = 2) -> dict:
     """The full fused step with the bf16 trunk against the same step with the
-    int8 trunk, in turns (bf16, int8, int8, bf16, ... ``turns`` times each):
-    {"bf16": [ms per turn], "int8": [ms per turn]}, each a two-point slope."""
+    int8 trunk on each of its routes, in turns (bf16, int8, int8_layer,
+    int8_layer, int8, bf16, ... ``turns`` times each): {"bf16": [ms per
+    turn], "int8": [...], "int8_layer": [...]}, each a two-point slope;
+    "int8" is the engine's own route (the fused kernel at the serving
+    geometry), "int8_layer" the layer kernel's six launches."""
     engine, engine_int8, audio = _setup(batch, clip_seconds, seed, dev)
-    makers = {"bf16": bumped_chain(lambda a: engine.infer_batch(a)["detected"], audio),
-              "int8": bumped_chain(lambda a: engine_int8.infer_batch(a)["detected"], audio)}
-    out = {"bf16": [], "int8": []}
+    engine_layer = copy.copy(engine_int8)
+    engine_layer.int8_route = "layer"
+    makers = {who: bumped_chain(lambda a, e=e: e.infer_batch(a)["detected"], audio)
+              for who, e in (("bf16", engine), ("int8", engine_int8), ("int8_layer", engine_layer))}
+    out = {who: [] for who in makers}
     with torch.no_grad():
         for i in range(turns):
-            for who in (("bf16", "int8") if i % 2 == 0 else ("int8", "bf16")):
+            for who in (list(makers) if i % 2 == 0 else list(makers)[::-1]):
                 out[who].append(slope_ms(makers[who], iters, 4 * iters, 1, dev)[0])
     return out
 

@@ -9,15 +9,16 @@ seed, the int8 scales calibrated on the activations themselves:
 
   1. bf16 residual stack (incumbent): ``Res8.residual_features`` in bf16,
      cuDNN's six convs and BatchNorm, the serving engine's stage 3;
-  2. int8 full pipeline (kernel): ``ops/int8_trunk.residual_features_int8``,
-     six launches of ``csrc/int8_trunk.cu``: the quantize on load, the s8
-     conv, ReLU, dequant, the residual adds and BN, the pre-BN sums of
-     layers 2 and 4 kept;
-  3. int8 conv rate (kernel, epilogue cut): six chained launches with the
-     epilogue cut to the conv, ReLU and dequant (no residual, BN or pre-BN
-     store), so each layer reads and writes one activation. The JAX tool's
-     third leg chains s8 convs with a shift-only requant instead; here each
-     layer quantizes the last one's dequantized output as it loads it.
+  2. int8 full pipeline on the route the serving engine takes, "fused":
+     ``ops/int8_trunk.residual_features_int8`` as one launch of
+     ``csrc/int8_trunk_fused.cu``, the six layers in one persistent kernel
+     (the quantize, the s8 convs, ReLU, dequant, the residual adds and BN);
+  3. int8 conv rate (the layer kernel ``csrc/int8_trunk.cu``, epilogue
+     cut): six chained launches with the epilogue cut to the conv, ReLU and
+     dequant (no residual, BN or pre-BN store), so each layer reads and
+     writes one activation. The JAX tool's third leg chains s8 convs with a
+     shift-only requant instead; here each layer quantizes the last one's
+     dequantized output as it loads it.
 
 Each leg is timed by the two-point slope of chains of ``iters`` and 4 x
 ``iters`` calls, each call's input bumped in place by its output (x 1e-30),
@@ -38,8 +39,8 @@ from howl_tpu_torch.tools._study import REPEATS, bumped_chain, device_parser, pi
 T_OUT = 213  # pooled trunk frames of an 8 s clip
 F_OUT = 10  # pooled mel bins (40 / 4)
 CH = 45  # res8's maps
-LEGS = ("bf16 residual stack (incumbent, cuDNN)", "int8 full pipeline (kernel)",
-        "int8 conv rate (kernel: conv + ReLU + dequant)")
+LEGS = ("bf16 residual stack (incumbent, cuDNN)", "int8 full pipeline (route 'fused': one launch)",
+        "int8 conv rate (layer kernel: conv + ReLU + dequant)")
 
 
 def run(batch: int, iters: int, seed: int, dev: torch.device) -> dict:
@@ -69,7 +70,8 @@ def run(batch: int, iters: int, seed: int, dev: torch.device) -> dict:
             x, _ = int8_conv_layer_cuda(x, params.w_i8[i], params.act_scale[i], params.w_scale[i])
         return x
 
-    fns = (model.residual_features, lambda x: residual_features_int8(x, params, torch.bfloat16), conv_rate)
+    fns = (model.residual_features, lambda x: residual_features_int8(x, params, torch.bfloat16, route="fused"),
+           conv_rate)
     results = {}
     with torch.no_grad():
         for name, fn in zip(LEGS, fns):

@@ -4,6 +4,7 @@ out, to see where the kernel's time goes.
     python -m howl_tpu_torch.tools.probe_kernel_variants --probe t1-wgmma [--source howl_tpu_torch/csrc/trunk_proto.cu]
     python -m howl_tpu_torch.tools.probe_kernel_variants --probe m2-wgmma [--source howl_tpu_torch/csrc/micro_gemm.cu]
     python -m howl_tpu_torch.tools.probe_kernel_variants --probe m3-wgmma [--source howl_tpu_torch/csrc/micro_poly.cu]
+    python -m howl_tpu_torch.tools.probe_kernel_variants --probe int8-fused [--source howl_tpu_torch/csrc/int8_trunk_fused.cu]
 
 A probe names a kernel source, its C entry, the study inputs it runs on and a
 list of variants; a variant is a list of exact text edits to the source (each
@@ -37,6 +38,14 @@ Probes:
                memory; A read in the 128-byte swizzle, and W likewise (the
                same shared-memory reads in another pattern); H's slot
                refilled without waiting for the other warps.
+  int8-fused   the fused int8 trunk (``csrc/int8_trunk_fused.cu``) at the
+               serving batch, (512, 213, 10, 45) in bf16 and float32, res8
+               weights from seed 0 calibrated on the first 64 clips: as it
+               is (five warpgroups in bf16, three in float32); one
+               warpgroup fewer; one more; no epilogue (the products of
+               every layer run, nothing is stored); no quantize (each
+               layer's output reaches the s8 buffer unquantized, one store
+               as before).
 
 Needs a CUDA device and nvcc.
 """
@@ -97,6 +106,19 @@ M3_EDITS = {
     # the refill of an H slot issued without waiting for the other warps to finish with it
     "H refill unwaited": [("      mbar_wait(&h_empty[slot], (v / kHSlots) & 1u);\n      if (lane == 0) issue_h",
                            "      if (lane == 0) issue_h")],
+}
+
+# the fused int8 trunk: the epilogue's call behind a condition that is false at run time (no s32 sum reaches it)
+_INT8_EPILOGUE = "if (cx.wg + kWG * i < tiles) epilogue<T, L>(cx, acc, row0(i), k);"
+_INT8_BF16 = "static constexpr int kT = 43, kWG = 5;"
+_INT8_F32 = "static constexpr int kT = 24, kWG = 3;"
+INT8_FUSED_EDITS = {
+    "as it is": [],
+    "one warpgroup fewer": [(_INT8_BF16, _INT8_BF16.replace("5;", "4;")), (_INT8_F32, _INT8_F32.replace("3;", "2;"))],
+    "one warpgroup more": [(_INT8_BF16, _INT8_BF16.replace("5;", "6;")), (_INT8_F32, _INT8_F32.replace("3;", "4;"))],
+    "no epilogue": [(_INT8_EPILOGUE, _INT8_EPILOGUE.replace("< tiles)", "< tiles && acc[0] == 0x7ffffff3)"))],
+    "no quantize": [("static_cast<uint16_t>(__byte_perm(quantize(o0, inv_next), quantize(o1, inv_next), 0x0040));",
+                     "static_cast<uint16_t>(__float_as_uint(o0) ^ __float_as_uint(o1));")],
 }
 
 
@@ -215,10 +237,49 @@ def _m3_runner(dev):
     return make
 
 
+def _int8_fused_runner(dev):
+    """The fused int8 trunk at the serving batch, bf16 and float32, on the
+    engine's calibration and quantization of seeded res8 weights."""
+    import numpy as np
+
+    from howl_tpu_torch.bench import CALIBRATION_CLIPS, NUM_LABELS, res8_numpy_variables
+    from howl_tpu_torch.compat import res8_variables_to_state_dict
+    from howl_tpu_torch.ops import int8_trunk as t8
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    y = torch.relu(torch.randn((512, 213, 10, 45), generator=gen, device=dev))
+    state = res8_variables_to_state_dict(res8_numpy_variables(np.random.default_rng(0), NUM_LABELS))
+    p = t8.quantize_residual_trunk(state, t8.calibrate_act_scales(y[:CALIBRATION_CLIPS], state), dev)
+    imgs = [t8.pack_w_image_wgmma(w) for w in p.w_i8]
+
+    def arrays(kind, values):
+        return (kind * t8.N_LAYERS)(*values)
+
+    def make(lib):
+        fn = getattr(lib, "howl_int8_trunk_fused_forward")
+        fn.argtypes, fn.restype = list(_build.SIGNATURES["howl_int8_trunk_fused_forward"]), ctypes.c_int
+
+        def call(dtype):
+            x = y.to(dtype)
+            out = torch.empty_like(x)
+            args = [arrays(ctypes.c_void_p, (t.data_ptr() for t in ts)) for ts in (imgs, p.w_scale, p.bn_scale, p.bn_shift)]
+            scales = [arrays(ctypes.c_float, p.act_scale), arrays(ctypes.c_float, (t8._inv_scale(s) for s in p.act_scale))]
+
+            def run():
+                status = fn(x.data_ptr(), *args, *scales, out.data_ptr(), *x.shape, int(dtype == torch.bfloat16),
+                            torch.cuda.current_stream(dev).cuda_stream)
+                _build.check_launch(status, "probe")
+            return run
+        return [("bf16", call(torch.bfloat16)), ("float32", call(torch.float32))]
+
+    return make
+
+
 PROBES = {
     "t1-wgmma": (_build.CSRC / "trunk_proto.cu", T1_WGMMA_EDITS, _t1_runner),
     "m2-wgmma": (_build.CSRC / "micro_gemm.cu", M2_EDITS, _m2_runner),
     "m3-wgmma": (_build.CSRC / "micro_poly.cu", M3_EDITS, _m3_runner),
+    "int8-fused": (_build.CSRC / "int8_trunk_fused.cu", INT8_FUSED_EDITS, _int8_fused_runner),
 }
 
 

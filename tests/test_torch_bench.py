@@ -122,8 +122,11 @@ def test_cpu_run_names_its_rungs(cpu_record):
     int8 = rungs["int8"]
     assert int8["value_trunk"] == bench.HEADLINE_TRUNK and int8["calibration_clips"] == bench.CPU.batch
     assert set(int8["batch_ms"]) == set(bench.TRUNKS) and all(ms > 0 for ms in int8["batch_ms"].values())
-    want = ({"kernel": "int8 trunk", "route": "plain", "launches_per_batch": 0} if bench.HEADLINE_TRUNK == "int8"
-            else "F.conv2d")
+    # the int8 trunk's route and both int8 kernels' counters: the plain version off the card counts nothing
+    launches = {"int8_fused": 0, "int8_layer": 0}
+    assert int8["route"] == "plain" and int8["launches_per_batch"] == launches
+    want = ({"kernel": "int8 trunk", "route": "plain", "launches_per_batch": launches}
+            if bench.HEADLINE_TRUNK == "int8" else "F.conv2d")
     assert rungs["headline"]["residual_convs"] == want and rungs["legacy"]["residual_convs"] == "F.conv2d"
     online = rungs["online"]
     assert online["full_window"]["frontend"] == {"kernel": "K1", "route": "plain", "launches_per_step": 0,

@@ -37,8 +37,16 @@ chunk; each live engine's bf16 decisions equal its float32 decisions on
 streams whose loud half fires. The int8 trunk's layer kernel gives exact s32
 sums (at +-127 extremes too) at pooled frame counts around its 25-frame
 blocks and at 1, 17 and 64 frequency bins, equals its plain version bit for
-bit in float32 and bf16 with each epilogue, and six launches equal the plain
-trunk at the serving batch; the int8 engine on the card matches the CPU's.
+bit in float32 and bf16 with each epilogue, and both routes of the trunk
+(six layer launches, one fused launch) equal the plain trunk at the serving
+batch; the int8 engine on the card matches the CPU's. The fused int8 trunk
+(``csrc/int8_trunk_fused.cu``) equals the plain trunk bit for bit in bf16
+and float32 at 1 and 3 clips of 1, tile - 1, tile, tile + 1, two tiles +
+1 and 213 frames at 8 and 10 bins (around its 43- and 24-frame tiles; the
+serving geometry runs its own instance), at 11 and 1 bins in bf16, at
+C = 48 and 13, launches once a trunk, packs its weights again after an
+in-place change, and reports the shared memory and tiles the host's route
+computes.
 """
 
 import functools
@@ -1251,19 +1259,24 @@ def test_int8_layer_kernel_matches_plain_bitwise(cuda, b, t, f, dtype, epilogue)
     assert torch.equal(out, want_out) and torch.equal(pre, want_pre)
 
 
+@pytest.mark.parametrize("route", ["layer", "fused"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_int8_trunk_kernel_matches_plain_at_the_serving_batch(cuda, dtype):
-    """Six launches at 512 clips of 8 s (213 x 10 pooled frames): the trunk
-    equals its plain version bit for bit, and is close to the float32 trunk."""
-    from howl_tpu_torch.ops.int8_trunk import int8_conv_layer_cuda, residual_features_int8, residual_features_int8_plain
+def test_int8_trunk_kernel_matches_plain_at_the_serving_batch(cuda, dtype, route):
+    """At 512 clips of 8 s (213 x 10 pooled frames), six launches of the
+    layer kernel or one of the fused kernel: the trunk equals its plain
+    version bit for bit."""
+    from howl_tpu_torch.ops.int8_trunk import (
+        int8_conv_layer_cuda, int8_trunk_fused_cuda, residual_features_int8, residual_features_int8_plain,
+    )
 
     p = _int8_params(cuda)
     gen = torch.Generator(device=cuda).manual_seed(512)
     y = torch.relu(torch.randn((512, 213, 10, 45), generator=gen, device=cuda)).to(dtype)
-    before = int8_conv_layer_cuda.launches
-    got = residual_features_int8(y, p, dtype)
+    before = int8_conv_layer_cuda.launches, int8_trunk_fused_cuda.launches
+    got = residual_features_int8(y, p, dtype, route=route)
     torch.cuda.synchronize()
-    assert int8_conv_layer_cuda.launches == before + 6
+    after = int8_conv_layer_cuda.launches - before[0], int8_trunk_fused_cuda.launches - before[1]
+    assert after == ((6, 0) if route == "layer" else (0, 1))
     want = residual_features_int8_plain(y, p, dtype)
     assert bool(torch.isfinite(got.float()).all()) and torch.equal(got, want)
 
@@ -1309,7 +1322,7 @@ def test_int8_weight_image_follows_in_place_changes(cuda):
 
 @pytest.mark.parametrize("dtype", [None, torch.bfloat16], ids=["f32", "bf16"])
 def test_int8_engine_on_cuda_matches_cpu(cuda, dtype):
-    """The int8 engine on the card (K1, K2 and six int8 launches a batch)
+    """The int8 engine on the card (K1, K2 and one fused int8 launch a batch)
     against the same engine on the CPU: the same calibration (act scales
     within 1e-5 relative) and, with the card's scales, decisions equal and
     posteriors within 2e-2."""
@@ -1317,7 +1330,7 @@ def test_int8_engine_on_cuda_matches_cpu(cuda, dtype):
     from howl_tpu_torch.compat import res8_variables_to_state_dict
     from howl_tpu_torch.inference import StreamingEngine
     from howl_tpu_torch.models import create_model
-    from howl_tpu_torch.ops.int8_trunk import int8_conv_layer_cuda, quantize_residual_trunk
+    from howl_tpu_torch.ops.int8_trunk import int8_trunk_fused_cuda, quantize_residual_trunk
 
     state = res8_variables_to_state_dict(bench.res8_numpy_variables(np.random.default_rng(7), 4))
     audio = (np.random.default_rng(8).standard_normal((8, 32000)) * 0.1).astype(np.float32)
@@ -1326,11 +1339,121 @@ def test_int8_engine_on_cuda_matches_cpu(cuda, dtype):
                                   int8_calibration_audio=audio[:4], device=d) for d in ("cuda", "cpu")}
     np.testing.assert_allclose(engines["cuda"]._int8_params.act_scale, engines["cpu"]._int8_params.act_scale, rtol=1e-5)
     engines["cpu"]._int8_params = quantize_residual_trunk(state, engines["cuda"]._int8_params.act_scale, "cpu")
-    before = int8_conv_layer_cuda.launches
+    before = int8_trunk_fused_cuda.launches
     got = engines["cuda"].infer_batch(audio)
     torch.cuda.synchronize()
-    assert int8_conv_layer_cuda.launches == before + 6
+    assert int8_trunk_fused_cuda.launches == before + 1  # the serving geometry's route: the fused kernel
     want = engines["cpu"].infer_batch(audio)
     assert float((got["probs"].cpu() - want["probs"]).abs().max()) <= 2e-2
     for key in ("detected", "first_fire_step"):
         assert torch.equal(got[key].cpu(), want[key]), key
+
+
+# ---- the fused int8 trunk (csrc/int8_trunk_fused.cu) ----
+
+
+def _fused_geometries():
+    from howl_tpu_torch.ops.int8_trunk import FUSED_TILE_FRAMES
+
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        tt = FUSED_TILE_FRAMES[dtype]
+        for b in (1, 3):
+            for t in (1, tt - 1, tt, tt + 1, 2 * tt + 1, 213):
+                for f in (10, 8):
+                    cases.append((dtype, b, t, f))
+    cases += [(torch.bfloat16, 2, 50, 11), (torch.bfloat16, 2, 50, 1)]  # the widest bf16 tile; one bin a frame
+    return cases
+
+
+@pytest.mark.parametrize("dtype,b,t,f", _fused_geometries(), ids=lambda v: str(v).replace("torch.", ""))
+def test_int8_fused_trunk_matches_plain_bitwise(cuda, dtype, b, t, f):
+    """One launch, bit for bit the plain trunk: tiles at the clip's start and
+    end, a clip shorter than a tile, one frame past a tile boundary; inputs
+    large enough that some activations saturate at +-127."""
+    from howl_tpu_torch.ops.int8_trunk import int8_trunk_fused_cuda, residual_features_int8_plain
+
+    p = _int8_params(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(b * 1000 + t * 10 + f)
+    y = (torch.randn((b, t, f, 45), generator=gen, device=cuda) * 1.5).to(dtype)
+    before = int8_trunk_fused_cuda.launches
+    got = int8_trunk_fused_cuda(y, p, dtype)
+    torch.cuda.synchronize()
+    assert int8_trunk_fused_cuda.launches == before + 1
+    assert got.dtype == dtype and torch.equal(got, residual_features_int8_plain(y, p, dtype))
+
+
+@pytest.mark.parametrize("c", [48, 13])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_int8_fused_trunk_at_other_channel_counts(cuda, dtype, c):
+    """The trunk at 48 and 13 channels on the route the table gives (float32
+    at 48 channels does not fit the fused kernel's block: the layer kernel),
+    bit for bit the plain trunk."""
+    from howl_tpu_torch.ops.int8_trunk import (
+        int8_trunk_fused_cuda, int8_trunk_route, quantize_residual_trunk, residual_features_int8,
+        residual_features_int8_plain,
+    )
+
+    rng = np.random.default_rng(c)
+    state = {}
+    for i in range(1, 7):
+        state[f"conv{i}.weight"] = torch.from_numpy(rng.standard_normal((c, c, 3, 3)).astype(np.float32) * 0.1)
+        state[f"bn{i}.running_mean"] = torch.from_numpy(rng.standard_normal(c).astype(np.float32) * 0.1)
+        state[f"bn{i}.running_var"] = torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(np.float32))
+    p = quantize_residual_trunk(state, [0.02, 0.03, 0.025, 0.04, 0.035, 0.05], cuda)
+    y = torch.relu(torch.from_numpy(rng.standard_normal((2, 50, 10, c)).astype(np.float32))).to(cuda, dtype)
+    route = int8_trunk_route(dtype, 10, c)
+    assert route == ("layer" if (dtype, c) == (torch.float32, 48) else "fused")
+    before = int8_trunk_fused_cuda.launches
+    assert torch.equal(residual_features_int8(y, p, dtype), residual_features_int8_plain(y, p, dtype))
+    assert int8_trunk_fused_cuda.launches == before + (route == "fused")
+
+
+def test_int8_fused_trunk_packs_its_weights_again_after_an_in_place_change(cuda):
+    """The six weight images are cached per tensor and packed again when one
+    changes in place (ROADMAP F2)."""
+    from howl_tpu_torch.ops.int8_trunk import int8_trunk_fused_cuda, residual_features_int8_plain
+
+    p = _int8_params(cuda)
+    p = p._replace(w_i8=tuple(w.clone() for w in p.w_i8))
+    y = torch.relu(torch.randn((2, 50, 10, 45), device=cuda)).bfloat16()
+    first = int8_trunk_fused_cuda(y, p, torch.bfloat16)
+    p.w_i8[3].neg_()
+    second = int8_trunk_fused_cuda(y, p, torch.bfloat16)
+    assert not torch.equal(first, second)
+    assert torch.equal(second, residual_features_int8_plain(y, p, torch.bfloat16))
+
+
+def test_int8_fused_trunk_geometry_matches_the_host_route(cuda):
+    """The shared memory and tiles the C entry reports are the ones
+    ``fused_shared_bytes`` and ``FUSED_TILE_FRAMES`` compute on the host."""
+    from howl_tpu_torch.ops import _build
+    from howl_tpu_torch.ops.int8_trunk import FUSED_TILE_FRAMES, fused_shared_bytes
+
+    lib = _build.kernel_library()
+    for dtype in (torch.bfloat16, torch.float32):
+        is_bf16 = int(dtype == torch.bfloat16)
+        assert lib.howl_int8_trunk_fused_geometry(10, 45, is_bf16, 1) == FUSED_TILE_FRAMES[dtype]
+        for f in range(1, 17):
+            for c in (1, 8, 13, 45, 48):
+                want = fused_shared_bytes(dtype, f, c)
+                assert lib.howl_int8_trunk_fused_geometry(f, c, is_bf16, 0) == (-1 if want is None else want), (f, c)
+
+
+def test_int8_fused_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from howl_tpu_torch.ops.int8_trunk import int8_trunk_fused_cuda
+
+    p = _int8_params(cuda)
+    x = torch.zeros((1, 9, 10, 45), device=cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        int8_trunk_fused_cuda(x.half(), p, torch.float16)
+    with pytest.raises(ValueError, match="int8 weights"):
+        int8_trunk_fused_cuda(torch.zeros((1, 9, 10, 44), device=cuda), p)
+    with pytest.raises(ValueError, match="frequency bins"):
+        int8_trunk_fused_cuda(torch.zeros((1, 9, 12, 45), device=cuda), p)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        int8_trunk_fused_cuda(torch.zeros(4051, device=cuda)[1:].view(1, 9, 10, 45), p)
+    with pytest.raises(ValueError, match="lies on cpu"):
+        int8_trunk_fused_cuda(x, p._replace(w_scale=tuple(w.cpu() for w in p.w_scale)))
+    with pytest.raises(RuntimeError, match="no backward"):
+        int8_trunk_fused_cuda(x.requires_grad_(), p)

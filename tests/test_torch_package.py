@@ -133,7 +133,7 @@ def test_ctypes_signatures_match_the_cuda_sources():
     assert set(sources) == {"frontend.cu", "frontend_tc.cu", "stem.cu", "stem_tc.cu", "augment.cu", "trunk_proto.cu", "stem_fold.cu",
                             "micro_stream.cu", "micro_gemm.cu", "micro_poly.cu", "hbm_auto_read.cu",
                             "hbm_auto_copy.cu", "hbm2hbm.cu", "hbm_manual_read.cu", "hbm_manual_write.cu",
-                            "hbm_manual_copy.cu", "int8_trunk.cu"}
+                            "hbm_manual_copy.cu", "int8_trunk.cu", "int8_trunk_fused.cu"}
     entries = {}
     for text in sources.values():
         for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text):
@@ -144,8 +144,8 @@ def test_ctypes_signatures_match_the_cuda_sources():
         assert len(params) == len(argtypes), name
         for param, argtype in zip(params, argtypes):
             ctype = param.rsplit(" ", 1)[0]
-            want = {"void*": _build._P, "const void*": _build._P, "int": _build._I, "long long": _build._L,
-                    "float": _build._F}[ctype]
+            want = {"void*": _build._P, "const void*": _build._P, "const void* const*": _build._P,
+                    "const float*": _build._P, "int": _build._I, "long long": _build._L, "float": _build._F}[ctype]
             assert argtype is want, (name, param)
     # the tensor-core frontend takes the packed images and their shape in place of W, fb and the rounding flags
     assert entries["howl_logmel_tc_forward"] == [
@@ -167,6 +167,12 @@ def test_ctypes_signatures_match_the_cuda_sources():
         "const void* x", "const void* w_img", "const void* w_scale", "const void* bn_scale", "const void* bn_shift",
         "const void* res", "void* out", "void* pre", "int B", "int T_len", "int F", "int C", "int tt", "float inv_s",
         "float s_a", "int is_bf16", "void* stream",
+    ]
+    # the fused int8 trunk: host arrays of the six layers' device pointers and scales, one launch a trunk
+    assert entries["howl_int8_trunk_fused_forward"] == [
+        "const void* y", "const void* const* w_img", "const void* const* w_scale", "const void* const* bn_scale",
+        "const void* const* bn_shift", "const float* s_a", "const float* inv_s", "void* out", "int B", "int T_len",
+        "int F", "int C", "int is_bf16", "void* stream",
     ]
     # the FMA frontend takes the three-pass grade's lo parts after W and fb (null for the other grades)
     assert entries["howl_logmel_forward"][:6] == [
