@@ -9,15 +9,16 @@ them. In order it:
   2. builds the hand-written kernels from ``howl_tpu_torch/csrc`` (one nvcc
      per source, all at once, sm_90a) and prints the build time;
   3. holds both log-mel frontend kernels, the tensor-core one ("tc",
-     ``csrc/frontend_tc.cu``: the two bf16 grades) and the float32-FMA one
+     ``csrc/frontend_tc.cu``: the three bf16 grades) and the float32-FMA one
      ("fma", ``csrc/frontend.cu``: every grade), against their plain PyTorch
      version at the serving path's shape, B=512 x 128,000 samples, 40 mels,
      in every precision grade with float32 and bf16 output (the three-pass
-     grade "bf16x3", the JAX kernel's default, on the FMA kernel), plus five
+     grade "bf16x3", the JAX kernel's default, on both kernels), plus five
      "fm" cases (the per-window scorer's layout); then times the main path's
      case in turns (plain, fma, tc, tc, fma, plain), the two-pass grade (fma,
-     tc, tc, fma) and the three-pass grade (plain, fma, fma, plain, with its
-     bound); the tensor-core kernel must be the faster. Before that it counts the tensor-core and
+     tc, tc, fma), the three-pass grade (plain, fma, tc, tc, fma, plain) and
+     the exact grade on the FMA kernel, each with its bound; the tensor-core
+     kernel must be the faster at "bf16" and at "bf16x3". Before that it counts the tensor-core and
      bulk-copy opcodes in the built library: the tensor-core frontend kernel,
      the stem fold kernel (T2), the trunk proto (T1) and the frontend study's
      GEMM (M2) and polyphase kernel (M3) must hold HGMMA (``wgmma``) and
@@ -53,7 +54,8 @@ them. In order it:
      study's inputs with a nonzero scalar, and runs
      ``howl_tpu_torch.tools.validate_pallas_precision``: the frontend kernel
      at every grade against the float64 goldens, the "f32" grade inside the
-     golden tests' bounds;
+     golden tests' bounds and "bf16x3" (on "tc" at 40 mels) inside the JAX
+     kernel's three-pass tiers;
   8. drives the device-memory bandwidth sweep
      (``howl_tpu_torch.tools.bench_hbm_sweep``) at 256 MB, 8 and 32
      iterations, the full list, and prints every leg; the seven sweep
@@ -78,10 +80,18 @@ them. In order it:
      read just after; both must have grown, and the frontend's and the
      stem's launch must each be the tensor-core kernel's, one of each per
      batch. Its decisions must equal the
-     float32 engine's on the same card, on a batch where some clips fire
-     and some do not. Then it times chains of 32 batches through the
-     bench's ``chained_batch_ms`` (each input bumped by the last detections,
-     CUDA events, 2 repeats) and prints the median realtime factor;
+     float32 engine's on the same card (both at the "bf16" frontend grade),
+     on a batch where some clips fire and some do not. Then it times chains
+     of 32 batches through the bench's ``chained_batch_ms`` (each input
+     bumped by the last detections, CUDA events, 2 repeats) and prints the
+     median realtime factor;
+  9b. holds the float32 paths to their own TF32 setting (ROADMAP F13): with
+     the caller's global TF32 flags on and then off, a float32 engine built
+     with defaults (the exact "f32" frontend grade, F12) scores 64 clips of
+     8 s and the ``OnlineEngine`` and the ``IncrementalOnlineEngine`` take
+     one float32 hop at 512 streams; each result must be bit for bit the
+     same both times and the flags the caller's again after each call, while
+     the same scorer without its guard must differ (the flags reach the card);
  10. drives the per-window mega-batch scorer (``fused_trunk=False``) at the
      same size, 61,952 windows of 41 frames: one bf16 batch between zeroed
      counters must launch the frontend kernel and the tensor-core stem
@@ -116,8 +126,9 @@ them. In order it:
      print a positive time;
  11. runs the decision gate ``howl_tpu_torch.tools.validate_tpu_decisions``
      on the card: every row that runs must be OK, the three-pass grade's
-     (``res8+k1[bf16x3]+k2``), the int8 trunk's (``res8+k1[bf16]+k2+int8``)
-     and the three live engines' rows included;
+     (``res8+k1[bf16x3]+k2``, on the tensor-core frontend kernel), the int8
+     trunk's (``res8+k1[bf16]+k2+int8``) and the three live engines' rows
+     included;
  12. drives the live serving path (a): the ``OnlineEngine`` at 512 streams
      in bf16, 16 hops between zeroed counters, which must launch the
      tensor-core frontend kernel and the tensor-core stem kernel once a hop
@@ -293,7 +304,9 @@ def check_frontend(audio, cfg, zmuv) -> dict:
     """Both frontend kernels vs the plain log-mel frontend in every grade they
     serve; returns the record of the main path's case (grade "bf16", bf16
     output, "tm"), whose ``ms`` is the tensor-core ("tc") route's, the one the
-    engine runs, and whose ``prev_ms`` is the float32-FMA ("fma") route's."""
+    engine runs, and whose ``prev_ms`` is the float32-FMA ("fma") route's;
+    the three-pass grade's ``ms_bf16x3`` is the "tc" route's too, beside the
+    FMA kernel's ``prev_ms_bf16x3``."""
     import torch
 
     from howl_tpu_torch.ops.frontend_cuda import (
@@ -348,32 +361,52 @@ def check_frontend(audio, cfg, zmuv) -> dict:
     plain_ms, fma_ms, tc_ms = (turns[0] + turns[5]) / 2, (turns[1] + turns[4]) / 2, (turns[2] + turns[3]) / 2
     x2 = [timed("bf16x2", "fma"), timed("bf16x2", "tc"), timed("bf16x2", "tc"), timed("bf16x2", "fma")]
     tc_x2_ms, fma_x2_ms = (x2[1] + x2[2]) / 2, (x2[0] + x2[3]) / 2
-    # the three-pass grade on its kernel ("fma") against its plain version: plain, fma, fma, plain
-    x3 = [timed("bf16x3", plain=True, iters=2), timed("bf16x3", "fma", iters=2), timed("bf16x3", "fma", iters=2),
-          timed("bf16x3", plain=True, iters=2)]
-    fma_x3_ms, plain_x3_ms = (x3[1] + x3[2]) / 2, (x3[0] + x3[3]) / 2
+    # the three-pass grade, the JAX kernel's default, on both kernels and its plain version: plain, fma, tc, tc,
+    # fma, plain
+    if frontend_route(cfg, "bf16x3") != "tc":
+        raise AssertionError(f"the three-pass grade at {cfg} is not served by the tensor-core frontend kernel")
+    x3 = [timed("bf16x3", plain=True, iters=2), timed("bf16x3", "fma", iters=2), timed("bf16x3", "tc"),
+          timed("bf16x3", "tc"), timed("bf16x3", "fma", iters=2), timed("bf16x3", plain=True, iters=2)]
+    plain_x3_ms, fma_x3_ms, tc_x3_ms = (x3[0] + x3[5]) / 2, (x3[1] + x3[4]) / 2, (x3[2] + x3[3]) / 2
+    f32_ms = (timed("f32", "fma", iters=2) + timed("f32", "fma", iters=2)) / 2  # the exact grade's one kernel
     # bf16 operands, float32 sums: the DFT as (frames, n_fft) @ (n_fft, 2 bins), power, the mel product; the
     # same work whatever implements it
     frames, n_bins = mel.shape[0] * mel.shape[1], cfg.n_fft // 2
-    ops = frames * (2 * cfg.n_fft * 2 * n_bins + 3 * n_bins + 2 * n_bins * cfg.n_mels)
+    dft, mel_mm, io = 2 * cfg.n_fft * 2 * n_bins, 2 * n_bins * cfg.n_mels, _nbytes(audio, mel)
+    ops = frames * (dft + 3 * n_bins + mel_mm)
     w_fb_bytes = 4 * (cfg.n_fft * 2 * n_bins + n_bins * cfg.n_mels)
+    # the exact grade: the same products in float32 on the CUDA cores
+    f32_bound = _bound(io + w_fb_bytes, ops, PEAK_F32_FLOPS)
+    # the two-pass grade: two DFT products (W's hi and lo read), one mel product
+    x2_bound = _bound(io + w_fb_bytes + 2 * cfg.n_fft * 2 * n_bins, frames * (2 * dft + 3 * n_bins + mel_mm),
+                      PEAK_BF16_FLOPS)
     # the three-pass grade: three products of bf16 operands with float32 sums, both matrices' hi and lo read
-    x3_bound = _bound(_nbytes(audio, mel) + 2 * w_fb_bytes,
-                      frames * (3 * 2 * cfg.n_fft * 2 * n_bins + 5 * n_bins + 3 * 2 * n_bins * cfg.n_mels), PEAK_BF16_FLOPS)
+    x3_bound = _bound(io + 2 * w_fb_bytes, frames * (3 * dft + 5 * n_bins + 3 * mel_mm), PEAK_BF16_FLOPS)
     record = {"max_abs_err": errs["tc", "bf16", torch.bfloat16, "tm"], "ms": tc_ms, "plain_ms": plain_ms, "mel": mel,
               "route_tc": True, "prev_ms": fma_ms, "prev_source": "howl_tpu_torch/csrc/frontend.cu",
               "prev_max_abs_err": errs["fma", "bf16", torch.bfloat16, "tm"], "ms_bf16x2": tc_x2_ms,
-              "prev_ms_bf16x2": fma_x2_ms, "ms_bf16x3": fma_x3_ms, "plain_ms_bf16x3": plain_x3_ms,
-              "max_abs_err_bf16x3": errs["fma", "bf16x3", torch.bfloat16, "tm"], "bound_ms_bf16x3": x3_bound["bound_ms"],
-              "bound_by_bf16x3": x3_bound["bound_by"],
-              **_bound(_nbytes(audio, mel) + w_fb_bytes, ops, PEAK_BF16_FLOPS)}
+              "prev_ms_bf16x2": fma_x2_ms, "bound_ms_bf16x2": x2_bound["bound_ms"], "bound_by_bf16x2": x2_bound["bound_by"],
+              "ms_bf16x3": tc_x3_ms, "prev_ms_bf16x3": fma_x3_ms, "plain_ms_bf16x3": plain_x3_ms,
+              "max_abs_err_bf16x3": errs["tc", "bf16x3", torch.bfloat16, "tm"],
+              "prev_max_abs_err_bf16x3": errs["fma", "bf16x3", torch.bfloat16, "tm"],
+              "bound_ms_bf16x3": x3_bound["bound_ms"], "bound_by_bf16x3": x3_bound["bound_by"],
+              "ms_f32": f32_ms, "bound_ms_f32": f32_bound["bound_ms"], "bound_by_f32": f32_bound["bound_by"],
+              **_bound(io + w_fb_bytes, ops, PEAK_BF16_FLOPS)}
     print(f"K1 main-path case: tc kernel {tc_ms:.3f} ms, fma kernel {fma_ms:.3f} ms, plain {plain_ms:.3f} ms per batch; "
           f"bound {record['bound_ms']:.4f} ms by {record['bound_by']}: {record['bound_ms'] / tc_ms:.3f} of the bound's rate")
-    print(f"K1 grade bf16x2, bf16 out, tm: tc kernel {tc_x2_ms:.3f} ms, fma kernel {fma_x2_ms:.3f} ms")
-    print(f"K1 grade bf16x3, bf16 out, tm: fma kernel {fma_x3_ms:.3f} ms, plain {plain_x3_ms:.3f} ms; bound "
-          f"{x3_bound['bound_ms']:.4f} ms by {x3_bound['bound_by']}: {x3_bound['bound_ms'] / fma_x3_ms:.3f} of its rate")
+    print(f"K1 grade bf16x2, bf16 out, tm: tc kernel {tc_x2_ms:.3f} ms, fma kernel {fma_x2_ms:.3f} ms; bound "
+          f"{x2_bound['bound_ms']:.4f} ms by {x2_bound['bound_by']}: {x2_bound['bound_ms'] / tc_x2_ms:.3f} of its rate")
+    print(f"K1 grade bf16x3, bf16 out, tm: tc kernel {tc_x3_ms:.3f} ms, fma kernel {fma_x3_ms:.3f} ms, plain "
+          f"{plain_x3_ms:.3f} ms (turns {', '.join(f'{t:.3f}' for t in x3)}); bound {x3_bound['bound_ms']:.4f} ms by "
+          f"{x3_bound['bound_by']}: tc {x3_bound['bound_ms'] / tc_x3_ms:.3f}, fma {x3_bound['bound_ms'] / fma_x3_ms:.3f} "
+          f"of its rate")
+    print(f"K1 grade f32, bf16 out, tm: fma kernel {f32_ms:.3f} ms; bound {f32_bound['bound_ms']:.4f} ms by "
+          f"{f32_bound['bound_by']} (float32 peak): {f32_bound['bound_ms'] / f32_ms:.3f} of its rate")
     if not tc_ms < fma_ms:
         raise AssertionError(f"the tensor-core frontend kernel ({tc_ms:.3f} ms) is not faster than the FMA kernel ({fma_ms:.3f} ms)")
+    if not tc_x3_ms < fma_x3_ms:
+        raise AssertionError(f"at bf16x3 the tensor-core frontend kernel ({tc_x3_ms:.3f} ms) is not faster than the FMA "
+                             f"kernel ({fma_x3_ms:.3f} ms)")
     return record
 
 
@@ -576,8 +609,12 @@ def print_sass_counts(library) -> None:
         kernel = re.findall(r"(?:micro_[a-z]+|hbm_[a-z_]+?|hbm2hbm|logmel(?:_tc)?|stem(?:_tc|_fold)?|trunk_proto)_kernel",
                             name)
         if kernel:
-            variant = {"ILb0E": " (float32)", "ILb1E": " (bf16)", "ILi40E": " (mel width 40)",
-                       "ILi80E": " (mel width 80)"}.get((re.findall(r"ILb[01]E|ILi[48]0E", name) or [""])[0], "")
+            args = re.findall(r"IL([bi])(\d+)E(?:L([bi])(\d+)E)?", name)
+            names = {("b", "0"): "float32", ("b", "1"): "bf16", ("i", "40"): "mel width 40", ("i", "80"): "mel width 80"}
+            if kernel[-1] == "logmel_tc_kernel" and args:  # <mel width, three-pass grade>
+                names[("b", "0")], names[("b", "1")] = "one or two passes", "three passes"
+            parts = [names.get(pair, "".join(pair)) for a in args[:1] for pair in zip(a[::2], a[1::2]) if pair[0]]
+            variant = f" ({', '.join(parts)})" if parts else ""
             counts = {op: len(re.findall(rf"\b{op}\b", body)) for op in opcodes}
             print(f"SASS of {kernel[-1]}{variant}: " + ", ".join(f"{n} {op}" for op, n in counts.items()))
             if kernel[-1] in required:
@@ -687,10 +724,13 @@ def drive_frontend_study(dev) -> dict:
     del inp, x, h
 
     print("frontend kernel grades against the float64 goldens (no ZMUV):")
-    for rec in validate_pallas_precision.run(dev):
-        # tests/test_torch_frontend.py's bounds for the float32 grade
-        if rec["grade"] == "f32" and not (rec["above_floor_max"] < 3e-3 and rec["global_max"] < 0.02):
-            raise AssertionError(f"K1's f32 grade misses the golden bounds: {rec}")
+    records = validate_pallas_precision.run(dev)
+    for rec in records:
+        # tests/test_golden_frontend.py's bounds: the float32 grade's, and the three-pass grade's tiers
+        if not validate_pallas_precision.within_golden_bounds(rec):
+            raise AssertionError(f"K1's {rec['grade']} grade misses the golden bounds: {rec}")
+    if not any(r["grade"] == "bf16x3" and r["route"] == "tc" for r in records):
+        raise AssertionError("the golden check did not run the three-pass grade on the tensor-core kernel")
 
     def record(key, name, name3=None):
         out = {"max_abs_err": errs.get(key, m1_err), "ms": ms[name], "plain_ms": plain[name], **bounds[key],
@@ -905,8 +945,10 @@ def drive_main_path(dev, batch: int, clip_seconds: float) -> dict:
     audio = torch.from_numpy(smoke_audio(rng, batch, samples)).to(dev)
 
     def engine(cfg, dtype):
+        # both engines at the "bf16" frontend grade, so that the decision check holds the trunk's dtype alone
         return StreamingEngine(
-            model, state, cfg, frontend, zmuv_mean=-6.0, zmuv_std=4.0, compute_dtype=dtype, device=dev
+            model, state, cfg, frontend, zmuv_mean=-6.0, zmuv_std=4.0, compute_dtype=dtype, frontend_precision="bf16",
+            device=dev,
         )
 
     probe = engine(base_cfg, None).score_batch(audio)["probs"].cpu().numpy()
@@ -953,6 +995,61 @@ def drive_main_path(dev, batch: int, clip_seconds: float) -> dict:
     print(f"main path: median {batch_ms:.3f} ms per batch of {batch} x {clip_seconds:g} s over {SMOKE_REPEATS} chains "
           f"of {bench.CARD.iters} ({', '.join(f'{m:.3f}' for m in runs)}); realtime factor {rtf:.1f}")
     return {"launches": launches, "batch_ms": batch_ms, "batch_ms_runs": runs, "realtime_factor": rtf}
+
+
+def check_tf32_guard(dev, clips: int = 64, streams: int = ONLINE_STREAMS) -> None:
+    """(9b) ROADMAP F13: the float32 paths do not follow the caller's global
+    TF32 flags. With both flags on, then off, a float32 engine built with
+    defaults scores ``clips`` clips of 8 s, and the ``OnlineEngine`` and the
+    ``IncrementalOnlineEngine`` take one float32 hop of ``streams`` streams;
+    each result must be bit for bit the same both times and the flags the
+    caller's again after each call. The control: the same scorer without
+    its guard must differ between the two settings. The flags go back off
+    after the phase, as ``main`` set them."""
+    import torch
+
+    from howl_tpu_torch.compat import res8_variables_to_state_dict
+    from howl_tpu_torch.inference import StreamingEngine
+    from howl_tpu_torch.inference.online import IncrementalOnlineEngine, OnlineEngine
+    from howl_tpu_torch.models import create_model
+    from howl_tpu_torch.ops.frontend import FrontendConfig
+    from howl_tpu_torch.ops.frontend_cuda import frontend_grade
+
+    rng = np.random.default_rng(SEED + 9)
+    state = res8_variables_to_state_dict(bench.res8_numpy_variables(rng, 4))
+    cfg, frontend = bench.serving_config(), FrontendConfig(n_mels=N_MELS)
+    audio = torch.from_numpy(smoke_audio(rng, clips, int(CLIP_SECONDS * SAMPLE_RATE))).to(dev)
+    windows = torch.from_numpy(smoke_audio(rng, streams, 8000)).to(dev)
+    eng = StreamingEngine(create_model("res8", num_labels=4), state, cfg, frontend, -6.0, 4.0, device=dev)
+    if frontend_grade(eng.frontend_precision) != "f32":
+        raise AssertionError(f"a float32 engine built with defaults serves {eng.frontend_precision!r}, not the exact grade")
+    live, inc = (kind(create_model("res8", num_labels=4), state, cfg, frontend, -6.0, 4.0, num_streams=streams,
+                      device=dev) for kind in (OnlineEngine, IncrementalOnlineEngine))
+    unguarded = StreamingEngine._score.__wrapped__.__wrapped__  # under torch.no_grad, without exact_if_float32
+    outs = {}
+    try:
+        for flag in (True, False):
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = flag
+            probs = eng.score_batch(audio)["probs"]
+            hop = live._step(windows, live._new_state(), 0.0)[3]
+            ring = inc._step(windows[:, : inc.hop_samples].contiguous(), inc.tail, inc.mel_ring, inc.state, 0.0)[1]
+            if (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) != (flag, flag):
+                raise AssertionError("a float32 path left the caller's TF32 flags changed")
+            with torch.no_grad():
+                raw = unguarded(eng, audio, eng.n_windows(audio.shape[-1]))
+            torch.cuda.synchronize()
+            outs[flag] = (probs, hop, ring, raw)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    for name, on, off in zip(("engine scores", "online hop", "incremental ring"), outs[True], outs[False]):
+        if not torch.equal(on, off):
+            raise AssertionError(f"F13: the float32 {name} follow the caller's TF32 flags")
+    control = float((outs[True][3] - outs[False][3]).abs().max())
+    print(f"F13: float32 engine scores ({clips} x {CLIP_SECONDS:g} s), an OnlineEngine hop and an incremental hop "
+          f"({streams} streams) bit for bit equal with the caller's TF32 on and off, flags restored; unguarded "
+          f"scorer max |dprob| {control:.3e}")
+    if control == 0.0:
+        raise AssertionError("the TF32 flags changed nothing on the unguarded scorer: the check sees nothing")
 
 
 def check_stem_on_windows(mel_tm, taps, chunk: int = 8192) -> float:
@@ -1092,7 +1189,7 @@ def drive_int8_path(dev, batch: int, clip_seconds: float) -> dict:
     cfg = firing_config(engine(base_cfg, None, frontend_precision="f32").score_batch(audio)["probs"].cpu().numpy(),
                         base_cfg)
     ref = engine(cfg, None, frontend_precision="f32").infer_batch(audio)
-    eng = engine(cfg, torch.bfloat16, use_int8_trunk=True, int8_calibration_audio=calibration)
+    eng = engine(cfg, torch.bfloat16, frontend_precision="bf16", use_int8_trunk=True, int8_calibration_audio=calibration)
     p = eng._int8_params
     print(f"int8 trunk calibrated on {calibration.shape[0]} clips: act scales "
           f"{', '.join(f'{a:.5f}' for a in p.act_scale)}")
@@ -1233,9 +1330,14 @@ def drive_int8_tools() -> None:
 
 def check_decision_gate(dev) -> None:
     """(11) The decision gate on the card: every row that runs must be OK, the
-    three-pass grade's and the int8 trunk's among them."""
+    three-pass grade's (on the tensor-core frontend kernel) and the int8
+    trunk's among them."""
+    from howl_tpu_torch.ops.frontend import FrontendConfig
+    from howl_tpu_torch.ops.frontend_cuda import frontend_route
     from howl_tpu_torch.tools import validate_tpu_decisions
 
+    if frontend_route(FrontendConfig(n_mels=40), "bf16x3") != "tc":
+        raise AssertionError("the gate's three-pass row would not run on the tensor-core frontend kernel")
     rows = validate_tpu_decisions.run(dev, *validate_tpu_decisions.CARD_SIZE)
     bad = [tag for tag, rec in rows.items() if rec["ok"] is False]
     for tag in ("res8+k1[bf16x3]+k2", "res8+k1[bf16]+k2+int8"):
@@ -1851,8 +1953,8 @@ def drive_train_entry(dev) -> dict:
             cal = np.stack([ww_train[i].audio_data for i in range(len(ww_train))])
             int8_eng = StreamingEngine(create_model("res8", num_labels=ctx.num_labels), state_dict,
                                        EngineConfig.from_settings(ctx), FrontendConfig.from_settings(), mean, std,
-                                       compute_dtype=torch.bfloat16, use_int8_trunk=True, int8_calibration_audio=cal,
-                                       device=dev)
+                                       compute_dtype=torch.bfloat16, frontend_precision="bf16", use_int8_trunk=True,
+                                       int8_calibration_audio=cal, device=dev)
             int8_trunk_fused_cuda.launches = int8_conv_layer_cuda.launches = 0
             got = int8_eng.infer_batch(audio)
             torch.cuda.synchronize()
@@ -2006,7 +2108,8 @@ def profile_serving(dev, out_dir) -> None:
     samples = int(CLIP_SECONDS * SAMPLE_RATE)
     audio = torch.from_numpy(smoke_audio(rng, BATCH, samples)).to(dev)
     eng, legacy = (StreamingEngine(create_model("res8", num_labels=4), state, cfg, frontend, zmuv_mean=-6.0,
-                                   zmuv_std=4.0, compute_dtype=torch.bfloat16, fused_trunk=fused, device=dev)
+                                   zmuv_std=4.0, compute_dtype=torch.bfloat16, fused_trunk=fused,
+                                   frontend_precision="bf16", device=dev)
                    for fused in (True, False))
     geom = eng._step_geometry(BATCH, samples)
     lengths = eng._as_lengths(None, BATCH, samples)
@@ -2030,7 +2133,7 @@ def profile_serving(dev, out_dir) -> None:
         }, lambda: eng.infer_batch(audio), 5)
 
         i8 = StreamingEngine(create_model("res8", num_labels=4), state, cfg, frontend, zmuv_mean=-6.0, zmuv_std=4.0,
-                             compute_dtype=torch.bfloat16, use_int8_trunk=True,
+                             compute_dtype=torch.bfloat16, frontend_precision="bf16", use_int8_trunk=True,
                              int8_calibration_audio=audio[: bench.CALIBRATION_CLIPS], device=dev)
         _profile(out_dir, "serve_int8_profile.txt", f"bf16 serving batch, fused trunk, int8 trunk, {BATCH} x "
                  f"{CLIP_SECONDS:g} s", {
@@ -2217,6 +2320,7 @@ def main() -> int:
     sweep = drive_hbm_sweep(dev)
     lap("bandwidth sweep")
     main_path = drive_main_path(dev, BATCH, CLIP_SECONDS)
+    check_tf32_guard(dev)
     legacy_path = drive_legacy_path(dev, BATCH, CLIP_SECONDS)
     k2["max_abs_err_windows"] = legacy_path["k2_windows_max_abs_err"]
     lap("offline scorers")

@@ -214,12 +214,13 @@ def _engine(dev, state_dict, fused: bool, trunk: str = "bf16", calibration_audio
         raise ValueError(f"trunk must be one of {TRUNKS}, got {trunk!r}")
     return StreamingEngine(create_model("res8", num_labels=NUM_LABELS), state_dict, serving_config(),
                            FrontendConfig(n_mels=N_MELS), 0.0, 1.0, compute_dtype=torch.bfloat16, fused_trunk=fused,
-                           use_int8_trunk=trunk == "int8", int8_calibration_audio=calibration_audio, device=dev)
+                           frontend_precision="bf16", use_int8_trunk=trunk == "int8",
+                           int8_calibration_audio=calibration_audio, device=dev)
 
 
 def headline_engine(dev, state_dict, trunk: str = "bf16", calibration_audio=None):
-    """The bf16 fused-trunk engine at the engines' default frontend grade
-    ("bf16"), ZMUV 0 / 1 as ``bench.py`` serves, with the residual trunk
+    """The bf16 fused-trunk engine at the "bf16" frontend grade (what "auto"
+    serves in bf16), ZMUV 0 / 1 as ``bench.py`` serves, with the residual trunk
     ``trunk`` names ("int8": calibrated on ``calibration_audio``)."""
     return _engine(dev, state_dict, True, trunk, calibration_audio)
 

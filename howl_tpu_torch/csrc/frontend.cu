@@ -37,7 +37,9 @@
 // power, and the host passes W and fb already rounded where the grade asks.
 // round_mel rounds the pre-log mel to bf16, as the TPU path does when it
 // writes bf16 output tiles. The three-pass grade ("bf16x3", the TPU kernel's
-// passes == 3) is a second instance of the kernel: the host passes W_hi and
+// passes == 3) runs here only where frontend_tc.cu's three-pass block does not
+// fit in shared memory (512 / 200 at 80 mels) or when the caller forces
+// route="fma". It is a second instance of the kernel: the host passes W_hi and
 // fb_hi as w and fb and their bf16 remainders as w_lo and fb_lo; the span is
 // split into its bf16 part and the bf16 rounding of the rest as it is staged,
 // and the power as the epilogue reads it. Each term is x_hi * W_hi + x_hi *

@@ -1,5 +1,5 @@
 // Fused log-mel frontend on Hopper's tensor cores (sm_90a): audio -> ZMUV'd
-// log-mels, the "tc" route of ops/frontend_cuda.py for the two bf16 grades.
+// log-mels, the "tc" route of ops/frontend_cuda.py for the three bf16 grades.
 //
 // Replaces the TPU kernel howl_tpu/ops/frontend_pallas.py,
 // log_mel_spectrogram_pallas (Pallas kernel _kernel), as frontend.cu does,
@@ -12,12 +12,19 @@
 // reflect-padded audio rounded to bf16, W the bf16 [cos | -sin] DFT basis
 // with the Hann window folded in (grade "bf16"), or its bf16 hi and lo parts
 // one after the other, frames @ W_hi + frames @ W_lo (grade "bf16x2"), and
-// fb the bf16 mel filterbank. Sums are float32.
+// fb the bf16 mel filterbank. Sums are float32. The three-pass grade
+// ("bf16x3", the JAX kernel's default) splits the audio, the power and fb
+// as well, each into its bf16 part and the bf16 rounding of the rest, and
+// drops only the lo x lo terms:
+//
+//     re|im = x_hi @ W_hi + x_hi @ W_lo + x_lo @ W_hi,
+//     mel   = p_hi @ fb_hi + p_lo @ fb_hi + p_hi @ fb_lo.
 //
 // What bounds it on this card: the operations of the DFT product,
-// n_fft * 2 * n_bins multiply-adds a frame (0.5 MFLOP at 512 / 256) against
-// 200 new samples read, so the product belongs on the tensor cores; and next
-// the traffic of W, which every block reads whole from L2.
+// n_fft * 2 * n_bins multiply-adds a frame (0.5 MFLOP at 512 / 256; three
+// times that for "bf16x3") against 200 new samples read, so the product
+// belongs on the tensor cores; and next the traffic of W, which every block
+// reads whole from L2.
 //
 // What the design does about it:
 //  * A block owns one clip and kTile = 128 frames: two warpgroups of 64
@@ -35,6 +42,21 @@
 //    as all eight warps have released the slot; a "full" and an "empty"
 //    mbarrier per slot, kSlots = 3. With 128-frame tiles a batch of 512 x
 //    8 s reads W 3,072 times from L2, not 10,752.
+//  * "bf16x3" streams W_hi and W_lo through the ring as "bf16x2" does (the
+//    same image). A W_hi stage takes two groups of products: A from the
+//    span's bf16 part, then, once the first group is waited for, A from its
+//    remainder, a second span kept beside the first (both rounded once, as
+//    the span is loaded), loaded into the same registers. So no second A
+//    fragment set is live, and W_hi is read once: a stage of the ring costs
+//    about as much whether its products run or not, so streaming W_hi a
+//    third time would cost as much as a pass (1.45 ms against 1.27 at
+//    512 x 8 s on an NVIDIA H100 80GB HBM3 at 700 W; probe_kernel_variants
+//    --probe k1-x3 splits the rest). Its block holds two spans and fb_hi
+//    and fb_lo (one image after the other, both resident), and two ring
+//    slots (kSlotsX3) to stay within a block's shared memory: 210,184 bytes
+//    at 512 / 200 and 40 mels. At 80 mels that is 251,144 bytes, so 512 /
+//    200 at 80 mels takes the FMA kernel (frontend_cuda.frontend_route);
+//    400 / 160 at 80 mels fits.
 //  * There is no producer warp. A thread needs about 240 registers (128 of
 //    them sums), which eight warps of an SM can have and nine cannot, and
 //    the compiler plans a kernel's registers for the count at entry whatever
@@ -49,7 +71,10 @@
 //    is formed in registers, rounded to bf16 and packed straight into the A
 //    fragments of a second wgmma against fb, which lies in shared memory
 //    whole (frontend_cuda.pack_fb_image); the halves' mel products add up in
-//    n_mels_pad / 2 registers. The power never reaches shared memory.
+//    n_mels_pad / 2 registers. The power never reaches shared memory. For
+//    "bf16x3" the power's remainder is packed into a second fragment set
+//    once the sums are dead, and the half's three mel products go out as one
+//    group.
 //  * A warpgroup whose 64 frames all lie past the clip's last frame skips
 //    its products (641 frames are 5 tiles and one frame) but keeps its place
 //    at the barriers.
@@ -79,7 +104,7 @@ constexpr int kStepBytes = 16 * 2 * kHalfBins * 2;  // 16 rows of k of a tile: 8
 constexpr int kStageSteps = 4;                    // 64 rows of k a stage
 constexpr int kStageBytes = kStageSteps * kStepBytes;
 constexpr int kSlots = 3;                         // stages of the ring; 4 measured the same
-constexpr int kRingBytes = kSlots * kStageBytes;
+constexpr int kSlotsX3 = 2;                       // the ring of the three-pass grade, beside two spans and two fbs
 constexpr int kMaxSmem = 232448;                  // 227 KB a block
 
 __host__ __device__ __forceinline__ int round_up16(int x) { return (x + 15) & ~15; }
@@ -87,6 +112,16 @@ __host__ __device__ __forceinline__ int round_up16(int x) { return (x + 15) & ~1
 __host__ __device__ __forceinline__ int fb_image_bytes(int n_halves, int mel_n) { return n_halves * kHalfBins * mel_n * 2; }
 
 __host__ __device__ __forceinline__ int span_samples(int n_fft, int hop) { return (kTile - 1) * hop + n_fft; }
+
+// the block's shared memory: the ring, fb (fb_hi and fb_lo for the three-pass grade), the span (and its
+// remainder), a full and an empty barrier a slot and fb's
+template <int kMelN, bool kX3>
+__host__ __device__ __forceinline__ int block_smem(int n_fft, int hop, int n_halves) {
+  constexpr int slots = kX3 ? kSlotsX3 : kSlots;
+  constexpr int parts = kX3 ? 2 : 1;
+  return slots * kStageBytes + parts * fb_image_bytes(n_halves, kMelN) +
+         parts * round_up16(span_samples(n_fft, hop) * 2) + (2 * slots + 1) * static_cast<int>(sizeof(uint64_t));
+}
 
 __device__ __forceinline__ float round_bf16(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
 
@@ -105,21 +140,27 @@ __device__ __forceinline__ float padded_sample(const float* row, long S, long pa
   return row[i];
 }
 
-template <int kMelN>
+// kX3: the three-pass grade, n_passes 3 (the image holds W_hi and W_lo; a W_hi stage also multiplies the span's
+// remainder)
+template <int kMelN, bool kX3>
 __global__ void __launch_bounds__(kThreads, 1)
 logmel_tc_kernel(const float* __restrict__ audio, const unsigned char* __restrict__ w_img,
                  const unsigned char* __restrict__ fb_img, void* __restrict__ out, int S, int n_frames, int n_fft,
                  int hop, int pad, int n_halves, int n_passes, int n_mels, int round_mel, int out_bf16,
                  int layout_fm, float log_offset, float mean, float inv_std) {
+  constexpr int kRingSlots = kX3 ? kSlotsX3 : kSlots;
+  constexpr int kParts = kX3 ? 2 : 1;  // hi and lo of fb and of the span
   extern __shared__ __align__(128) unsigned char smem[];
-  const int fb_bytes = fb_image_bytes(n_halves, kMelN);
+  const int fb_bytes = fb_image_bytes(n_halves, kMelN);  // one part's image
   const int span = span_samples(n_fft, hop);
+  const int span_bytes = round_up16(span * 2);
   unsigned char* ring = smem;
-  unsigned char* s_fb = ring + kRingBytes;
-  __nv_bfloat16* s_audio = reinterpret_cast<__nv_bfloat16*>(s_fb + fb_bytes);
-  uint64_t* full = reinterpret_cast<uint64_t*>(s_fb + fb_bytes + round_up16(span * 2));
-  uint64_t* empty = full + kSlots;
-  uint64_t* fb_full = empty + kSlots;
+  unsigned char* s_fb = ring + kRingSlots * kStageBytes;  // fb_hi, then fb_lo
+  __nv_bfloat16* s_audio = reinterpret_cast<__nv_bfloat16*>(s_fb + kParts * fb_bytes);  // x_hi, then x_lo
+  __nv_bfloat16* s_audio_lo = reinterpret_cast<__nv_bfloat16*>(s_fb + kParts * fb_bytes + span_bytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(s_fb + kParts * (fb_bytes + span_bytes));
+  uint64_t* empty = full + kRingSlots;
+  uint64_t* fb_full = empty + kRingSlots;
 
   const int tid = threadIdx.x;
   const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);  // the same in every lane, and the compiler knows it
@@ -129,17 +170,19 @@ logmel_tc_kernel(const float* __restrict__ audio, const unsigned char* __restric
   const int b = blockIdx.x / n_tiles;
   const int t0 = (blockIdx.x % n_tiles) * kTile;
 
-  // The stages of W in the order they are consumed, which is the order of the image: per half, per pass, 64 rows
-  // of k at a time; the last stage of a pass is short when n_fft is no multiple of 64.
+  // The stages of W in the order they are consumed, which is the order of the image: per half, per pass of W (hi
+  // then lo for the three-pass grade), 64 rows of k at a time; the last stage of a pass is short when n_fft is no
+  // multiple of 64.
   const int k_steps = n_fft / 16;
   const int stages_per_pass = (k_steps + kStageSteps - 1) / kStageSteps;
-  const int n_stages = n_halves * n_passes * stages_per_pass;
+  const int w_passes = kX3 ? 2 : n_passes;
+  const int n_stages = n_halves * w_passes * stages_per_pass;
   auto stage_steps = [&](int i) {
     const int left = k_steps - (i % stages_per_pass) * kStageSteps;
     return left < kStageSteps ? left : kStageSteps;
   };
   auto load_stage = [&](int i) {  // one thread
-    const int slot = i % kSlots;
+    const int slot = i % kRingSlots;
     const uint32_t bytes = stage_steps(i) * kStepBytes;
     const size_t first_step = static_cast<size_t>(i / stages_per_pass) * k_steps + (i % stages_per_pass) * kStageSteps;
     mbar_arrive_expect_tx(&full[slot], bytes);
@@ -147,21 +190,26 @@ logmel_tc_kernel(const float* __restrict__ audio, const unsigned char* __restric
   };
 
   if (tid == 0) {
-    for (int slot = 0; slot < kSlots; ++slot) {
+    for (int slot = 0; slot < kRingSlots; ++slot) {
       mbar_init(&full[slot], 1);
       mbar_init(&empty[slot], kThreads / 32);  // one arrival a warp
     }
     mbar_init(fb_full, 1);
     mbar_init_fence();
     fence_proxy_async();
-    mbar_arrive_expect_tx(fb_full, fb_bytes);
-    bulk_load(s_fb, fb_img, fb_bytes, fb_full);
-    for (int i = 0; i < kSlots && i < n_stages; ++i) load_stage(i);
+    mbar_arrive_expect_tx(fb_full, kParts * fb_bytes);
+    bulk_load(s_fb, fb_img, kParts * fb_bytes, fb_full);
+    for (int i = 0; i < kRingSlots && i < n_stages; ++i) load_stage(i);
   }
-  // The span, rounded to bf16. A tile inside the clip (all but the first and the last, when the clip's rows are
-  // 16-byte aligned; the span's first sample is a multiple of 4 samples into the clip) takes 16-byte loads,
-  // kSpanLoads of them in flight a thread, since the block has nothing else to hide their latency behind. A
-  // tile at an edge goes sample by sample through the padding.
+  // The span, rounded to bf16 (and for "bf16x3" the bf16 rounding of the rest, x - x_hi, exact in float32:
+  // split_bf16's rule, which commutes with the padding). A tile inside the clip (all but the first and the
+  // last, when the clip's rows are 16-byte aligned; the span's first sample is a multiple of 4 samples into the
+  // clip) takes 16-byte loads, kSpanLoads of them in flight a thread, since the block has nothing else to hide
+  // their latency behind. A tile at an edge goes sample by sample through the padding.
+  auto store_sample = [&](int i, float x) {
+    s_audio[i] = __float2bfloat16_rn(x);
+    if (kX3) s_audio_lo[i] = __float2bfloat16_rn(__fsub_rn(x, round_bf16(x)));
+  };
   const float* clip = audio + static_cast<size_t>(b) * S;
   const long p0 = static_cast<long>(t0) * hop;
   const long first = p0 - pad;
@@ -176,13 +224,19 @@ logmel_tc_kernel(const float* __restrict__ audio, const unsigned char* __restric
         if (base + u * kThreads < n4) v[u] = __ldg(src + base + u * kThreads);
 #pragma unroll
       for (int u = 0; u < kSpanLoads; ++u)
-        if (base + u * kThreads < n4)
+        if (base + u * kThreads < n4) {
+          const float4 x = v[u];
           reinterpret_cast<uint2*>(s_audio)[base + u * kThreads] =
-              make_uint2(pack_bf16(v[u].x, v[u].y), pack_bf16(v[u].z, v[u].w));
+              make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
+          if (kX3)
+            reinterpret_cast<uint2*>(s_audio_lo)[base + u * kThreads] =
+                make_uint2(pack_bf16(__fsub_rn(x.x, round_bf16(x.x)), __fsub_rn(x.y, round_bf16(x.y))),
+                           pack_bf16(__fsub_rn(x.z, round_bf16(x.z)), __fsub_rn(x.w, round_bf16(x.w))));
+        }
     }
-    for (int i = n4 * 4 + tid; i < span; i += kThreads) s_audio[i] = __float2bfloat16_rn(clip[first + i]);
+    for (int i = n4 * 4 + tid; i < span; i += kThreads) store_sample(i, clip[first + i]);
   } else {
-    for (int i = tid; i < span; i += kThreads) s_audio[i] = __float2bfloat16_rn(padded_sample(clip, S, pad, p0 + i));
+    for (int i = tid; i < span; i += kThreads) store_sample(i, padded_sample(clip, S, pad, p0 + i));
   }
   __syncthreads();  // the span is written and the barriers are initialised
 
@@ -191,14 +245,16 @@ logmel_tc_kernel(const float* __restrict__ audio, const unsigned char* __restric
   const int tig = lane & 3;
   const int row = wg * 64 + (warp & 3) * 16 + g;  // this thread's first frame of the tile; the second is row + 8
   const bool active = t0 + wg * 64 < n_frames;    // a warpgroup with no frame of the clip computes nothing
-  const __nv_bfloat16* xa = s_audio + row * hop + 2 * tig;
-  const __nv_bfloat16* xb = xa + 8 * hop;
+  const int x_off = row * hop + 2 * tig;
 
-  // the A fragments of a stage's products: samples k0 + 16 ks + {2 tig, 2 tig + 1} and + 8 of both frames
+  // the A fragments of a stage's products: samples k0 + 16 ks + {2 tig, 2 tig + 1} and + 8 of both frames, from
+  // the span's bf16 part, or from its remainder (the three-pass grade's second products of a W_hi stage)
   uint32_t a[kStageSteps * 4];
-  auto load_a = [&](int i) {
+  auto load_a = [&](int i, bool lo) {
     const int k0 = (i % stages_per_pass) * kStageSteps * 16;
     const int steps = stage_steps(i);
+    const __nv_bfloat16* xa = (lo ? s_audio_lo : s_audio) + x_off;
+    const __nv_bfloat16* xb = xa + 8 * hop;
 #pragma unroll
     for (int ks = 0; ks < kStageSteps; ++ks)
       if (ks < steps) {
@@ -215,67 +271,87 @@ logmel_tc_kernel(const float* __restrict__ audio, const unsigned char* __restric
   for (int i = 0; i < kMelN / 2; ++i) mel[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < kStageSteps * 4; ++i) a[i] = 0u;
-  if (active) load_a(0);
+  if (active) load_a(0, false);
 
   int stage = 0;
   for (int h = 0; h < n_halves; ++h) {
     float acc[128];  // (64, 256) sums: d[4j + i] is re of bin 8j + 2 tig + (i & 1), d[64 + 4j + i] its im
-    for (int j = 0; j < n_passes * stages_per_pass; ++j, ++stage) {
-      const int slot = stage % kSlots;
+    for (int j = 0; j < w_passes * stages_per_pass; ++j, ++stage) {
+      const int slot = stage % kRingSlots;
       const int steps = stage_steps(stage);
-      mbar_wait(&full[slot], (stage / kSlots) & 1);
+      mbar_wait(&full[slot], (stage / kRingSlots) & 1);
       if (active) {
         const uint32_t w_s = smem_u32(ring + slot * kStageBytes);
-        wgmma_fence();
-        auto product = [&](int ks) {
-          wgmma_m64n256k16(acc, a[ks * 4], a[ks * 4 + 1], a[ks * 4 + 2], a[ks * 4 + 3],
-                           wgmma_desc(w_s + ks * kStepBytes, kStepBytes / 2, 128), j > 0 || ks > 0);
+        // one group of the stage's products with the A fragments in registers, waited for: then the fragments may
+        // be loaded again
+        auto products = [&](bool first) {
+          wgmma_fence();
+          auto product = [&](int ks) {
+            wgmma_m64n256k16(acc, a[ks * 4], a[ks * 4 + 1], a[ks * 4 + 2], a[ks * 4 + 3],
+                             wgmma_desc(w_s + ks * kStepBytes, kStepBytes / 2, 128), !first || ks > 0);
+          };
+          if (steps == kStageSteps) {  // no branch between the products of a full stage
+#pragma unroll
+            for (int ks = 0; ks < kStageSteps; ++ks) product(ks);
+          } else {
+#pragma unroll
+            for (int ks = 0; ks < kStageSteps - 1; ++ks)
+              if (ks < steps) product(ks);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          wgmma_keep(a);
         };
-        if (steps == kStageSteps) {  // no branch between the products of a full stage
-#pragma unroll
-          for (int ks = 0; ks < kStageSteps; ++ks) product(ks);
-        } else {
-#pragma unroll
-          for (int ks = 0; ks < kStageSteps - 1; ++ks)
-            if (ks < steps) product(ks);
+        products(j == 0);
+        if (kX3 && j < stages_per_pass) {  // a W_hi stage: x_lo @ W_hi from the same slot
+          load_a(stage, true);
+          products(false);
         }
-        wgmma_commit();
-        wgmma_wait<0>();
-        wgmma_keep(a);  // the products have read them: now the next stage's may take their place
-        if (stage + 1 < n_stages) load_a(stage + 1);
+        if (stage + 1 < n_stages) load_a(stage + 1, false);  // the products have read them: the next stage's
       }
       if (lane == 0) mbar_arrive(&empty[slot]);
-      if (warp == 0 && stage + kSlots < n_stages) {
+      if (warp == 0 && stage + kRingSlots < n_stages) {
         // every warp has released the slot: refill it (the wait by the whole warp, see the top of the file)
-        mbar_wait(&empty[slot], (stage / kSlots) & 1);
-        if (lane == 0) load_stage(stage + kSlots);
+        mbar_wait(&empty[slot], (stage / kRingSlots) & 1);
+        if (lane == 0) load_stage(stage + kRingSlots);
       }
     }
     if (active) {
       wgmma_keep(acc);
       // power = re^2 + im^2, each product and the sum rounded as float32, then to bf16: the A fragments of the
-      // mel product over this half's 128 bins, 16 bins a step
+      // mel product over this half's 128 bins, 16 bins a step; for "bf16x3" also the bf16 rounding of the rest
       uint32_t p[32];
+      uint32_t q[kX3 ? 32 : 1];
 #pragma unroll
       for (int j = 0; j < 16; ++j)
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const float re0 = acc[4 * j + 2 * r], re1 = acc[4 * j + 2 * r + 1];
           const float im0 = acc[64 + 4 * j + 2 * r], im1 = acc[64 + 4 * j + 2 * r + 1];
-          p[2 * j + r] = pack_bf16(__fadd_rn(__fmul_rn(re0, re0), __fmul_rn(im0, im0)),
-                                   __fadd_rn(__fmul_rn(re1, re1), __fmul_rn(im1, im1)));
+          const float pw0 = __fadd_rn(__fmul_rn(re0, re0), __fmul_rn(im0, im0));
+          const float pw1 = __fadd_rn(__fmul_rn(re1, re1), __fmul_rn(im1, im1));
+          p[2 * j + r] = pack_bf16(pw0, pw1);
+          if constexpr (kX3) q[2 * j + r] = pack_bf16(__fsub_rn(pw0, round_bf16(pw0)), __fsub_rn(pw1, round_bf16(pw1)));
         }
       if (h == 0) mbar_wait(fb_full, 0);
-      // fb's image: per 16 bins two by kMelN / 8 core matrices
+      // fb's image: per 16 bins two by kMelN / 8 core matrices; fb_lo's image follows fb_hi's
       const uint32_t fb_s = smem_u32(s_fb) + h * (kHalfBins / 16) * (kMelN * 32);
-      wgmma_fence();
+      auto mel_product = [&](const uint32_t(&frag)[32], uint32_t fb_at) {
 #pragma unroll
-      for (int kk = 0; kk < kHalfBins / 16; ++kk)
-        wgmma_m64nNk16(mel, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
-                       wgmma_desc(fb_s + kk * (kMelN * 32), kMelN * 16, 128), 1);
+        for (int kk = 0; kk < kHalfBins / 16; ++kk)
+          wgmma_m64nNk16(mel, frag[4 * kk], frag[4 * kk + 1], frag[4 * kk + 2], frag[4 * kk + 3],
+                         wgmma_desc(fb_at + kk * (kMelN * 32), kMelN * 16, 128), 1);
+      };
+      wgmma_fence();
+      mel_product(p, fb_s);
+      if constexpr (kX3) {
+        mel_product(q, fb_s);             // p_lo @ fb_hi
+        mel_product(p, fb_s + fb_bytes);  // p_hi @ fb_lo
+      }
       wgmma_commit();
       wgmma_wait<0>();
       wgmma_keep(p);
+      wgmma_keep(q);
       wgmma_keep(mel);
     }
   }
@@ -324,19 +400,19 @@ logmel_tc_kernel(const float* __restrict__ audio, const unsigned char* __restric
   }
 }
 
-template <int kMelN>
+template <int kMelN, bool kX3>
 int launch(const void* audio, const void* w_img, const void* fb_img, void* out, int B, int S, int n_frames, int n_fft,
            int hop, int center, int n_halves, int n_passes, int n_mels, int out_bf16, int layout_fm,
            float log_offset, float mean, float inv_std, void* stream) {
-  const int smem = kRingBytes + fb_image_bytes(n_halves, kMelN) + round_up16(span_samples(n_fft, hop) * 2) +
-                   (2 * kSlots + 1) * static_cast<int>(sizeof(uint64_t));
+  const int smem = block_smem<kMelN, kX3>(n_fft, hop, n_halves);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(logmel_tc_kernel<kMelN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err =
+      cudaFuncSetAttribute(logmel_tc_kernel<kMelN, kX3>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks = static_cast<long long>((n_frames + kTile - 1) / kTile) * B;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(blocks));
-  logmel_tc_kernel<kMelN><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  logmel_tc_kernel<kMelN, kX3><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(audio), static_cast<const unsigned char*>(w_img),
       static_cast<const unsigned char*>(fb_img), out, S, n_frames, n_fft, hop, center ? n_fft / 2 : 0, n_halves,
       n_passes, n_mels, out_bf16, out_bf16, layout_fm, log_offset, mean, inv_std);
@@ -346,12 +422,15 @@ int launch(const void* audio, const void* w_img, const void* fb_img, void* out, 
 }  // namespace
 
 // audio (B, S) float32; w_img the bf16 image of W, n_halves x n_passes x
-// (n_fft / 16) steps of 8 KB (frontend_cuda.pack_w_image); fb_img the bf16
-// image of fb, (n_halves * 128, mel_n) (frontend_cuda.pack_fb_image), mel_n
-// 40 or 80 and at least n_mels; out (B, n_frames, n_mels) ("tm") or (B,
-// n_mels, n_frames) ("fm"), float32 or bf16, the pre-log mel rounded to bf16
-// first for bf16. All contiguous. Returns cudaGetLastError() after the
-// launch, the error of the shared-memory attribute call, or
+// (n_fft / 16) steps of 8 KB (frontend_cuda.pack_w_image): n_passes 1
+// ("bf16": W), 2 ("bf16x2": W_hi, W_lo) or 3 ("bf16x3": the same two passes
+// of W, the audio split as well, so n_halves x 2 x (n_fft / 16) steps);
+// fb_img the bf16 image of fb, (n_halves * 128, mel_n)
+// (frontend_cuda.pack_fb_image), for n_passes 3 fb_hi's image and then
+// fb_lo's; mel_n 40 or 80 and at least n_mels; out (B, n_frames, n_mels)
+// ("tm") or (B, n_mels, n_frames) ("fm"), float32 or bf16, the pre-log mel
+// rounded to bf16 first for bf16. All contiguous. Returns cudaGetLastError()
+// after the launch, the error of the shared-memory attribute call, or
 // cudaErrorInvalidValue for a geometry the kernel does not serve.
 extern "C" int howl_logmel_tc_forward(const void* audio, const void* w_img, const void* fb_img, void* out, int B,
                                       int S, int n_frames, int n_fft, int hop, int center, int n_halves,
@@ -359,13 +438,16 @@ extern "C" int howl_logmel_tc_forward(const void* audio, const void* w_img, cons
                                       float log_offset, float mean, float inv_std, void* stream) {
   if (B == 0 || n_frames == 0) return 0;
   if (n_fft < 16 || n_fft % 16 != 0 || hop < 2 || hop % 2 != 0 || n_mels < 8 || n_mels % 8 != 0 || n_mels > mel_n ||
-      n_halves < 1 || n_passes < 1 || n_passes > 2)
+      n_halves < 1 || n_passes < 1 || n_passes > 3)
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool x3 = n_passes == 3;
   if (mel_n == 40)
-    return launch<40>(audio, w_img, fb_img, out, B, S, n_frames, n_fft, hop, center, n_halves, n_passes, n_mels,
-                      out_bf16, layout_fm, log_offset, mean, inv_std, stream);
+    return (x3 ? launch<40, true> : launch<40, false>)(audio, w_img, fb_img, out, B, S, n_frames, n_fft, hop, center,
+                                                       n_halves, n_passes, n_mels, out_bf16, layout_fm, log_offset,
+                                                       mean, inv_std, stream);
   if (mel_n == 80)
-    return launch<80>(audio, w_img, fb_img, out, B, S, n_frames, n_fft, hop, center, n_halves, n_passes, n_mels,
-                      out_bf16, layout_fm, log_offset, mean, inv_std, stream);
+    return (x3 ? launch<80, true> : launch<80, false>)(audio, w_img, fb_img, out, B, S, n_frames, n_fft, hop, center,
+                                                       n_halves, n_passes, n_mels, out_bf16, layout_fm, log_offset,
+                                                       mean, inv_std, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

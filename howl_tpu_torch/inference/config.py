@@ -8,6 +8,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from howl_tpu_torch.ops.tf32 import is_float32
+
 
 @dataclass(frozen=True)
 class EngineConfig:
@@ -97,11 +99,12 @@ def ring_steps(cfg: EngineConfig, stride_ms: float) -> tuple:
 
 def serving_dft_precision(compute_dtype, override="auto"):
     """The frontend precision an engine serves at: ``override`` unless it is
-    ``"auto"``, which picks the exact float32 grade (``"f32"``) for float32
-    serving and the 1-pass ``"bf16"`` grade once bf16 scoring is asked for."""
+    ``"auto"`` (every engine's default, as in the JAX engines), which picks
+    the exact float32 grade (``"f32"``) for float32 serving and the 1-pass
+    ``"bf16"`` grade once bf16 scoring is asked for."""
     if override != "auto":
         return override
-    return "f32" if compute_dtype in (None, torch.float32) else "bf16"
+    return "f32" if is_float32(compute_dtype) else "bf16"
 
 
 def cast_compute_dtype(state_dict, compute_dtype):

@@ -63,6 +63,7 @@ from howl_tpu_torch.ops.frontend_cuda import log_mel_spectrogram_cuda
 from howl_tpu_torch.ops.int8_trunk import ROUTES as INT8_ROUTES
 from howl_tpu_torch.ops.int8_trunk import calibrate_act_scales, quantize_residual_trunk, residual_features_int8
 from howl_tpu_torch.ops.stem_cuda import fold_stem_weights, res8_stem_cuda
+from howl_tpu_torch.ops.tf32 import exact_if_float32
 
 
 def _not_ported(what: str, item: str):
@@ -83,7 +84,7 @@ class StreamingEngine:
         spec: Optional[ModelSpec] = None,
         compute_dtype: Optional[torch.dtype] = None,
         fused_trunk: Optional[bool] = None,
-        frontend_precision="bf16",
+        frontend_precision="auto",
         carry_windows: bool = False,
         use_int8_trunk: bool = False,
         int8_calibration_audio=None,
@@ -97,10 +98,13 @@ class StreamingEngine:
 
         ``compute_dtype=torch.bfloat16`` rounds every float32 weight to bf16
         and scores in bf16; the head, the posteriors and the decision logic
-        stay float32. The frontend runs at ``frontend_precision`` ("bf16" by
-        default, the JAX engine's ``pallas_precision``; "auto" picks float32
-        for float32 serving and "bf16" for bf16) and writes its mels in the
-        compute dtype.
+        stay float32. A float32 engine scores with TF32 off, whatever the
+        caller's global ``allow_tf32`` flags (``ops/tf32.py``). The frontend
+        runs at ``frontend_precision``: "auto" (the default, as the JAX
+        engine's ``dft_precision``) serves the exact "f32" grade for float32
+        scoring and the 1-pass "bf16" grade for bf16; any grade
+        ``ops.frontend_cuda.frontend_grade`` knows can be named. It writes its
+        mels in the compute dtype.
 
         ``fused_trunk`` (None or True: the fused-trunk scorer; False: the
         per-window mega-batch scorer) picks the scorer; see the module's
@@ -250,6 +254,7 @@ class StreamingEngine:
         return torch.softmax(logits.float(), dim=-1).reshape(b, n_windows, -1)
 
     @torch.no_grad()
+    @exact_if_float32
     def _score(self, audio: torch.Tensor, n_windows: int) -> torch.Tensor:
         """(B, samples) -> (B, n_windows, L) posteriors."""
         if not self.fused_trunk:

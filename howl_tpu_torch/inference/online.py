@@ -13,7 +13,9 @@ windows go through the frontend kernel K1 ("fm" layout), then
 by cuDNN). ``IncrementalOnlineEngine`` featurizes only the newest samples
 (tail + hop, ``center=False``, the plain log-mel chain of
 ``ops/frontend.py``, where the JAX package runs its XLA chain) into a ring of
-mel frames and scores the ring's window the same way (K2 included).
+mel frames and scores the ring's window the same way (K2 included). A
+float32 engine runs each step with TF32 off whatever the caller's global
+``allow_tf32`` flags (``ops/tf32.py``); a bf16 engine leaves them as set.
 
 Only res8 is ported; other models, ``carry_hops`` (recurrent models) and
 ``shard_streams`` (a mesh of cards) raise and cite their ROADMAP items. Every
@@ -47,6 +49,7 @@ from howl_tpu_torch.inference.engine import _not_ported
 from howl_tpu_torch.models.base import ModelSpec, model_spec
 from howl_tpu_torch.ops.frontend import FrontendConfig, log_mel_spectrogram
 from howl_tpu_torch.ops.frontend_cuda import frontend_grade, log_mel_spectrogram_cuda
+from howl_tpu_torch.ops.tf32 import exact_if_float32
 
 _REBASE_AT = float(2**22)  # ms
 _REBASE_DELTA = float(2**21)  # ms
@@ -198,6 +201,7 @@ class OnlineEngine(_HopEngine):
         )
 
     @torch.no_grad()
+    @exact_if_float32
     def _step(self, audio: torch.Tensor, state: DetectState, t_now):
         """One hop on (N, window_samples) device audio: (state, label,
         fired_now, probs)."""
@@ -279,6 +283,7 @@ class IncrementalOnlineEngine(_HopEngine):
         self.last_fired = None
 
     @torch.no_grad()
+    @exact_if_float32
     def _step(self, new_audio: torch.Tensor, tail: torch.Tensor, ring: torch.Tensor, state: DetectState, t_now):
         """One hop on (N, hop_samples) device audio: (tail, ring, state,
         label, fired_now)."""

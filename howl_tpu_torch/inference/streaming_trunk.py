@@ -22,7 +22,8 @@ caches runs the whole-clip trunk (``Res8.trunk_intermediates``, the stem
 kernel K2 on a card) over a window of preroll, in blocks of
 ``prefill_block`` streams; each hop's frames come from the plain log-mel
 chain (``ops/frontend.py``, ``center=False``) and its slab stem from
-``F.conv2d``, where the JAX package runs XLA.
+``F.conv2d``, where the JAX package runs XLA. In float32 the prefill and
+every step run with TF32 off (``ops/tf32.py``), as ``online.py``'s engines.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from howl_tpu_torch.inference.detect import DetectState
 from howl_tpu_torch.inference.online import _HopEngine, chain_precision
 from howl_tpu_torch.models.base import ModelSpec
 from howl_tpu_torch.ops.frontend import FrontendConfig, log_mel_spectrogram
+from howl_tpu_torch.ops.tf32 import exact_if_float32
 
 
 class TrunkSchedule:
@@ -336,6 +338,7 @@ class FusedStreamingOnlineEngine(_HopEngine):
         return (mels - self.zmuv_mean) / self.zmuv_std
 
     @torch.no_grad()
+    @exact_if_float32
     def _prefill(self, preroll: torch.Tensor):
         """(mel_cache, rings, s6_ring, tail) of a block of streams from their
         (B, window_frames * hop) preroll."""
@@ -377,6 +380,7 @@ class FusedStreamingOnlineEngine(_HopEngine):
         return buf[:, -self.tail_samples :], mel_cache, rings, s6_ring
 
     @torch.no_grad()
+    @exact_if_float32
     def _hop_step(self, phase: int, new_audio, tail, mel_cache, rings, s6_ring, state: DetectState, t_now, valid):
         """One hop at schedule phase ``phase``: (tail, mel_cache, rings,
         s6_ring, state, label, fired_now, probs)."""
@@ -390,6 +394,7 @@ class FusedStreamingOnlineEngine(_HopEngine):
         return tail, mel_cache, rings, s6_ring, state, label, fired_now, probs
 
     @torch.no_grad()
+    @exact_if_float32
     def _block_step(self, new_audio, tail, mel_cache, rings, s6_ring, state: DetectState, k0: int, t_base: float):
         """One block of ``hop_block`` hops, the first deciding window ``k0``
         at time ``t_base``: (tail, mel_cache, rings, s6_ring, state, labels

@@ -33,14 +33,18 @@ and a kernel for a tensor on a CUDA device. Which kernel is decided by the
 grade and the geometry alone (``frontend_route``), never by a failure:
 
     "tc"   ``csrc/frontend_tc.cu``: both products on the tensor cores
-           (``wgmma``), W streamed by bulk asynchronous copies. The two bf16
-           grades "bf16" and "bf16x2", when n_fft is a multiple of 16, hop is
-           even, n_mels is a multiple of 8 and at most 80, and the tile's audio
-           span, the ring and the filterbank fit a block's shared memory.
-    "fma"  ``csrc/frontend.cu``: float32 FMA on the CUDA cores. The "f32" and
-           "bf16x3" grades always (a product of two bf16 values is exact in
-           float32, so FMA on the rounded operands computes each pass), and
-           every geometry the "tc" kernel does not serve.
+           (``wgmma``), W streamed by bulk asynchronous copies. The three bf16
+           grades "bf16", "bf16x2" and "bf16x3", when n_fft is a multiple of
+           16, hop is even, n_mels is a multiple of 8 and at most 80, and the
+           tile's audio span, the ring and the filterbank fit a block's shared
+           memory (``tc_shared_bytes``). "bf16x3" holds two spans (the bf16
+           part and the remainder) and fb_hi and fb_lo beside a ring of two
+           slots: it fits at 512 / 200 and 400 / 160 with 40 mels and at
+           400 / 160 with 80, not at 512 / 200 with 80.
+    "fma"  ``csrc/frontend.cu``: float32 FMA on the CUDA cores. The "f32"
+           grade always, and every geometry the "tc" kernel does not serve
+           (for "bf16x3": a product of two bf16 values is exact in float32,
+           so FMA on the rounded operands computes each pass).
 
 ``route=`` forces one of the two and raises where it cannot serve.
 """
@@ -154,6 +158,7 @@ TC_TILE = 128  # frames a block owns
 TC_HALF_BINS = 128  # bins of one N = 256 tile of W: [re | im]
 TC_STAGE_BYTES = 32768  # 64 rows of k of a tile
 TC_SLOTS = 3  # stages of the ring
+TC_SLOTS_X3 = 2  # stages of the ring of the three-pass grade
 TC_MEL_WIDTHS = (40, 80)  # the mel product's N, compiled in
 TC_MAX_SHARED = 232448  # 227 KB a block
 ROUTES = ("tc", "fma")
@@ -163,13 +168,17 @@ def _tc_mel_width(n_mels: int):
     return next((n for n in TC_MEL_WIDTHS if n_mels <= n), None)
 
 
-def tc_shared_bytes(config: FrontendConfig) -> int:
+def tc_shared_bytes(config: FrontendConfig, grade: str = "bf16") -> int:
     """Shared memory of one block of the "tc" kernel: the ring, the
-    filterbank's image, the tile's audio span in bf16, seven barriers."""
+    filterbank's image, the tile's audio span in bf16, a full and an empty
+    barrier a slot and the filterbank's. "bf16x3" has a ring of
+    ``TC_SLOTS_X3`` slots and two of the rest: fb_hi and fb_lo, the span's
+    bf16 part and its remainder."""
     n_halves = -(-nyquist_crop_bins(config) // TC_HALF_BINS)
     span = (TC_TILE - 1) * config.hop_length + config.n_fft
     fb = n_halves * TC_HALF_BINS * _tc_mel_width(config.n_mels) * 2
-    return TC_SLOTS * TC_STAGE_BYTES + fb + _round_up(span * 2, 16) + (2 * TC_SLOTS + 1) * 8
+    slots, parts = (TC_SLOTS_X3, 2) if grade == "bf16x3" else (TC_SLOTS, 1)
+    return slots * TC_STAGE_BYTES + parts * (fb + _round_up(span * 2, 16)) + (2 * slots + 1) * 8
 
 
 def frontend_route(config: FrontendConfig, grade: str) -> str:
@@ -178,11 +187,11 @@ def frontend_route(config: FrontendConfig, grade: str) -> str:
     if grade not in GRADES:
         raise ValueError(f"unknown grade {grade!r}")
     fits = (
-        grade in ("bf16x2", "bf16")
+        grade != "f32"
         and config.n_fft >= 16 and config.n_fft % 16 == 0
         and config.hop_length >= 2 and config.hop_length % 2 == 0
         and config.n_mels >= 8 and config.n_mels % 8 == 0 and _tc_mel_width(config.n_mels) is not None
-        and tc_shared_bytes(config) <= TC_MAX_SHARED
+        and tc_shared_bytes(config, grade) <= TC_MAX_SHARED
     )
     return "tc" if fits else "fma"
 
@@ -238,22 +247,26 @@ def unpack_fb_image(img: torch.Tensor, mel_n: int) -> torch.Tensor:
 def frontend_bases_tc(config: FrontendConfig, grade: str, device: torch.device):
     """(W image, fb image, n_halves, n_passes, mel_n) on ``device`` for the
     "tc" kernel, built once per geometry and grade: bf16 W in tiles of 128
-    bins (one pass for "bf16", hi then lo for "bf16x2") and the bf16
-    filterbank, its bins padded to whole tiles and its mels to mel_n with
-    zeros, both packed as the kernel reads them."""
+    bins (one pass for "bf16", hi then lo for "bf16x2" and "bf16x3", whose
+    kernel multiplies W_hi by the audio's remainder too: n_passes 3 names
+    that, over the same two passes of W) and the bf16 filterbank ("bf16x3":
+    fb_hi's image, then fb_lo's), its bins padded to whole tiles and its
+    mels to mel_n with zeros, both packed as the kernel reads them."""
     if frontend_route(config, grade) != "tc":
         raise ValueError(f"the tensor-core frontend kernel does not serve {config} at grade {grade!r}")
     n_bins = nyquist_crop_bins(config)
     cols = tc_tile_columns(n_bins)
     w, fb = _padded_bases(config, n_bins)
     tiles = np.where(cols >= 0, w[:, np.maximum(cols, 0)], np.float32(0.0))
-    passes = split_bf16(tiles) if grade == "bf16x2" else (torch.from_numpy(tiles).to(torch.bfloat16),)
+    passes = (torch.from_numpy(tiles).to(torch.bfloat16),) if grade == "bf16" else split_bf16(tiles)
     mel_n = _tc_mel_width(config.n_mels)
     fb_pad = np.zeros((len(cols) // 2, mel_n), np.float32)
     fb_pad[:n_bins, : config.n_mels] = fb
+    fb_parts = split_bf16(fb_pad) if grade == "bf16x3" else (torch.from_numpy(fb_pad).to(torch.bfloat16),)
     w_img = pack_w_image(torch.stack(passes))
-    fb_img = pack_fb_image(torch.from_numpy(fb_pad).to(torch.bfloat16))
-    return w_img.to(device), fb_img.to(device), len(cols) // (2 * TC_HALF_BINS), len(passes), mel_n
+    fb_img = torch.cat([pack_fb_image(part) for part in fb_parts])
+    n_passes = {"bf16": 1, "bf16x2": 2, "bf16x3": 3}[grade]
+    return w_img.to(device), fb_img.to(device), len(cols) // (2 * TC_HALF_BINS), n_passes, mel_n
 
 
 def _zmuv_scalars(zmuv_mean, zmuv_std) -> tuple[float, float]:

@@ -37,7 +37,6 @@ operation rounds to the compute dtype on its own.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 from typing import NamedTuple, Optional, Sequence, Tuple
 
@@ -46,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from howl_tpu_torch.ops import _build
+from howl_tpu_torch.ops.tf32 import exact_float32
 
 _BN_EPS = 1e-5  # res8's BatchNorm eps
 N_LAYERS = 6
@@ -73,18 +73,6 @@ class Int8TrunkParams(NamedTuple):
     bn_scale: Tuple[torch.Tensor, ...]  # 6 x (C,) float32, 1 / sqrt(var + eps)
     bn_shift: Tuple[torch.Tensor, ...]  # 6 x (C,) float32, -mean * scale
     act_scale: Tuple[float, ...]  # 6 static per-layer input scales
-
-
-@contextlib.contextmanager
-def exact_float32():
-    """Float32 convolutions and matrix products in full float32 inside the
-    block (TF32 off on a card), the previous settings restored after it."""
-    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def _numpy(t) -> np.ndarray:

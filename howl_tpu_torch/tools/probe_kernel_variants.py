@@ -5,6 +5,7 @@ out, to see where the kernel's time goes.
     python -m howl_tpu_torch.tools.probe_kernel_variants --probe m2-wgmma [--source howl_tpu_torch/csrc/micro_gemm.cu]
     python -m howl_tpu_torch.tools.probe_kernel_variants --probe m3-wgmma [--source howl_tpu_torch/csrc/micro_poly.cu]
     python -m howl_tpu_torch.tools.probe_kernel_variants --probe int8-fused [--source howl_tpu_torch/csrc/int8_trunk_fused.cu]
+    python -m howl_tpu_torch.tools.probe_kernel_variants --probe k1-x3 [--source howl_tpu_torch/csrc/frontend_tc.cu]
 
 A probe names a kernel source, its C entry, the study inputs it runs on and a
 list of variants; a variant is a list of exact text edits to the source (each
@@ -46,6 +47,12 @@ Probes:
                every layer run, nothing is stored); no quantize (each
                layer's output reaches the s8 buffer unquantized, one store
                as before).
+  k1-x3        the tensor-core frontend kernel (``csrc/frontend_tc.cu``) at
+               the serving batch, 512 clips x 8 s, 40 mels, bf16 out, "tm",
+               at each of its grades ("bf16", "bf16x2", "bf16x3"): as it is;
+               no x_lo @ W_hi products ("bf16x3": the second group of a W_hi
+               stage); no second and third mel products; no store of the
+               span's remainder.
 
 Needs a CUDA device and nvcc.
 """
@@ -121,6 +128,17 @@ INT8_FUSED_EDITS = {
                      "static_cast<uint16_t>(__float_as_uint(o0) ^ __float_as_uint(o1));")],
 }
 
+
+K1_X3_EDITS = {
+    "as it is": [],
+    "no x_lo products": [("        if (kX3 && j < stages_per_pass) {", "        if (kX3 && j < stages_per_pass && n_mels < 0) {")],
+    "no lo mel products": [("        mel_product(q, fb_s);             // p_lo @ fb_hi\n"
+                            "        mel_product(p, fb_s + fb_bytes);  // p_hi @ fb_lo",
+                            "        if (n_mels < 0) {\n          mel_product(q, fb_s);\n"
+                            "          mel_product(p, fb_s + fb_bytes);\n        }")],
+    "no span remainder": [("          if (kX3)\n            reinterpret_cast<uint2*>(s_audio_lo)",
+                           "          if (kX3 && n_mels < 0)\n            reinterpret_cast<uint2*>(s_audio_lo)")],
+}
 
 ITERS = 20  # calls a timed run
 
@@ -275,11 +293,41 @@ def _int8_fused_runner(dev):
     return make
 
 
+def _k1_x3_runner(dev):
+    """The tensor-core frontend kernel at the serving batch, one case a
+    grade, each on its own images (``frontend_bases_tc``)."""
+    from howl_tpu_torch.ops.frontend import FrontendConfig
+    from howl_tpu_torch.ops.frontend_cuda import frontend_bases_tc
+
+    cfg = FrontendConfig(n_mels=40)
+    audio = torch.randn((512, 128000), generator=torch.Generator(device=dev).manual_seed(0), device=dev) * 0.1
+    n_frames = cfg.num_frames(audio.shape[1])
+    out = torch.empty((512, n_frames, cfg.n_mels), dtype=torch.bfloat16, device=dev)
+
+    def make(lib):
+        fn = getattr(lib, "howl_logmel_tc_forward")
+        fn.argtypes, fn.restype = list(_build.SIGNATURES["howl_logmel_tc_forward"]), ctypes.c_int
+
+        def call(grade):
+            w_img, fb_img, n_halves, n_passes, mel_n = frontend_bases_tc(cfg, grade, dev)
+
+            def run():
+                status = fn(audio.data_ptr(), w_img.data_ptr(), fb_img.data_ptr(), out.data_ptr(), 512,
+                            audio.shape[1], n_frames, cfg.n_fft, cfg.hop_length, 1, n_halves, n_passes, cfg.n_mels,
+                            mel_n, 1, 0, cfg.log_offset, -6.0, 0.25, torch.cuda.current_stream(dev).cuda_stream)
+                _build.check_launch(status, "probe")
+            return run
+        return [(grade, call(grade)) for grade in ("bf16", "bf16x2", "bf16x3")]
+
+    return make
+
+
 PROBES = {
     "t1-wgmma": (_build.CSRC / "trunk_proto.cu", T1_WGMMA_EDITS, _t1_runner),
     "m2-wgmma": (_build.CSRC / "micro_gemm.cu", M2_EDITS, _m2_runner),
     "m3-wgmma": (_build.CSRC / "micro_poly.cu", M3_EDITS, _m3_runner),
     "int8-fused": (_build.CSRC / "int8_trunk_fused.cu", INT8_FUSED_EDITS, _int8_fused_runner),
+    "k1-x3": (_build.CSRC / "frontend_tc.cu", K1_X3_EDITS, _k1_x3_runner),
 }
 
 

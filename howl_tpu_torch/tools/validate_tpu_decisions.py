@@ -20,7 +20,8 @@ tool's oracle is its float32 engine on the XLA chain at HIGHEST. The rows:
     res8+k1[bf16x2]+k2    the same with the frontend at "bf16x2";
     res8+k1[bf16x3]+k2    the same with the frontend at the three-pass
                           grade, the JAX kernel's default (``precision=None``),
-                          on the FMA kernel ("fma", ``csrc/frontend.cu``);
+                          on the tensor-core kernel too ("tc", three passes of
+                          ``csrc/frontend_tc.cu``'s ring);
     res8+k1[bf16]+k2+int8 the bf16 serving engine with the int8 residual
                           trunk (``csrc/int8_trunk.cu``), its scales
                           calibrated on the clips it scores, as the JAX
@@ -151,9 +152,9 @@ def run(dev: torch.device, batch: int, clip_seconds: float, seed: int = 0) -> di
         (rng.standard_normal((batch, int(clip_seconds * cfg.sample_rate))) * 0.1).astype(np.float32)).to(dev)
     state = res8_variables_to_state_dict(res8_numpy_variables(rng, cfg.num_labels))
 
-    def engine(dtype=None, **kw):
+    def engine(dtype=None, frontend_precision="bf16", **kw):  # every row names its grade; the exact engine "f32"
         return StreamingEngine(create_model("res8", num_labels=cfg.num_labels), state, cfg, frontend,
-                               compute_dtype=dtype, device=dev, **kw)
+                               compute_dtype=dtype, frontend_precision=frontend_precision, device=dev, **kw)
 
     bf16 = torch.bfloat16
     exact = engine(frontend_precision="f32").infer_batch(audio)

@@ -27,6 +27,8 @@ the device. ``--bf16`` trains a bf16 res8 over float32 master weights; its
 features come from the plain float32 log-mel chain (``training/step.py``'s
 ``featurize``), whose matrix products run in float32, and the evaluator
 scores in bf16 from the exact float32 frontend, as the JAX evaluator does.
+Without ``--bf16`` each train step runs with TF32 off whatever the caller's
+global ``allow_tf32`` flags (``ops/tf32.py``), as the float32 engine scores.
 
 Refused, each with its ROADMAP item: models other than res8, the CTC
 objective and ``convert_static`` (item 8); ``--use-timestretch`` and more
@@ -55,6 +57,7 @@ from howl_tpu_torch.models import MODEL_REGISTRY, ConfusionMatrix, create_model
 from howl_tpu_torch.models.base import NOT_PORTED, model_spec
 from howl_tpu_torch.ops.augment import AugmentConfig
 from howl_tpu_torch.ops.frontend import FrontendConfig
+from howl_tpu_torch.ops.tf32 import exact_float32, is_float32
 from howl_tpu_torch.ops.zmuv import fit_zmuv
 from howl_tpu_torch.settings import SETTINGS
 from howl_tpu_torch.training.state import create_train_state, param_count
@@ -546,7 +549,8 @@ def run(args=None, stats: Optional[LoopStats] = None) -> dict:
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
                 t1 = time.perf_counter()
-                state, metrics = train_step(state, audio, labels, lengths, key)
+                with exact_float32(is_float32(compute_dtype)):  # TF32 off for the float32 step, not for --bf16
+                    state, metrics = train_step(state, audio, labels, lengths, key)
                 losses.append(float(metrics["loss"]))
                 stats.prep_s += t1 - t0
                 stats.step_s += time.perf_counter() - t1

@@ -7,8 +7,9 @@ engine.py's ``_use_pallas``), so its features come from the jnp chain at
 ``serving_dft_precision``: exact float32 for float32 serving, the 1-pass
 "bf16" grade for bf16 serving. The port runs the plain versions of its
 frontend and stem kernels here: at ``frontend_precision="auto"`` (float32)
-for the float32 comparison, and at its default "bf16" grade with bf16 mels
-for the bf16 one. The JAX stem runs in Pallas interpret mode.
+for the float32 comparison, and at its default ("auto": "bf16" in bf16)
+with bf16 mels for the bf16 one; the default pinned against the JAX
+constructor's for both dtypes (ROADMAP F12). The JAX stem runs in Pallas interpret mode.
 
 The word label and threshold are picked from the float32 JAX posteriors so
 that some clips fire and some do not, and the tests assert that they do.
@@ -131,6 +132,38 @@ def test_engine_matches_jax_bf16(slice_setup):
     _assert_decisions_equal(got, want)
     detected = got["detected"].numpy()
     assert detected.any() and not detected.all()
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16], ids=["float32", "bf16"])
+def test_default_frontend_grade_is_the_jax_engines(slice_setup, dtype, monkeypatch):
+    """ROADMAP F12: an engine built with defaults serves the frontend grade
+    the JAX constructor serves ("auto": the exact grade in float32, "bf16"
+    in bf16), read through the live engines' mapping of the JAX chain's
+    precision (None is the exact float32 grade there); the float32 engine
+    calls K1 at "f32"."""
+    from howl_tpu_torch.inference import engine as engine_mod
+    from howl_tpu_torch.ops.frontend_cuda import frontend_grade
+
+    variables, audio, lengths, cfg_kw = slice_setup
+    jx = JaxStreamingEngine(jax_create_model("res8", num_labels=4), variables, JaxEngineConfig(**cfg_kw),
+                            JaxFrontendConfig(n_mels=40), *ZMUV, compute_dtype=None if dtype is None else jnp.bfloat16)
+    jax_grade = "f32" if jx._dft_precision is None else frontend_grade(jx._dft_precision)
+    pt = StreamingEngine(create_model("res8", num_labels=4), res8_variables_to_state_dict(variables),
+                         EngineConfig(**cfg_kw), FrontendConfig(n_mels=40), *ZMUV, compute_dtype=dtype, device="cpu")
+    assert frontend_grade(pt.frontend_precision) == jax_grade == ("f32" if dtype is None else "bf16")
+    calls = []
+    k1 = engine_mod.log_mel_spectrogram_cuda
+
+    def spy(*args, **kw):
+        calls.append(frontend_grade(kw["precision"]))
+        return k1(*args, **kw)
+
+    monkeypatch.setattr(engine_mod, "log_mel_spectrogram_cuda", spy)
+    got = pt.infer_batch(audio, lengths)
+    assert calls == [jax_grade]
+    if dtype is None:  # the exact grade is what the JAX engine scores: its posteriors to float32's bound
+        want = jx.infer_batch(audio, lengths)
+        np.testing.assert_allclose(got["probs"].numpy(), np.asarray(want["probs"]), atol=1e-4)
 
 
 def test_short_clips_score_no_windows(slice_setup):

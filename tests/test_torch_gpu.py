@@ -7,7 +7,8 @@ not installed; the repo's conftest.py imports jax, so run it without:
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -p no:cacheprovider
 
 Shapes are small and cover geometries the main path does not use (80 mels,
-n_fft 400 / hop 160, center=False, a ragged last frame tile; batches of 1, 7
+n_fft 400 / hop 160, both together, where the three-pass grade still takes
+the tensor-core kernel, center=False, a ragged last frame tile; batches of 1, 7
 and 1025, ragged windows and narrow banks for the noise-bank mix). The
 frontend runs through both of its kernels (``route="tc"``, ``"fma"``) and
 through the one ``frontend_route`` picks, at frame counts around the
@@ -109,7 +110,7 @@ def _hold_frontend(cuda, audio, cfg, route, grade, out_dtype, layout, mean=-3.0,
 @pytest.mark.parametrize(
     "kw,samples",
     [({"n_mels": 40}, 16000), ({"n_mels": 80}, 12345), ({"n_mels": 40, "n_fft": 400, "hop_length": 160}, 9000),
-     ({"n_mels": 40, "center": False}, 20000)],
+     ({"n_mels": 40, "center": False}, 20000), ({"n_mels": 80, "n_fft": 400, "hop_length": 160}, 9000)],
 )
 @pytest.mark.parametrize("grade", ["f32", "bf16x3", "bf16x2", "bf16"])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
@@ -134,7 +135,8 @@ def test_frontend_kernel_across_tile_edges(cuda, n_frames, batch, route):
     assert cfg.num_frames(samples) == n_frames
     gen = torch.Generator(device=cuda).manual_seed(n_frames)
     audio = torch.randn((batch, samples), generator=gen, device=cuda) * 0.1
-    for grade, out_dtype, layout in (("bf16", torch.bfloat16, "tm"), ("bf16x2", torch.float32, "fm")):
+    for grade, out_dtype, layout in (("bf16", torch.bfloat16, "tm"), ("bf16x2", torch.float32, "fm"),
+                                     ("bf16x3", torch.float32, "tm"), ("bf16x3", torch.bfloat16, "fm")):
         _hold_frontend(cuda, audio, cfg, route, grade, out_dtype, layout)
 
 
@@ -143,6 +145,15 @@ def test_frontend_kernel_at_the_serving_batch(cuda, route):
     gen = torch.Generator(device=cuda).manual_seed(512)
     audio = torch.randn((512, 128000), generator=gen, device=cuda) * 0.1
     _hold_frontend(cuda, audio, FrontendConfig(n_mels=40), route, "bf16", torch.bfloat16, "tm", mean=-6.0, std=4.0)
+
+
+@pytest.mark.parametrize("route", ["tc", "fma"])
+def test_frontend_three_pass_grade_at_the_serving_batch(cuda, route):
+    """The JAX kernel's default grade, "bf16x3", at 512 x 8 s: bf16 out,
+    "tm", on both kernels, at 1e-3/std plus one bf16 ulp."""
+    gen = torch.Generator(device=cuda).manual_seed(513)
+    audio = torch.randn((512, 128000), generator=gen, device=cuda) * 0.1
+    _hold_frontend(cuda, audio, FrontendConfig(n_mels=40), route, "bf16x3", torch.bfloat16, "tm", mean=-6.0, std=4.0)
 
 
 def test_frontend_routes(cuda):
@@ -163,6 +174,12 @@ def test_frontend_routes(cuda):
     assert fn.launches_tc == before
     fn(audio, FrontendConfig(n_mels=40), precision="bf16")
     assert fn.launches_tc == before + 1
+    fn(audio, FrontendConfig(n_mels=40), precision=None)  # the JAX kernel's default grade, "bf16x3"
+    assert fn.launches_tc == before + 2
+    fn(audio, FrontendConfig(n_mels=80), precision=None)  # its three-pass block does not fit at 80 mels
+    assert fn.launches_tc == before + 2
+    with pytest.raises(ValueError, match="route='tc'"):
+        fn(audio, FrontendConfig(n_mels=80), precision=None, route="tc")
     with pytest.raises(ValueError, match="route must be"):
         fn(audio, route="wgmma")
 
@@ -274,6 +291,44 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         log_mel_spectrogram_cuda(torch.zeros((1, 4000), device=cuda, dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="taps on"):
         res8_stem_cuda(torch.zeros((1, 9, 40), device=cuda), torch.zeros((3, 3, 45)))
+
+
+def test_float32_paths_do_not_follow_the_callers_tf32(cuda):
+    """ROADMAP F13: a float32 ``StreamingEngine``'s scores, a float32 hop of
+    the ``OnlineEngine`` and one of the ``IncrementalOnlineEngine`` are bit
+    for bit the same with the caller's global TF32 flags on and off, and the
+    flags are the caller's again after each call. The control: the same
+    scorer without its TF32 guard differs between the two settings here."""
+    from howl_tpu_torch import bench
+    from howl_tpu_torch.compat import res8_variables_to_state_dict
+    from howl_tpu_torch.inference import StreamingEngine
+    from howl_tpu_torch.inference.online import IncrementalOnlineEngine, OnlineEngine
+    from howl_tpu_torch.models import create_model
+
+    state = res8_variables_to_state_dict(bench.res8_numpy_variables(np.random.default_rng(13), 4))
+    cfg, frontend, n = bench.serving_config(), FrontendConfig(n_mels=40), 16
+    audio = torch.randn((n, 32000), generator=torch.Generator(device=cuda).manual_seed(13), device=cuda) * 0.1
+    eng = StreamingEngine(create_model("res8", num_labels=4), state, cfg, frontend, -6.0, 4.0, device=cuda)
+    live, inc = (kind(create_model("res8", num_labels=4), state, cfg, frontend, -6.0, 4.0, num_streams=n, device=cuda)
+                 for kind in (OnlineEngine, IncrementalOnlineEngine))
+    unguarded = StreamingEngine._score.__wrapped__.__wrapped__  # under torch.no_grad, without exact_if_float32
+    outs = {}
+    try:
+        for flag in (True, False):
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = flag
+            probs = eng.score_batch(audio)["probs"]
+            hop = live._step(audio[:, : live.window_samples].contiguous(), live._new_state(), 0.0)[3]
+            ring = inc._step(audio[:, : inc.hop_samples].contiguous(), inc.tail, inc.mel_ring, inc.state, 0.0)[1]
+            assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == (flag, flag)
+            with torch.no_grad():
+                raw = unguarded(eng, audio, eng.n_windows(audio.shape[-1]))
+            torch.cuda.synchronize()
+            outs[flag] = (probs, hop, ring, raw)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    for name, on, off in zip(("scores", "online hop", "incremental ring"), outs[True], outs[False]):
+        assert torch.equal(on, off), name
+    assert not torch.equal(outs[True][3], outs[False][3]), "the card ignored the TF32 flags: the test sees nothing"
 
 
 def test_engine_on_cuda_matches_cpu(cuda):
@@ -773,6 +828,9 @@ def test_micro_tools_run_on_the_card(cuda, capsys):
     records = validate_pallas_precision.main([])
     f32 = [r for r in records if r["grade"] == "f32"]
     assert len(records) == 8 and all(r["above_floor_max"] < 3e-3 and r["global_max"] < 0.02 for r in f32)
+    # the three-pass grade on the tensor-core kernel at 40 mels, within the JAX kernel's golden tiers
+    assert [r["route"] for r in records if r["grade"] == "bf16x3"] == ["tc", "fma"]
+    assert all(validate_pallas_precision.within_golden_bounds(r) for r in records)
     assert "above_floor_max" in capsys.readouterr().out
 
 

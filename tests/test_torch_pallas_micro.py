@@ -268,6 +268,19 @@ def test_precision_tool_runs_on_the_cpu_and_the_f32_grade_meets_the_golden_bound
             assert rec["above_floor_max"] < 3e-3 and rec["global_max"] < 0.02
 
 
+def test_precision_tool_holds_each_grade_to_its_golden_bounds():
+    """``within_golden_bounds``: the plain "f32" and "bf16x3" within
+    tests/test_golden_frontend.py's bounds on the goldens (the three-pass
+    grade's tiers, as the JAX kernel's test holds its default grade), and a
+    record that misses a tier fails."""
+    records = precision_tool.run(torch.device("cpu"))
+    assert all(len(r["tier_max"]) == len(precision_tool.BF16X3_TIERS) for r in records)
+    assert all(precision_tool.within_golden_bounds(r) for r in records)
+    x3 = next(r for r in records if r["grade"] == "bf16x3")
+    worse = dict(x3, tier_max=[x3["tier_max"][0] + precision_tool.BF16X3_TIERS[0][1], *x3["tier_max"][1:]])
+    assert not precision_tool.within_golden_bounds(worse)
+
+
 @pytest.mark.parametrize("tool", [port_tool, trunk_tool, precision_tool, sweep_tool, decisions_tool, serving_ablation,
                                   train_ablation, reconcile_tool],
                          ids=["bench_pallas_micro", "bench_trunk_kernel_micro", "validate_pallas_precision",
