@@ -5,8 +5,9 @@ A batch of clips is scored in five stages, each over the whole batch, by
 the fused-trunk scorer (the default):
 
   1. audio -> ZMUV'd time-major log-mels: ``ops/frontend_cuda.py`` (kernel:
-     on the tensor cores for the bf16 engine, float32 FMA for the float32
-     engine, as ``frontend_route`` picks);
+     on the tensor cores wherever ``frontend_route`` finds the geometry
+     served, the serving geometry for every grade, the float32 engine's
+     exact grade as six bf16 passes; float32 FMA elsewhere);
   2. res8 stem, conv0 + ReLU + AvgPool(3, 4): ``ops/stem_cuda.py`` (kernel);
   3. the six residual convs with affine-less BatchNorm (``F.conv2d``), or
      with ``use_int8_trunk`` the int8 residual trunk (``ops/int8_trunk.py``:

@@ -28,23 +28,34 @@ fb_hi + p_hi @ fb_lo``. Only the lo x lo terms are dropped, ~2^-17 relative.
 With ``out_dtype=torch.bfloat16`` the pre-log mel is rounded to bf16 before
 the log, as the TPU kernel's bf16 output tiles are.
 
+The plain "f32" is the float32 product, as the JAX package computes it on
+the CPU. The JAX kernel's "f32" (``Precision.HIGHEST``) is six bf16 products
+on the TPU's matrix unit, and so is the "tc" kernel's: every operand is split
+into three bf16 parts, ``hi + mid + lo`` (``split_bf16(a, 3)``), and the
+products of order at most lo are kept, ``x_hi W_hi + x_hi W_mid + x_mid W_hi
++ x_hi W_lo + x_mid W_mid + x_lo W_hi``, and the same six on the power and
+the filterbank: the float32 product within ~2^-24 relative.
+
 ``log_mel_spectrogram_cuda`` runs the plain version for a tensor on the CPU
 and a kernel for a tensor on a CUDA device. Which kernel is decided by the
 grade and the geometry alone (``frontend_route``), never by a failure:
 
     "tc"   ``csrc/frontend_tc.cu``: both products on the tensor cores
-           (``wgmma``), W streamed by bulk asynchronous copies. The three bf16
-           grades "bf16", "bf16x2" and "bf16x3", when n_fft is a multiple of
-           16, hop is even, n_mels is a multiple of 8 and at most 80, and the
-           tile's audio span, the ring and the filterbank fit a block's shared
-           memory (``tc_shared_bytes``). "bf16x3" holds two spans (the bf16
-           part and the remainder) and fb_hi and fb_lo beside a ring of two
-           slots: it fits at 512 / 200 and 400 / 160 with 40 mels and at
-           400 / 160 with 80, not at 512 / 200 with 80.
-    "fma"  ``csrc/frontend.cu``: float32 FMA on the CUDA cores. The "f32"
-           grade always, and every geometry the "tc" kernel does not serve
-           (for "bf16x3": a product of two bf16 values is exact in float32,
-           so FMA on the rounded operands computes each pass).
+           (``wgmma``), W streamed by bulk asynchronous copies. Every grade,
+           when n_fft is a multiple of 16, hop is even, n_mels is a multiple
+           of 8 and at most 80, and the tile's audio span, the ring and the
+           filterbank fit a block's shared memory (``tc_shared_bytes``).
+           "bf16x3" holds two spans (the bf16 part and the remainder) and
+           fb_hi and fb_lo beside a ring of two slots: it fits at 512 / 200
+           and 400 / 160 with 40 mels and at 400 / 160 with 80, not at 512 /
+           200 with 80. "f32" holds the span in float32 and fb's three parts
+           beside the same ring: it fits at 512 / 200 and 400 / 160 with 40
+           mels, and with 80 where n_fft is at most 256 (fb one 128-bin
+           half), as at 256 / 80 and 256 / 128.
+    "fma"  ``csrc/frontend.cu``: float32 FMA on the CUDA cores. Every
+           geometry the "tc" kernel does not serve ("f32" as the float32
+           product; for "bf16x3": a product of two bf16 values is exact in
+           float32, so FMA on the rounded operands computes each pass).
 
 ``route=`` forces one of the two and raises where it cannot serve.
 """
@@ -90,13 +101,17 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def split_bf16(a: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
-    """hi/lo bf16 split of a float32 array: ``a ~ hi + lo`` with hi the bf16
-    rounding of a and lo the bf16 rounding of the rest, as bf16 tensors."""
-    a = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
-    hi = a.to(torch.bfloat16)
-    lo = (a - hi.to(torch.float32)).to(torch.bfloat16)
-    return hi, lo
+def split_bf16(a: np.ndarray, parts: int = 2) -> tuple[torch.Tensor, ...]:
+    """bf16 split of a float32 array into ``parts`` bf16 tensors, each the
+    bf16 rounding of what the ones before leave (each difference exact in
+    float32): hi and lo, ``a ~ hi + lo``; with ``parts=3`` hi, mid and lo,
+    ``a ~ hi + mid + lo`` within ~2^-24 relative."""
+    rest = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+    out = []
+    for _ in range(parts):
+        out.append(rest.to(torch.bfloat16))
+        rest = rest - out[-1].to(torch.float32)
+    return tuple(out)
 
 
 def _padded_bases(config: FrontendConfig, nbp: int) -> tuple[np.ndarray, np.ndarray]:
@@ -158,7 +173,7 @@ TC_TILE = 128  # frames a block owns
 TC_HALF_BINS = 128  # bins of one N = 256 tile of W: [re | im]
 TC_STAGE_BYTES = 32768  # 64 rows of k of a tile
 TC_SLOTS = 3  # stages of the ring
-TC_SLOTS_X3 = 2  # stages of the ring of the three-pass grade
+TC_SLOTS_X3 = 2  # stages of the ring of the split grades, "bf16x3" and "f32"
 TC_MEL_WIDTHS = (40, 80)  # the mel product's N, compiled in
 TC_MAX_SHARED = 232448  # 227 KB a block
 ROUTES = ("tc", "fma")
@@ -168,17 +183,24 @@ def _tc_mel_width(n_mels: int):
     return next((n for n in TC_MEL_WIDTHS if n_mels <= n), None)
 
 
+TC_PARTS = {"bf16": 1, "bf16x2": 1, "bf16x3": 2, "f32": 3}  # the bf16 parts of the split operands
+TC_PASSES = {"bf16": 1, "bf16x2": 2, "bf16x3": 3, "f32": 6}  # the kernel's n_passes, its name for the grade
+
+
 def tc_shared_bytes(config: FrontendConfig, grade: str = "bf16") -> int:
     """Shared memory of one block of the "tc" kernel: the ring, the
     filterbank's image, the tile's audio span in bf16, a full and an empty
     barrier a slot and the filterbank's. "bf16x3" has a ring of
     ``TC_SLOTS_X3`` slots and two of the rest: fb_hi and fb_lo, the span's
-    bf16 part and its remainder."""
+    bf16 part and its remainder. "f32" has the same ring, fb_hi, fb_mid and
+    fb_lo, and the span once in float32."""
     n_halves = -(-nyquist_crop_bins(config) // TC_HALF_BINS)
     span = (TC_TILE - 1) * config.hop_length + config.n_fft
     fb = n_halves * TC_HALF_BINS * _tc_mel_width(config.n_mels) * 2
-    slots, parts = (TC_SLOTS_X3, 2) if grade == "bf16x3" else (TC_SLOTS, 1)
-    return slots * TC_STAGE_BYTES + parts * (fb + _round_up(span * 2, 16)) + (2 * slots + 1) * 8
+    parts = TC_PARTS[grade]
+    slots = TC_SLOTS if parts == 1 else TC_SLOTS_X3
+    span_bytes = _round_up(span * 4, 16) if grade == "f32" else parts * _round_up(span * 2, 16)
+    return slots * TC_STAGE_BYTES + parts * fb + span_bytes + (2 * slots + 1) * 8
 
 
 def frontend_route(config: FrontendConfig, grade: str) -> str:
@@ -187,8 +209,7 @@ def frontend_route(config: FrontendConfig, grade: str) -> str:
     if grade not in GRADES:
         raise ValueError(f"unknown grade {grade!r}")
     fits = (
-        grade != "f32"
-        and config.n_fft >= 16 and config.n_fft % 16 == 0
+        config.n_fft >= 16 and config.n_fft % 16 == 0
         and config.hop_length >= 2 and config.hop_length % 2 == 0
         and config.n_mels >= 8 and config.n_mels % 8 == 0 and _tc_mel_width(config.n_mels) is not None
         and tc_shared_bytes(config, grade) <= TC_MAX_SHARED
@@ -249,24 +270,24 @@ def frontend_bases_tc(config: FrontendConfig, grade: str, device: torch.device):
     "tc" kernel, built once per geometry and grade: bf16 W in tiles of 128
     bins (one pass for "bf16", hi then lo for "bf16x2" and "bf16x3", whose
     kernel multiplies W_hi by the audio's remainder too: n_passes 3 names
-    that, over the same two passes of W) and the bf16 filterbank ("bf16x3":
-    fb_hi's image, then fb_lo's), its bins padded to whole tiles and its
-    mels to mel_n with zeros, both packed as the kernel reads them."""
+    that, over the same two passes of W; hi, mid and lo for "f32", n_passes
+    6 for its six products) and the bf16 filterbank ("bf16x3": fb_hi's
+    image, then fb_lo's; "f32": fb_hi's, fb_mid's and fb_lo's), its bins
+    padded to whole tiles and its mels to mel_n with zeros, both packed as
+    the kernel reads them."""
     if frontend_route(config, grade) != "tc":
         raise ValueError(f"the tensor-core frontend kernel does not serve {config} at grade {grade!r}")
     n_bins = nyquist_crop_bins(config)
     cols = tc_tile_columns(n_bins)
     w, fb = _padded_bases(config, n_bins)
     tiles = np.where(cols >= 0, w[:, np.maximum(cols, 0)], np.float32(0.0))
-    passes = (torch.from_numpy(tiles).to(torch.bfloat16),) if grade == "bf16" else split_bf16(tiles)
+    passes = split_bf16(tiles, {"bf16": 1, "f32": 3}.get(grade, 2))  # W's parts: W, hi + lo or hi + mid + lo
     mel_n = _tc_mel_width(config.n_mels)
     fb_pad = np.zeros((len(cols) // 2, mel_n), np.float32)
     fb_pad[:n_bins, : config.n_mels] = fb
-    fb_parts = split_bf16(fb_pad) if grade == "bf16x3" else (torch.from_numpy(fb_pad).to(torch.bfloat16),)
     w_img = pack_w_image(torch.stack(passes))
-    fb_img = torch.cat([pack_fb_image(part) for part in fb_parts])
-    n_passes = {"bf16": 1, "bf16x2": 2, "bf16x3": 3}[grade]
-    return w_img.to(device), fb_img.to(device), len(cols) // (2 * TC_HALF_BINS), n_passes, mel_n
+    fb_img = torch.cat([pack_fb_image(part) for part in split_bf16(fb_pad, TC_PARTS[grade])])
+    return w_img.to(device), fb_img.to(device), len(cols) // (2 * TC_HALF_BINS), TC_PASSES[grade], mel_n
 
 
 def _zmuv_scalars(zmuv_mean, zmuv_std) -> tuple[float, float]:

@@ -6,6 +6,7 @@ out, to see where the kernel's time goes.
     python -m howl_tpu_torch.tools.probe_kernel_variants --probe m3-wgmma [--source howl_tpu_torch/csrc/micro_poly.cu]
     python -m howl_tpu_torch.tools.probe_kernel_variants --probe int8-fused [--source howl_tpu_torch/csrc/int8_trunk_fused.cu]
     python -m howl_tpu_torch.tools.probe_kernel_variants --probe k1-x3 [--source howl_tpu_torch/csrc/frontend_tc.cu]
+    python -m howl_tpu_torch.tools.probe_kernel_variants --probe k1-f32 [--source howl_tpu_torch/csrc/frontend_tc.cu]
 
 A probe names a kernel source, its C entry, the study inputs it runs on and a
 list of variants; a variant is a list of exact text edits to the source (each
@@ -53,6 +54,16 @@ Probes:
                no x_lo @ W_hi products ("bf16x3": the second group of a W_hi
                stage); no second and third mel products; no store of the
                span's remainder.
+  k1-f32       the same kernel at the same batch, at "bf16x3" and at the
+               exact grade "f32" (six products of bf16 parts), each cut
+               adding to the one before: as it is; no x_lo products (the
+               third group of a W_hi stage); nor x_mid products (the second
+               group of a W_hi or W_mid stage); nor the W_lo stream (two
+               passes of W streamed a half, not three). "bf16x3" is the same
+               in every one of these. Then, alone: no wait between a stage's
+               groups (each waits only for the one before it, so its A
+               fragments are reloaded while that group runs: the time the
+               reloads cost, for "bf16x3" too; the results are wrong).
 
 Needs a CUDA device and nvcc.
 """
@@ -61,6 +72,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import subprocess
 from pathlib import Path
@@ -138,6 +150,26 @@ K1_X3_EDITS = {
                             "          mel_product(p, fb_s + fb_bytes);\n        }")],
     "no span remainder": [("          if (kX3)\n            reinterpret_cast<uint2*>(s_audio_lo)",
                            "          if (kX3 && n_mels < 0)\n            reinterpret_cast<uint2*>(s_audio_lo)")],
+}
+
+_F32_X_LO = "        if (kF32 && j < stages_per_pass) {  // a W_hi stage: x_lo against it"
+_F32_X_MID = "        if (kF32 && j < 2 * stages_per_pass) {  // a W_hi or W_mid stage: x_mid against it"
+_F32_W_LO = "  const int w_passes = kParts > 1 ? kParts : n_passes;"
+_GROUP_WAIT = "          wgmma_commit();\n          wgmma_wait<0>();\n          wgmma_keep(a);"
+
+
+def _unreached(line: str) -> tuple:
+    """The edit that puts a condition false at run time into ``line``'s ``if``."""
+    return line, line.replace(") {", " && n_mels < 0) {", 1)
+
+
+K1_F32_EDITS = {
+    "as it is": [],
+    "no x_lo products": [_unreached(_F32_X_LO)],
+    "nor x_mid products": [_unreached(_F32_X_LO), _unreached(_F32_X_MID)],
+    "nor the W_lo stream": [_unreached(_F32_X_LO), _unreached(_F32_X_MID),
+                            (_F32_W_LO, _F32_W_LO.replace("? kParts :", "? kParts - (kF32 && n_mels > 0) :"))],
+    "no wait between groups": [(_GROUP_WAIT, _GROUP_WAIT.replace("wgmma_wait<0>", "wgmma_wait<1>"))],
 }
 
 ITERS = 20  # calls a timed run
@@ -293,9 +325,9 @@ def _int8_fused_runner(dev):
     return make
 
 
-def _k1_x3_runner(dev):
-    """The tensor-core frontend kernel at the serving batch, one case a
-    grade, each on its own images (``frontend_bases_tc``)."""
+def _k1_runner(dev, grades: tuple):
+    """The tensor-core frontend kernel at the serving batch, one case for
+    each of ``grades``, each on its own images (``frontend_bases_tc``)."""
     from howl_tpu_torch.ops.frontend import FrontendConfig
     from howl_tpu_torch.ops.frontend_cuda import frontend_bases_tc
 
@@ -317,7 +349,7 @@ def _k1_x3_runner(dev):
                             mel_n, 1, 0, cfg.log_offset, -6.0, 0.25, torch.cuda.current_stream(dev).cuda_stream)
                 _build.check_launch(status, "probe")
             return run
-        return [(grade, call(grade)) for grade in ("bf16", "bf16x2", "bf16x3")]
+        return [(grade, call(grade)) for grade in grades]
 
     return make
 
@@ -327,7 +359,9 @@ PROBES = {
     "m2-wgmma": (_build.CSRC / "micro_gemm.cu", M2_EDITS, _m2_runner),
     "m3-wgmma": (_build.CSRC / "micro_poly.cu", M3_EDITS, _m3_runner),
     "int8-fused": (_build.CSRC / "int8_trunk_fused.cu", INT8_FUSED_EDITS, _int8_fused_runner),
-    "k1-x3": (_build.CSRC / "frontend_tc.cu", K1_X3_EDITS, _k1_x3_runner),
+    "k1-x3": (_build.CSRC / "frontend_tc.cu", K1_X3_EDITS,
+              functools.partial(_k1_runner, grades=("bf16", "bf16x2", "bf16x3"))),
+    "k1-f32": (_build.CSRC / "frontend_tc.cu", K1_F32_EDITS, functools.partial(_k1_runner, grades=("bf16x3", "f32"))),
 }
 
 

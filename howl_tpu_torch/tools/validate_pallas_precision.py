@@ -18,8 +18,9 @@ largest error above each of the three-pass grade's tiers (gold > 0, -5, -10).
 ``within_golden_bounds`` holds a record to its grade's bounds in
 ``tests/test_golden_frontend.py``: "f32" to the exact grade's (3e-3 above
 the floor, 0.02 anywhere), "bf16x3" to the JAX kernel's three-pass tiers
-(2e-4, 3e-3, 1.5e-2; 0.15 anywhere). At 40 mels every bf16 grade runs on
-the tensor-core kernel; at 80 mels "bf16x3" takes the FMA kernel.
+(2e-4, 3e-3, 1.5e-2; 0.15 anywhere). At 40 mels every grade runs on the
+tensor-core kernel ("f32" as six bf16 passes, the JAX tool's f32x6); at 80
+mels "bf16x3" and "f32" take the FMA kernel.
 
 It runs on the card: with ``--device cuda`` (the default) and no CUDA device
 it raises. With ``--device cpu`` the wrapper takes its plain version.

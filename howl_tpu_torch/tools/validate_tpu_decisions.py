@@ -11,8 +11,11 @@ the detections and the first-fire steps are equal and at least 99 % of the
 labels agree.
 
 The exact engine is res8 in float32 with the frontend at its "f32" grade
-(the float32 products, ``csrc/frontend.cu`` on the card), where the JAX
-tool's oracle is its float32 engine on the XLA chain at HIGHEST. The rows:
+(on the card ``csrc/frontend_tc.cu``'s six bf16 passes, as the JAX kernel
+computes ``Precision.HIGHEST``, where ``frontend_route`` serves it: 40
+mels; ``csrc/frontend.cu``'s float32 products elsewhere), where the JAX
+tool's oracle is its float32 engine on the XLA chain at HIGHEST. It prints
+the route its oracle's frontend takes. The rows:
 
     res8+k1[bf16]+k2      the bf16 serving engine: the frontend kernel at
                           "bf16" ("tc", ``csrc/frontend_tc.cu``) and the
@@ -144,6 +147,7 @@ def run(dev: torch.device, batch: int, clip_seconds: float, seed: int = 0) -> di
     from howl_tpu_torch.inference import StreamingEngine
     from howl_tpu_torch.models import create_model
     from howl_tpu_torch.ops.frontend import FrontendConfig
+    from howl_tpu_torch.ops.frontend_cuda import frontend_route
 
     cfg = dataclasses.replace(serving_config(), inference_threshold=THRESHOLD)
     frontend = FrontendConfig(n_mels=40)
@@ -157,6 +161,8 @@ def run(dev: torch.device, batch: int, clip_seconds: float, seed: int = 0) -> di
                                compute_dtype=dtype, frontend_precision=frontend_precision, device=dev, **kw)
 
     bf16 = torch.bfloat16
+    oracle_route = frontend_route(frontend, "f32") if dev.type == "cuda" else "plain"
+    print(f"oracle: res8 in float32, the frontend at the exact grade 'f32' on route {oracle_route!r}", flush=True)
     exact = engine(frontend_precision="f32").infer_batch(audio)
     rows = {
         "res8+k1[bf16]+k2": compare(exact, engine(bf16).infer_batch(audio)),

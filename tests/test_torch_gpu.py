@@ -8,7 +8,8 @@ not installed; the repo's conftest.py imports jax, so run it without:
 
 Shapes are small and cover geometries the main path does not use (80 mels,
 n_fft 400 / hop 160, both together, where the three-pass grade still takes
-the tensor-core kernel, center=False, a ragged last frame tile; batches of 1, 7
+the tensor-core kernel, n_fft 256 with 80 and 64 mels, where the exact grade
+takes it at mel width 80, center=False, a ragged last frame tile; batches of 1, 7
 and 1025, ragged windows and narrow banks for the noise-bank mix). The
 frontend runs through both of its kernels (``route="tc"``, ``"fma"``) and
 through the one ``frontend_route`` picks, at frame counts around the
@@ -110,7 +111,8 @@ def _hold_frontend(cuda, audio, cfg, route, grade, out_dtype, layout, mean=-3.0,
 @pytest.mark.parametrize(
     "kw,samples",
     [({"n_mels": 40}, 16000), ({"n_mels": 80}, 12345), ({"n_mels": 40, "n_fft": 400, "hop_length": 160}, 9000),
-     ({"n_mels": 40, "center": False}, 20000), ({"n_mels": 80, "n_fft": 400, "hop_length": 160}, 9000)],
+     ({"n_mels": 40, "center": False}, 20000), ({"n_mels": 80, "n_fft": 400, "hop_length": 160}, 9000),
+     ({"n_mels": 80, "n_fft": 256, "hop_length": 80}, 12001), ({"n_mels": 64, "n_fft": 256, "hop_length": 128}, 9000)],
 )
 @pytest.mark.parametrize("grade", ["f32", "bf16x3", "bf16x2", "bf16"])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
@@ -136,7 +138,8 @@ def test_frontend_kernel_across_tile_edges(cuda, n_frames, batch, route):
     gen = torch.Generator(device=cuda).manual_seed(n_frames)
     audio = torch.randn((batch, samples), generator=gen, device=cuda) * 0.1
     for grade, out_dtype, layout in (("bf16", torch.bfloat16, "tm"), ("bf16x2", torch.float32, "fm"),
-                                     ("bf16x3", torch.float32, "tm"), ("bf16x3", torch.bfloat16, "fm")):
+                                     ("bf16x3", torch.float32, "tm"), ("bf16x3", torch.bfloat16, "fm"),
+                                     ("f32", torch.float32, "fm"), ("f32", torch.bfloat16, "tm")):
         _hold_frontend(cuda, audio, cfg, route, grade, out_dtype, layout)
 
 
@@ -156,6 +159,40 @@ def test_frontend_three_pass_grade_at_the_serving_batch(cuda, route):
     _hold_frontend(cuda, audio, FrontendConfig(n_mels=40), route, "bf16x3", torch.bfloat16, "tm", mean=-6.0, std=4.0)
 
 
+@pytest.mark.parametrize("route", ["tc", "fma"])
+def test_frontend_exact_grade_at_the_serving_batch(cuda, route):
+    """The exact grade, "f32" (the JAX kernel's ``Precision.HIGHEST``), at
+    512 x 8 s on both kernels, float32 and bf16 out, "tm" and "fm": the
+    "tc" kernel's six products of bf16 parts against the plain float32
+    product at 1e-3/std (plus one bf16 ulp for bf16 output)."""
+    gen = torch.Generator(device=cuda).manual_seed(514)
+    audio = torch.randn((512, 128000), generator=gen, device=cuda) * 0.1
+    for out_dtype in (torch.float32, torch.bfloat16):
+        for layout in ("tm", "fm"):
+            _hold_frontend(cuda, audio, FrontendConfig(n_mels=40), route, "f32", out_dtype, layout, mean=-6.0, std=4.0)
+
+
+@pytest.mark.parametrize(
+    "kw,samples",
+    [({"n_mels": 40}, 128000), ({"n_mels": 40, "n_fft": 400, "hop_length": 160}, 20000),
+     ({"n_mels": 80, "n_fft": 256, "hop_length": 80}, 12001), ({"n_mels": 64, "n_fft": 256, "hop_length": 128}, 20000)],
+)
+def test_exact_grade_is_nearer_the_float32_product_than_three_passes(cuda, kw, samples):
+    """The "tc" kernel's "f32" (six bf16 passes) against the plain "f32",
+    float32 out, is nearer than the same kernel's "bf16x3" (three passes)
+    on the same audio: a kernel that dropped a group of products would
+    still meet the grade's 1e-3/std, but not this. Both mel widths."""
+    cfg = FrontendConfig(**kw)
+    assert frontend_route(cfg, "f32") == frontend_route(cfg, "bf16x3") == "tc"
+    gen = torch.Generator(device=cuda).manual_seed(samples)
+    audio = torch.randn((8, samples), generator=gen, device=cuda) * 0.1
+    args = dict(out_dtype=torch.float32, layout="tm")
+    want = log_mel_spectrogram_plain(audio, cfg, -6.0, 4.0, precision="f32", **args)
+    errs = {g: float((log_mel_spectrogram_cuda(audio, cfg, -6.0, 4.0, precision=g, route="tc", **args) - want).abs().max())
+            for g in ("f32", "bf16x3")}
+    assert errs["f32"] < errs["bf16x3"], errs
+
+
 def test_frontend_routes(cuda):
     """An odd clip length leaves the clips' rows unaligned (the tensor-core
     kernel then reads its span sample by sample); a geometry the tensor-core
@@ -167,19 +204,24 @@ def test_frontend_routes(cuda):
     odd = FrontendConfig(n_mels=40, hop_length=201)
     _hold_frontend(cuda, audio, odd, None, "bf16", torch.float32, "tm")
     _hold_frontend(cuda, audio, odd, "tc", "bf16", torch.float32, "tm")
-    _hold_frontend(cuda, audio, FrontendConfig(n_mels=40), "tc", "f32", torch.float32, "tm")
+    for out_dtype, layout in ((torch.float32, "tm"), (torch.float32, "fm"), (torch.bfloat16, "fm")):
+        _hold_frontend(cuda, audio, FrontendConfig(n_mels=40), "tc", "f32", out_dtype, layout)
     before = fn.launches_tc
     fn(audio, odd, precision="bf16")
-    fn(audio, FrontendConfig(n_mels=40), precision="f32")
+    fn(audio, FrontendConfig(n_mels=40), precision="f32", route="fma")
     assert fn.launches_tc == before
     fn(audio, FrontendConfig(n_mels=40), precision="bf16")
     assert fn.launches_tc == before + 1
     fn(audio, FrontendConfig(n_mels=40), precision=None)  # the JAX kernel's default grade, "bf16x3"
     assert fn.launches_tc == before + 2
-    fn(audio, FrontendConfig(n_mels=80), precision=None)  # its three-pass block does not fit at 80 mels
-    assert fn.launches_tc == before + 2
-    with pytest.raises(ValueError, match="route='tc'"):
-        fn(audio, FrontendConfig(n_mels=80), precision=None, route="tc")
+    fn(audio, FrontendConfig(n_mels=40), precision="f32")  # the exact grade: six passes on the tensor-core kernel
+    assert fn.launches_tc == before + 3
+    fn(audio, FrontendConfig(n_mels=80), precision=None)  # the three-pass block does not fit at 80 mels
+    fn(audio, FrontendConfig(n_mels=80), precision="f32")  # nor the six-pass one
+    assert fn.launches_tc == before + 3
+    for grade in (None, "f32"):
+        with pytest.raises(ValueError, match="route='tc'"):
+            fn(audio, FrontendConfig(n_mels=80), precision=grade, route="tc")
     with pytest.raises(ValueError, match="route must be"):
         fn(audio, route="wgmma")
 
@@ -329,6 +371,40 @@ def test_float32_paths_do_not_follow_the_callers_tf32(cuda):
     for name, on, off in zip(("scores", "online hop", "incremental ring"), outs[True], outs[False]):
         assert torch.equal(on, off), name
     assert not torch.equal(outs[True][3], outs[False][3]), "the card ignored the TF32 flags: the test sees nothing"
+
+
+def test_float32_engine_decides_alike_on_both_frontend_kernels(cuda):
+    """A float32 engine at the exact grade serves K1 on the tensor-core
+    kernel by default (six bf16 passes), and the same engine with K1 forced
+    onto the FMA kernel (``route="fma"``) takes one launch a batch of that
+    kernel: the same detections, first fires and labels, the posteriors
+    within float32's noise of each other."""
+    from howl_tpu_torch import bench
+    from howl_tpu_torch.compat import res8_variables_to_state_dict
+    from howl_tpu_torch.inference import StreamingEngine
+    from howl_tpu_torch.models import create_model
+
+    class FmaFrontendEngine(StreamingEngine):
+        def _features(self, audio, layout):
+            return log_mel_spectrogram_cuda(audio, self.frontend, self.zmuv_mean, self.zmuv_std,
+                                            precision=self.frontend_precision, out_dtype=torch.float32, layout=layout,
+                                            route="fma")
+
+    state = res8_variables_to_state_dict(bench.res8_numpy_variables(np.random.default_rng(17), 4))
+    audio = torch.randn((32, 64000), generator=torch.Generator(device=cuda).manual_seed(17), device=cuda) * 0.1
+    out = {}
+    for route, cls in (("tc", StreamingEngine), ("fma", FmaFrontendEngine)):
+        eng = cls(create_model("res8", num_labels=4), state, bench.serving_config(), FrontendConfig(n_mels=40),
+                  -6.0, 4.0, device=cuda)
+        assert eng.frontend_precision == "f32"
+        before = (log_mel_spectrogram_cuda.launches, log_mel_spectrogram_cuda.launches_tc)
+        out[route] = eng.infer_batch(audio)
+        torch.cuda.synchronize()
+        assert (log_mel_spectrogram_cuda.launches - before[0], log_mel_spectrogram_cuda.launches_tc - before[1]) == (
+            1, int(route == "tc"))
+    for key in ("detected", "first_fire_step", "labels"):
+        assert torch.equal(out["tc"][key], out["fma"][key]), key
+    assert float((out["tc"]["probs"] - out["fma"]["probs"]).abs().max()) < 1e-4
 
 
 def test_engine_on_cuda_matches_cpu(cuda):
@@ -828,8 +904,9 @@ def test_micro_tools_run_on_the_card(cuda, capsys):
     records = validate_pallas_precision.main([])
     f32 = [r for r in records if r["grade"] == "f32"]
     assert len(records) == 8 and all(r["above_floor_max"] < 3e-3 and r["global_max"] < 0.02 for r in f32)
-    # the three-pass grade on the tensor-core kernel at 40 mels, within the JAX kernel's golden tiers
+    # the three-pass and exact grades on the tensor-core kernel at 40 mels, within their golden bounds
     assert [r["route"] for r in records if r["grade"] == "bf16x3"] == ["tc", "fma"]
+    assert [r["route"] for r in f32] == ["tc", "fma"]
     assert all(validate_pallas_precision.within_golden_bounds(r) for r in records)
     assert "above_floor_max" in capsys.readouterr().out
 
