@@ -74,7 +74,9 @@ them. In order it:
      3,144 rows; the manual legs at (k, cb) = (2, 512), (3, 1024), (8, 512)
      in float32 and (3, 1024) in bf16, and on 3,144 rows in both dtypes at
      cb = 24 and 1,048, where a bf16 chunk is no whole number of ring stages
-     (a float32 chunk always is: 8 rows are one stage). A watchdog ends the
+     (a float32 chunk always is: 8 rows are one stage); the manual copy at
+     (2, 512) and the whole-array copy eight launches in a row on eight
+     arrays, all in flight before each output is held. A watchdog ends the
      run with an error if the phase hangs;
   9. drives the serving path: ``StreamingEngine.infer_batch`` with a res8
      made from seeded numpy weights, in bf16, on 512 clips of 8 s. The
@@ -245,6 +247,7 @@ HBM_ODD_ROWS, HBM_ODD_BN = 3144, 24  # a size that is not the sweep's: 131 block
 # the manual legs' comparisons: (k, cb) on the float32 array, on the bf16 array, and on the 3,144 rows in both dtypes
 # (bf16 chunks of 24 and 1,048 rows are 1.5 and 65.5 ring stages of 16 KB)
 HBM_RING_F32, HBM_RING_BF16, HBM_RING_ODD = ((2, 512), (3, 1024), (8, 512)), ((3, 1024),), ((2, 24), (3, 1048))
+HBM_REPEATS = 8  # launches in a row of each copy kernel, each held against its input
 HBM_PHASE_LIMIT_S = 300  # the sweep phase's watchdog
 # A leg's rate is the two-point slope of two chain times, noisy by a few percent: a write leg that reads
 # 3,030-3,130 GB/s read 3,359.8 GB/s in one run of fourteen. A copy that was dropped reads a multiple of the rate.
@@ -864,6 +867,18 @@ def drive_hbm_sweep(dev) -> dict:
         errs["manual_copy"] = max(errs["manual_copy"], hold(f"manual_copy {name}", out, x),
                                   hold(f"manual_copy {name} done", done, ref_done))
         del out
+    # the two copies launched HBM_REPEATS times in a row on as many arrays, all in flight before the first is held:
+    # a wrong mbarrier phase or a slot refilled too early shows only now and then
+    k0, cb0 = study.MANUAL_KS[0], study.MANUAL_CBS[0]
+    arrays = [x32.roll(7 * i + 1, 0) for i in range(HBM_REPEATS)]
+    for key, copy in (("manual_copy", lambda x: hk.manual_copy_cuda(x, k0, cb0, HBM_S)),
+                      ("hbm2hbm", lambda x: hk.hbm2hbm_cuda(x, HBM_S))):
+        outs = [copy(x) for x in arrays]
+        for i, (x, (out, done)) in enumerate(zip(arrays, outs)):
+            errs[key] = max(errs[key], hold(f"{key} f32 256 MB, launch {i + 1} of {HBM_REPEATS} in a row", out, x),
+                            hold(f"{key} launch {i + 1} done", done, hk.hbm2hbm_plain(x[:0], HBM_S)[1]))
+        del outs
+    del arrays
     faulthandler.cancel_dump_traceback_later()
 
     # The bound is the function's own: a read block needs its corner alone, the stream leg the quarter of
@@ -878,7 +893,6 @@ def drive_hbm_sweep(dev) -> dict:
     n_x, bn = _nbytes(x32), study.BNS[0]
     corners = x32.shape[0] // bn * hk.CORNER_ROWS * hk.OUT_COLS
     quarter = x32.shape[0] * hk.OUT_COLS
-    k0, cb0 = study.MANUAL_KS[0], study.MANUAL_CBS[0]
     chunk_corners, done_bytes = x32.shape[0] // cb0 * hk.CORNER_ROWS * hk.OUT_COLS, 4 * hk.CORNER_ROWS * hk.OUT_COLS
     bounds = {
         "manual_read": _bound(chunk_corners * 4 + done_bytes, chunk_corners, PEAK_F32_FLOPS),

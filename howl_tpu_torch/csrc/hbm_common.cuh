@@ -25,9 +25,12 @@
 //      phase parity that traps instead of hanging), the two copies, and the
 //      group commit and waits. Sizes and both addresses of a bulk copy are
 //      multiples of 16.
-//      The manual legs walk a chunk of cb rows through a ring of k slots of
-//      kRingStageBytes with them, k a run-time number (`RingWalk`,
+//      The manual read and write walk a chunk of cb rows through a ring of k
+//      slots of kRingStageBytes with them, k a run-time number (`RingWalk`,
 //      `launch_ring`): one CTA per chunk, the ring its dynamic shared memory.
+//      The manual copy and the whole-array copy instead sweep the array's
+//      stages with a persistent grid, stage j to CTA j % CTAs (`StageSweep`,
+//      `ring_grid`), so that neighbouring CTAs copy neighbouring stages.
 //
 // The scalar add of the sweep, `add16`, on 16 bytes: float32 is one
 // __fadd_rn per element; bf16 widens, adds in float32 the scalar that the
@@ -150,10 +153,14 @@ __device__ __forceinline__ uint4 add16(uint4 v, float s) {
 
 using hopper::bulk_commit;
 using hopper::bulk_load;
+using hopper::bulk_load_hint;
+using hopper::bulk_prefetch_l2;
 using hopper::bulk_store;
+using hopper::bulk_store_hint;
 using hopper::bulk_wait;
 using hopper::bulk_wait_read;
 using hopper::fence_proxy_async;
+using hopper::l2_evict_first;
 using hopper::mbar_arrive_expect_tx;
 using hopper::mbar_init;
 using hopper::mbar_init_fence;
@@ -210,6 +217,36 @@ struct RingWalk {
   }
 };
 
+// ---- the two copies' sweep: the array's stages spread over a persistent grid ----
+
+// The array is cut into chunks and each chunk into stages of at most `stage_bytes` (a chunk's last stage may be
+// short), numbered in address order. Stage j belongs to CTA j % G of a grid of G: at any moment the grid works on a
+// window of neighbouring stages, neighbouring CTAs at neighbouring addresses, as a plain copy kernel's grid sweeps
+// an array. CTA g's m-th stage is g + m G.
+struct StageSweep {
+  long long chunk_bytes;
+  long long n_stages;
+  int stage_bytes;
+  int stages_per_chunk;
+
+  __host__ __device__ StageSweep(long long n_bytes, long long chunk, int stage)
+      : chunk_bytes(chunk),
+        n_stages(chunk > 0 ? n_bytes / chunk * ((chunk + stage - 1) / stage) : 0),
+        stage_bytes(stage),
+        stages_per_chunk(static_cast<int>((chunk + stage - 1) / stage)) {}
+  __device__ __forceinline__ long long offset(long long j) const {
+    return j / stages_per_chunk * chunk_bytes + j % stages_per_chunk * stage_bytes;
+  }
+  __device__ __forceinline__ uint32_t bytes(long long j) const {
+    const long long left = chunk_bytes - j % stages_per_chunk * stage_bytes;
+    return static_cast<uint32_t>(left < stage_bytes ? left : stage_bytes);
+  }
+  // the stages of CTA g in a grid of G
+  __device__ __forceinline__ long long count(long long g, long long G) const {
+    return g < n_stages ? (n_stages - 1 - g) / G + 1 : 0;
+  }
+};
+
 // k barriers of one arrival each, ready for the bulk copies' proxy; one thread, before a CTA barrier
 __device__ __forceinline__ void ring_init_barriers(uint64_t* full, int k) {
   for (int slot = 0; slot < k; ++slot) mbar_init(&full[slot], 1);
@@ -263,6 +300,30 @@ inline int ring_ctas_per_sm(int threads, int k) {
   const int ring_bytes = k * kRingStageBytes;
   if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kKernel, threads, ring_bytes);
   return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+
+// The persistent grid of a kernel whose CTAs sweep the stages of an array (`StageSweep`) at ring depth k, with
+// `threads` a function of k: every CTA that fits the card at once, by the occupancy calculator, but no more CTAs than
+// stages, and one for an empty array. Asked once per device and depth, so the launches of a timed chain make no
+// other host call than cudaGetDevice. Minus the cudaError_t on failure.
+template <auto kKernel>
+inline long long ring_grid(int threads, int k, long long n_stages) {
+  static std::atomic<long long> fits[kMaxDevices][kMaxRingSlots + 1] = {};
+  if (k < kMinRingSlots || k > kMaxRingSlots) return -static_cast<long long>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return -static_cast<long long>(err);
+  if (dev < 0 || dev >= kMaxDevices) return -static_cast<long long>(cudaErrorInvalidDevice);
+  long long card = fits[dev][k].load(std::memory_order_acquire);
+  if (card == 0) {
+    const int per_sm = ring_ctas_per_sm<kKernel>(threads, k);
+    if (per_sm < 0) return per_sm;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return -static_cast<long long>(err);
+    card = static_cast<long long>(sms) * per_sm;
+    fits[dev][k].store(card, std::memory_order_release);
+  }
+  return n_stages < card ? (n_stages > 0 ? n_stages : 1) : card;
 }
 
 }  // namespace hbm

@@ -12,7 +12,9 @@
 //      of bytes to be copied device -> shared memory, completion counted in
 //      bytes on an mbarrier, or shared -> device memory, completion tracked in
 //      bulk groups. No thread loads a byte. Sizes and both addresses of a bulk
-//      copy are multiples of 16.
+//      copy are multiples of 16. Either copy may carry an L2 cache policy
+//      (createpolicy), such as evict-first for data streamed once; a bulk
+//      prefetch brings a span into the L2 alone.
 //   3. Warpgroup matrix products (wgmma, sm_90a only): four warps start
 //      D (64, N) += A (64, 16) @ B (16, N) in bf16 with float32 sums, A from
 //      registers ("rs") or from shared memory ("ss"), B from shared memory,
@@ -142,6 +144,35 @@ __device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t 
   asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst), "r"(smem_u32(src)),
                "r"(bytes)
                : "memory");
+}
+
+// An L2 cache policy that puts the lines it touches first in line for eviction: data streamed once, which
+// nothing reads again, need not push anything else out of the L2.
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+
+// bulk_load and bulk_store under an L2 cache policy
+__device__ __forceinline__ void bulk_load_hint(void* dst, const void* src, uint32_t bytes, uint64_t* bar,
+                                               uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar)), "l"(policy)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_store_hint(void* dst, const void* src, uint32_t bytes, uint64_t policy) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint [%0], [%1], %2, %3;\n" ::"l"(dst),
+               "r"(smem_u32(src)), "r"(bytes), "l"(policy)
+               : "memory");
+}
+
+// device memory -> L2 only, with nothing to wait for: a bulk_load of the same span soon after finds it there
+__device__ __forceinline__ void bulk_prefetch_l2(const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src), "r"(bytes) : "memory");
 }
 
 __device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }

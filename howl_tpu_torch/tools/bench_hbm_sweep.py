@@ -24,17 +24,19 @@ bytes):
      through a ring of k slots (``csrc/hbm_manual_read.cu``,
      ``csrc/hbm_manual_write.cu``, ``csrc/hbm_manual_copy.cu``), in float32
      for k = 2, 3, 4 and chunk heights cb = 512, 1024, then seven single
-     legs up to k = 8 and in bf16. On the card one CTA owns a chunk of cb
-     rows, so cb sets the CTA count (float32: 256 at cb = 512, 64 at 2048),
-     and walks it through k slots of 16 KB in shared memory, whatever k; k
-     also sets how many CTAs fit an SM. The read runs k - 1 copies ahead of
-     the one it waits for; the write fills a slot anew before every copy and
-     refills it only after the copy of k stages before has read it; the copy
-     runs k chains load -> store -> load and waits for every store to land.
-     Each of these legs' lines ends with its CTAs, k, the stage size, the
-     bytes a CTA keeps in flight and the CTAs that share an SM;
-  5. the whole-array copy by bulk asynchronous copies alone
-     (``csrc/hbm2hbm.cu``).
+     legs up to k = 8 and in bf16. On the card the read and the write give
+     one CTA a chunk of cb rows, so cb sets the CTA count (float32: 256 at
+     cb = 512, 64 at 2048), and walk it through k slots of 16 KB in shared
+     memory, whatever k; k also sets how many CTAs fit an SM. The read runs
+     k - 1 copies ahead of the one it waits for; the write fills a slot anew
+     before every copy and refills it only after the copy of k stages before
+     has read it. The copy sweeps the chunks' 16 KB stages with a persistent
+     grid, stage j to CTA j % CTAs, and runs k chains load -> store -> load
+     per CTA, each waiting for its store to land. Each of these legs' lines
+     ends with its CTAs, k, the stage size, the bytes a CTA keeps in flight
+     and the CTAs that share an SM;
+  5. the whole-array copy by bulk asynchronous copies alone, its 32 KB
+     stages swept by a persistent grid (``csrc/hbm2hbm.cu``).
 
 Six library legs follow for orientation, one PyTorch call per kernel's
 function; nothing but this tool calls them: ``x + s``, ``x[:, :128] + s``
@@ -98,6 +100,7 @@ from howl_tpu_torch.tools.hbm_sweep_kernels import (
     manual_write_plain,
     ring_ctas_per_sm,
     ring_geometry,
+    ring_on_card,
     stream_repro_cuda,
     stream_repro_plain,
     sweep_geometry,
@@ -172,7 +175,7 @@ def study_legs(geom: SweepGeometry, x32: torch.Tensor, x16: torch.Tensor, quick:
     def manual(mode, tag, k, cb):
         x, (kernel, plain, passes) = {"f32": x32, "bf16": x16}[tag], MANUAL[mode]
         return SweepLeg(f"manual {mode:5s} {tag} k={k} cb={cb}", passes * gb, lambda i: kernel(x, k, cb, s),
-                        lambda i: plain(x, k, cb, s), f"manual_{mode}", ring=ring_geometry(x, k, cb))
+                        lambda i: plain(x, k, cb, s), f"manual_{mode}", ring=ring_geometry(x, k, cb, mode))
 
     ks, cbs = (QUICK_MANUAL_KS, QUICK_MANUAL_CBS) if quick else (MANUAL_KS, MANUAL_CBS)
     legs += [manual(mode, "f32", k, cb) for mode in MANUAL for k in ks for cb in cbs]
@@ -253,10 +256,17 @@ def time_leg(leg: SweepLeg, iters: int, dev: torch.device, tally: dict) -> dict:
     line += f"; plain {plain_ms:.3f} ms/iter" if plain_ms is not None else ""
     ring = leg.ring
     if ring:
-        per_sm = ring_ctas_per_sm(KERNELS[leg.kernel], ring["k"], ring["bf16"], dev) if route == "cuda kernel" else None
-        ring = dict(ring, ctas_per_sm=per_sm)
-        line += (f"; on the card {ring['ctas']} CTAs, k={ring['k']} slots of {ring['stage_bytes']} B, "
-                 f"{ring['bytes_in_flight_per_cta']} B in flight per CTA" + (f", {per_sm} CTAs to an SM" if per_sm else ""))
+        if route == "cuda kernel":
+            per_sm = ring_ctas_per_sm(KERNELS[leg.kernel], ring["k"], ring["bf16"], dev)
+            ring = ring_on_card(ring, per_sm, torch.cuda.get_device_properties(dev).multi_processor_count)
+        else:
+            ring = dict(ring, ctas_per_sm=None)
+        ctas = "every CTA that fits the card" if ring["ctas"] is None else f"{ring['ctas']} CTAs"
+        where = (f"{ring['stages']} stages of {ring['stage_bytes']} B swept by {ctas}" if ring["schedule"] == "sweep"
+                 else f"{ctas}, a chunk each")
+        line += (f"; on the card {where}, k={ring['k']} slots of {ring['stage_bytes']} B, "
+                 f"{ring['bytes_in_flight_per_cta']} B in flight per CTA"
+                 + (f", {ring['ctas_per_sm']} CTAs to an SM" if ring["ctas_per_sm"] else ""))
     print(line, flush=True)
     return {"config": leg.name, "ms_per_iter": ms, "gbps": gbps, "mean_ms_per_iter": mean_ms, "route": route,
             "plain_ms_per_iter": plain_ms, "library": leg.library, "ring": ring}

@@ -35,13 +35,21 @@ slots by asynchronous copies that the kernel starts and waits for itself.
   copy   out = x bit for bit, and ``done``.
 
 On the TPU one core walks the whole array through one ring whose slots hold a
-chunk each (1-4 MB). On the card a chunk does not fit an SM, so the meaning
-is: one CTA per chunk, so cb sets the CTA count as bn does for the auto legs,
-and each CTA walks its chunk through a ring of k slots of ``STAGE_BYTES`` in
-shared memory, whatever k, so that depth and stage size stay apart. k is a
-run-time number from ``MIN_K`` to ``MAX_K`` (8 slots are 128 KB of the 227 KB
-an SM has); it also sets how many CTAs share an SM. :func:`ring_geometry`
-gives what a leg's (k, cb) means on the card.
+chunk each (1-4 MB). On the card a chunk does not fit an SM. The read and the
+write keep one CTA per chunk, so cb sets the CTA count as bn does for the
+auto legs, and each CTA walks its chunk through a ring of k slots of
+``STAGE_BYTES`` in shared memory, whatever k, so that depth and stage size
+stay apart. The copy cuts every chunk into stages of ``STAGE_BYTES`` (the
+last one of a chunk short) and sweeps them with a persistent grid, as many
+CTAs as fit the card at depth k: stage j, in address order, to CTA j % CTAs,
+so neighbouring CTAs copy neighbouring stages; each CTA keeps a ring of k
+slots, one chain read -> write -> read per slot, and cb only says where a
+stage must end. k is a run-time number from ``MIN_K`` to ``MAX_K`` (8 slots
+are 128 KB of the 227 KB an SM has); it also sets how many CTAs share an SM.
+:func:`ring_geometry` gives what a leg's (k, cb) means on the card.
+
+The whole-array copy sweeps the array the same way in stages of 32 KB, two
+CTAs an SM, three slots each, a slot refilled once its store has read it.
 
 The JAX tool's grids drop a remainder of rows silently; here rows that are
 no whole number of blocks or chunks raise. Each ``*_cuda`` wrapper runs its plain
@@ -230,8 +238,9 @@ def hbm2hbm_plain(x: torch.Tensor, s: float) -> tuple:
 def hbm2hbm_cuda(x: torch.Tensor, s: float) -> tuple:
     """x (rows, 512) float32 or bf16 -> (a copy of x, ``done`` (8, 128)
     float32 filled with s). On a CPU tensor this is :func:`hbm2hbm_plain`; on
-    a CUDA tensor it launches ``howl_hbm2hbm_forward``, which moves x through
-    shared memory with bulk asynchronous copies alone, or raises."""
+    a CUDA tensor it launches ``howl_hbm2hbm_forward``, which sweeps x's
+    stages through shared memory with bulk asynchronous copies alone, or
+    raises."""
     _build.refuse_grad("hbm2hbm_cuda", x)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"hbm2hbm_cuda takes CPU or CUDA tensors, got {x.device}")
@@ -265,14 +274,35 @@ def _check_ring(what: str, x: torch.Tensor, k: int, cb: int, max_k: int | None =
         raise ValueError(f"{what}: the kernels take ring depths k from {MIN_K} to {max_k}, got {k}")
 
 
-def ring_geometry(x: torch.Tensor, k: int, cb: int) -> dict:
-    """What (k, cb) means on the card for x: the CTAs (one per chunk), the
-    stages a CTA walks, and the bytes its ring keeps in flight (k slots, or
-    fewer when the chunk has fewer stages)."""
+def ring_geometry(x: torch.Tensor, k: int, cb: int, mode: str) -> dict:
+    """What (k, cb) means on the card for the manual leg ``mode`` ("read",
+    "write" or "copy") on x. The read and the write: one CTA per chunk
+    ("chunk"), which walks the chunk's stages through k slots; a CTA keeps k
+    slots in flight, or fewer when its chunk has fewer stages. The copy: the
+    stages of every chunk swept by a persistent grid ("sweep"), stage j to
+    CTA j % CTAs, each slot one chain with one stage in flight; the grid is
+    every CTA that fits the card, known there only (``ctas`` and
+    ``stages_per_cta`` None until :func:`ring_on_card` fills them)."""
     chunk_bytes = cb * COLS * x.element_size()
-    stages = -(-chunk_bytes // STAGE_BYTES)
-    return {"k": k, "cb": cb, "bf16": x.dtype == torch.bfloat16, "ctas": x.shape[0] // cb, "stage_bytes": STAGE_BYTES,
-            "stages_per_cta": stages, "bytes_in_flight_per_cta": min(k, stages) * STAGE_BYTES}
+    per_chunk = -(-chunk_bytes // STAGE_BYTES)
+    chunks = x.shape[0] // cb
+    ring = {"k": k, "cb": cb, "bf16": x.dtype == torch.bfloat16, "stage_bytes": STAGE_BYTES,
+            "stages": chunks * per_chunk, "stages_per_chunk": per_chunk}
+    if mode == "copy":
+        return dict(ring, schedule="sweep", ctas=None, stages_per_cta=None, bytes_in_flight_per_cta=k * STAGE_BYTES)
+    return dict(ring, schedule="chunk", ctas=chunks, stages_per_cta=per_chunk,
+                bytes_in_flight_per_cta=min(k, per_chunk) * STAGE_BYTES)
+
+
+def ring_on_card(ring: dict, ctas_per_sm: int, sms: int) -> dict:
+    """``ring`` with the CTAs that share an SM, and for the copy's sweep the
+    grid its entry launches on a card of ``sms`` SMs: every CTA that fits,
+    no more than there are stages, one for an empty array."""
+    ring = dict(ring, ctas_per_sm=ctas_per_sm)
+    if ring["schedule"] == "sweep":
+        ctas = max(1, min(ring["stages"], ctas_per_sm * sms))
+        ring.update(ctas=ctas, stages_per_cta=-(-ring["stages"] // ctas))
+    return ring
 
 
 def _done(x: torch.Tensor, s) -> torch.Tensor:
@@ -381,8 +411,9 @@ copy to device memory, or raises."""
 manual_copy_cuda = _ring_leg("manual_copy_cuda", manual_copy_plain, _launch_copy)
 manual_copy_cuda.__doc__ = """x (rows, 512) float32 or bf16 -> (a copy of x, ``done``). On a CPU tensor
 this is :func:`manual_copy_plain`; on a CUDA tensor it launches
-``howl_hbm_manual_copy_forward``, k chains of bulk copies load -> store ->
-load per CTA, or raises."""
+``howl_hbm_manual_copy_forward``, a persistent grid that sweeps the chunks'
+stages with k chains of bulk copies load -> store (landed) -> load per CTA,
+or raises."""
 
 
 def ring_ctas_per_sm(wrapper, k: int, bf16: bool, dev: torch.device) -> int:

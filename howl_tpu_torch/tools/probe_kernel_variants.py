@@ -7,17 +7,24 @@ out, to see where the kernel's time goes.
     python -m howl_tpu_torch.tools.probe_kernel_variants --probe int8-fused [--source howl_tpu_torch/csrc/int8_trunk_fused.cu]
     python -m howl_tpu_torch.tools.probe_kernel_variants --probe k1-x3 [--source howl_tpu_torch/csrc/frontend_tc.cu]
     python -m howl_tpu_torch.tools.probe_kernel_variants --probe k1-f32 [--source howl_tpu_torch/csrc/frontend_tc.cu]
+    python -m howl_tpu_torch.tools.probe_kernel_variants --probe hbm-copy [--baseline <another checkout>/howl_tpu_torch/csrc]
 
-A probe names a kernel source, its C entry, the study inputs it runs on and a
-list of variants; a variant is a list of exact text edits to the source (each
-must match once), such as a loop bound multiplied by a condition that is
-false at run time, so the compiler keeps the code and the launch skips it.
-Every variant is built alone with nvcc (sm_90a, one shared library each,
-under ``howl_tpu_torch/_build/probes``) and timed at the study's full size
-with CUDA events over 20 calls, the variants in turns, twice over
-(A B C ... C B A). Only the first variant computes the function; the others
-are for timing. An edit that no longer matches its source once stops the
-probe before anything is built.
+A probe names a kernel source (or several, built together), its C entries,
+the study inputs it runs on and a list of variants; a variant is a list of
+exact text edits to the sources (each must match once among them all), such
+as a loop bound multiplied by a condition that is false at run time, so the
+compiler keeps the code and the launch skips it. Every variant is built with
+nvcc (sm_90a, one shared library each, under
+``howl_tpu_torch/_build/probes``, all variants at once) and timed at the
+study's full size with CUDA events over 20 calls, the variants in turns,
+twice over (A B C ... C B A). Only the first variant computes the function;
+the others are for timing. An edit that no longer matches its source once
+stops the probe before anything is built. ``--baseline DIR`` adds another
+checkout's copies of the sources (built on that checkout's headers) to the
+turns, as they are, and for ``hbm-copy`` also with its own loads-only and
+stores-only cuts, which match the two copy sources as they were before
+their stages were swept (one CTA a chunk, or a contiguous share). A probe
+whose function is one PyTorch call times that call in the same turns.
 
 Probes:
   t1-wgmma     the trunk proto T1 on ``wgmma`` (``csrc/trunk_proto.cu``),
@@ -64,6 +71,16 @@ Probes:
                groups (each waits only for the one before it, so its A
                fragments are reloaded while that group runs: the time the
                reloads cost, for "bf16x3" too; the results are wrong).
+  hbm-copy     the bandwidth sweep's two copy kernels, built together
+               (``csrc/hbm_manual_copy.cu``, ``csrc/hbm2hbm.cu``), on its 256
+               MB float32 array, the manual copy at k = 2, cb = 512, with
+               ``out.copy_(x)`` in the same turns: as it is; loads only (no
+               stores); stores only (no loads, no waits for them); then the
+               design's levers added one at a time: none (each CTA's stages
+               one contiguous share of the array, no L2 policy, no
+               prefetch); + the sweep (stage j to CTA j % CTAs); + the L2
+               evict-first policy on loads and stores; as it is (+ the
+               whole-array copy's L2 prefetch of its next stage).
 
 Needs a CUDA device and nvcc.
 """
@@ -75,6 +92,7 @@ import ctypes
 import functools
 import json
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -172,29 +190,100 @@ K1_F32_EDITS = {
     "no wait between groups": [(_GROUP_WAIT, _GROUP_WAIT.replace("wgmma_wait<0>", "wgmma_wait<1>"))],
 }
 
+# the bandwidth sweep's two copy kernels, built together: csrc/hbm_manual_copy.cu and csrc/hbm2hbm.cu
+_M_COUNT = "  const long long stages = sweep.count(blockIdx.x, ctas);"
+_M_STAGE = "    const long long j = blockIdx.x + m * ctas;"
+_M_LOAD = "    bulk_load_hint(buf, x + at, bytes, &full[slot], policy);"
+_M_STORE = "    bulk_store_hint(out + at, buf, bytes, policy);"
+_M_LOAD_WAIT = f"    mbar_arrive_expect_tx(&full[slot], bytes);\n{_M_LOAD}\n    mbar_wait(&full[slot], phase);"
+_H_COUNT = "  const long long n = sweep.count(blockIdx.x, ctas);  // this CTA's stages"
+_H_STAGE = "  auto stage = [&](long long m) { return blockIdx.x + m * ctas; };  // its m-th, in the array's order"
+_H_LOAD = "    bulk_load_hint(ring + slot * kSlotBytes, x + sweep.offset(j), sweep.bytes(j), &full[slot], policy);"
+_H_STORE = "    bulk_store_hint(out + sweep.offset(j), ring + slot * kSlotBytes, sweep.bytes(j), policy);"
+_H_PREFETCH = "    if (m + 1 < n) bulk_prefetch_l2("
+_H_WAIT = "    mbar_wait(&full[slot], (phase >> slot) & 1u);\n    phase ^= 1u << slot;\n"
+# a CTA's stages as one contiguous share of the array (the first n_stages % ctas CTAs one more), not every ctas-th
+_SHARE = "blockIdx.x * (sweep.n_stages / ctas) + min(static_cast<long long>(blockIdx.x), sweep.n_stages % ctas) + m"
+_CONTIGUOUS = [(_M_COUNT, "  const long long stages = sweep.n_stages / ctas + (blockIdx.x < sweep.n_stages % ctas);"),
+               (_M_STAGE, f"    const long long j = {_SHARE};"),
+               (_H_COUNT, "  const long long n = sweep.n_stages / ctas + (blockIdx.x < sweep.n_stages % ctas);"),
+               (_H_STAGE, f"  auto stage = [&](long long m) {{ return {_SHARE}; }};")]
+_NO_POLICY = [(_M_LOAD, "    bulk_load(buf, x + at, bytes, &full[slot]);"), (_M_STORE, "    bulk_store(out + at, buf, bytes);"),
+              (_H_LOAD, "    bulk_load(ring + slot * kSlotBytes, x + sweep.offset(j), sweep.bytes(j), &full[slot]);"),
+              (_H_STORE, "    bulk_store(out + sweep.offset(j), ring + slot * kSlotBytes, sweep.bytes(j));")]
+_NO_PREFETCH = [(_H_PREFETCH, _H_PREFETCH.replace("n)", "n && n < 0)"))]
+_H_FIRST = "for (long long m = 0; m < kSlots && m < n; ++m) load(m);"
+_H_REFILL = "      load(m - 1 + kSlots);"
+HBM_COPY_EDITS = {
+    "as it is": [],
+    "loads only": [(_M_STORE, "    if (k < 0)" + _M_STORE[3:]), (_H_STORE, "    if (n < 0)" + _H_STORE[3:])],
+    "stores only": [(_M_LOAD_WAIT, "    if (k < 0) {\n" + _M_LOAD_WAIT + "\n    }"),
+                    (_H_FIRST, _H_FIRST.replace("m < n;", "m < n && n < 0;")),
+                    (_H_REFILL, "      if (n < 0)" + _H_REFILL[5:]), (_H_WAIT, "    if (n < 0)" + _H_WAIT[3:])],
+    "no levers": _CONTIGUOUS + _NO_POLICY + _NO_PREFETCH,
+    "+ sweep": _NO_POLICY + _NO_PREFETCH,
+    "+ sweep, evict-first": _NO_PREFETCH,
+}
+# the same cuts in the two sources as they were before the sweep (one CTA a chunk, or a contiguous share of 32 KB
+# chunks; one issuing thread), for --baseline with that checkout's csrc directory
+_FENCE = "    // the slot was written and is read by bulk copies alone: no generic access, so no proxy fence\n"
+_B_WAIT_M = "    mbar_wait(&full[slot], (phase >> slot) & 1u);\n    phase ^= 1u << slot;\n" + _FENCE + "    walk"
+_B_WAIT_H = _B_WAIT_M.replace("    walk", "    bulk")
+_B_FIRST_M = "for (int i = 0; i < k && i < n; ++i) walk.load("
+_B_FIRST_H = "for (int i = 0; i < kSlots && i < n; ++i) load(i);"
+_B_STORE_H = "    bulk_store(out + (first + i) * kSlotBytes"
+HBM_COPY_BASELINE_EDITS = {
+    "as it is": [],
+    "loads only": [("    walk.store(i, dst);", "    if (k < 0) walk.store(i, dst);"),
+                   (_B_STORE_H, "    if (n < 0)" + _B_STORE_H[3:])],
+    "stores only": [(_B_FIRST_M, _B_FIRST_M.replace("i < n;", "i < n && k < 0;")),
+                    ("    if (i + k < n) walk.load(", "    if (i + k < n && k < 0) walk.load("),
+                    (_B_WAIT_M, "    if (k < 0)" + _B_WAIT_M[3:]),
+                    (_B_FIRST_H, _B_FIRST_H.replace("i < n;", "i < n && n < 0;")),
+                    ("      load(i - 1 + kSlots);", "      if (n < 0) load(i - 1 + kSlots);"),
+                    (_B_WAIT_H, "    if (n < 0)" + _B_WAIT_H[3:])],
+}
+
 ITERS = 20  # calls a timed run
+
+
+def edit_sources(texts: dict, edits: list, name: str) -> dict:
+    """``texts`` ({file name: text}) with each (old, new) of ``edits``
+    replaced in the one text that holds it; each old text must occur exactly
+    once among them all."""
+    texts = dict(texts)
+    for old, new in edits:
+        counts = {file: text.count(old) for file, text in texts.items()}
+        if sum(counts.values()) != 1:
+            raise ValueError(f"variant {name!r}: the edit's text occurs {sum(counts.values())} times, not once")
+        file = next(file for file, count in counts.items() if count)
+        texts[file] = texts[file].replace(old, new)
+    return texts
+
+
+def probe_sources(source) -> tuple:
+    """A probe's sources as a tuple: one path, or several built together."""
+    return source if isinstance(source, tuple) else (source,)
 
 
 def apply_edits(text: str, edits: list, name: str) -> str:
     """``text`` with each (old, new) of ``edits`` replaced; each old text
     must occur exactly once."""
-    for old, new in edits:
-        if text.count(old) != 1:
-            raise ValueError(f"variant {name!r}: the edit's text occurs {text.count(old)} times, not once")
-        text = text.replace(old, new)
-    return text
+    return edit_sources({"": text}, edits, name)[""]
 
 
-def build_variant(source: Path, edits: list, name: str) -> Path:
-    """The source with ``edits`` applied, built alone into a shared library."""
-    text = apply_edits(source.read_text(), edits, f"{name}, {source}")
-    out_dir = _build.BUILD_DIR / "probes"
+def build_variant(texts: dict, name: str) -> Path:
+    """The sources ({path: edited text}) built together into one shared
+    library; their headers are read from the sources' own directory, so a
+    variant of another checkout builds on that checkout's headers."""
+    sources = list(texts)
+    out_dir = _build.BUILD_DIR / "probes" / f"{sources[0].stem}_{''.join(c if c.isalnum() else '_' for c in name)}"
     out_dir.mkdir(parents=True, exist_ok=True)
-    stem = f"{source.stem}_{''.join(c if c.isalnum() else '_' for c in name)}"
-    src = out_dir / f"{stem}.cu"
-    src.write_text(text)
-    lib = out_dir / f"lib{stem}.so"
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", str(_build.CSRC), "-o", str(lib), str(src)]
+    for src, text in texts.items():
+        (out_dir / src.name).write_text(text)
+    lib = out_dir / "libprobe.so"
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", str(sources[0].parent), "-o", str(lib),
+           *(str(out_dir / src.name) for src in sources)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(_build._failure(cmd, proc.returncode, proc.stdout, proc.stderr))
@@ -354,6 +443,38 @@ def _k1_runner(dev, grades: tuple):
     return make
 
 
+def _hbm_copy_runner(dev):
+    """The bandwidth sweep's two copy kernels on its 256 MB float32 array:
+    the manual copy at the sweep's first ring (k = 2, cb = 512) and the
+    whole-array copy; ``out.copy_(x)`` on the same arrays is timed in the
+    same turns."""
+    from howl_tpu_torch.tools import bench_hbm_sweep as sweep
+    from howl_tpu_torch.tools.hbm_sweep_kernels import DONE_SHAPE
+
+    x = sweep.make_inputs(256, sweep.SEED, dev)[1]
+    out, done = torch.empty_like(x), torch.empty(DONE_SHAPE, device=dev)
+    k, cb = sweep.MANUAL_KS[0], sweep.MANUAL_CBS[0]
+
+    def make(lib):
+        manual, whole = lib.howl_hbm_manual_copy_forward, lib.howl_hbm2hbm_forward
+        for fn, name in ((manual, "howl_hbm_manual_copy_forward"), (whole, "howl_hbm2hbm_forward")):
+            fn.argtypes, fn.restype = list(_build.SIGNATURES[name]), ctypes.c_int
+
+        def run_manual():
+            status = manual(x.data_ptr(), out.data_ptr(), done.data_ptr(), x.shape[0], cb, k, 0, 0.0,
+                            torch.cuda.current_stream(dev).cuda_stream)
+            _build.check_launch(status, "probe")
+
+        def run_whole():
+            status = whole(x.data_ptr(), out.data_ptr(), done.data_ptr(), x.numel() * x.element_size(), 0.0,
+                           torch.cuda.current_stream(dev).cuda_stream)
+            _build.check_launch(status, "probe")
+        return [(f"manual copy k={k} cb={cb}", run_manual), ("hbm2hbm", run_whole)]
+
+    make.library = [("out.copy_(x)", lambda: out.copy_(x))]
+    return make
+
+
 PROBES = {
     "t1-wgmma": (_build.CSRC / "trunk_proto.cu", T1_WGMMA_EDITS, _t1_runner),
     "m2-wgmma": (_build.CSRC / "micro_gemm.cu", M2_EDITS, _m2_runner),
@@ -362,29 +483,46 @@ PROBES = {
     "k1-x3": (_build.CSRC / "frontend_tc.cu", K1_X3_EDITS,
               functools.partial(_k1_runner, grades=("bf16", "bf16x2", "bf16x3"))),
     "k1-f32": (_build.CSRC / "frontend_tc.cu", K1_F32_EDITS, functools.partial(_k1_runner, grades=("bf16x3", "f32"))),
+    "hbm-copy": ((_build.CSRC / "hbm_manual_copy.cu", _build.CSRC / "hbm2hbm.cu"), HBM_COPY_EDITS, _hbm_copy_runner),
 }
+# the variants a --baseline checkout's copies of a probe's sources are built in (by default only as they are)
+BASELINE_EDITS = {"hbm-copy": HBM_COPY_BASELINE_EDITS}
 
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--probe", choices=sorted(PROBES), required=True)
-    ap.add_argument("--source", type=Path, default=None)
+    ap.add_argument("--source", type=Path, nargs="+", default=None)
+    ap.add_argument("--baseline", type=Path, default=None,
+                    help="another checkout's csrc directory: its copies of the probe's sources join the turns")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("probe_kernel_variants needs a CUDA device")
     default_source, edits, runner = PROBES[args.probe]
-    source = args.source or default_source
+    sources = tuple(args.source or probe_sources(default_source))
+    variants = {name: (sources, e) for name, e in edits.items()}
+    if args.baseline:
+        for name, e in BASELINE_EDITS.get(args.probe, {"as it is": []}).items():
+            variants[f"baseline, {name}"] = (tuple(args.baseline / src.name for src in sources), e)
+    # every edit is checked before anything is built; then the variants build together
+    texts = {name: edit_sources({src: src.read_text() for src in srcs}, e, f"{name}, {srcs[0]}")
+             for name, (srcs, e) in variants.items()}
+    with ThreadPoolExecutor(max_workers=len(texts)) as pool:
+        built = {name: pool.submit(build_variant, t, name) for name, t in texts.items()}
+        libs = {name: ctypes.CDLL(str(future.result())) for name, future in built.items()}
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
-    libs = {name: ctypes.CDLL(str(build_variant(source, e, name))) for name, e in edits.items()}
     make = runner(dev)
     cases = {name: make(lib) for name, lib in libs.items()}
+    if getattr(make, "library", None):
+        cases["library"] = make.library  # one PyTorch call of the same function, in the same turns
     names = list(cases)
     times: dict = {}
     for name in names + names[::-1]:
         for case, fn in cases[name]:
             times.setdefault(f"{name}, {case}", []).append(_events_ms(fn))
-    print(f"{args.probe} on {torch.cuda.get_device_name(dev)}, {source}, {ITERS} calls a run, two runs each:")
+    print(f"{args.probe} on {torch.cuda.get_device_name(dev)}, {', '.join(map(str, sources))}, {ITERS} calls a run, "
+          "two runs each:")
     for key, ms in times.items():
         print(f"  {key:40s} {ms[0]:.4f} / {ms[1]:.4f} ms")
     print(json.dumps({"probe": args.probe, "ms": times}))

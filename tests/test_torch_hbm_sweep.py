@@ -36,6 +36,7 @@ from jax.experimental import pallas as pl
 from howl_tpu_torch.tools import _study
 from howl_tpu_torch.tools import bench_hbm_sweep as port_tool
 from howl_tpu_torch.tools import hbm_sweep_kernels as hk
+from howl_tpu_torch.tools import probe_kernel_variants as probe
 
 torch.set_num_threads(1)
 TOOLS = Path(__file__).resolve().parent.parent / "tools"
@@ -300,14 +301,35 @@ def test_manual_write_fills_chunk_i_with_the_float32_sum_cast_afterwards():
 def test_ring_geometry_says_what_k_and_cb_mean_on_the_card():
     _, x32, x16 = port_tool.make_inputs(16, 0, torch.device("cpu"))
     assert hk.STAGE_BYTES == 8 * hk.COLS * 4 and (hk.MIN_K, hk.MAX_K) == (2, 8)
-    g = hk.ring_geometry(x32, 3, 512)
-    assert g == {"k": 3, "cb": 512, "bf16": False, "ctas": 16, "stage_bytes": 16384, "stages_per_cta": 64,
-                 "bytes_in_flight_per_cta": 3 * 16384}
-    g = hk.ring_geometry(x16, 8, 1024)
+    g = hk.ring_geometry(x32, 3, 512, "read")
+    assert g == {"k": 3, "cb": 512, "bf16": False, "stage_bytes": 16384, "stages": 1024, "stages_per_chunk": 64,
+                 "schedule": "chunk", "ctas": 16, "stages_per_cta": 64, "bytes_in_flight_per_cta": 3 * 16384}
+    assert hk.ring_geometry(x32, 3, 512, "write") == g
+    g = hk.ring_geometry(x16, 8, 1024, "read")
     assert (g["ctas"], g["stages_per_cta"], g["bytes_in_flight_per_cta"], g["bf16"]) == (16, 64, 131072, True)
     # a bf16 chunk of 24 rows is one stage and a half; a ring deeper than the chunk is not filled
-    g = hk.ring_geometry(x16[:3144], 4, 24)
-    assert (g["ctas"], g["stages_per_cta"], g["bytes_in_flight_per_cta"]) == (131, 2, 32768)
+    g = hk.ring_geometry(x16[:3144], 4, 24, "write")
+    assert (g["ctas"], g["stages_per_cta"], g["bytes_in_flight_per_cta"], g["stages"]) == (131, 2, 32768, 262)
+
+
+def test_copy_ring_geometry_is_a_sweep_of_the_chunks_stages():
+    """The copy's stages (a bf16 chunk of 24 rows: a whole stage and a half
+    one) are swept by every CTA that fits the card, known there only: a chain
+    per slot, one stage in flight each."""
+    _, x32, x16 = port_tool.make_inputs(16, 0, torch.device("cpu"))
+    g = hk.ring_geometry(x32, 2, 512, "copy")
+    assert g == {"k": 2, "cb": 512, "bf16": False, "stage_bytes": 16384, "stages": 1024, "stages_per_chunk": 64,
+                 "schedule": "sweep", "ctas": None, "stages_per_cta": None, "bytes_in_flight_per_cta": 2 * 16384}
+    g = hk.ring_geometry(x16[:3144], 8, 24, "copy")
+    assert (g["stages"], g["stages_per_chunk"], g["bytes_in_flight_per_cta"]) == (262, 2, 8 * 16384)
+    # on a card of 132 SMs: the grid is every CTA that fits, no more than there are stages, one for no stages
+    on = hk.ring_on_card(hk.ring_geometry(x32, 2, 512, "copy"), 6, 132)
+    assert (on["ctas"], on["stages_per_cta"], on["ctas_per_sm"]) == (792, 2, 6)
+    assert hk.ring_on_card(g, 1, 132)["ctas"] == 132 and hk.ring_on_card(g, 7, 132)["ctas"] == 262
+    assert hk.ring_on_card(hk.ring_geometry(x32[:0], 2, 8, "copy"), 7, 132)["ctas"] == 1
+    # the read's and write's CTAs stay one a chunk on the card
+    read = hk.ring_geometry(x32, 2, 512, "read")
+    assert hk.ring_on_card(read, 7, 132) == dict(read, ctas_per_sm=7)
 
 
 def test_bf16_legs_round_the_scalar_before_the_add():
@@ -456,11 +478,17 @@ def test_port_tool_prints_the_jax_tools_legs_in_its_order_on_the_cpu(recorded, c
     assert [r["config"] for r in study] == want
     manual = [r for r in study if r["config"].startswith("manual")]
     assert len(manual) == 25 and "not ported" not in out
+    _, x32, x16 = port_tool.make_inputs(16, 0, torch.device("cpu"))
+    arrays = {"f32": x32, "bf16": x16}
     for rec in manual:  # a manual leg's line says what its k and cb mean on the card
         ring = rec["ring"]
         line = next(line for line in out.splitlines() if line.startswith(rec["config"] + " "))
         assert f"k={ring['k']} cb={ring['cb']}" in rec["config"] and ring["ctas_per_sm"] is None
-        assert f"{ring['ctas']} CTAs, k={ring['k']} slots of 16384 B, {ring['bytes_in_flight_per_cta']} B in flight" in line
+        mode, tag = rec["config"].split()[1:3]
+        assert ring == dict(hk.ring_geometry(arrays[tag], ring["k"], ring["cb"], mode), ctas_per_sm=None)
+        where = (f"{ring['stages']} stages of 16384 B swept by every CTA that fits the card" if mode == "copy"
+                 else f"{ring['ctas']} CTAs, a chunk each")
+        assert f"on the card {where}, k={ring['k']} slots of 16384 B, {ring['bytes_in_flight_per_cta']} B in flight" in line
     assert all(r["ring"] is None for r in records if not r["config"].startswith("manual"))
     assert [r["library"] for r in records] == [False] * len(want) + [True] * 6
     for rec in records:
@@ -533,3 +561,30 @@ def test_slope_turns_times_in_the_given_order_and_takes_medians():
     assert [who for who, n in order[2:] if n == 4] == list(port_tool.TURNS)
     assert order[:2] == [("plain", 1), ("kernel", 1)]
     assert got["plain"][1] == pytest.approx(1.0) and got["kernel"][1] == pytest.approx(3.0)
+
+
+@pytest.mark.parametrize("variant", sorted(probe.HBM_COPY_EDITS))
+def test_copy_probe_variants_edit_the_sources_once(variant):
+    """Each variant of ``probe_kernel_variants --probe hbm-copy`` applies to
+    the two copy sources as they are, each edit once among both; the levers'
+    variants each take one cut fewer than the one before."""
+    sources, edits, _ = probe.PROBES["hbm-copy"]
+    assert [src.name for src in sources] == ["hbm_manual_copy.cu", "hbm2hbm.cu"] and edits is probe.HBM_COPY_EDITS
+    texts = {src: src.read_text() for src in sources}
+    edited = probe.edit_sources(texts, edits[variant], variant)
+    changed = {src.name for src in sources if edited[src] != texts[src]}
+    want = {"as it is": set(), "+ sweep, evict-first": {"hbm2hbm.cu"}}.get(variant, {"hbm_manual_copy.cu", "hbm2hbm.cu"})
+    assert changed == want
+    levers = [edits["no levers"], edits["+ sweep"], edits["+ sweep, evict-first"], edits["as it is"]]
+    assert all(set(levers[i + 1]) < set(levers[i]) for i in range(3))
+
+
+def test_probe_edits_of_several_sources_must_match_once_among_them_all(tmp_path):
+    a, b = tmp_path / "a.cu", tmp_path / "b.cu"
+    texts = {a: "x = 1;\ny = 2;\n", b: "y = 2;\nz = 3;\n"}
+    assert probe.edit_sources(texts, [("z = 3;", "z = 4;")], "v") == {a: texts[a], b: "y = 2;\nz = 4;\n"}
+    with pytest.raises(ValueError, match="occurs 2 times"):
+        probe.edit_sources(texts, [("y = 2;", "y = 5;")], "v")
+    with pytest.raises(ValueError, match="occurs 0 times"):
+        probe.edit_sources(texts, [("w = 0;", "w = 1;")], "v")
+    assert probe.probe_sources(a) == (a,) and probe.probe_sources((a, b)) == (a, b)
