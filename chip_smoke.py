@@ -74,9 +74,10 @@ them. In order it:
      3,144 rows; the manual legs at (k, cb) = (2, 512), (3, 1024), (8, 512)
      in float32 and (3, 1024) in bf16, and on 3,144 rows in both dtypes at
      cb = 24 and 1,048, where a bf16 chunk is no whole number of ring stages
-     (a float32 chunk always is: 8 rows are one stage); the manual copy at
-     (2, 512) and the whole-array copy eight launches in a row on eight
-     arrays, all in flight before each output is held. A watchdog ends the
+     (a float32 chunk always is: 8 rows are one stage); the auto copy at bn
+     = 256, the manual copy at (2, 512) and the whole-array copy eight
+     launches in a row on eight arrays, all in flight before each output is
+     held. A watchdog ends the
      run with an error if the phase hangs;
   9. drives the serving path: ``StreamingEngine.infer_batch`` with a res8
      made from seeded numpy weights, in bf16, on 512 clips of 8 s. The
@@ -247,7 +248,7 @@ HBM_ODD_ROWS, HBM_ODD_BN = 3144, 24  # a size that is not the sweep's: 131 block
 # the manual legs' comparisons: (k, cb) on the float32 array, on the bf16 array, and on the 3,144 rows in both dtypes
 # (bf16 chunks of 24 and 1,048 rows are 1.5 and 65.5 ring stages of 16 KB)
 HBM_RING_F32, HBM_RING_BF16, HBM_RING_ODD = ((2, 512), (3, 1024), (8, 512)), ((3, 1024),), ((2, 24), (3, 1048))
-HBM_REPEATS = 8  # launches in a row of each copy kernel, each held against its input
+HBM_REPEATS = 8  # launches in a row of each copy kernel, each held against its plain version
 HBM_PHASE_LIMIT_S = 300  # the sweep phase's watchdog
 # A leg's rate is the two-point slope of two chain times, noisy by a few percent: a write leg that reads
 # 3,030-3,130 GB/s read 3,359.8 GB/s in one run of fourteen. A copy that was dropped reads a multiple of the rate.
@@ -867,10 +868,15 @@ def drive_hbm_sweep(dev) -> dict:
         errs["manual_copy"] = max(errs["manual_copy"], hold(f"manual_copy {name}", out, x),
                                   hold(f"manual_copy {name} done", done, ref_done))
         del out
-    # the two copies launched HBM_REPEATS times in a row on as many arrays, all in flight before the first is held:
-    # a wrong mbarrier phase or a slot refilled too early shows only now and then
+    # the three copies launched HBM_REPEATS times in a row on as many arrays, all in flight before the first is held:
+    # a wrong mbarrier phase, a slot refilled too early or a stage left out shows only now and then
     k0, cb0 = study.MANUAL_KS[0], study.MANUAL_CBS[0]
     arrays = [x32.roll(7 * i + 1, 0) for i in range(HBM_REPEATS)]
+    outs = [hk.auto_copy_cuda(x, study.BNS[0], HBM_S) for x in arrays]
+    for i, (x, out) in enumerate(zip(arrays, outs)):
+        errs["auto_copy"] = max(errs["auto_copy"], hold(f"auto_copy f32 256 MB bn={study.BNS[0]}, launch {i + 1} of "
+                                                        f"{HBM_REPEATS} in a row", out, hk.auto_copy_plain(x, HBM_S)))
+    del outs
     for key, copy in (("manual_copy", lambda x: hk.manual_copy_cuda(x, k0, cb0, HBM_S)),
                       ("hbm2hbm", lambda x: hk.hbm2hbm_cuda(x, HBM_S))):
         outs = [copy(x) for x in arrays]

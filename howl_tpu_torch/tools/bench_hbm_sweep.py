@@ -16,9 +16,14 @@ bytes):
      whole, a quarter of it written;
   3. auto read and auto copy in float32 over the block heights bn = 256 ..
      4096, and in bf16 at 1024 and 4096 (``csrc/hbm_auto_read.cu``,
-     ``csrc/hbm_auto_copy.cu``). One CTA owns a block of bn rows and walks it
-     through a ring in shared memory, so bn sets how many CTAs there are:
-     512 at bn = 256 and 32 at bn = 4096, on a card of 132 SMs;
+     ``csrc/hbm_auto_copy.cu``). For the read (and the stream leg) one CTA
+     owns a block of bn rows and walks it through a ring in shared memory,
+     so bn sets how many CTAs there are: 512 at bn = 256 and 32 at bn =
+     4096, on a card of 132 SMs. The copy gives every 8 KB stage of the
+     array a CTA of its own (32,768 at 256 MB), four to an SM, whatever bn;
+     a block is a whole number of stages, so bn only says where stages end.
+     Each of these legs' lines ends with what its bn means on the card:
+     CTAs, stages and their size, CTAs to an SM;
   4. manual read, write and copy: the same reads, writes and copies moved
      by bulk asynchronous copies alone, started and waited for by the kernel
      through a ring of k slots (``csrc/hbm_manual_read.cu``,
@@ -89,6 +94,7 @@ from howl_tpu_torch.tools.hbm_sweep_kernels import (
     auto_copy_plain,
     auto_read_cuda,
     auto_read_plain,
+    block_geometry,
     hbm2hbm_cuda,
     hbm2hbm_plain,
     chunk_values,
@@ -136,6 +142,7 @@ class SweepLeg:
     kernel: Optional[str] = None  # a kernel leg's key in KERNELS
     library: bool = False  # one of the library legs that follow the study's
     ring: Optional[dict] = None  # a manual leg's ring on the card: hbm_sweep_kernels.ring_geometry
+    block: Optional[dict] = None  # a block leg's bn on the card: hbm_sweep_kernels.block_geometry
 
 
 def make_inputs(mb: int, seed: int, dev: torch.device) -> tuple:
@@ -155,16 +162,16 @@ def study_legs(geom: SweepGeometry, x32: torch.Tensor, x16: torch.Tensor, quick:
         SweepLeg("torch copy f32 (r+w)", 2 * gb, lambda i: acc.mul_(1.0 + 1e-7 * (i % 2))),
         SweepLeg("torch reduce f32 (r)", gb, lambda i: x32.sum()),
         SweepLeg(f"stream-264-repro f32 bn={STREAM_BN} (r+w/4)", 1.25 * gb, lambda i: stream_repro_cuda(x32, STREAM_BN, s),
-                 lambda i: stream_repro_plain(x32, s), "stream_repro"),
+                 lambda i: stream_repro_plain(x32, s), "stream_repro", block=block_geometry(x32, STREAM_BN, "stream")),
     ]
 
     def read(x, tag, bn):
         return SweepLeg(f"auto read  {tag} bn={bn}", gb, lambda i: auto_read_cuda(x, bn, s),
-                        lambda i: auto_read_plain(x, bn, s), "auto_read")
+                        lambda i: auto_read_plain(x, bn, s), "auto_read", block=block_geometry(x, bn, "read"))
 
     def copy(x, tag, bn):
         return SweepLeg(f"auto copy  {tag} bn={bn}", 2 * gb, lambda i: auto_copy_cuda(x, bn, s),
-                        lambda i: auto_copy_plain(x, s), "auto_copy")
+                        lambda i: auto_copy_plain(x, s), "auto_copy", block=block_geometry(x, bn, "copy"))
 
     bns = QUICK_BNS if quick else BNS
     legs += [read(x32, "f32", bn) for bn in bns] + [copy(x32, "f32", bn) for bn in bns]
@@ -267,9 +274,19 @@ def time_leg(leg: SweepLeg, iters: int, dev: torch.device, tally: dict) -> dict:
         line += (f"; on the card {where}, k={ring['k']} slots of {ring['stage_bytes']} B, "
                  f"{ring['bytes_in_flight_per_cta']} B in flight per CTA"
                  + (f", {ring['ctas_per_sm']} CTAs to an SM" if ring["ctas_per_sm"] else ""))
+    block = leg.block
+    if block:
+        short = (f", the last {block['last_stage_bytes']} B" if block["last_stage_bytes"] != block["stage_bytes"] else "")
+        if block["schedule"] == "stage":
+            line += (f"; on the card {block['ctas']} CTAs, one a stage of {block['stage_bytes']} B, "
+                     f"{block['stages_per_block']} stages a block{short}")
+        else:
+            line += (f"; on the card {block['ctas']} CTAs, one a block of {block['stages_per_block']} stages of "
+                     f"{block['stage_bytes']} B{short}")
+        line += f", {block['ctas_per_sm']} CTAs to an SM"
     print(line, flush=True)
     return {"config": leg.name, "ms_per_iter": ms, "gbps": gbps, "mean_ms_per_iter": mean_ms, "route": route,
-            "plain_ms_per_iter": plain_ms, "library": leg.library, "ring": ring}
+            "plain_ms_per_iter": plain_ms, "library": leg.library, "ring": ring, "block": block}
 
 
 def run(mb: int, iters: int, quick: bool, seed: int, dev: torch.device) -> tuple:

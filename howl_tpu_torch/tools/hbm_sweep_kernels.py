@@ -12,7 +12,14 @@ block is brought on chip whole; block i writes x[i bn : i bn + 8, :128] + s.
 out (rows / bn * 8, 128) in x's dtype.
 
 Auto copy (``csrc/hbm_auto_copy.cu``, replacing ``make_auto_copy``):
-out = x + s over the whole array, block by block.
+out = x + s over the whole array. On the card the array is cut into stages of
+``COPY_STAGE_BYTES``, two 16-byte pieces for each of a CTA's threads, and
+each stage gets a CTA of its own, ``COPY_CTAS_PER_SM`` to an SM, so every SM
+is busy whatever bn is. A block is a whole number of stages, so bn only says
+where stages end. The read and the stream leg keep one CTA a block, which
+walks the block through a ring of ``BLOCK_STAGE_BYTES`` stages: bn sets their
+CTA count.
+:func:`block_geometry` gives what bn means on the card for each of the three.
 
 Stream repro (``csrc/micro_stream.cu``, second entry, replacing
 ``make_stream_repro``): every block is brought on chip whole and
@@ -37,7 +44,7 @@ slots by asynchronous copies that the kernel starts and waits for itself.
 On the TPU one core walks the whole array through one ring whose slots hold a
 chunk each (1-4 MB). On the card a chunk does not fit an SM. The read and the
 write keep one CTA per chunk, so cb sets the CTA count as bn does for the
-auto legs, and each CTA walks its chunk through a ring of k slots of
+auto read, and each CTA walks its chunk through a ring of k slots of
 ``STAGE_BYTES`` in shared memory, whatever k, so that depth and stage size
 stay apart. The copy cuts every chunk into stages of ``STAGE_BYTES`` (the
 last one of a chunk short) and sweeps them with a persistent grid, as many
@@ -72,6 +79,10 @@ CORNER_ROWS = 8  # rows of the corner a read block writes; a block is a multiple
 OUT_COLS = 128  # columns of the corner and of the stream leg's output
 DONE_SHAPE = (8, 128)  # the second output of the whole-array copy and of the manual write and copy; the read's output
 STAGE_BYTES = 16384  # one slot of a manual leg's ring: 8 float32 rows, so a chunk's corner lies in its first stage
+BLOCK_STAGE_BYTES = 32768  # a stage of the auto read's and the stream leg's ring: 16 float32 rows
+BLOCK_CTAS_PER_SM = 2  # a ring of three stages is 96 KB of an SM's 228 KB
+COPY_STAGE_BYTES = 8192  # a stage of the auto copy: two 16-byte pieces for each of a CTA's 256 threads
+COPY_CTAS_PER_SM = 4  # held so by shared memory that the copy asks for and leaves unused
 MIN_K, MAX_K = 2, 8  # ring depths the manual kernels take: the read runs k - 1 copies ahead, so 1 would deadlock it
 
 
@@ -167,6 +178,30 @@ def _block_leg(name: str, entry: str, plain, out_shape):
     return wrapper
 
 
+def block_geometry(x: torch.Tensor, bn: int, leg: str) -> dict:
+    """What the block height bn means on the card for the block leg ``leg``
+    ("read", "copy" or "stream") on x. The read and the stream keep one CTA
+    a block ("block"), which walks the block's stages of
+    ``BLOCK_STAGE_BYTES`` through a ring; a block that is no whole number of
+    stages ends in a short one, and a block lower than a stage is one short
+    stage. The copy cuts the array into stages of ``COPY_STAGE_BYTES`` and
+    gives each a CTA of its own ("stage"); a block of bn rows is a whole
+    number of them, so bn only says where stages end."""
+    if leg not in ("read", "copy", "stream"):
+        raise ValueError(f"block_geometry: leg is 'read', 'copy' or 'stream', got {leg!r}")
+    _check_array("block_geometry", x)
+    _check_bn("block_geometry", x, bn)
+    block_bytes = bn * COLS * x.element_size()
+    stage = COPY_STAGE_BYTES if leg == "copy" else BLOCK_STAGE_BYTES
+    per_block = -(-block_bytes // stage)
+    blocks = x.shape[0] // bn
+    geom = {"bn": bn, "bf16": x.dtype == torch.bfloat16, "stage_bytes": stage, "stages": blocks * per_block,
+            "stages_per_block": per_block, "last_stage_bytes": block_bytes - (per_block - 1) * stage}
+    if leg == "copy":
+        return dict(geom, schedule="stage", ctas=blocks * per_block, stages_per_cta=1, ctas_per_sm=COPY_CTAS_PER_SM)
+    return dict(geom, schedule="block", ctas=blocks, stages_per_cta=per_block, ctas_per_sm=BLOCK_CTAS_PER_SM)
+
+
 # ---- auto read ----
 
 
@@ -203,7 +238,8 @@ auto_copy_cuda = _block_leg(
 )
 auto_copy_cuda.__doc__ = """x (rows, 512) float32 or bf16 -> x + s. On a CPU tensor this is
 :func:`auto_copy_plain`; on a CUDA tensor it launches
-``howl_hbm_auto_copy_forward`` or raises."""
+``howl_hbm_auto_copy_forward``, one CTA for each 8 KB stage of x, or
+raises."""
 
 
 # ---- stream repro ----

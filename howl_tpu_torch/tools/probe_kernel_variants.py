@@ -8,6 +8,7 @@ out, to see where the kernel's time goes.
     python -m howl_tpu_torch.tools.probe_kernel_variants --probe k1-x3 [--source howl_tpu_torch/csrc/frontend_tc.cu]
     python -m howl_tpu_torch.tools.probe_kernel_variants --probe k1-f32 [--source howl_tpu_torch/csrc/frontend_tc.cu]
     python -m howl_tpu_torch.tools.probe_kernel_variants --probe hbm-copy [--baseline <another checkout>/howl_tpu_torch/csrc]
+    python -m howl_tpu_torch.tools.probe_kernel_variants --probe auto-copy [--baseline <another checkout>/howl_tpu_torch/csrc]
 
 A probe names a kernel source (or several, built together), its C entries,
 the study inputs it runs on and a list of variants; a variant is a list of
@@ -17,7 +18,9 @@ compiler keeps the code and the launch skips it. Every variant is built with
 nvcc (sm_90a, one shared library each, under
 ``howl_tpu_torch/_build/probes``, all variants at once) and timed at the
 study's full size with CUDA events over 20 calls, the variants in turns,
-twice over (A B C ... C B A). Only the first variant computes the function;
+twice over (A B C ... C B A), after every case has run once and the first
+for two seconds more, untimed, so that the first timed run does not find
+the card's clocks low. Only the first variant computes the function;
 the others are for timing. An edit that no longer matches its source once
 stops the probe before anything is built. ``--baseline DIR`` adds another
 checkout's copies of the sources (built on that checkout's headers) to the
@@ -81,6 +84,22 @@ Probes:
                prefetch); + the sweep (stage j to CTA j % CTAs); + the L2
                evict-first policy on loads and stores; as it is (+ the
                whole-array copy's L2 prefetch of its next stage).
+  auto-copy    the bandwidth sweep's auto copy (``csrc/hbm_auto_copy.cu``)
+               on its 256 MB array at every leg of the sweep (float32 at bn
+               = 256 .. 4096, bf16 at 1024 and 4096), with ``x + s`` in the
+               same turns: as it is; loads only (the stores behind a
+               condition on the loaded bytes that never holds); stores only
+               (no loads); then the design's levers added one at a time:
+               none (CTA g walks block g's stages, the grid of one CTA a
+               block that the read and stream legs keep; each thread's
+               pieces landed in shared memory by ``cp.async`` and read back;
+               eight CTAs an SM; no L2 policy); + a CTA a stage; + registers
+               (the pieces straight into registers); + four CTAs an SM (the
+               unused shared memory that caps them); as it is (+ the L1
+               no-allocate and L2 evict-first policy). Then two other
+               designs: a persistent grid (every CTA that fits the card,
+               each sweeping stages j, j + CTAs, ...); one load a thread (4
+               KB stages, eight CTAs an SM).
 
 Needs a CUDA device and nvcc.
 """
@@ -92,6 +111,7 @@ import ctypes
 import functools
 import json
 import subprocess
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -244,7 +264,47 @@ HBM_COPY_BASELINE_EDITS = {
                     (_B_WAIT_H, "    if (n < 0)" + _B_WAIT_H[3:])],
 }
 
+# the bandwidth sweep's auto copy, csrc/hbm_auto_copy.cu
+_AC_GRID = "  const long long ctas = n_stages;"
+_AC_CAP = "  const int cap_bytes = occupancy_cap_bytes<hbm_auto_copy_kernel<kBf16>>();"
+_AC_LOOP = "  for (long long j = blockIdx.x; j < n_stages; j += gridDim.x) {"
+_AC_LOAD = "    for (int u = 0; u < kCopyLoads; ++u) v[u] = load_streamed(x + i + u * kCopyThreads, policy);"
+_AC_STORE = ("    for (int u = 0; u < kCopyLoads; ++u) store_streamed(out + i + u * kCopyThreads, add16<kBf16>(v[u], s), "
+             "policy);")
+# one CTA a block, as the read and stream legs keep: CTA g takes block g's stages, one after another
+_AC_A_BLOCK = [(_AC_GRID, "  const long long ctas = blocks;"),
+               (_AC_LOOP, "  for (long long j = blockIdx.x * (n_stages / gridDim.x), end = j + n_stages / gridDim.x; "
+                          "j < end; ++j) {")]
+# each thread's pieces landed in shared memory by cp.async and read back by the same thread, no L2 policy
+_AC_SHARED = [(_AC_LOAD, "    __shared__ uint4 landed[kCopyLoads][kCopyThreads];\n"
+                         "    for (int u = 0; u < kCopyLoads; ++u) cp_async16(&landed[u][threadIdx.x], x + i + u * kCopyThreads);\n"
+                         "    cp_async_commit();\n    cp_async_wait<0>();\n"
+                         "    for (int u = 0; u < kCopyLoads; ++u) v[u] = landed[u][threadIdx.x];")]
+_AC_REGISTERS = [(_AC_LOAD, "    for (int u = 0; u < kCopyLoads; ++u) v[u] = __ldg(x + i + u * kCopyThreads);")]
+_AC_NO_POLICY_STORE = [(_AC_STORE, "    for (int u = 0; u < kCopyLoads; ++u) out[i + u * kCopyThreads] = add16<kBf16>(v[u], s);")]
+_AC_NO_CAP = [(_AC_CAP, "  const int cap_bytes = 0;")]
+AUTO_COPY_EDITS = {
+    "as it is": [],
+    # the stores behind a condition on the loaded bytes that the array never meets: no load is dead code
+    "loads only": [(_AC_STORE, _AC_STORE.replace("u < kCopyLoads;", "u < kCopyLoads * (v[0].x == 0x7fc00001u && "
+                                                                    "v[1].x == 0x7fc00001u);"))],
+    "stores only": [(_AC_LOAD, "    for (int u = 0; u < kCopyLoads; ++u) v[u] = make_uint4(static_cast<uint32_t>(j), u, 0u, 0u);")],
+    "no levers": _AC_A_BLOCK + _AC_SHARED + _AC_NO_POLICY_STORE + _AC_NO_CAP,
+    "+ a CTA a stage": _AC_SHARED + _AC_NO_POLICY_STORE + _AC_NO_CAP,
+    "+ registers": _AC_REGISTERS + _AC_NO_POLICY_STORE + _AC_NO_CAP,
+    "+ four CTAs an SM": _AC_REGISTERS + _AC_NO_POLICY_STORE,
+    # every CTA that fits the card at once, each sweeping stages j, j + CTAs, ... as the two copies' grids do
+    "persistent grid": [(_AC_GRID, "  int device = 0, sms = 0, per_sm = 0;\n  cudaGetDevice(&device);\n"
+                                   "  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);\n"
+                                   "  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, hbm_auto_copy_kernel<kBf16>, "
+                                   "kCopyThreads, cap_bytes);\n"
+                                   "  const long long ctas = n_stages < sms * per_sm ? n_stages : sms * per_sm;")],
+    # 4 KB stages, one load a thread, eight CTAs an SM: as many loads in flight an SM, twice the threads
+    "one load a thread": [("constexpr int kCopyLoads = 2;", "constexpr int kCopyLoads = 1;")] + _AC_NO_CAP,
+}
+
 ITERS = 20  # calls a timed run
+WARM_SECONDS = 2.0  # untimed calls of the first case before the first timed run, for at least this long
 
 
 def edit_sources(texts: dict, edits: list, name: str) -> dict:
@@ -475,6 +535,32 @@ def _hbm_copy_runner(dev):
     return make
 
 
+def _auto_copy_runner(dev):
+    """The bandwidth sweep's auto copy on its 256 MB array at every leg the
+    sweep times (float32 at each block height, bf16 at two); ``x + s`` on
+    the same arrays is timed in the same turns."""
+    from howl_tpu_torch.tools import bench_hbm_sweep as sweep
+
+    _, x32, x16 = sweep.make_inputs(256, sweep.SEED, dev)
+    legs = [(x32, "f32", bn) for bn in sweep.BNS] + [(x16, "bf16", bn) for bn in sweep.BF16_BNS]
+    outs = {tag: torch.empty_like(x) for x, tag, _ in legs}
+
+    def make(lib):
+        fn = lib.howl_hbm_auto_copy_forward
+        fn.argtypes, fn.restype = list(_build.SIGNATURES["howl_hbm_auto_copy_forward"]), ctypes.c_int
+
+        def call(x, tag, bn):
+            def run():
+                status = fn(x.data_ptr(), outs[tag].data_ptr(), x.shape[0], bn, int(tag == "bf16"), 0.0,
+                            torch.cuda.current_stream(dev).cuda_stream)
+                _build.check_launch(status, "probe")
+            return run
+        return [(f"{tag} bn={bn}", call(x, tag, bn)) for x, tag, bn in legs]
+
+    make.library = [("x + s f32", lambda: x32 + 0.0), ("x + s bf16", lambda: x16 + 0.0)]
+    return make
+
+
 PROBES = {
     "t1-wgmma": (_build.CSRC / "trunk_proto.cu", T1_WGMMA_EDITS, _t1_runner),
     "m2-wgmma": (_build.CSRC / "micro_gemm.cu", M2_EDITS, _m2_runner),
@@ -484,6 +570,7 @@ PROBES = {
               functools.partial(_k1_runner, grades=("bf16", "bf16x2", "bf16x3"))),
     "k1-f32": (_build.CSRC / "frontend_tc.cu", K1_F32_EDITS, functools.partial(_k1_runner, grades=("bf16x3", "f32"))),
     "hbm-copy": ((_build.CSRC / "hbm_manual_copy.cu", _build.CSRC / "hbm2hbm.cu"), HBM_COPY_EDITS, _hbm_copy_runner),
+    "auto-copy": (_build.CSRC / "hbm_auto_copy.cu", AUTO_COPY_EDITS, _auto_copy_runner),
 }
 # the variants a --baseline checkout's copies of a probe's sources are built in (by default only as they are)
 BASELINE_EDITS = {"hbm-copy": HBM_COPY_BASELINE_EDITS}
@@ -517,6 +604,15 @@ def main(argv=None) -> dict:
     if getattr(make, "library", None):
         cases["library"] = make.library  # one PyTorch call of the same function, in the same turns
     names = list(cases)
+    # every case once, then the first one for WARM_SECONDS: the first timed run finds the card's clocks up
+    for name in names:
+        for _, fn in cases[name]:
+            fn()
+    warm_until = time.perf_counter() + WARM_SECONDS
+    while time.perf_counter() < warm_until:
+        for _ in range(ITERS):
+            cases[names[0]][0][1]()
+        torch.cuda.synchronize()
     times: dict = {}
     for name in names + names[::-1]:
         for case, fn in cases[name]:

@@ -927,8 +927,10 @@ def _same_bits(got, want) -> bool:
 
 
 # 8 rows: one stage that is not full; 24 x 131: many small blocks; 1048: 65.5 stages of float32; 3144: one CTA
-# that wraps the ring many times; 4096 x 2: whole stages only
-@pytest.mark.parametrize("rows,bn", [(8, 8), (3144, 24), (3144, 1048), (3144, 3144), (8192, 4096), (8192, 256)])
+# that wraps the ring many times; 4096 x 2: whole stages only; 33,000 x 8 and the sweep's 131,072 x 4096: many
+# times more of the copy's 4 KB stages than the card holds CTAs at once
+@pytest.mark.parametrize("rows,bn", [(8, 8), (3144, 24), (3144, 1048), (3144, 3144), (8192, 4096), (8192, 256),
+                                     (33000, 8), (131072, 4096)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("leg", ["auto_read", "auto_copy", "stream_repro"])
 def test_sweep_block_kernels_match_plain_bitwise(cuda, leg, dtype, rows, bn):
@@ -1042,22 +1044,29 @@ def test_sweep_manual_kernels_match_plain_bitwise(cuda, leg, dtype, rows, k, cb)
 
 
 @pytest.mark.parametrize("leg,k,cb", [("manual_copy", 2, 512), ("manual_copy", 8, 1024), ("manual_copy", 3, 8),
-                                      ("hbm2hbm", None, None)])
+                                      ("hbm2hbm", None, None), ("auto_copy", None, 256)])
 def test_sweep_copies_stay_exact_over_many_launches_in_a_row(cuda, leg, k, cb):
     """Twelve launches in a row at the sweep's 256 MB, each on another array,
     all in flight before the first is checked: a wrong mbarrier phase or a
     slot refilled before its store has read it shows only now and then, as
     a stage of one array in another's copy, or a stage left unwritten in an
-    output block the allocator hands back."""
+    output block the allocator hands back. The auto copy (cb: its block
+    height) is held against x + s."""
     from howl_tpu_torch.tools import hbm_sweep_kernels as hk
 
     base = _sweep_array(cuda, 131072, torch.float32)
     arrays = [base.roll(7 * i + 1, 0) for i in range(12)]
     kernel = getattr(hk, f"{leg}_cuda")
     before = kernel.launches
-    outs = [kernel(x, k, cb, HBM_S) if k else kernel(x, HBM_S) for x in arrays]
+    if leg == "auto_copy":
+        outs = [kernel(x, cb, HBM_S) for x in arrays]
+    else:
+        outs = [kernel(x, k, cb, HBM_S) if k else kernel(x, HBM_S) for x in arrays]
     torch.cuda.synchronize()
     assert kernel.launches == before + len(arrays)
+    if leg == "auto_copy":
+        assert all(_same_bits(out, hk.auto_copy_plain(x, HBM_S)) for x, out in zip(arrays, outs))
+        return
     for x, (out, done) in zip(arrays, outs):
         assert _same_bits(out, x) and bool((done == np.float32(HBM_S)).all())
 

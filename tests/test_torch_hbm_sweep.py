@@ -332,6 +332,90 @@ def test_copy_ring_geometry_is_a_sweep_of_the_chunks_stages():
     assert hk.ring_on_card(read, 7, 132) == dict(read, ctas_per_sm=7)
 
 
+def test_block_geometry_says_what_bn_means_on_the_card():
+    """The read and the stream leg: one CTA a block, walking it in stages of
+    32 KB; the copy: one CTA a stage of 8 KB, whatever bn."""
+    _, x32, x16 = port_tool.make_inputs(16, 0, torch.device("cpu"))
+    assert (hk.BLOCK_STAGE_BYTES, hk.COPY_STAGE_BYTES, hk.BLOCK_CTAS_PER_SM, hk.COPY_CTAS_PER_SM) == (32768, 8192, 2, 4)
+    g = hk.block_geometry(x32, 256, "read")
+    assert g == {"bn": 256, "bf16": False, "stage_bytes": 32768, "stages": 512, "stages_per_block": 16,
+                 "last_stage_bytes": 32768, "schedule": "block", "ctas": 32, "stages_per_cta": 16, "ctas_per_sm": 2}
+    assert hk.block_geometry(x32, 256, "stream") == g
+    g = hk.block_geometry(x32, 256, "copy")
+    assert g == {"bn": 256, "bf16": False, "stage_bytes": 8192, "stages": 2048, "stages_per_block": 64,
+                 "last_stage_bytes": 8192, "schedule": "stage", "ctas": 2048, "stages_per_cta": 1, "ctas_per_sm": 4}
+    # the copy's grid follows the array's bytes alone: the same at every block height, in either dtype
+    for x, bns in ((x32, port_tool.BNS), (x16, port_tool.BF16_BNS)):
+        assert {hk.block_geometry(x, bn, "copy")["ctas"] for bn in bns} == {2048}
+    assert [hk.block_geometry(x32, bn, "read")["ctas"] for bn in port_tool.BNS] == [32, 16, 8, 4, 2]
+    assert hk.block_geometry(x16, 4096, "read")["stages_per_cta"] == 128
+
+
+def test_block_geometry_of_short_stages_and_low_blocks():
+    """A read block that is no whole number of 32 KB stages ends in a short
+    one, and a block lower than a stage is one short stage; every copy block
+    is a whole number of 8 KB stages, down to 8 rows of bf16."""
+    _, x32, x16 = port_tool.make_inputs(16, 0, torch.device("cpu"))
+    odd32, odd16 = x32[:3144], x16[:3144]
+    g = hk.block_geometry(odd32, 24, "read")  # 48 KB blocks: a whole stage and a half one
+    assert (g["ctas"], g["stages"], g["stages_per_block"], g["last_stage_bytes"]) == (131, 262, 2, 16384)
+    g = hk.block_geometry(odd16, 24, "stream")  # 24 KB blocks: one short stage each
+    assert (g["ctas"], g["stages_per_block"], g["last_stage_bytes"]) == (131, 1, 24576)
+    g = hk.block_geometry(x32, 8, "read")  # 16 KB blocks, below a stage
+    assert (g["ctas"], g["stages_per_block"], g["last_stage_bytes"]) == (1024, 1, 16384)
+    assert [hk.block_geometry(odd32, 24, "copy")[key] for key in ("ctas", "stages_per_block")] == [786, 6]
+    assert [hk.block_geometry(odd16, 24, "copy")[key] for key in ("ctas", "stages_per_block")] == [393, 3]
+    low = hk.block_geometry(x16, 8, "copy")  # 8 KB blocks, the lowest: one whole stage each
+    assert (low["stages_per_block"], low["last_stage_bytes"], low["ctas"]) == (1, 8192, 2048)
+    for x in (x32, x16):
+        for bn in range(8, 4097, 8):
+            if x.shape[0] % bn == 0:
+                g = hk.block_geometry(x, bn, "copy")
+                assert g["last_stage_bytes"] == g["stage_bytes"] and g["stages"] * 8192 == x.numel() * x.element_size()
+    assert hk.block_geometry(x32[:0], 8, "copy")["ctas"] == 0
+    with pytest.raises(ValueError, match="'read', 'copy' or 'stream'"):
+        hk.block_geometry(x32, 256, "write")
+    with pytest.raises(ValueError, match="multiple of 8"):
+        hk.block_geometry(x32, 12, "copy")
+    with pytest.raises(ValueError, match="whole number of blocks"):
+        hk.block_geometry(odd32, 256, "read")
+
+
+def test_block_stage_sizes_are_the_kernels():
+    """The geometry's stage sizes and CTAs to an SM are the ones the CUDA
+    sources use."""
+    csrc = Path(hk.__file__).resolve().parent.parent / "csrc"
+    common, copy = (csrc / "hbm_common.cuh").read_text(), (csrc / "hbm_auto_copy.cu").read_text()
+    assert f"constexpr int kStageBytes = {hk.BLOCK_STAGE_BYTES};" in common and "constexpr int kStages = 3;" in common
+    assert hk.BLOCK_CTAS_PER_SM == 228 // (3 * 32 + 1)  # 96 KB rings and the KB the card keeps back for each CTA
+    for line in ("constexpr int kCopyThreads = 256;", "constexpr int kCopyLoads = 2;",
+                 "constexpr int kCopyStageBytes = kCopyThreads * kCopyLoads * 16;",
+                 f"constexpr int kCopyCtasPerSm = {hk.COPY_CTAS_PER_SM};"):
+        assert line in copy
+    assert hk.COPY_STAGE_BYTES == 256 * 2 * 16
+    assert "launch_block_walk" not in copy and "walk_block" not in copy
+
+
+def test_port_tool_prints_what_bn_means_on_the_card_on_the_block_legs():
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        records, _ = port_tool.run(16, 1, True, 0, torch.device("cpu"))
+    _, x32, _ = port_tool.make_inputs(16, 0, torch.device("cpu"))
+    legs = {"auto read": "read", "auto copy": "copy", "stream-264-repro": "stream"}
+    block_legs = [r for r in records if r["config"].startswith(tuple(legs))]
+    assert len(block_legs) == 1 + 2 * len(port_tool.QUICK_BNS)
+    for rec in block_legs:
+        leg = next(leg for name, leg in legs.items() if rec["config"].startswith(name))
+        bn = int(rec["config"].split("bn=")[1].split()[0])
+        assert rec["block"] == hk.block_geometry(x32, bn, leg) and rec["ring"] is None
+        line = next(line for line in printed.getvalue().splitlines() if line.startswith(rec["config"] + " "))
+        g = rec["block"]
+        want = (f"on the card {g['ctas']} CTAs, one a stage of 8192 B, {g['stages_per_block']} stages a block, "
+                "4 CTAs to an SM" if leg == "copy" else
+                f"on the card {g['ctas']} CTAs, one a block of {g['stages_per_block']} stages of 32768 B, 2 CTAs to an SM")
+        assert line.endswith(want)
+    assert all(r["block"] is None for r in records if r not in block_legs)
+
+
 def test_bf16_legs_round_the_scalar_before_the_add():
     """0.3 becomes 0.30078125 first; added to 256 in bf16 (ulp 2) it is lost,
     and 1 + 2^-8 ties to the even neighbour."""
@@ -577,6 +661,27 @@ def test_copy_probe_variants_edit_the_sources_once(variant):
     assert changed == want
     levers = [edits["no levers"], edits["+ sweep"], edits["+ sweep, evict-first"], edits["as it is"]]
     assert all(set(levers[i + 1]) < set(levers[i]) for i in range(3))
+
+
+@pytest.mark.parametrize("variant", sorted(probe.AUTO_COPY_EDITS))
+def test_auto_copy_probe_variants_edit_the_source_once(variant):
+    """Each variant of ``probe_kernel_variants --probe auto-copy`` applies to
+    the auto copy's source as it is, each edit once; the levers' variants
+    take their cuts off one at a time: the block grid, then the path through
+    shared memory, then the cap of four CTAs an SM, then the policy."""
+    source, edits, _ = probe.PROBES["auto-copy"]
+    assert source.name == "hbm_auto_copy.cu" and edits is probe.AUTO_COPY_EDITS
+    text = source.read_text()
+    edited = probe.apply_edits(text, edits[variant], variant)
+    assert (edited == text) == (variant == "as it is")
+    none, stage, registers, capped = (edits[v] for v in ("no levers", "+ a CTA a stage", "+ registers", "+ four CTAs an SM"))
+    assert set(stage) < set(none) and len(none) - len(stage) == 2
+    assert registers[1:] == stage[1:] and registers[0][0] == stage[0][0] and registers[0] != stage[0]
+    assert set(capped) < set(registers) and len(registers) - len(capped) == 1
+    assert ("cp_async16" in edited) == (variant in ("no levers", "+ a CTA a stage"))
+    assert ("cudaOccupancyMaxActiveBlocksPerMultiprocessor" in edited) == (variant == "persistent grid")
+    assert ("const int cap_bytes = 0;" in edited) == (variant in ("no levers", "+ a CTA a stage", "+ registers",
+                                                                  "one load a thread"))
 
 
 def test_probe_edits_of_several_sources_must_match_once_among_them_all(tmp_path):
