@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch + CUDA port (howl_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile DIR | --profile-only DIR]
+    python3 chip_smoke.py --train-repeat    (phase 17's short training alone)
 
 Needs one CUDA device and nvcc; exits non-zero, printing no result, without
 them. In order it:
@@ -133,10 +134,25 @@ them. In order it:
      print a positive time;
  11. runs the decision gate ``howl_tpu_torch.tools.validate_tpu_decisions``
      on the card, its float32 oracle's K1 on "tc" at the exact grade (six
-     bf16 passes): every row that runs must be OK, the three-pass grade's
-     (``res8+k1[bf16x3]+k2``, on the tensor-core frontend kernel), the int8
-     trunk's (``res8+k1[bf16]+k2+int8``) and the three live engines' rows
-     included;
+     bf16 passes): all thirteen rows must run and be OK, the three-pass
+     grade's (``res8+k1[bf16x3]+k2``, on the tensor-core frontend kernel),
+     the int8 trunk's (``res8+k1[bf16]+k2+int8``), the three live engines'
+     and the five other families' rows included;
+ 11b. serves the zoo's seven other families offline at their registered
+     widths (small-cnn, seq-cnn, mobilenet, lstm, seq-lstm, gru, las), on
+     seeded numpy weights carried across by ``compat`` and 512 clips of 8 s
+     of the gate's ``family_audio`` (its eight distinct clips, each 64
+     times), the weights fixed per family and the word and threshold picked
+     from float32 scores by the gate's ``family_setup`` (every decision 0.01
+     or more from flipping): ``infer_batch`` in float32 (K1 at "f32") and in
+     bf16 (K1 at "bf16"), seq-lstm and seq-cnn through ``WholeClipEngine``,
+     lstm and gru once more in bf16 with ``carry_windows``. Between zeroed
+     counters each batch must launch K1 once ("tc" where ``frontend_route``
+     serves the grade), las's none (its stacked chain); the posteriors must
+     be finite and the bf16 decisions equal float32's by the gate's rule.
+     It prints each family's batch times, its bf16 realtime factor beside
+     the card's name and power limit, and where its recurrences run
+     (cuDNN in float32; PyTorch's native CUDA RNN in bf16);
  12. drives the live serving path (a): the ``OnlineEngine`` at 512 streams
      in bf16, 16 hops between zeroed counters, which must launch the
      tensor-core frontend kernel and the tensor-core stem kernel once a hop
@@ -169,7 +185,12 @@ them. In order it:
      steps (bf16 with and without the bank, float32) in chains of 64, in
      turns, 2 repeats (``bench.time_train_steps``) and prints the medians;
  17. drives the training entry point (``python -m howl_tpu_torch.training.run.train``, called as
-     ``train.run``) on the card at res8's full width, ``envs/res8.env``'s recipe (batch 16, LR 0.01, decay
+     ``train.run``). First (ROADMAP F15) two processes at once (``chip_smoke.py --train-repeat``), each
+     in a temporary directory of its own, train one epoch of 10 steps from one seed: their epoch losses
+     must be equal, printed. The noise corpus is named by a path that is the same in every process
+     (``/proc/self/cwd/noise``), since the entry point splits it by a hash of each clip's absolute path.
+     Then on the card at res8's full width,
+     ``envs/res8.env``'s recipe (batch 16, LR 0.01, decay
      0.955, weight decay 1e-5, 0.5 s windows, 40 mels, sequence [0, 1, 2]) with the noise corpus on and
      augmentation on, on a tone corpus of 24 positives and 24 negatives and 12 noise clips of 3 s that it
      writes to a temporary directory: 60 epochs of 10 steps, then ``--eval`` on the same workspace, a
@@ -193,7 +214,8 @@ them. In order it:
      positive, the seven online keys included, each latency at every
      stream count of ``bench.py``, and its ``rungs["int8"]`` must name the
      fused kernel, one launch a batch;
- 19. prints one JSON line with each of the seventeen kernels' launches, error and times
+ 19. prints one JSON line with each of the seventeen kernels' launches (K1's also on each family's
+     paths of phase 11b), error and times
      beside its plain version's and its bound on this card (the larger of
      its bytes over 3.35 TB/s and its operations over the peak rate of
      their type, both counted from this run's shapes: what the function
@@ -217,6 +239,7 @@ so the plain versions are float32 references.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -264,6 +287,9 @@ ONLINE_STREAMS, ONLINE_STEPS, ONLINE_ZMUV = 512, 16, (-6.0, 4.0)
 BIG_STREAMS, BIG_STEPS = 65536, 3
 LIVE_SAMPLES = 63200
 LIVE_MARGIN = 0.01  # how far from flipping the decision checks' decisions are picked
+# the zoo's other families, each at its registered width (phase 11b)
+FAMILY_NAMES = ("small-cnn", "seq-cnn", "mobilenet", "lstm", "seq-lstm", "gru", "las")
+FAMILY_ITERS = 3  # timed batches a leg, after a warm-up
 # the training entry point: envs/res8.env on a tone corpus of 24 positives and 24 negatives (12 train clips
 # of each, 6 dev and 6 test of each) and 12 noise clips; 60 epochs of 10 steps separate it on the CPU by 40
 ENTRY_CORPUS, ENTRY_EPOCHS, ENTRY_STEPS, ENTRY_RESUME_EPOCHS = 24, 60, 10, 2
@@ -1413,10 +1439,11 @@ def drive_int8_tools() -> None:
 
 
 def check_decision_gate(dev) -> None:
-    """(11) The decision gate on the card: every row that runs must be OK, the
-    three-pass grade's (on the tensor-core frontend kernel) and the int8
-    trunk's among them, against an oracle whose exact grade runs on the
-    tensor-core frontend kernel too (six bf16 passes)."""
+    """(11) The decision gate on the card: all thirteen rows must run and be
+    OK, the three-pass grade's (on the tensor-core frontend kernel), the int8
+    trunk's and the five other families' among them, against an oracle whose
+    exact grade runs on the tensor-core frontend kernel too (six bf16
+    passes)."""
     from howl_tpu_torch.ops.frontend import FrontendConfig
     from howl_tpu_torch.ops.frontend_cuda import frontend_route
     from howl_tpu_torch.tools import validate_tpu_decisions
@@ -1425,12 +1452,87 @@ def check_decision_gate(dev) -> None:
         if frontend_route(FrontendConfig(n_mels=40), grade) != "tc":
             raise AssertionError(f"the gate's {grade} engine would not run on the tensor-core frontend kernel")
     rows = validate_tpu_decisions.run(dev, *validate_tpu_decisions.CARD_SIZE)
-    bad = [tag for tag, rec in rows.items() if rec["ok"] is False]
-    for tag in ("res8+k1[bf16x3]+k2", "res8+k1[bf16]+k2+int8"):
-        if rows[tag]["ok"] is not True:
-            bad.append(tag)
-    if bad:
+    bad = [tag for tag, rec in rows.items() if rec["ok"] is not True]
+    bad += [tag for tag in ("res8+k1[bf16x3]+k2", "res8+k1[bf16]+k2+int8", *validate_tpu_decisions.FAMILIES)
+            if tag not in rows]
+    if len(rows) != 13 or bad:
         raise AssertionError(f"the decision gate found a mismatch in {bad}")
+
+
+# ---- the zoo's other families, served offline ----
+
+
+def drive_families(dev) -> dict:
+    """(11b) Each of the seven other families at its registered width, on
+    seeded numpy weights carried across by ``compat`` (the gate's
+    ``family_setup``: the weights fixed per family, the word and threshold
+    picked from float32 scores, every decision 0.01 or more from flipping)
+    and 512 clips of 8 s of the gate's ``family_audio`` (eight distinct
+    clips, each 64 times): ``infer_batch`` in float32 (the
+    frontend at "f32") and in bf16 (at "bf16"), through ``WholeClipEngine``
+    for seq-lstm and seq-cnn; lstm and gru once more in bf16 with
+    ``carry_windows``. Between zeroed counters each batch must launch K1
+    once (las none: it featurizes through the plain stacked chain), on "tc"
+    where ``frontend_route`` serves the grade; the posteriors must be
+    finite; the bf16 decisions must equal float32's by the gate's rule.
+    Prints each family's batch time (mean of ``FAMILY_ITERS`` after a
+    warm-up) and realtime factor, and the recurrences' backend. Returns
+    {name: record}."""
+    import torch
+
+    from howl_tpu_torch.bench import serving_config
+    from howl_tpu_torch.models import model_spec
+    from howl_tpu_torch.models.rnn import recurrence_backend
+    from howl_tpu_torch.ops.frontend import FrontendConfig
+    from howl_tpu_torch.ops.frontend_cuda import frontend_route, log_mel_spectrogram_cuda
+    from howl_tpu_torch.tools.validate_tpu_decisions import compare, family_audio, family_engine, family_setup
+
+    print(bench.card_line())
+    cfg, frontend = serving_config(), FrontendConfig(n_mels=N_MELS)
+    audio = torch.from_numpy(family_audio(BATCH, int(CLIP_SECONDS * SAMPLE_RATE))).to(dev)
+    out = {}
+    for name in FAMILY_NAMES:
+        spec = model_spec(name)
+        state, fam_cfg, pick = family_setup(name, cfg, frontend, dev, audio)
+        legs = [("f32", None, "f32", {}), ("bf16", torch.bfloat16, "bf16", {})]
+        if spec.is_recurrent and not spec.is_sequential:
+            legs.append(("bf16 carry_windows", torch.bfloat16, "bf16", {"carry_windows": True}))
+        rec = {"seed": pick["seed"], "kernel_gain": pick["gain"], "word": pick["word"],
+               "threshold": pick["threshold"], "distance": pick["distance"], "launches": {}, "ms": {}}
+        results = {}
+        for tag, dtype, grade, kw in legs:
+            eng = family_engine(name, state, fam_cfg, frontend, dev, dtype, grade, **kw)
+            eng.infer_batch(audio)  # warm-up: cuDNN's plans, the frontend's bases
+            torch.cuda.synchronize()
+            log_mel_spectrogram_cuda.launches = log_mel_spectrogram_cuda.launches_tc = 0
+            res = eng.infer_batch(audio)
+            torch.cuda.synchronize()
+            launches = (log_mel_spectrogram_cuda.launches, log_mel_spectrogram_cuda.launches_tc)
+            want = (0, 0) if spec.uses_deltas else (1, int(frontend_route(frontend, grade) == "tc"))
+            if launches != want:
+                raise AssertionError(f"{name} {tag}: K1 launched {launches} (all, tc) times in a batch, {want} expected")
+            if not bool(torch.isfinite(res["probs"]).all()):
+                raise AssertionError(f"{name} {tag}: posteriors that are not finite")
+            rec["launches"][tag] = launches[0]
+            rec["ms"][tag] = _cuda_ms(lambda: eng.infer_batch(audio), FAMILY_ITERS)
+            results[tag] = res
+        gate = compare(results["f32"], results["bf16"])
+        dprob = float((results["bf16"]["probs"] - results["f32"]["probs"]).abs().max())
+        rtf = BATCH * CLIP_SECONDS * 1000 / rec["ms"]["bf16"]
+        backend = (f"; recurrences on {recurrence_backend(torch.empty(0, device=dev))} in float32, "
+                   f"{recurrence_backend(torch.empty(0, device=dev, dtype=torch.bfloat16))} in bf16"
+                   if spec.is_recurrent or spec.uses_deltas else "")
+        print(f"{name}: seed {pick['seed']}, kernel gain {pick['gain']:.4f}, word {pick['word']}, threshold "
+              f"{pick['threshold']:.4f} ({pick['distance']:.4f} from the nearest top posterior); "
+              f"{int(results['f32']['detected'].sum())} of {BATCH} clips fire; K1 launches "
+              f"{rec['launches']}; batch ms " + ", ".join(f"{k} {v:.3f}" for k, v in rec["ms"].items())
+              + f"; bf16 realtime factor {rtf:.1f}; bf16 decisions equal float32's by the gate's rule {gate['ok']} "
+              f"(detected {gate['detected_eq']}, first fire {gate['first_fire_eq']}, labels "
+              f"{gate['label_agreement']:.4f}); max |dprob| {dprob:.3e}{backend}")
+        if not gate["ok"]:
+            raise AssertionError(f"{name}: the bf16 decisions differ from float32's: {gate}")
+        out[name] = {**rec, "realtime_factor": rtf, "max_dprob": dprob}
+    return out
 
 
 # ---- live serving: the three online engines ----
@@ -1923,13 +2025,103 @@ def _loop_idle_share(prof, steps: int, loop_s: float) -> str:
             f"a step (idle share {1 - busy_ms / wall_ms:.3f})")
 
 
+ENTRY_RECIPE = {"WEIGHT_DECAY": "0.00001", "NUM_EPOCHS": str(ENTRY_EPOCHS), "LEARNING_RATE": "0.01",
+                "LR_DECAY": "0.955", "BATCH_SIZE": "16", "MAX_WINDOW_SIZE_SECONDS": "0.5", "USE_NOISE_DATASET": "True",
+                "NUM_MELS": str(N_MELS), "INFERENCE_SEQUENCE": "[0,1,2]", "VOCAB": '["hey","fire","fox"]',
+                # the entry point splits the noise corpus by a hash of each clip's absolute path, as howl does: the
+                # corpus is named by a path that is the same in every process, wherever the working directory lies
+                # (``/proc/self/cwd``, the link to it), so that the split, and the training with it, repeats
+                "NOISE_DATASET_PATH": "/proc/self/cwd/noise"}
+
+
+@contextlib.contextmanager
+def entry_workdir():
+    """A temporary working directory that holds phase 17's corpora (``ww``: the tone corpus, ``noise``), with
+    ``ENTRY_RECIPE`` in the environment; yields its path. The caller's directory and environment are restored."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    from howl_tpu_torch.settings import SETTINGS
+
+    saved_env = {k: os.environ.get(k) for k in ENTRY_RECIPE}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="howl_train_entry_") as tmp_dir:
+        os.chdir(tmp_dir)
+        try:
+            write_tone_corpus(Path("ww"), ENTRY_CORPUS, ENTRY_CORPUS)
+            write_noise_dir(Path("noise"))
+            os.environ.update(ENTRY_RECIPE)
+            SETTINGS.reset()
+            yield Path(tmp_dir)
+        finally:
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            SETTINGS.reset()
+            os.chdir(cwd)
+
+
+def train_repeat_main() -> int:
+    """``python3 chip_smoke.py --train-repeat``: one short run of phase 17's training (one epoch of
+    ``ENTRY_STEPS`` steps from its seed) in a working directory of its own; its last line is
+    {"dir": the directory, "epoch_losses": [...]}."""
+    import os
+
+    import torch
+
+    from howl_tpu_torch.settings import SETTINGS
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py --train-repeat needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with entry_workdir() as tmp:
+        os.environ["NUM_EPOCHS"] = "1"
+        SETTINGS.reset()
+        _, _, stats = _train_entry(["--model", "res8", "--workspace", "ws", "-i", "ww", "--device", "cuda",
+                                    "--eval-freq", "0", "--steps-per-epoch", str(ENTRY_STEPS)], "repeat run")
+        print(json.dumps({"dir": str(tmp), "epoch_losses": stats.epoch_losses}))
+    return 0
+
+
+def check_training_repeats() -> list:
+    """F15: two processes each run :func:`train_repeat_main` at once, each in a temporary directory of its own;
+    their epoch losses must be equal. Returns them."""
+    from pathlib import Path
+
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--train-repeat"],
+                              cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for _ in range(2)]
+    runs = []
+    try:
+        for proc in procs:
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"F15: a repeat run failed ({proc.returncode}):\n{out[-4000:]}\n{err[-4000:]}")
+            runs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for proc in procs:  # a run left behind by a failure or a timeout
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    losses = [run["epoch_losses"] for run in runs]
+    print(f"F15: two processes, each training 1 epoch of {ENTRY_STEPS} steps from one seed in a directory of its "
+          f"own ({runs[0]['dir']}, {runs[1]['dir']}): epoch losses {[repr(x) for x in losses[0]]} and "
+          f"{[repr(x) for x in losses[1]]}: {'equal' if losses[0] == losses[1] else 'DIFFERENT'}")
+    if losses[0] != losses[1] or not losses[0] or runs[0]["dir"] == runs[1]["dir"]:
+        raise AssertionError(f"F15: the entry point's training does not repeat from its seed: {runs}")
+    return losses[0]
+
+
 def drive_train_entry(dev) -> dict:
     """The training entry point, ``python -m howl_tpu_torch.training.run.train``, on the card at res8's full
     width: ``envs/res8.env``'s recipe with the noise corpus on, augmentation on, on a synthetic-tone corpus
-    written here. Then ``--eval`` on the same workspace, a short ``--resume``, a short ``--bf16 --fused-trunk``
-    run, and F9 on the trained weights."""
+    written here. First :func:`check_training_repeats`; then the full run, ``--eval`` on the same workspace, a
+    short ``--resume``, a short ``--bf16 --fused-trunk`` run, and F9 on the trained weights."""
     import os
-    import tempfile
     from pathlib import Path
 
     import torch
@@ -1943,150 +2135,137 @@ def drive_train_entry(dev) -> dict:
     from howl_tpu_torch.ops.frontend_cuda import frontend_route
     from howl_tpu_torch.settings import SETTINGS
 
-    recipe = {"WEIGHT_DECAY": "0.00001", "NUM_EPOCHS": str(ENTRY_EPOCHS), "LEARNING_RATE": "0.01",
-              "LR_DECAY": "0.955", "BATCH_SIZE": "16", "MAX_WINDOW_SIZE_SECONDS": "0.5", "USE_NOISE_DATASET": "True",
-              "NUM_MELS": str(N_MELS), "INFERENCE_SEQUENCE": "[0,1,2]", "VOCAB": '["hey","fire","fox"]'}
-    saved_env = {k: os.environ.get(k) for k in (*recipe, "NOISE_DATASET_PATH")}
     print(bench.card_line())
-    with tempfile.TemporaryDirectory(prefix="howl_train_entry_") as tmp:
-        tmp = Path(tmp)
-        corpus = write_tone_corpus(tmp / "ww", ENTRY_CORPUS, ENTRY_CORPUS)
-        recipe["NOISE_DATASET_PATH"] = str(write_noise_dir(tmp / "noise"))
-        os.environ.update(recipe)
+    repeat_losses = check_training_repeats()
+    with entry_workdir():
+        tmp, corpus = Path("."), Path("ww")
+        ws = tmp / "ws"
+        base = ["--model", "res8", "--workspace", str(ws), "-i", str(corpus), "--device", "cuda"]
+        # the evaluators run K1 at the exact grade: on "tc" where frontend_route says so; K2 "tc" in bf16 only
+        k1_tc = int(frontend_route(FrontendConfig.from_settings(), "f32") == "tc")
+        results, counts, stats = _train_entry(base + ["--eval-freq", "0", "--steps-per-epoch", str(ENTRY_STEPS)], "train")
+        if counts["k1_tc"] != k1_tc * stats.eval_batches or counts["k2_tc"]:
+            raise AssertionError(f"the float32 evaluator: K1 'f32' on {'tc' if k1_tc else 'fma'} and K2 'fma' "
+                                 f"expected: {counts}")
+        loop_s = stats.prep_s + stats.step_s
+        rates = {
+            "steps_per_s": stats.steps / loop_s, "examples_per_s": stats.examples / loop_s,
+            "prep_share": stats.prep_s / loop_s, "step_share": stats.step_s / loop_s,
+            "eval_realtime_factor": stats.eval_audio_ms / 1000 / stats.eval_s,
+        }
+        print(f"train loop at batch 16: {rates['steps_per_s']:.1f} steps/s, {rates['examples_per_s']:.1f} examples/s "
+              f"over {stats.steps} steps ({loop_s:.3f} s); host batch preparation {stats.prep_s:.3f} s "
+              f"({rates['prep_share']:.3f}), train step {stats.step_s:.3f} s ({rates['step_share']:.3f}); "
+              f"evaluator: {stats.eval_audio_ms / 1000:.1f} s of audio in {stats.eval_s:.3f} s, realtime factor "
+              f"{rates['eval_realtime_factor']:.1f}")
+        print(f"train: epoch losses {stats.epoch_losses[0]!r} (epoch 0; the repeat runs' {repeat_losses[0]!r}) ... "
+              f"{stats.epoch_losses[-1]!r} (epoch {len(stats.epoch_losses) - 1})")
+        print("final sweeps: " + ", ".join(f"{k} tp {v['tp']} fp {v['fp']} tn {v['tn']} fn {v['fn']}" for k, v in results.items()))
+        missing = {"dev_noisy_pos", "dev_noisy_neg", "test_noisy_pos", "test_noisy_neg"} - set(results)
+        if missing:
+            raise AssertionError(f"the noisy sweeps {sorted(missing)} are missing")
+        for key in ("dev_pos", "test_pos"):
+            if results[key]["fn"] or not results[key]["tp"]:
+                raise AssertionError(f"{key}: a positive was not detected: {results[key]}")
+        for key in ("dev_neg", "test_neg"):
+            if results[key]["fp"] or not results[key]["tn"]:
+                raise AssertionError(f"{key}: a negative fired: {results[key]}")
+
+        eval_results, _, _ = _train_entry(base + ["--eval"], "--eval from model-best.pt")
+        if eval_results != results:
+            raise AssertionError(f"--eval disagrees with the run's final sweeps: {eval_results} against {results}")
+        if len((ws / "0.0_results.csv").read_text().splitlines()) != 8:
+            raise AssertionError("--eval wrote no 8 rows of 0.0_results.csv")
+
+        before = torch.load(ws / "train_state.pt", weights_only=True)
+        os.environ["NUM_EPOCHS"] = str(ENTRY_RESUME_EPOCHS)
         SETTINGS.reset()
-        try:
-            ws = tmp / "ws"
-            base = ["--model", "res8", "--workspace", str(ws), "-i", str(corpus), "--device", "cuda"]
-            # the evaluators run K1 at the exact grade: on "tc" where frontend_route says so; K2 "tc" in bf16 only
-            k1_tc = int(frontend_route(FrontendConfig.from_settings(), "f32") == "tc")
-            results, counts, stats = _train_entry(base + ["--eval-freq", "0", "--steps-per-epoch", str(ENTRY_STEPS)], "train")
-            if counts["k1_tc"] != k1_tc * stats.eval_batches or counts["k2_tc"]:
-                raise AssertionError(f"the float32 evaluator: K1 'f32' on {'tc' if k1_tc else 'fma'} and K2 'fma' "
-                                     f"expected: {counts}")
-            loop_s = stats.prep_s + stats.step_s
-            rates = {
-                "steps_per_s": stats.steps / loop_s, "examples_per_s": stats.examples / loop_s,
-                "prep_share": stats.prep_s / loop_s, "step_share": stats.step_s / loop_s,
-                "eval_realtime_factor": stats.eval_audio_ms / 1000 / stats.eval_s,
-            }
-            print(f"train loop at batch 16: {rates['steps_per_s']:.1f} steps/s, {rates['examples_per_s']:.1f} examples/s "
-                  f"over {stats.steps} steps ({loop_s:.3f} s); host batch preparation {stats.prep_s:.3f} s "
-                  f"({rates['prep_share']:.3f}), train step {stats.step_s:.3f} s ({rates['step_share']:.3f}); "
-                  f"evaluator: {stats.eval_audio_ms / 1000:.1f} s of audio in {stats.eval_s:.3f} s, realtime factor "
-                  f"{rates['eval_realtime_factor']:.1f}")
-            print("final sweeps: " + ", ".join(f"{k} tp {v['tp']} fp {v['fp']} tn {v['tn']} fn {v['fn']}" for k, v in results.items()))
-            missing = {"dev_noisy_pos", "dev_noisy_neg", "test_noisy_pos", "test_noisy_neg"} - set(results)
-            if missing:
-                raise AssertionError(f"the noisy sweeps {sorted(missing)} are missing")
-            for key in ("dev_pos", "test_pos"):
-                if results[key]["fn"] or not results[key]["tp"]:
-                    raise AssertionError(f"{key}: a positive was not detected: {results[key]}")
-            for key in ("dev_neg", "test_neg"):
-                if results[key]["fp"] or not results[key]["tn"]:
-                    raise AssertionError(f"{key}: a negative fired: {results[key]}")
+        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=activities) as prof:
+            _, _, resume_stats = _train_entry(
+                base + ["--resume", "--eval-freq", "0", "--steps-per-epoch", str(ENTRY_STEPS)], "--resume")
+        after = torch.load(ws / "train_state.pt", weights_only=True)
+        want = before["step"] + resume_stats.steps
+        adam_steps = {float(s["step"]) for s in after["optimizer"]["state"].values()}
+        print(f"--resume: step {before['step']} -> {after['step']}; AdamW's step counts {sorted(adam_steps)}")
+        if after["step"] != want or adam_steps != {float(want)}:
+            raise AssertionError(f"--resume did not continue the step count and the AdamW state from step {before['step']}")
+        idle = _loop_idle_share(prof, resume_stats.steps, loop_s / stats.steps)
+        print(f"train loop, batch 16: {idle}")
 
-            eval_results, _, _ = _train_entry(base + ["--eval"], "--eval from model-best.pt")
-            if eval_results != results:
-                raise AssertionError(f"--eval disagrees with the run's final sweeps: {eval_results} against {results}")
-            if len((ws / "0.0_results.csv").read_text().splitlines()) != 8:
-                raise AssertionError("--eval wrote no 8 rows of 0.0_results.csv")
+        _, counts, bf16_stats = _train_entry(
+            ["--model", "res8", "--workspace", str(tmp / "ws_bf16"), "-i", str(corpus), "--device", "cuda",
+             "--bf16", "--fused-trunk", "--eval-freq", "1", "--steps-per-epoch", "5"], "--bf16 --fused-trunk")
+        if counts["k2_tc"] != bf16_stats.eval_batches or counts["k1_tc"] != k1_tc * bf16_stats.eval_batches:
+            raise AssertionError(f"the bf16 evaluator: K2 'tc' once a batch and K1 at the exact grade on "
+                                 f"{'tc' if k1_tc else 'fma'} expected: {counts}")
 
-            before = torch.load(ws / "train_state.pt", weights_only=True)
-            os.environ["NUM_EPOCHS"] = str(ENTRY_RESUME_EPOCHS)
-            SETTINGS.reset()
-            activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-            with torch.profiler.profile(activities=activities) as prof:
-                _, _, resume_stats = _train_entry(
-                    base + ["--resume", "--eval-freq", "0", "--steps-per-epoch", str(ENTRY_STEPS)], "--resume")
-            after = torch.load(ws / "train_state.pt", weights_only=True)
-            want = before["step"] + resume_stats.steps
-            adam_steps = {float(s["step"]) for s in after["optimizer"]["state"].values()}
-            print(f"--resume: step {before['step']} -> {after['step']}; AdamW's step counts {sorted(adam_steps)}")
-            if after["step"] != want or adam_steps != {float(want)}:
-                raise AssertionError(f"--resume did not continue the step count and the AdamW state from step {before['step']}")
-            idle = _loop_idle_share(prof, resume_stats.steps, loop_s / stats.steps)
-            print(f"train loop, batch 16: {idle}")
+        # F9: the bf16 engine as served (K1 "tc" at the "bf16" grade, K2 "tc") against the float32 engine at
+        # the exact grade, on every dev and test clip, on the weights this run trained
+        ctx = InferenceContext(vocab=SETTINGS.training.vocab)
+        zmuv = json.loads((ws / "zmuv.json").read_text())
+        mean, std = zmuv["mean"], float(np.sqrt(zmuv["mean2"] - zmuv["mean"] ** 2))
+        state_dict = torch.load(ws / "model.pt", weights_only=True)
+        engines = {name: StreamingEngine(create_model("res8", num_labels=ctx.num_labels), state_dict,
+                                         EngineConfig.from_settings(ctx), FrontendConfig.from_settings(), mean, std,
+                                         compute_dtype=dtype, frontend_precision=grade, device=dev)
+                   for name, dtype, grade in (("f32", None, "f32"), ("bf16", torch.bfloat16, "bf16"))}
+        ww_train, ww_dev, ww_test = WakeWordDatasetLoader().load_splits(corpus, sample_rate=SAMPLE_RATE, mono=True)
+        audio = np.stack([ds[i].audio_data for ds in (ww_dev, ww_test) for i in range(len(ds))])
+        out = {name: eng.infer_batch(audio) for name, eng in engines.items()}
+        dprob = float((out["bf16"]["probs"] - out["f32"]["probs"]).abs().max())
+        fired = out["f32"]["detected"].tolist()
+        print(f"F9 on the trained weights, {len(audio)} dev and test clips ({sum(fired)} fire): bf16 decisions "
+              f"{'equal' if fired == out['bf16']['detected'].tolist() else 'DIFFER FROM'} float32's; max |dprob| {dprob:.3e}")
+        if fired != out["bf16"]["detected"].tolist():
+            raise AssertionError("F9: the bf16 engine's decisions differ from the float32 engine's on the trained weights")
 
-            _, counts, bf16_stats = _train_entry(
-                ["--model", "res8", "--workspace", str(tmp / "ws_bf16"), "-i", str(corpus), "--device", "cuda",
-                 "--bf16", "--fused-trunk", "--eval-freq", "1", "--steps-per-epoch", "5"], "--bf16 --fused-trunk")
-            if counts["k2_tc"] != bf16_stats.eval_batches or counts["k1_tc"] != k1_tc * bf16_stats.eval_batches:
-                raise AssertionError(f"the bf16 evaluator: K2 'tc' once a batch and K1 at the exact grade on "
-                                     f"{'tc' if k1_tc else 'fma'} expected: {counts}")
+        # the int8 headline on the trained weights: bf16, K1 "tc", K2 "tc", the int8 trunk calibrated on the train
+        # clips, its trunk one launch of the fused kernel. On the same weights and calibration its posteriors must
+        # be the plain int8 trunk's bit for bit and its decisions the same, whatever the card's training produced;
+        # its detections must equal the float32 engine's at the exact grade, as F9's. Its first fires against the
+        # float32 engine are printed, not gated (ROADMAP F14): the shift measures the weights this run trained
+        # (2 and 4 hops in two runs of five while the training did not repeat, F15); the CPU tests hold the int8
+        # scheme's own shift on fixed weights (tests/test_torch_int8_trunk.py).
+        from howl_tpu_torch.ops.int8_trunk import (
+            int8_conv_layer_cuda, int8_trunk_fused_cuda, residual_features_int8_plain,
+        )
 
-            # F9: the bf16 engine as served (K1 "tc" at the "bf16" grade, K2 "tc") against the float32 engine at
-            # the exact grade, on every dev and test clip, on the weights this run trained
-            ctx = InferenceContext(vocab=SETTINGS.training.vocab)
-            zmuv = json.loads((ws / "zmuv.json").read_text())
-            mean, std = zmuv["mean"], float(np.sqrt(zmuv["mean2"] - zmuv["mean"] ** 2))
-            state_dict = torch.load(ws / "model.pt", weights_only=True)
-            engines = {name: StreamingEngine(create_model("res8", num_labels=ctx.num_labels), state_dict,
-                                             EngineConfig.from_settings(ctx), FrontendConfig.from_settings(), mean, std,
-                                             compute_dtype=dtype, frontend_precision=grade, device=dev)
-                       for name, dtype, grade in (("f32", None, "f32"), ("bf16", torch.bfloat16, "bf16"))}
-            ww_train, ww_dev, ww_test = WakeWordDatasetLoader().load_splits(corpus, sample_rate=SAMPLE_RATE, mono=True)
-            audio = np.stack([ds[i].audio_data for ds in (ww_dev, ww_test) for i in range(len(ds))])
-            out = {name: eng.infer_batch(audio) for name, eng in engines.items()}
-            dprob = float((out["bf16"]["probs"] - out["f32"]["probs"]).abs().max())
-            fired = out["f32"]["detected"].tolist()
-            print(f"F9 on the trained weights, {len(audio)} dev and test clips ({sum(fired)} fire): bf16 decisions "
-                  f"{'equal' if fired == out['bf16']['detected'].tolist() else 'DIFFER FROM'} float32's; max |dprob| {dprob:.3e}")
-            if fired != out["bf16"]["detected"].tolist():
-                raise AssertionError("F9: the bf16 engine's decisions differ from the float32 engine's on the trained weights")
-
-            # the int8 headline on the trained weights: bf16, K1 "tc", K2 "tc", the int8 trunk calibrated on the train
-            # clips, its trunk one launch of the fused kernel. On the same weights and calibration its posteriors must
-            # be the plain int8 trunk's bit for bit and its decisions the same, whatever the card's training produced;
-            # its detections must equal the float32 engine's at the exact grade, as F9's. Its first fires against the
-            # float32 engine are printed, not gated (ROADMAP F14): card training does not repeat bit for bit, and the
-            # shift measures the weights this run trained (2 and 4 hops in two runs of five); the CPU tests hold the
-            # int8 scheme's own shift on fixed weights (tests/test_torch_int8_trunk.py).
-            from howl_tpu_torch.ops.int8_trunk import (
-                int8_conv_layer_cuda, int8_trunk_fused_cuda, residual_features_int8_plain,
-            )
-
-            cal = np.stack([ww_train[i].audio_data for i in range(len(ww_train))])
-            int8_eng = StreamingEngine(create_model("res8", num_labels=ctx.num_labels), state_dict,
-                                       EngineConfig.from_settings(ctx), FrontendConfig.from_settings(), mean, std,
-                                       compute_dtype=torch.bfloat16, frontend_precision="bf16", use_int8_trunk=True,
-                                       int8_calibration_audio=cal, device=dev)
-            int8_trunk_fused_cuda.launches = int8_conv_layer_cuda.launches = 0
-            got = int8_eng.infer_batch(audio)
-            torch.cuda.synchronize()
-            if (int8_trunk_fused_cuda.launches, int8_conv_layer_cuda.launches) != (1, 0):
-                raise AssertionError(f"the int8 engine's trunk ran {int8_trunk_fused_cuda.launches} fused and "
-                                     f"{int8_conv_layer_cuda.launches} layer launches, not one fused launch")
-            with torch.no_grad():
-                clips = int8_eng._as_audio(audio)
-                geom = int8_eng._step_geometry(*clips.shape)
-                trunk = residual_features_int8_plain(int8_eng._pooled_stem(clips), int8_eng._int8_params, torch.bfloat16)
-                plain = int8_eng._decide(int8_eng._window_posteriors(trunk, geom["n_win"]),
-                                         int8_eng._as_lengths(None, *clips.shape), geom)
-            probs_eq = torch.equal(got["probs"], plain["probs"])
-            plain_eq = {key: torch.equal(got[key].cpu(), plain[key].cpu()) for key in ("detected", "first_fire_step", "labels")}
-            detected_eq = torch.equal(got["detected"].cpu(), out["f32"]["detected"].cpu())
-            shift = (got["first_fire_step"].cpu() - out["f32"]["first_fire_step"].cpu()).abs()
-            labels = float((got["labels"].cpu() == out["f32"]["labels"].cpu()).double().mean())
-            int8_dprob = float((got["probs"] - out["f32"]["probs"]).abs().max())
-            print(f"int8 engine on the trained weights, calibrated on {len(cal)} train clips: against the plain int8 "
-                  f"trunk on the same weights, posteriors bit for bit {probs_eq}, decisions equal "
-                  f"{all(plain_eq.values())} ({', '.join(k for k, v in plain_eq.items() if not v) or 'all keys'}); "
-                  f"against the float32 engine, detections equal {detected_eq}; first fires equal on "
-                  f"{int((shift == 0).sum())} of {len(shift)} clips, at most {int(shift.max())} hop(s) apart (printed, "
-                  f"not gated); labels agree {labels:.4f}; max |dprob| {int8_dprob:.3e}")
-            if not (probs_eq and all(plain_eq.values())):
-                raise AssertionError("the int8 engine's fused trunk disagrees with the plain int8 trunk on the trained weights")
-            if not detected_eq:
-                raise AssertionError("the int8 engine's detections differ from the float32 engine's on the trained weights")
-            return {**rates, "steps": stats.steps, "eval_batches": stats.eval_batches, "f9_max_dprob": dprob,
-                    "int8_max_dprob": int8_dprob}
-        finally:
-            for k, v in saved_env.items():
-                if v is None:
-                    os.environ.pop(k, None)
-                else:
-                    os.environ[k] = v
-            SETTINGS.reset()
+        cal = np.stack([ww_train[i].audio_data for i in range(len(ww_train))])
+        int8_eng = StreamingEngine(create_model("res8", num_labels=ctx.num_labels), state_dict,
+                                   EngineConfig.from_settings(ctx), FrontendConfig.from_settings(), mean, std,
+                                   compute_dtype=torch.bfloat16, frontend_precision="bf16", use_int8_trunk=True,
+                                   int8_calibration_audio=cal, device=dev)
+        int8_trunk_fused_cuda.launches = int8_conv_layer_cuda.launches = 0
+        got = int8_eng.infer_batch(audio)
+        torch.cuda.synchronize()
+        if (int8_trunk_fused_cuda.launches, int8_conv_layer_cuda.launches) != (1, 0):
+            raise AssertionError(f"the int8 engine's trunk ran {int8_trunk_fused_cuda.launches} fused and "
+                                 f"{int8_conv_layer_cuda.launches} layer launches, not one fused launch")
+        with torch.no_grad():
+            clips = int8_eng._as_audio(audio)
+            geom = int8_eng._step_geometry(*clips.shape)
+            trunk = residual_features_int8_plain(int8_eng._pooled_stem(clips), int8_eng._int8_params, torch.bfloat16)
+            plain = int8_eng._decide(int8_eng._window_posteriors(trunk, geom["n_win"]),
+                                     int8_eng._as_lengths(None, *clips.shape), geom)
+        probs_eq = torch.equal(got["probs"], plain["probs"])
+        plain_eq = {key: torch.equal(got[key].cpu(), plain[key].cpu()) for key in ("detected", "first_fire_step", "labels")}
+        detected_eq = torch.equal(got["detected"].cpu(), out["f32"]["detected"].cpu())
+        shift = (got["first_fire_step"].cpu() - out["f32"]["first_fire_step"].cpu()).abs()
+        labels = float((got["labels"].cpu() == out["f32"]["labels"].cpu()).double().mean())
+        int8_dprob = float((got["probs"] - out["f32"]["probs"]).abs().max())
+        print(f"int8 engine on the trained weights, calibrated on {len(cal)} train clips: against the plain int8 "
+              f"trunk on the same weights, posteriors bit for bit {probs_eq}, decisions equal "
+              f"{all(plain_eq.values())} ({', '.join(k for k, v in plain_eq.items() if not v) or 'all keys'}); "
+              f"against the float32 engine, detections equal {detected_eq}; first fires equal on "
+              f"{int((shift == 0).sum())} of {len(shift)} clips, at most {int(shift.max())} hop(s) apart (printed, "
+              f"not gated); labels agree {labels:.4f}; max |dprob| {int8_dprob:.3e}")
+        if not (probs_eq and all(plain_eq.values())):
+            raise AssertionError("the int8 engine's fused trunk disagrees with the plain int8 trunk on the trained weights")
+        if not detected_eq:
+            raise AssertionError("the int8 engine's detections differ from the float32 engine's on the trained weights")
+        return {**rates, "steps": stats.steps, "eval_batches": stats.eval_batches, "f9_max_dprob": dprob,
+                "int8_max_dprob": int8_dprob, "repeat_losses": repeat_losses, "epoch_losses": stats.epoch_losses}
 
 
 def check_bench_record(record: dict) -> None:
@@ -2438,6 +2617,9 @@ def main() -> int:
     lap("int8 tools")
     check_decision_gate(dev)
     lap("decision gate")
+    families = drive_families(dev)
+    k1["launches_families"] = {name: rec["launches"] for name, rec in families.items()}
+    lap("the zoo's families")
     online_path = drive_online_path(dev)
     k1["online_full_window"], k2["online_full_window"] = online_path["k1"], online_path["k2"]
     k2["online_incremental_65536"] = drive_incremental_at_scale(dev)
@@ -2514,4 +2696,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(train_repeat_main() if sys.argv[1:] == ["--train-repeat"] else main())

@@ -1,8 +1,9 @@
 """Batched offline wake-word scoring (counterpart of
-``howl_tpu/inference/engine.py``'s ``StreamingEngine`` for res8).
+``howl_tpu/inference/engine.py``'s ``StreamingEngine`` and
+``WholeClipEngine``), for every model of the zoo.
 
-A batch of clips is scored in five stages, each over the whole batch, by
-the fused-trunk scorer (the default):
+A batch of res8 clips is scored in five stages, each over the whole batch,
+by the fused-trunk scorer (res8's default):
 
   1. audio -> ZMUV'd time-major log-mels: ``ops/frontend_cuda.py`` (kernel:
      on the tensor cores wherever ``frontend_route`` finds the geometry
@@ -20,15 +21,31 @@ the fused-trunk scorer (the default):
 The trunk runs once over each whole clip and every sliding window's logits
 come from window means of its output, as in the JAX package.
 
-``fused_trunk=False`` is the per-window mega-batch scorer instead: the
-frontend writes feature-major mels (B, 1, F, T), every 41-frame window is
-gathered at the window stride, and the (B * n_windows, 1, F, 41) windows go
-through the whole res8 (its stem kernel included) as one batch, into a float32
-softmax. Stage 5 is shared.
+The other scorers featurize the whole batch once into (B, C, F, T): the
+frontend kernel writes feature-major mels (B, 1, F, T) for every model but
+las, which reads delta and accel channels and featurizes, as the JAX engine
+does, through the plain stacked chain (``ops/frontend.py``,
+``stacked=True``, float32 products with TF32 off). Then:
+
+  * the per-window mega-batch, for static models, for recurrent ones by
+    default and for res8 with ``fused_trunk=False``: every 41-frame window is
+    gathered at the window stride and the (B * n_windows, C, F, 41) windows
+    go through the model as one batch (res8's stem on its kernel), in
+    chunks of ``WINDOW_CHUNK`` windows for the models without a trunk, each
+    window scored alone from a zero recurrent state;
+  * ``carry_windows`` (recurrent models only, as in the JAX engine): the
+    recurrent state threaded across a clip's windows in time order, one
+    window of every clip a call;
+  * sequential models (seq-lstm, seq-cnn): per-frame logits over the whole
+    clip in one pass, each frame a step of the detector, whose
+    ``blank_label`` frames are skipped (``WholeClipEngine``).
+
+The logits go into a float32 softmax, and stage 5 is shared.
 
 On a CUDA device the frontend, the stem and the int8 trunk always launch the
 hand-written kernels; on the CPU the same functions run their plain PyTorch
-versions.
+versions. Convolutions, recurrences and dense layers are PyTorch's, as XLA
+lowers them in the JAX package.
 
 Deviations from the reference that the JAX package documents hold here too:
 windows are cut from clip-level mel frames, and the window stride is
@@ -59,12 +76,16 @@ from howl_tpu_torch.inference.detect import (
     smooth_and_detect_sweep,
 )
 from howl_tpu_torch.models.base import ModelSpec, model_spec
-from howl_tpu_torch.ops.frontend import FrontendConfig
+from howl_tpu_torch.ops.frontend import FrontendConfig, log_mel_spectrogram
 from howl_tpu_torch.ops.frontend_cuda import log_mel_spectrogram_cuda
 from howl_tpu_torch.ops.int8_trunk import ROUTES as INT8_ROUTES
 from howl_tpu_torch.ops.int8_trunk import calibrate_act_scales, quantize_residual_trunk, residual_features_int8
 from howl_tpu_torch.ops.stem_cuda import fold_stem_weights, res8_stem_cuda
-from howl_tpu_torch.ops.tf32 import exact_if_float32
+from howl_tpu_torch.ops.tf32 import exact_float32, exact_if_float32
+
+# windows a model without a trunk scores a call in the per-window mega-batch (MobileNet's widest activation is
+# 96 x 11 x 20 values a window: 0.7 GB a chunk in bf16)
+WINDOW_CHUNK = 16384
 
 
 def _not_ported(what: str, item: str):
@@ -92,10 +113,11 @@ class StreamingEngine:
         int8_route: Optional[str] = None,
         device="cuda",
     ):
-        """``model`` gives the architecture (a ``Res8``); the engine keeps its
-        own copy on ``device`` and loads ``variables``, a res8 state dict
-        (``compat.res8_variables_to_state_dict`` makes one from JAX
-        variables), into it.
+        """``model`` gives the architecture, any model of the zoo; the engine
+        keeps its own copy on ``device`` and loads ``variables``, the
+        model's state dict (``compat.variables_to_state_dict`` makes one from
+        JAX variables), into it. ``spec`` defaults to the registry's entry
+        for the model's registered name.
 
         ``compute_dtype=torch.bfloat16`` rounds every float32 weight to bf16
         and scores in bf16; the head, the posteriors and the decision logic
@@ -107,9 +129,12 @@ class StreamingEngine:
         ``ops.frontend_cuda.frontend_grade`` knows can be named. It writes its
         mels in the compute dtype.
 
-        ``fused_trunk`` (None or True: the fused-trunk scorer; False: the
+        ``fused_trunk`` (None: the fused-trunk scorer for a model with a
+        trunk, res8, and the model's own scorer for the others; False: the
         per-window mega-batch scorer) picks the scorer; see the module's
-        docstring.
+        docstring. ``carry_windows`` threads a recurrent model's state
+        across each clip's windows; the engine reads it for recurrent models
+        only, as the JAX engine does.
 
         ``use_int8_trunk`` (fused-trunk scorer only) runs the six residual
         convolutions in s8 x s8 -> s32 (``ops/int8_trunk.py``) with static
@@ -132,16 +157,14 @@ class StreamingEngine:
         engine never falls back to the CPU.
         """
         self.spec = spec or model_spec(getattr(model, "registered_name", "res8"))
-        if not self.spec.supports_trunk:
-            # res8's fused and per-window scorers are ported; the other models' wait
-            raise _not_ported(f"scoring model {self.spec.name!r}", "item 8 (the non-res8 scorers)")
-        if carry_windows:
-            raise _not_ported("carry_windows (the recurrent scorers' window carry)", "item 8")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {device!r} requested but CUDA is not available")
         self.compute_dtype = compute_dtype
-        self.fused_trunk = fused_trunk is None or bool(fused_trunk)
+        self.fused_trunk = self.spec.supports_trunk if fused_trunk is None else bool(fused_trunk)
+        if self.fused_trunk and not self.spec.supports_trunk:
+            raise ValueError(f"fused_trunk needs a model with a trunk (res8); {self.spec.name!r} has none")
+        self.carry_windows = bool(carry_windows)
         if use_int8_trunk and not self.fused_trunk:
             # never silently serve something other than what was asked for
             raise ValueError(
@@ -167,6 +190,8 @@ class StreamingEngine:
         self.window_samples = int(cfg.max_window_size_ms / 1000 * cfg.sample_rate)
         self.model = copy.deepcopy(model).to(device=self.device, dtype=compute_dtype or torch.float32).eval()
         self.model.dtype = None  # the weights' dtype, compute_dtype, governs scoring
+        for rnn in (m for m in self.model.modules() if isinstance(m, torch.nn.RNNBase)):
+            rnn.flatten_parameters()  # one weight buffer for cuDNN, which would compact them at every call
         self._int8_params = None
         self._int8_cal = None
         self.int8_route = int8_route
@@ -190,7 +215,8 @@ class StreamingEngine:
         else."""
         self._variables = cast_compute_dtype(value, self.compute_dtype)
         self.model.load_state_dict(self._variables, strict=True)
-        self._stem_taps = self.model.stem_taps(self.frontend.n_mels)
+        if self.spec.supports_trunk:
+            self._stem_taps = self.model.stem_taps(self.frontend.n_mels)
         if self._int8_cal is not None:
             self._requantize_int8(value)
 
@@ -242,24 +268,46 @@ class StreamingEngine:
         wmean = (csum[:, starts + eff] - csum[:, starts]) / eff  # (B, n_windows, maps)
         return torch.softmax(self.model.head(wmean), dim=-1)
 
-    def _score_windows(self, audio: torch.Tensor, n_windows: int) -> torch.Tensor:
-        """The per-window mega-batch scorer: (B, samples) -> (B, n_windows, L)."""
-        feats = self._features(audio, "fm")[:, None]  # (B, 1, F, T)
+    def _featurize(self, audio: torch.Tensor) -> torch.Tensor:
+        """(B, samples) audio -> (B, C, F, T) ZMUV'd features in the compute
+        dtype: the stacked chain's three channels, exact float32, for a model
+        that reads deltas, else the frontend kernel's mels."""
+        if not self.spec.uses_deltas:
+            return self._features(audio, "fm")[:, None]
+        with exact_float32():
+            feats = log_mel_spectrogram(audio, self.frontend, stacked=True)
+        return ((feats - self.zmuv_mean) / self.zmuv_std).to(self.compute_dtype or torch.float32)
+
+    def _score_windows(self, feats: torch.Tensor, n_windows: int) -> torch.Tensor:
+        """(B, C, F, T) features -> (B, n_windows, L) posteriors of every
+        window: one mega-batch, or with ``carry_windows`` a recurrent state
+        carried across the windows."""
         b, c, f, _ = feats.shape
         wf = self.window_frames
         starts = torch.arange(n_windows, device=feats.device) * self.stride_frames
         idx = starts[:, None] + torch.arange(wf, device=feats.device)[None, :]  # (n_windows, wf)
         windows = feats[:, :, :, idx].permute(0, 3, 1, 2, 4)  # (B, n_windows, C, F, wf)
+        if self.spec.is_recurrent and self.carry_windows:
+            carry, logits = None, []
+            for k in range(n_windows):  # in time order, every clip at once
+                out, carry = self.model(windows[:, k], carry=carry, return_carry=True)
+                logits.append(out)
+            return torch.softmax(torch.stack(logits, dim=1).float(), dim=-1)
         flat = windows.reshape(b * n_windows, c, f, wf)
-        logits = self.model(flat)
+        chunk = flat.shape[0] if self.spec.supports_trunk else WINDOW_CHUNK
+        logits = torch.cat([self.model(flat[i : i + chunk]) for i in range(0, flat.shape[0], chunk)])
         return torch.softmax(logits.float(), dim=-1).reshape(b, n_windows, -1)
 
     @torch.no_grad()
     @exact_if_float32
     def _score(self, audio: torch.Tensor, n_windows: int) -> torch.Tensor:
-        """(B, samples) -> (B, n_windows, L) posteriors."""
+        """(B, samples) -> (B, T, L) posteriors: T windows, or a sequential
+        model's output frames."""
         if not self.fused_trunk:
-            return self._score_windows(audio, n_windows)
+            feats = self._featurize(audio)
+            if self.spec.is_sequential:
+                return torch.softmax(self.model(feats).float(), dim=-1).transpose(0, 1)  # (B, T', L)
+            return self._score_windows(feats, n_windows)
         s0 = self._pooled_stem(audio)
         if self._int8_params is not None:
             trunk = residual_features_int8(s0, self._int8_params, self.compute_dtype, self.int8_route)
@@ -282,7 +330,10 @@ class StreamingEngine:
     def _pad_short_clips(self, audio: torch.Tensor, lengths):
         """Right-pad clips shorter than one window with silence. The returned
         true lengths keep the full-window validity rule: a clip shorter than
-        one window yields no scored windows and can never fire."""
+        one window yields no scored windows and can never fire. Sequential
+        models score frames and take clips as they are."""
+        if self.spec.is_sequential:
+            return audio, lengths
         num = audio.shape[-1]
         min_samples = (self.window_frames - 1) * self.frontend.hop_length
         if num >= min_samples:
@@ -298,8 +349,8 @@ class StreamingEngine:
         if geom is not None:
             return geom
         n_win = self.n_windows(num_samples)
-        times = np.arange(n_win) * self.stride_ms
-        _, s_steps, w_steps, stride, check_offset = _ring_geometry(times, self.cfg, True)
+        times, check_offset_is_stride = self._step_times(num_samples)
+        _, s_steps, w_steps, stride, check_offset = _ring_geometry(times, self.cfg, check_offset_is_stride)
         geom = {
             "n_win": n_win,
             "times": times.astype(np.float32),
@@ -311,8 +362,25 @@ class StreamingEngine:
         self._geom_cache[key] = geom
         return geom
 
+    def _step_times(self, num_samples: int) -> tuple:
+        """(step timestamps in ms, whether the FSM checks one stride ahead).
+        Windows step at the quantized stride. A sequential model's T' frames
+        split the clip's whole milliseconds evenly, the first at one step, as
+        the reference's whole-clip engine times them."""
+        if not self.spec.is_sequential:
+            return np.arange(self.n_windows(num_samples)) * self.stride_ms, True
+        t_steps = int(self.model.compute_length(self.frontend.num_frames(num_samples)))
+        clip_ms = float(int(num_samples / self.cfg.sample_rate * 1000))
+        return np.arange(1, t_steps + 1) * (clip_ms / t_steps), False
+
     def _valid_mask(self, lengths: torch.Tensor, t_steps: int) -> torch.Tensor:
-        """(B, T) validity: window i is valid only when it is full."""
+        """(B, T) validity: window i is valid only when it is full; a
+        sequential model's frame only below its true length mapped through
+        the model's time downsampling."""
+        if self.spec.is_sequential:
+            frame_len = self.model.compute_length(lengths // self.frontend.hop_length + 1)
+            frame_len = torch.as_tensor(frame_len, device=lengths.device).clamp(1, t_steps)
+            return torch.arange(t_steps, device=lengths.device)[None, :] < frame_len[:, None]
         win_start = torch.arange(t_steps, device=lengths.device)[None, :] * (
             self.stride_frames * self.frontend.hop_length
         )
@@ -348,12 +416,8 @@ class StreamingEngine:
             valid = torch.ones((batch, t_steps), dtype=torch.bool, device=self.device)
         else:
             valid = self._valid_mask(self._as_lengths(lengths, batch, num_samples), t_steps)
-        return {
-            "probs": probs,
-            "times_ms": np.arange(t_steps) * self.stride_ms,
-            "valid": valid,
-            "check_offset_is_stride": True,
-        }
+        times, check_offset_is_stride = self._step_times(num_samples)
+        return {"probs": probs, "times_ms": times, "valid": valid, "check_offset_is_stride": check_offset_is_stride}
 
     def detect_from_scores(self, scores: dict, threshold: Optional[float] = None) -> dict:
         """Smoothing + FSM over cached posteriors, optionally at an overridden
@@ -410,7 +474,11 @@ class StreamingEngine:
 
 
 class WholeClipEngine(StreamingEngine):
-    """The whole-clip engine of sequential models; not ported yet."""
+    """The whole-clip engine: a sequential model consumes each whole clip and
+    emits per-frame posteriors, each frame a detector step; frames whose
+    argmax is ``cfg.blank_label`` are skipped (``inference/detect.py``)."""
 
     def __init__(self, *args, **kwargs):
-        raise _not_ported("WholeClipEngine (sequential models)", "item 8")
+        super().__init__(*args, **kwargs)
+        if not self.spec.is_sequential:
+            raise ValueError("WholeClipEngine requires a sequential model (seq-lstm / seq-cnn)")

@@ -1,4 +1,14 @@
-"""res8 (counterpart of ``howl_tpu/models/cnn.py``'s ``Res8``).
+"""The convolutional classifiers (counterpart of ``howl_tpu/models/cnn.py``):
+res8, small-cnn and seq-cnn.
+
+small-cnn and seq-cnn run in NCHW with time as H, as res8 does, their convs
+padded as the JAX modules pad theirs, max pools before an affine BatchNorm
+(eps 1e-5, running stats in eval mode), dense layers on features flattened
+in the JAX package's (time, frequency, channel) order, and logits in
+float32. Their parameter names are the JAX modules': conv0, bn1, conv1,
+bn2, fc1, fc2.
+
+The rest of this docstring is res8's, the counterpart of the JAX ``Res8``.
 
 Inside the module the layout is NCHW with time as H and mel frequency as W,
 as in the reference torch res8, so AvgPool(3, 4) pools (time=3, freq=4). The
@@ -34,7 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from howl_tpu_torch.models.base import register_model
+from howl_tpu_torch.models.base import HowlModel, register_model
 from howl_tpu_torch.ops.frontend import round_bf16
 from howl_tpu_torch.ops.stem_cuda import fold_stem_weights, res8_stem_cuda
 
@@ -249,3 +259,63 @@ class Res8(nn.Module):
 
     def forward(self, x: torch.Tensor, taps: Optional[torch.Tensor] = None) -> torch.Tensor:
         return self.head(self.trunk_features(x, taps).mean(dim=(1, 2)))
+
+
+def _affine_bn(channels: int) -> nn.BatchNorm2d:
+    """flax's ``BatchNorm()`` defaults as a torch layer: scale and bias, eps
+    1e-5; in eval mode it normalizes with the running stats."""
+    return nn.BatchNorm2d(channels, eps=BN_EPS, momentum=0.01)
+
+
+@register_model("small-cnn")
+class SmallCnn(HowlModel):
+    """Two conv encoders + MLP head. ``num_hidden_input`` is fc1's input
+    width, 384 for a 41-frame window of 40 mels (flax infers it)."""
+
+    def __init__(self, num_labels: int, num_maps1: int = 48, num_maps2: int = 64, num_hidden_input: int = 384,
+                 hidden_size: int = 128, dtype=None):
+        super().__init__(dtype)
+        self.conv0 = nn.Conv2d(1, num_maps1, (8, 16), stride=(2, 2), padding=(4, 0))
+        self.bn1 = _affine_bn(num_maps1)
+        self.conv1 = nn.Conv2d(num_maps1, num_maps2, (5, 5), stride=(2, 1), padding=(2, 2))
+        self.bn2 = _affine_bn(num_maps2)
+        self.fc1 = nn.Linear(num_hidden_input, hidden_size)
+        self.fc2 = nn.Linear(hidden_size, num_labels)
+
+    def forward(self, x: torch.Tensor, lengths=None) -> torch.Tensor:
+        self._check_dtype()
+        x = self._mels_only(x).to(self.conv0.weight.dtype)  # (B, 1, T, F)
+        x = self.bn1(F.max_pool2d(F.relu(self.conv0(x)), 2))
+        x = self.bn2(F.max_pool2d(F.relu(self.conv1(x)), 2))
+        x = F.relu(self.fc1(x.permute(0, 2, 3, 1).flatten(1)))  # flattened as (T', F', C)
+        return self._head(self.fc2, x)
+
+
+@register_model("seq-cnn", is_sequential=True)
+class SequentialCnn(HowlModel):
+    """Per-frame conv encoder for the CTC objective: (T', B, L) logits.
+    ``n_mels`` sets fc1's input width (flax infers it)."""
+
+    def __init__(self, num_labels: int, num_maps1: int = 48, num_maps2: int = 64, hidden_size: int = 128,
+                 n_mels: int = 40, dtype=None):
+        super().__init__(dtype)
+        self.conv0 = nn.Conv2d(1, num_maps1, (20, 16), stride=(1, 2), padding=(10, 0))
+        self.bn1 = _affine_bn(num_maps1)
+        self.conv1 = nn.Conv2d(num_maps1, num_maps2, (5, 5), stride=(2, 1), padding=(2, 2))
+        self.bn2 = _affine_bn(num_maps2)
+        self.fc1 = nn.Linear(((n_mels - 16) // 2 + 1) // 2 // 2 * num_maps2, hidden_size)
+        self.fc2 = nn.Linear(hidden_size, num_labels)
+
+    def compute_length(self, length):
+        length = (length + 2 * 10 - 20) // 1 + 1
+        length = length // 2
+        length = (length + 2 * 2 - 4 - 1) // 2 + 1
+        return length // 2
+
+    def forward(self, x: torch.Tensor, lengths=None) -> torch.Tensor:
+        self._check_dtype()
+        x = self._mels_only(x).to(self.conv0.weight.dtype)  # (B, 1, T, F)
+        x = self.bn1(F.max_pool2d(F.relu(self.conv0(x)), 2))
+        x = self.bn2(F.max_pool2d(F.relu(self.conv1(x)), 2))
+        x = x.permute(2, 0, 3, 1).flatten(2)  # (T', B, F' * C), flattened as (F', C)
+        return self._head(self.fc2, F.relu(self.fc1(x)))  # (T', B, L)

@@ -39,7 +39,7 @@ from __future__ import annotations
 
 import sys
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 from typing import NamedTuple, Optional
 
@@ -54,7 +54,7 @@ from howl_tpu_torch.data.transform.batchifier import WakeWordFrameBatchifier
 from howl_tpu_torch.inference.config import EngineConfig
 from howl_tpu_torch.inference.engine import StreamingEngine
 from howl_tpu_torch.models import MODEL_REGISTRY, ConfusionMatrix, create_model
-from howl_tpu_torch.models.base import NOT_PORTED, model_spec
+from howl_tpu_torch.models.base import model_spec
 from howl_tpu_torch.ops.augment import AugmentConfig
 from howl_tpu_torch.ops.frontend import FrontendConfig
 from howl_tpu_torch.ops.tf32 import exact_float32, is_float32
@@ -228,7 +228,8 @@ class LoopStats:
     """Where a ``run`` spent its time, by host timers that wait for the
     device: ``prep_s`` reads, windows and uploads the train batches,
     ``step_s`` runs the train steps until each loss is on the host;
-    ``eval_*`` sum the evaluator's calls."""
+    ``eval_*`` sum the evaluator's calls; ``epoch_losses`` holds each
+    epoch's mean train loss."""
 
     steps: int = 0
     examples: int = 0
@@ -237,12 +238,13 @@ class LoopStats:
     eval_batches: int = 0
     eval_audio_ms: float = 0.0
     eval_s: float = 0.0
+    epoch_losses: list = field(default_factory=list)
 
 
 def _parser() -> ArgumentParserBuilder:
     apb = ArgumentParserBuilder()
     apb.add_options(
-        opt("--model", type=str, choices=sorted({*MODEL_REGISTRY, *NOT_PORTED}), default="las"),
+        opt("--model", type=str, choices=sorted(MODEL_REGISTRY), default="las"),
         opt("--workspace", type=str, default=str(Path("workspaces") / "default")),
         opt("--load-weights", action="store_true"),
         opt("--load-last", action="store_true"),
@@ -310,7 +312,9 @@ def run(args=None, stats: Optional[LoopStats] = None) -> dict:
         SETTINGS.training.seed = args.seed
     use_frame = SETTINGS.training.objective == "frame"
     # the refusals come before any data is read
-    spec = model_spec(args.model)  # the models other than res8 raise (item 8)
+    spec = model_spec(args.model)
+    if not spec.supports_trunk:  # the zoo serves offline; its training waits (item 8)
+        raise _not_ported(f"training model {args.model!r}", "item 8: the families' training")
     if not use_frame:
         make_ctc_train_step(None, None)  # CTC raises (item 8)
     if SETTINGS.training.convert_static:
@@ -560,6 +564,7 @@ def run(args=None, stats: Optional[LoopStats] = None) -> dict:
         workspace.log_scalar("Training/Loss", mean_loss, epoch_idx)
         workspace.log_scalar("Training/LearningRate", float(state.learning_rate), epoch_idx)
         Logger.info(f"epoch {epoch_idx}: loss={mean_loss:.4f}")
+        stats.epoch_losses.append(mean_loss)
         if (
             bank_prefetcher is not None
             and (epoch_idx + 1) % args.noise_refresh_epochs == 0

@@ -1,9 +1,10 @@
 """The port's decision gate and its three ablation tools
 (howl_tpu_torch/tools/) at their CPU size, against the JAX tools they port.
 
-* ``validate_tpu_decisions``: the JAX tool's comparison rule, its rows (the
-  ones the port cannot run print as not ported and count for nothing), and
-  exit code 0 on the CPU, where the plain versions score every row.
+* ``validate_tpu_decisions``: the JAX tool's comparison rule, its thirteen
+  rows (res8's eight and the five other families of the JAX tool's list,
+  each on weights and a threshold ``family_setup`` picks), and exit code 0
+  on the CPU, where the plain versions score every row.
 * ``ablate_serving_slope``: the JAX tool's legs by their counterparts' names,
   the int8 leg included, every timed leg finite and positive.
 * ``ablate_train_step``: the JAX tool's five variants.
@@ -60,6 +61,25 @@ def test_margin_word_threshold_keeps_every_decision_off_its_edge():
         validate_tpu_decisions.margin_word_threshold(probs[:, ::-1], 0.01)  # the quiet half peaks higher
 
 
+def test_margin_word_threshold_without_halves_splits_the_streams_any_way():
+    """The same streams with the quiet half first: no word splits the halves,
+    but without halves word 1 splits the streams where the halves do, the
+    threshold again in the widest gap that no near tie reaches; two streams
+    that score alike split nothing."""
+    probs = np.full((3, 4, 3), 0.05)
+    probs[:, 0] = [0.35, 0.45, 0.2]
+    probs[:, 1] = [0.19, 0.40, 0.41]
+    probs[:, 2] = [0.05, 0.9, 0.05]
+    probs[:, 3] = [0.1, 0.8, 0.1]
+    with pytest.raises(ValueError, match="no word"):
+        validate_tpu_decisions.margin_word_threshold(probs, 0.01)
+    pick = validate_tpu_decisions.margin_word_threshold(probs, 0.01, halves=False)
+    assert pick["word"] == 1 and pick["fires"] == 2
+    assert pick["threshold"] == pytest.approx(0.625, abs=0.005)
+    with pytest.raises(ValueError, match="no word"):
+        validate_tpu_decisions.margin_word_threshold(probs[:, [2, 2]], 0.01, halves=False)
+
+
 def test_compare_holds_the_jax_tools_rule():
     labels = [[0] * 100, [1] * 100]
     exact = _out([True, False], [3, -1], labels)
@@ -74,19 +94,22 @@ def test_compare_holds_the_jax_tools_rule():
 
 
 def test_decision_gate_runs_on_the_cpu_and_names_what_is_not_ported(capsys):
+    """Every row runs now, the families' too: thirteen rows, all OK, none
+    printed as not ported."""
     assert validate_tpu_decisions.main(["--device", "cpu"]) == 0
     out = capsys.readouterr().out
     rows = validate_tpu_decisions.run(torch.device("cpu"), 2, 1.0)
-    ran = [tag for tag, rec in rows.items() if rec["ok"] is not None]
+    ran = list(rows)
     assert ran == ["res8+k1[bf16]+k2", "res8+k1[bf16x2]+k2", "res8+k1[bf16x3]+k2", "res8+k1[bf16]+k2+int8",
-                   "res8 legacy[bf16]", "res8+online[bf16]", "res8+trunk[bf16]", "res8+full-window[bf16]"]
+                   "res8 legacy[bf16]", "res8+online[bf16]", "res8+trunk[bf16]", "res8+full-window[bf16]",
+                   *validate_tpu_decisions.FAMILIES]
     assert all(rows[tag]["ok"] for tag in ran)
     # the live engines' rows hold the JAX tool's rule for them: fire flags equal, labels 99 %
-    for tag in ran[5:]:
+    for tag in ran[5:8]:
         assert set(rows[tag]) == {"fired_eq", "label_agreement", "ok"}
-    for name in validate_tpu_decisions.FAMILIES:
-        assert "item 8" in rows[name]["status"]
-    assert out.count("-> OK") == 8 and out.count("not ported") == 5 and out.rstrip().endswith("ALL OK")
+    for name in validate_tpu_decisions.FAMILIES:  # the families hold the offline rule
+        assert set(rows[name]) == {"detected_eq", "first_fire_eq", "label_agreement", "ok"}
+    assert out.count("-> OK") == 13 and "not ported" not in out and out.rstrip().endswith("ALL OK")
 
 
 def test_decision_gate_exits_1_on_a_mismatch(monkeypatch, capsys):

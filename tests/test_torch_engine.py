@@ -27,7 +27,7 @@ from howl_tpu.inference import StreamingEngine as JaxStreamingEngine
 from howl_tpu.models import create_model as jax_create_model
 from howl_tpu.models.base import model_spec as jax_model_spec
 from howl_tpu.ops.frontend import FrontendConfig as JaxFrontendConfig
-from howl_tpu_torch.compat import res8_variables_to_state_dict
+from howl_tpu_torch.compat import numpy_variables, res8_variables_to_state_dict, variables_to_state_dict
 from howl_tpu_torch.inference import EngineConfig, StreamingEngine, WholeClipEngine
 from howl_tpu_torch.models import create_model
 from howl_tpu_torch.ops.frontend import FrontendConfig
@@ -196,17 +196,27 @@ def test_new_variables_change_scores(slice_setup):
 
 
 def test_unported_options_raise(slice_setup):
-    variables, _, _, cfg_kw = slice_setup
-    with pytest.raises(NotImplementedError, match="item 8"):
-        _port_engine(variables, cfg_kw, carry_windows=True)
+    """carry_windows is ported: res8 is no recurrent model, so its scores stay
+    as they were, as the JAX engine reads the option for recurrent models
+    only; WholeClipEngine is ported and refuses res8 as the JAX one does."""
+    variables, audio, _, cfg_kw = slice_setup
+    torch.testing.assert_close(_port_engine(variables, cfg_kw, carry_windows=True).score_batch(audio)["probs"],
+                               _port_engine(variables, cfg_kw).score_batch(audio)["probs"], rtol=0, atol=0)
     # the int8 trunk is ported: it raises, as the JAX engine does, only without calibration audio or off the
     # fused-trunk scorer
     with pytest.raises(ValueError, match="int8_calibration_audio"):
         _port_engine(variables, cfg_kw, use_int8_trunk=True)
     with pytest.raises(ValueError, match="fused-trunk scorer only"):
         _port_engine(variables, cfg_kw, use_int8_trunk=True, fused_trunk=False, int8_calibration_audio=np.zeros((1, 8000)))
-    with pytest.raises(NotImplementedError, match="WholeClipEngine.*item 8"):
-        WholeClipEngine()
+    with pytest.raises(ValueError, match="WholeClipEngine requires a sequential model"):
+        WholeClipEngine(create_model("res8", num_labels=4), res8_variables_to_state_dict(variables),
+                        EngineConfig(**cfg_kw), FrontendConfig(n_mels=40), device="cpu")
+    rng = np.random.default_rng(5)
+    for cls, name, kw in ((StreamingEngine, "lstm", {"carry_windows": True}), (WholeClipEngine, "seq-lstm", {})):
+        eng = cls(create_model(name, num_labels=4, hidden_size=8),
+                  variables_to_state_dict(name, numpy_variables(name, 4, rng, hidden_size=8)), EngineConfig(**cfg_kw),
+                  FrontendConfig(n_mels=40), device="cpu", **kw)
+        assert eng.spec.name == name and eng.infer_batch(audio[:1, :8000])["detected"].shape == (1,)
     # the threshold sweep is ported: it decides, and at one threshold as infer_batch does
     pt = _port_engine(variables, cfg_kw)
     clip = np.zeros((1, 8000), np.float32)

@@ -36,7 +36,8 @@ ring, chunks that wrap it many times and bf16 chunks that end inside a stage.
 The frontend and stem kernels take 65,536 clips in one launch (the online
 bench's largest window batch), held against their plain versions chunk by
 chunk; each live engine's bf16 decisions equal its float32 decisions on
-streams whose loud half fires. The int8 trunk's layer kernel gives exact s32
+streams whose loud half fires; a CNN, an RNN and a sequential model of the
+zoo decide on the card as on the CPU. The int8 trunk's layer kernel gives exact s32
 sums (at +-127 extremes too) at pooled frame counts around its 25-frame
 blocks and at 1, 17 and 64 frequency bins, equals its plain version bit for
 bit in float32 and bf16 with each epilogue, and both routes of the trunk
@@ -1232,6 +1233,28 @@ def test_legacy_engine_on_cuda_matches_cpu(cuda, dtype, atol):
     want, got = engine(cfg, "cpu").infer_batch(audio), engine(cfg, cuda).infer_batch(audio)
     assert got["probs"].device.type == "cuda" and tuple(got["probs"].shape) == (6, 33, 4)
     torch.testing.assert_close(got["probs"].cpu(), want["probs"], rtol=0, atol=atol)
+    for key in ("detected", "first_fire_step", "labels"):
+        assert torch.equal(got[key].cpu(), want[key]), key
+    assert want["detected"].any() and not want["detected"].all()
+
+
+@pytest.mark.parametrize("name", ["small-cnn", "gru", "seq-lstm"])
+def test_family_engine_on_cuda_matches_cpu(cuda, name):
+    """One family of each kind (a CNN, an RNN, a sequential model) at its
+    registered width, float32 with the exact frontend: the engine on the card
+    (K1 "fm"; cuDNN's recurrences) against the same engine on the CPU, on
+    the decision gate's weights, clips, word and threshold (picked on the
+    CPU): posteriors within 1e-4, decisions equal."""
+    from howl_tpu_torch.bench import serving_config
+    from howl_tpu_torch.tools.validate_tpu_decisions import family_audio, family_engine, family_setup
+
+    frontend = FrontendConfig(n_mels=40)
+    audio = torch.from_numpy(family_audio(8, 32000))
+    state, cfg, _ = family_setup(name, serving_config(), frontend, torch.device("cpu"), audio)
+    want = family_engine(name, state, cfg, frontend, "cpu", frontend_precision="f32").infer_batch(audio)
+    got = family_engine(name, state, cfg, frontend, cuda, frontend_precision="f32").infer_batch(audio)
+    assert got["probs"].device.type == "cuda" and got["probs"].shape == want["probs"].shape
+    torch.testing.assert_close(got["probs"].cpu(), want["probs"], rtol=0, atol=1e-4)
     for key in ("detected", "first_fire_step", "labels"):
         assert torch.equal(got[key].cpu(), want[key]), key
     assert want["detected"].any() and not want["detected"].all()

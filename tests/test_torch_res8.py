@@ -110,9 +110,12 @@ def test_cast_compute_dtype_rounds_every_float_leaf(weights):
 
 
 def test_registry_has_res8_and_names_unported_models():
+    """res8 and, since the zoo was ported, the other families build; an
+    unknown name raises."""
+    from howl_tpu_torch.models.rnn import SimpleLstm
+
     assert model_spec("res8").supports_trunk
     assert isinstance(create_model("res8", num_labels=3), Res8)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        create_model("lstm", num_labels=3)
+    assert isinstance(create_model("lstm", num_labels=3), SimpleLstm) and model_spec("lstm").is_recurrent
     with pytest.raises(ValueError, match="unknown model"):
         model_spec("res9")
