@@ -134,10 +134,11 @@ them. In order it:
      print a positive time;
  11. runs the decision gate ``howl_tpu_torch.tools.validate_tpu_decisions``
      on the card, its float32 oracle's K1 on "tc" at the exact grade (six
-     bf16 passes): all thirteen rows must run and be OK, the three-pass
+     bf16 passes): all fourteen rows must run and be OK, the three-pass
      grade's (``res8+k1[bf16x3]+k2``, on the tensor-core frontend kernel),
-     the int8 trunk's (``res8+k1[bf16]+k2+int8``), the three live engines'
-     and the five other families' rows included;
+     the int8 trunk's (``res8+k1[bf16]+k2+int8``), the three live engines',
+     the five other families' rows and lstm's live row
+     (``lstm+full-window[bf16]``) included;
  11b. serves the zoo's seven other families offline at their registered
      widths (small-cnn, seq-cnn, mobilenet, lstm, seq-lstm, gru, las), on
      seeded numpy weights carried across by ``compat`` and 512 clips of 8 s
@@ -152,7 +153,19 @@ them. In order it:
      be finite and the bf16 decisions equal float32's by the gate's rule.
      It prints each family's batch times, its bf16 realtime factor beside
      the card's name and power limit, and where its recurrences run
-     (cuDNN in float32; PyTorch's native CUDA RNN in bf16);
+     (``recurrence_backend``: cuDNN in float32 and in bf16 on the H100);
+ 11c. serves the seven families live at their registered widths, 512
+     streams of ``family_audio`` (a window and 23 hops): the ``OnlineEngine``
+     on its 24 whole windows, the ``IncrementalOnlineEngine`` on every hop
+     (not las, which reads delta channels), and lstm, seq-lstm and gru once
+     more on the ``OnlineEngine`` with ``carry_hops``; each in float32 (K1 at
+     "f32") and in bf16 (K1 at "bf16"), on the weights of ``FAMILY_WEIGHTS``
+     (``FAMILY_LIVE_WEIGHTS`` where it has an entry) at the word and
+     threshold ``family_live_setup`` picks from the float32 engine's per-hop
+     posteriors. Between zeroed counters an ``OnlineEngine`` must launch K1
+     once a hop ("tc"), las and the incremental engine never; the bf16 fire
+     flags and labels must equal float32's by the gate's live rule. It
+     prints each family's hop ms;
  12. drives the live serving path (a): the ``OnlineEngine`` at 512 streams
      in bf16, 16 hops between zeroed counters, which must launch the
      tensor-core frontend kernel and the tensor-core stem kernel once a hop
@@ -208,6 +221,14 @@ them. In order it:
      ``frontend_route(config, "f32")`` says so. It prints the loop's steps/s and examples/s, the shares of host batch preparation and the train
      step (host timers that wait for the device), the device's busy time a step inside the loop and its
      idle share, the evaluator's realtime factor and the max |dprob| of F9;
+ 17b. trains each of the seven families through the entry point on the same corpus and recipe with ``--bf16``
+     (flax's mixed precision over float32 masters), 30 epochs of 10 steps: seq-cnn and seq-lstm under CTC, the
+     others under the frame objective, and small-cnn once more under ``CONVERT_STATIC`` (CTC). K3 must launch once
+     a train step, K1 once an evaluator batch (las never), K2 never; F9 on each run's trained weights: the bf16
+     engine must detect as the exact float32 engine on every dev and test clip. F9 counts as held for a run only
+     where the float32 engine fires on some clips and not on others; a run whose engine decides one way on every
+     clip is named "not held", with its largest word posterior. It prints each run's epochs, losses, steps/s and
+     the dev positives that fired;
  18. (d) runs the bench, ``howl_tpu_torch.bench.main``, which prints its
      JSON line (``bench.py``'s keys, each measured key the median of 5
      repeats with its spread); every measured key must be finite and
@@ -215,7 +236,7 @@ them. In order it:
      stream count of ``bench.py``, and its ``rungs["int8"]`` must name the
      fused kernel, one launch a batch;
  19. prints one JSON line with each of the seventeen kernels' launches (K1's also on each family's
-     paths of phase 11b), error and times
+     paths of phases 11b and 11c, K3's also on each training run of phase 17b), error and times
      beside its plain version's and its bound on this card (the larger of
      its bytes over 3.35 TB/s and its operations over the peak rate of
      their type, both counted from this run's shapes: what the function
@@ -229,7 +250,9 @@ fused-trunk scorer (``DIR/serve_profile.txt``; with the int8 trunk
 ``DIR/serve_int8_profile.txt``) and the per-window scorer
 (``DIR/legacy_profile.txt``), of a hop of each live engine at 512 streams
 and of the incremental and trunk engines at 65,536
-(``DIR/online_*_profile.txt``), and of the bf16 noise-bank train step
+(``DIR/online_*_profile.txt``), of an ``OnlineEngine`` hop of mobilenet and
+of lstm at 512 streams in float32 and in bf16
+(``DIR/online_<family>_<grade>_profile.txt``), and of the bf16 noise-bank train step
 (``DIR/train_profile.txt``). ``--profile-only DIR`` builds the kernels, writes
 the two profiles and the device line, and runs none of the checks.
 
@@ -290,9 +313,11 @@ LIVE_MARGIN = 0.01  # how far from flipping the decision checks' decisions are p
 # the zoo's other families, each at its registered width (phase 11b)
 FAMILY_NAMES = ("small-cnn", "seq-cnn", "mobilenet", "lstm", "seq-lstm", "gru", "las")
 FAMILY_ITERS = 3  # timed batches a leg, after a warm-up
+FAMILY_LIVE_HOPS = 24  # chained hops of each family's live engines (phase 11c): 1.5 s, 8 of them with whole windows
 # the training entry point: envs/res8.env on a tone corpus of 24 positives and 24 negatives (12 train clips
 # of each, 6 dev and 6 test of each) and 12 noise clips; 60 epochs of 10 steps separate it on the CPU by 40
 ENTRY_CORPUS, ENTRY_EPOCHS, ENTRY_STEPS, ENTRY_RESUME_EPOCHS = 24, 60, 10, 2
+FAMILY_TRAIN_EPOCHS = 30  # each family's training through the entry point (phase 17b), chosen once for the time
 
 
 def _bound(n_bytes: float, ops: float, peak_flops: float) -> dict:
@@ -1439,9 +1464,9 @@ def drive_int8_tools() -> None:
 
 
 def check_decision_gate(dev) -> None:
-    """(11) The decision gate on the card: all thirteen rows must run and be
+    """(11) The decision gate on the card: all fourteen rows must run and be
     OK, the three-pass grade's (on the tensor-core frontend kernel), the int8
-    trunk's and the five other families' among them, against an oracle whose
+    trunk's, the five other families' and lstm's live row among them, against an oracle whose
     exact grade runs on the tensor-core frontend kernel too (six bf16
     passes)."""
     from howl_tpu_torch.ops.frontend import FrontendConfig
@@ -1453,9 +1478,9 @@ def check_decision_gate(dev) -> None:
             raise AssertionError(f"the gate's {grade} engine would not run on the tensor-core frontend kernel")
     rows = validate_tpu_decisions.run(dev, *validate_tpu_decisions.CARD_SIZE)
     bad = [tag for tag, rec in rows.items() if rec["ok"] is not True]
-    bad += [tag for tag in ("res8+k1[bf16x3]+k2", "res8+k1[bf16]+k2+int8", *validate_tpu_decisions.FAMILIES)
-            if tag not in rows]
-    if len(rows) != 13 or bad:
+    bad += [tag for tag in ("res8+k1[bf16x3]+k2", "res8+k1[bf16]+k2+int8", *validate_tpu_decisions.FAMILIES,
+                            f"{validate_tpu_decisions.LIVE_FAMILY}+full-window[bf16]") if tag not in rows]
+    if len(rows) != 14 or bad:
         raise AssertionError(f"the decision gate found a mismatch in {bad}")
 
 
@@ -1532,6 +1557,82 @@ def drive_families(dev) -> dict:
         if not gate["ok"]:
             raise AssertionError(f"{name}: the bf16 decisions differ from float32's: {gate}")
         out[name] = {**rec, "realtime_factor": rtf, "max_dprob": dprob}
+    return out
+
+
+# ---- the zoo's other families, served live ----
+
+
+def _live_variants(spec) -> list:
+    """(engine kind, carry_hops) of a family's live checks: the ``OnlineEngine``, the incremental engine (not for a
+    model that reads deltas), and for a recurrent model the ``OnlineEngine`` once more with ``carry_hops``."""
+    variants = [("full-window", False)] + ([] if spec.uses_deltas else [("incremental", False)])
+    return variants + ([("full-window", True)] if spec.is_recurrent else [])
+
+
+def drive_families_live(dev, streams: int = ONLINE_STREAMS, hops: int = FAMILY_LIVE_HOPS) -> dict:
+    """(11c) Each of the seven other families at its registered width on the live engines, ``streams`` streams of
+    the gate's ``family_audio`` (eight distinct streams, each ``streams / 8`` times), a window and ``hops - 1`` hops
+    of it: the ``OnlineEngine`` on its ``hops`` whole windows, the ``IncrementalOnlineEngine`` (not las) on every
+    hop of it (``hops`` + 7), and, for lstm,
+    seq-lstm and gru, the ``OnlineEngine`` with ``carry_hops``; each in float32 (K1 at "f32") and in bf16 (K1 at
+    "bf16"), on the weights of ``FAMILY_WEIGHTS`` at the word and threshold ``family_live_setup`` picks from the
+    float32 engine's per-hop posteriors. Between zeroed counters an ``OnlineEngine`` must launch K1 once a hop ("tc"
+    where ``frontend_route`` serves the grade), las none (its stacked chain), and the incremental engine none; the
+    bf16 fire flags and labels must equal float32's at every hop by the gate's live rule, and the posteriors be
+    finite. Prints each family's hop ms (the mean over the hops, host clock: each hop reads its decisions back).
+    Returns {family: record}."""
+    import torch
+
+    from howl_tpu_torch.models import model_spec
+    from howl_tpu_torch.ops.frontend import FrontendConfig
+    from howl_tpu_torch.ops.frontend_cuda import frontend_route, log_mel_spectrogram_cuda
+    from howl_tpu_torch.tools.validate_tpu_decisions import (
+        compare_online, drive_live, family_audio, family_live_engine, family_live_setup,
+    )
+
+    print(bench.card_line())
+    cfg, frontend = bench.serving_config(), FrontendConfig(n_mels=N_MELS)
+    hop, window = int(cfg.eval_stride_size_ms / 1000 * SAMPLE_RATE), int(cfg.max_window_size_ms / 1000 * SAMPLE_RATE)
+    audio = torch.from_numpy(family_audio(streams, window + (hops - 1) * hop)).to(dev)
+    out = {}
+    for name in FAMILY_NAMES:
+        spec = model_spec(name)
+        rec = {"launches": {}, "hop_ms": {}}
+        for kind, carry in _live_variants(spec):
+            tag = f"{kind}{' carry_hops' if carry else ''}"
+            state, fam_cfg, pick = family_live_setup(name, kind, cfg, frontend, dev, audio, True, carry_hops=carry)
+            runs = {}
+            for grade, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+                eng = family_live_engine(name, kind, state, fam_cfg, frontend, dev, dtype, grade, num_streams=streams,
+                                         carry_hops=carry)
+                drive_live(eng, audio[:, : window + hop], True)  # the warm-up: cuDNN's plans, the frontend's bases
+                eng.reset()
+                log_mel_spectrogram_cuda.launches = log_mel_spectrogram_cuda.launches_tc = 0
+                t0 = time.perf_counter()
+                runs[grade] = drive_live(eng, audio, True)
+                n_hops = runs[grade][0].shape[0]
+                rec["hop_ms"][f"{tag} {grade}"] = (time.perf_counter() - t0) * 1000 / n_hops
+                launches = (log_mel_spectrogram_cuda.launches, log_mel_spectrogram_cuda.launches_tc)
+                per_hop = int(kind == "full-window" and not spec.uses_deltas)
+                want = (per_hop * n_hops, per_hop * n_hops * int(frontend_route(frontend, grade) == "tc"))
+                if launches != want:
+                    raise AssertionError(f"{name} {tag} {grade}: K1 launched {launches} (all, tc) times in {n_hops} "
+                                         f"hops, {want} expected")
+                if not np.isfinite(runs[grade][2]).all():
+                    raise AssertionError(f"{name} {tag} {grade}: posteriors that are not finite")
+                rec["launches"][f"{tag} {grade}"] = launches[0]
+            gate = compare_online(runs["f32"][:2], runs["bf16"][:2])
+            fired = int(runs["f32"][0].any(0).sum())
+            print(f"{name} live, {tag}: word {pick['word']}, threshold {pick['threshold']:.4f} ({pick['distance']:.4f} "
+                  f"from the nearest top posterior, margin {pick['margin']:.4f}); {fired} of {streams} streams fire; "
+                  f"K1 launches f32 {rec['launches'][f'{tag} f32']}, bf16 {rec['launches'][f'{tag} bf16']} in {n_hops} hops; "
+                  f"hop ms f32 {rec['hop_ms'][f'{tag} f32']:.3f}, bf16 {rec['hop_ms'][f'{tag} bf16']:.3f}; bf16 fire "
+                  f"flags equal float32's {gate['fired_eq']}, labels agree {gate['label_agreement']:.4f}; max |dprob| "
+                  f"{float(np.abs(runs['bf16'][2] - runs['f32'][2]).max()):.3e}")
+            if not gate["ok"]:
+                raise AssertionError(f"{name} live, {tag}: the bf16 decisions differ from float32's: {gate}")
+        out[name] = rec
     return out
 
 
@@ -1977,9 +2078,10 @@ def _launch_counts() -> dict:
             "k2": res8_stem_cuda.launches, "k2_tc": res8_stem_cuda.launches_tc, "k3": mix_noise_bank_cuda.launches}
 
 
-def _train_entry(argv: list, what: str) -> tuple[dict, dict, object]:
+def _train_entry(argv: list, what: str, k1: bool = True, k2: bool = True) -> tuple[dict, dict, object]:
     """One call of the entry point between zeroed launch counts: (results, counts, the run's loop stats).
-    K3 must have launched once a train step, K1 and K2 once an evaluator batch."""
+    K3 must have launched once a train step, K1 and K2 once an evaluator batch (K1 never for a model that reads
+    deltas, ``k1`` False; K2 never for a model without res8's stem, ``k2`` False)."""
     import torch
 
     from howl_tpu_torch.training.run import train
@@ -1993,8 +2095,9 @@ def _train_entry(argv: list, what: str) -> tuple[dict, dict, object]:
           f"(tc {counts['k1_tc']}), K2 {counts['k2']} (tc {counts['k2_tc']}), K3 {counts['k3']}")
     if counts["k3"] != stats.steps:
         raise AssertionError(f"{what}: K3 launched {counts['k3']} times in {stats.steps} augmented steps with a bank")
-    if not counts["k1"] == counts["k2"] == stats.eval_batches:
-        raise AssertionError(f"{what}: K1 {counts['k1']} and K2 {counts['k2']} launches for {stats.eval_batches} evaluator batches")
+    if (counts["k1"], counts["k2"]) != (int(k1) * stats.eval_batches, int(k2) * stats.eval_batches):
+        raise AssertionError(f"{what}: K1 {counts['k1']} and K2 {counts['k2']} launches for {stats.eval_batches} evaluator "
+                             f"batches ({int(k1)} and {int(k2)} a batch expected)")
     return results, counts, stats
 
 
@@ -2035,6 +2138,22 @@ ENTRY_RECIPE = {"WEIGHT_DECAY": "0.00001", "NUM_EPOCHS": str(ENTRY_EPOCHS), "LEA
 
 
 @contextlib.contextmanager
+def _restored_env(*names):
+    """The environment variables ``names`` as they were, after the block."""
+    import os
+
+    saved = {k: os.environ.get(k) for k in names}
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
 def entry_workdir():
     """A temporary working directory that holds phase 17's corpora (``ww``: the tone corpus, ``noise``), with
     ``ENTRY_RECIPE`` in the environment; yields its path. The caller's directory and environment are restored."""
@@ -2044,9 +2163,8 @@ def entry_workdir():
 
     from howl_tpu_torch.settings import SETTINGS
 
-    saved_env = {k: os.environ.get(k) for k in ENTRY_RECIPE}
     cwd = os.getcwd()
-    with tempfile.TemporaryDirectory(prefix="howl_train_entry_") as tmp_dir:
+    with tempfile.TemporaryDirectory(prefix="howl_train_entry_") as tmp_dir, _restored_env(*ENTRY_RECIPE):
         os.chdir(tmp_dir)
         try:
             write_tone_corpus(Path("ww"), ENTRY_CORPUS, ENTRY_CORPUS)
@@ -2055,13 +2173,8 @@ def entry_workdir():
             SETTINGS.reset()
             yield Path(tmp_dir)
         finally:
-            for k, v in saved_env.items():
-                if v is None:
-                    os.environ.pop(k, None)
-                else:
-                    os.environ[k] = v
-            SETTINGS.reset()
             os.chdir(cwd)
+            SETTINGS.reset()
 
 
 def train_repeat_main() -> int:
@@ -2268,6 +2381,91 @@ def drive_train_entry(dev) -> dict:
                 "int8_max_dprob": int8_dprob, "repeat_losses": repeat_losses, "epoch_losses": stats.epoch_losses}
 
 
+def drive_families_train(dev) -> dict:
+    """(17b) Each of the seven other families trained through the entry point on the card with ``--bf16`` (flax's
+    mixed precision over float32 masters), on phase 17's tone corpus and recipe (``entry_workdir``: the noise corpus
+    and augmentation on), ``FAMILY_TRAIN_EPOCHS`` epochs of ``ENTRY_STEPS`` steps: the sequential models (seq-cnn,
+    seq-lstm) under the CTC objective, the others under the frame objective, and small-cnn once more under
+    ``CONVERT_STATIC`` (CTC). Around each run the launch counts are zeroed and read: K3 once a train step, K1 once an
+    evaluator batch (las never; K1 at the exact grade, on "tc" where ``frontend_route`` serves it), K2 never. F9 on
+    the weights each run trained: the bf16 engine (K1 at "bf16") must detect as the exact float32 engine on every dev
+    and test clip. Prints each run's epochs, first and final loss, steps/s, the dev positives that fired and the max
+    |dprob| of F9. Returns {run: record}."""
+    import os
+    from dataclasses import replace
+    from pathlib import Path
+
+    import torch
+
+    from howl_tpu_torch.context import InferenceContext
+    from howl_tpu_torch.data.dataset.dataset_loader import WakeWordDatasetLoader
+    from howl_tpu_torch.inference.config import EngineConfig
+    from howl_tpu_torch.inference.engine import StreamingEngine
+    from howl_tpu_torch.models import ConvertedStaticModel, create_model, model_spec
+    from howl_tpu_torch.ops.frontend import FrontendConfig
+    from howl_tpu_torch.ops.frontend_cuda import frontend_route
+    from howl_tpu_torch.settings import SETTINGS
+
+    print(bench.card_line())
+    runs = [(name, model_spec(name).is_sequential, False) for name in FAMILY_NAMES] + [("small-cnn", True, True)]
+    out = {}
+    with entry_workdir(), _restored_env("OBJECTIVE", "CONVERT_STATIC"):
+        corpus = "ww"
+        _, ww_dev, ww_test = WakeWordDatasetLoader().load_splits(corpus, sample_rate=SAMPLE_RATE, mono=True)
+        audio = np.stack([ds[i].audio_data for ds in (ww_dev, ww_test) for i in range(len(ds))])
+        k1_tc = int(frontend_route(FrontendConfig.from_settings(), "f32") == "tc")
+        for name, ctc, convert in runs:
+            tag = f"{name}{' CONVERT_STATIC' if convert else ''}{' (ctc)' if ctc else ''}"
+            os.environ.update({"NUM_EPOCHS": str(FAMILY_TRAIN_EPOCHS), "OBJECTIVE": "ctc" if ctc else "frame",
+                               "CONVERT_STATIC": str(convert).lower()})
+            SETTINGS.reset()
+            spec = model_spec(name)
+            ws = f"ws_{name}{'_static' if convert else ''}"
+            results, counts, stats = _train_entry(
+                ["--model", name, "--workspace", ws, "-i", corpus, "--device", "cuda", "--bf16", "--eval-freq", "0",
+                 "--steps-per-epoch", str(ENTRY_STEPS)], f"{tag} --bf16", k1=not spec.uses_deltas, k2=False)
+            if counts["k1_tc"] != k1_tc * counts["k1"]:
+                raise AssertionError(f"{tag}: the evaluator's K1 at the exact grade not on {'tc' if k1_tc else 'fma'}: {counts}")
+            # F9 on the weights this run trained
+            ctx = InferenceContext(vocab=SETTINGS.training.vocab, token_type=SETTINGS.training.token_type, use_blank=ctc)
+            zmuv = json.loads(Path(ws, "zmuv.json").read_text())
+            mean, std = zmuv["mean"], float(np.sqrt(zmuv["mean2"] - zmuv["mean"] ** 2))
+            model = create_model(name, num_labels=ctx.num_labels)
+            if convert:
+                model, spec = ConvertedStaticModel(model, 40, 10), replace(spec, is_sequential=True)
+            state_dict = torch.load(f"{ws}/model.pt", weights_only=True)
+            f9 = {grade: StreamingEngine(model, state_dict, EngineConfig.from_settings(ctx), FrontendConfig.from_settings(),
+                                         mean, std, spec=spec, compute_dtype=dtype, frontend_precision=grade,
+                                         device=dev).infer_batch(audio)
+                  for grade, dtype in (("f32", None), ("bf16", torch.bfloat16))}
+            equal = torch.equal(f9["f32"]["detected"].cpu(), f9["bf16"]["detected"].cpu())
+            dprob = float((f9["bf16"]["probs"] - f9["f32"]["probs"]).abs().max())
+            # F9 is held only where the float32 engine decides both ways: it fires on some clips and not on others
+            fired = int(f9["f32"]["detected"].sum())
+            held = 0 < fired < len(audio)
+            word_max = float(f9["f32"]["probs"][..., : ctx.negative_label].max())
+            loop_s = stats.prep_s + stats.step_s
+            rec = {"epochs": len(stats.epoch_losses), "steps": stats.steps, "first_loss": stats.epoch_losses[0],
+                   "final_loss": stats.epoch_losses[-1], "steps_per_s": stats.steps / loop_s, "k3_launches": counts["k3"],
+                   "dev_pos_fired": results["dev_pos"]["tp"], "dev_pos": results["dev_pos"]["tp"] + results["dev_pos"]["fn"],
+                   "f9_equal": equal, "f9_max_dprob": dprob, "f9_held": held, "f9_fired": fired}
+            print(f"{tag} --bf16: {rec['epochs']} epochs of {ENTRY_STEPS} steps, loss {rec['first_loss']!r} -> "
+                  f"{rec['final_loss']!r}, {rec['steps_per_s']:.1f} steps/s; dev positives fired {rec['dev_pos_fired']} of "
+                  f"{rec['dev_pos']}, dev negatives fired {results['dev_neg']['fp']}; F9 on the trained weights, "
+                  f"{len(audio)} dev and test clips ({fired} fire): bf16 detections "
+                  f"{'equal' if equal else 'DIFFER FROM'} float32's, max |dprob| {dprob:.3e}; F9 "
+                  + ("held" if held else f"NOT HELD: the float32 engine fires on {fired} of {len(audio)} clips, its "
+                     f"largest word posterior {word_max!r}, so no decision lies at the threshold"))
+            if not np.isfinite(stats.epoch_losses).all():
+                raise AssertionError(f"{tag}: a loss that is not finite: {stats.epoch_losses}")
+            if not equal:
+                raise AssertionError(f"{tag}: F9: the bf16 engine's detections differ from the float32 engine's")
+            out[tag] = rec
+    print("F9 on the families' trained weights: held for " + (", ".join(t for t, r in out.items() if r["f9_held"]) or "none")
+          + "; not held (no decision both ways) for " + (", ".join(t for t, r in out.items() if not r["f9_held"]) or "none"))
+    return out
+
+
 def check_bench_record(record: dict) -> None:
     """(d) The bench's line: every measured key finite and positive with a
     [min, max] spread around it, the seven online keys included (the
@@ -2370,6 +2568,40 @@ def profile_train_step(dev, out_dir) -> None:
     }
     _profile(out_dir, "train_profile.txt", f"bf16 noise-bank train step, batch {TRAIN_BATCH} x {TRAIN_WINDOW}", stages,
              lambda: noise_step(state, audio, labels, None, SEED), 5)
+
+
+def profile_families_live(dev, out_dir, names=("mobilenet", "lstm")) -> None:
+    """Stage times and a profile of an ``OnlineEngine`` hop of each family in
+    ``names`` at 512 streams, in float32 (K1 at "f32") and in bf16 (K1 at
+    "bf16"), on the weights of phase 11c, into
+    ``online_<family>_<grade>_profile.txt`` (20 chained hops profiled)."""
+    import torch
+
+    from howl_tpu_torch.ops.frontend import FrontendConfig
+    from howl_tpu_torch.tools.validate_tpu_decisions import family_audio, family_live_engine, family_live_setup
+
+    cfg, frontend = bench.serving_config(), FrontendConfig(n_mels=N_MELS)
+    hop, window = int(cfg.eval_stride_size_ms / 1000 * SAMPLE_RATE), int(cfg.max_window_size_ms / 1000 * SAMPLE_RATE)
+    audio = torch.from_numpy(family_audio(ONLINE_STREAMS, window + hop)).to(dev)
+    win = audio[:, -window:].contiguous()
+    for name in names:
+        state, fam_cfg, _ = family_live_setup(name, "full-window", cfg, frontend, dev, audio, True)
+        for grade, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+            eng = family_live_engine(name, "full-window", state, fam_cfg, frontend, dev, dtype, grade,
+                                     num_streams=ONLINE_STREAMS)
+            feats = eng._features(win)
+
+            def hops(n=20):
+                for _ in range(n):
+                    eng._step(win, eng.state, 62.5)
+
+            _profile(out_dir, f"online_{name}_{grade}_profile.txt",
+                     f"{grade} OnlineEngine hop of {name}, {ONLINE_STREAMS} streams", {
+                         "1. K1 on the windows (fm)": lambda: eng._features(win),
+                         "2. the model": lambda: eng.model(feats),
+                         "whole hop (_step)": lambda: eng._step(win, eng.state, 62.5),
+                     }, hops, 1)
+            del eng, feats
 
 
 def profile_serving(dev, out_dir) -> None:
@@ -2570,6 +2802,7 @@ def main() -> int:
         out_dir = Path(sys.argv[sys.argv.index("--profile-only") + 1])
         profile_serving(dev, out_dir)
         profile_online(dev, out_dir)
+        profile_families_live(dev, out_dir)
         profile_train_step(dev, out_dir)
         print(device_line)
         return 0
@@ -2620,6 +2853,9 @@ def main() -> int:
     families = drive_families(dev)
     k1["launches_families"] = {name: rec["launches"] for name, rec in families.items()}
     lap("the zoo's families")
+    families_live = drive_families_live(dev)
+    k1["launches_families_live"] = {name: rec["launches"] for name, rec in families_live.items()}
+    lap("the families live")
     online_path = drive_online_path(dev)
     k1["online_full_window"], k2["online_full_window"] = online_path["k1"], online_path["k2"]
     k2["online_incremental_65536"] = drive_incremental_at_scale(dev)
@@ -2630,6 +2866,9 @@ def main() -> int:
     lap("train path")
     drive_train_entry(dev)
     lap("train entry point")
+    families_train = drive_families_train(dev)
+    k3["launches_families_train"] = {tag: rec["k3_launches"] for tag, rec in families_train.items()}
+    lap("the families trained")
     check_bench_record(bench.main(["--device", "cuda"]))
     lap("bench (d)")
     print("phase seconds: " + ", ".join(f"{name} {sec:.1f}" for name, sec in laps))
@@ -2638,6 +2877,7 @@ def main() -> int:
 
         profile_serving(dev, Path(sys.argv[sys.argv.index("--profile") + 1]))
         profile_online(dev, Path(sys.argv[sys.argv.index("--profile") + 1]))
+        profile_families_live(dev, Path(sys.argv[sys.argv.index("--profile") + 1]))
         profile_train_step(dev, Path(sys.argv[sys.argv.index("--profile") + 1]))
 
     kernels = [

@@ -12,13 +12,14 @@ Ported so far: the offline fused-trunk res8 scoring path
 (``inference.engine.StreamingEngine``), whose log-mel frontend
 (``ops/frontend_cuda.py``) and conv0 + ReLU + AvgPool stem
 (``ops/stem_cuda.py``) run as CUDA kernels on a CUDA device and as their
-plain PyTorch versions on the CPU; live serving (``inference/online.py``,
-``inference/streaming_trunk.py``); the res8 train step, whose noise-bank mix
-(``ops/augment_cuda.py``) is the third kernel; the training entry point
-``python -m howl_tpu_torch.training.run.train`` with its settings,
-datasets, batchifier, noise banks, workspace and batched evaluator; the
-bench (``python -m howl_tpu_torch.bench``) and the kernel studies
-(``tools/``).
+plain PyTorch versions on the CPU; the whole model zoo (``models/``),
+served offline and live (``inference/online.py``; res8 also by
+``inference/streaming_trunk.py``); the train steps, frame and CTC, whose
+noise-bank mix (``ops/augment_cuda.py``) is the third kernel; the training
+entry point ``python -m howl_tpu_torch.training.run.train`` for every model
+with its settings, datasets, batchifiers, noise banks, workspace and batched
+evaluator; the bench (``python -m howl_tpu_torch.bench``) and the kernel
+studies (``tools/``).
 """
 
 __version__ = "0.1.0"

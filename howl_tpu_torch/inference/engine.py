@@ -75,7 +75,7 @@ from howl_tpu_torch.inference.detect import (
     smooth_and_detect,
     smooth_and_detect_sweep,
 )
-from howl_tpu_torch.models.base import ModelSpec, model_spec
+from howl_tpu_torch.models.base import ModelSpec, model_spec, serve_in_weight_dtype
 from howl_tpu_torch.ops.frontend import FrontendConfig, log_mel_spectrogram
 from howl_tpu_torch.ops.frontend_cuda import log_mel_spectrogram_cuda
 from howl_tpu_torch.ops.int8_trunk import ROUTES as INT8_ROUTES
@@ -161,9 +161,9 @@ class StreamingEngine:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {device!r} requested but CUDA is not available")
         self.compute_dtype = compute_dtype
-        self.fused_trunk = self.spec.supports_trunk if fused_trunk is None else bool(fused_trunk)
-        if self.fused_trunk and not self.spec.supports_trunk:
-            raise ValueError(f"fused_trunk needs a model with a trunk (res8); {self.spec.name!r} has none")
+        self.fused_trunk = self.spec.uses_trunk if fused_trunk is None else bool(fused_trunk)
+        if self.fused_trunk and not self.spec.uses_trunk:
+            raise ValueError(f"fused_trunk needs a window classifier with a trunk (res8); {self.spec} has none")
         self.carry_windows = bool(carry_windows)
         if use_int8_trunk and not self.fused_trunk:
             # never silently serve something other than what was asked for
@@ -189,7 +189,7 @@ class StreamingEngine:
         # reference strides with drop_incomplete=True
         self.window_samples = int(cfg.max_window_size_ms / 1000 * cfg.sample_rate)
         self.model = copy.deepcopy(model).to(device=self.device, dtype=compute_dtype or torch.float32).eval()
-        self.model.dtype = None  # the weights' dtype, compute_dtype, governs scoring
+        serve_in_weight_dtype(self.model)  # the weights' dtype, compute_dtype, governs scoring
         for rnn in (m for m in self.model.modules() if isinstance(m, torch.nn.RNNBase)):
             rnn.flatten_parameters()  # one weight buffer for cuDNN, which would compact them at every call
         self._int8_params = None
@@ -215,7 +215,7 @@ class StreamingEngine:
         else."""
         self._variables = cast_compute_dtype(value, self.compute_dtype)
         self.model.load_state_dict(self._variables, strict=True)
-        if self.spec.supports_trunk:
+        if self.spec.uses_trunk:
             self._stem_taps = self.model.stem_taps(self.frontend.n_mels)
         if self._int8_cal is not None:
             self._requantize_int8(value)

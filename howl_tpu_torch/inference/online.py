@@ -3,24 +3,35 @@
 
 The batched engines of ``engine.py`` score whole clips; a live client feeds
 one 62.5 ms hop at a time. Each engine here keeps its state on the device
-between calls and runs one step a hop: featurize, res8, a float32 softmax,
-inference weights, and ``detect_step`` (the scan form of the smoothing and
-the sequence FSM, ``detect.py``).
+between calls and runs one step a hop: featurize, the model, a float32
+softmax, inference weights, and ``detect_step`` (the scan form of the
+smoothing and the sequence FSM, ``detect.py``).
 
 ``OnlineEngine`` re-featurizes the whole window every hop: its (N, 8,000)
-windows go through the frontend kernel K1 ("fm" layout), then
+windows go through the frontend kernel K1 ("fm" layout) into (N, 1, F, T)
+features, for every model but las, which reads delta channels and is
+featurized, as the JAX step does, by the plain stacked chain
+(``ops/frontend.py``, ``stacked=True``, exact float32). Then the model:
 ``Res8.forward`` (the stem kernel K2 on (N, 41, 40) mels, the residual convs
-by cuDNN). ``IncrementalOnlineEngine`` featurizes only the newest samples
-(tail + hop, ``center=False``, the plain log-mel chain of
-``ops/frontend.py``, where the JAX package runs its XLA chain) into a ring of
-mel frames and scores the ring's window the same way (K2 included). A
-float32 engine runs each step with TF32 off whatever the caller's global
-``allow_tf32`` flags (``ops/tf32.py``); a bf16 engine leaves them as set.
+by cuDNN), or any other family of the zoo. ``IncrementalOnlineEngine``
+featurizes only the newest samples (tail + hop, ``center=False``, the plain
+log-mel chain of ``ops/frontend.py``, where the JAX package runs its XLA
+chain) into a ring of mel frames and scores the ring's window the same way
+(K2 included for res8); it keeps no delta channels, so it refuses las, as in
+JAX. A float32 engine runs each step with TF32 off whatever the caller's
+global ``allow_tf32`` flags (``ops/tf32.py``); a bf16 engine leaves them as
+set.
 
-Only res8 is ported; other models, ``carry_hops`` (recurrent models) and
-``shard_streams`` (a mesh of cards) raise and cite their ROADMAP items. Every
-engine runs on the card unless the caller passes ``device="cpu"``; a CUDA
-device that does not exist raises.
+The step's tail is the JAX engines' ``_score_and_detect``: a recurrent model
+is called with its carry and returns the new one, a sequential model's (T,
+N, L) output is scored by its last frame's logits. ``carry_hops``
+(recurrent models only: lstm, seq-lstm, gru) threads that carry from hop to
+hop, so each window is scored from the previous hop's final state; by
+default every hop starts from zeros, as the offline engine scores windows
+and as the reference serves live. ``reset`` clears it. ``shard_streams`` (a
+mesh of cards) raises and cites its ROADMAP item. Every engine runs on the
+card unless the caller passes ``device="cpu"``; a CUDA device that does not
+exist raises.
 
 Timestamps are float32 on the device; once the clock passes 2^22 ms (~70
 min) the engines move it and every ring timestamp back by 2^21 ms, so the
@@ -46,10 +57,10 @@ from howl_tpu_torch.inference.config import (
 )
 from howl_tpu_torch.inference.detect import DetectState, apply_inference_weights, detect_step, init_state
 from howl_tpu_torch.inference.engine import _not_ported
-from howl_tpu_torch.models.base import ModelSpec, model_spec
+from howl_tpu_torch.models.base import ModelSpec, model_spec, serve_in_weight_dtype
 from howl_tpu_torch.ops.frontend import FrontendConfig, log_mel_spectrogram
 from howl_tpu_torch.ops.frontend_cuda import frontend_grade, log_mel_spectrogram_cuda
-from howl_tpu_torch.ops.tf32 import exact_if_float32
+from howl_tpu_torch.ops.tf32 import exact_float32, exact_if_float32
 
 _REBASE_AT = float(2**22)  # ms
 _REBASE_DELTA = float(2**21)  # ms
@@ -66,20 +77,18 @@ def chain_precision(precision):
 
 
 class _HopEngine:
-    """What the online engines share: the device, the weights (the stem
-    kernel's taps re-derived whenever ``variables`` is assigned), the hop
-    geometry, and the step's tail from logits to decisions."""
+    """What the online engines share: the device, the weights (res8's stem
+    kernel taps re-derived whenever ``variables`` is assigned), the hop
+    geometry, and the step's tail from the model to decisions."""
 
     def __init__(self, model, variables, cfg: EngineConfig, frontend: FrontendConfig, zmuv_mean: float,
                  zmuv_std: float, spec: Optional[ModelSpec], num_streams: int, compute_dtype, dft_precision,
                  device, carry_hops: bool = False):
         self.spec = spec or model_spec(getattr(model, "registered_name", "res8"))
-        if not self.spec.supports_trunk:
-            raise _not_ported(f"online serving of model {self.spec.name!r}", "item 8 (the non-res8 scorers)")
         if carry_hops and not self.spec.is_recurrent:
             raise ValueError(
                 f"carry_hops threads RNN state across hops and applies to recurrent models only; "
-                f"{self.spec.name!r} is not recurrent (the recurrent models are ROADMAP Queue 1, item 8)"
+                f"{self.spec.name!r} is not recurrent"
             )
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -101,7 +110,9 @@ class _HopEngine:
         self._s_steps, self._w_steps = ring_steps(cfg, self.stride_ms)
         self.model = copy.deepcopy(model).to(device=self.device, dtype=compute_dtype or torch.float32).eval()
         self.model.requires_grad_(False)
-        self.model.dtype = None  # the weights' dtype, compute_dtype, governs scoring
+        serve_in_weight_dtype(self.model)  # the weights' dtype, compute_dtype, governs scoring
+        for rnn in (m for m in self.model.modules() if isinstance(m, torch.nn.RNNBase)):
+            rnn.flatten_parameters()  # one weight buffer for cuDNN, which would compact them at every call
         self.variables = variables
 
     @property
@@ -110,11 +121,11 @@ class _HopEngine:
 
     @variables.setter
     def variables(self, value):
-        """Load a new res8 state dict, rounded to the compute dtype, and
+        """Load a new state dict, rounded to the compute dtype, and for res8
         re-derive the stem kernel's taps from it."""
         self._variables = cast_compute_dtype(value, self.compute_dtype)
         self.model.load_state_dict(self._variables, strict=True)
-        self._stem_taps = self.model.stem_taps(self.frontend.n_mels)
+        self._stem_taps = self.model.stem_taps(self.frontend.n_mels) if self.spec.uses_trunk else None
 
     def shard_streams(self, mesh):
         raise _not_ported("shard_streams (the streams split over a mesh of cards)", "item 12")
@@ -143,10 +154,27 @@ class _HopEngine:
         state, label, fired_now = detect_step(state, probs, t_now, valid, self.cfg, check_offset_ms=self.stride_ms)
         return state, label, fired_now, probs
 
-    def _score_and_detect(self, feats: torch.Tensor, state: DetectState, t_now):
-        """(N, 1, F, T) features in the compute dtype -> res8 -> ``_decide``;
-        every stream produced a frame."""
-        return self._decide(self.model(feats, self._stem_taps), state, t_now, True)
+    def _score_and_detect(self, feats: torch.Tensor, state: DetectState, t_now, carry=None):
+        """(N, C, F, T) features in the compute dtype -> the model ->
+        ``_decide``; every stream produced a frame. A recurrent model is
+        called with ``carry`` and returns its new one; a sequential model's
+        (T, N, L) output is scored by its last frame's logits. Returns
+        (state, label, fired_now, probs, new carry)."""
+        if self._stem_taps is not None:
+            out = self.model(feats, self._stem_taps)
+        elif self.spec.is_recurrent:
+            out, carry = self.model(feats, carry=carry, return_carry=True)
+        else:
+            out = self.model(feats)
+        if out.ndim == 3:  # a sequential model: the last frame's logits
+            out = out[-1]
+        return (*self._decide(out, state, t_now, True), carry)
+
+    def _keep_carry(self, carry) -> None:
+        """Thread a recurrent model's state to the next hop when
+        ``carry_hops`` is set; otherwise every hop starts from zeros."""
+        if self.carry_hops:
+            self.carry = carry
 
     def _fetch(self, label: torch.Tensor, fired: torch.Tensor) -> bool:
         """The step's labels and fire flags to the host in one copy, as
@@ -174,11 +202,13 @@ class OnlineEngine(_HopEngine):
         carry_hops: bool = False,
         device="cuda",
     ):
-        """``model`` gives the architecture (a ``Res8``); the engine keeps its
-        own copy on ``device`` and loads ``variables``, a res8 state dict.
+        """``model`` gives the architecture (any model of the zoo; ``spec``
+        defaults to its registry entry); the engine keeps its own copy on
+        ``device`` and loads ``variables``, its state dict.
         ``compute_dtype=torch.bfloat16`` scores in bf16 (the frontend at the
         "bf16" grade unless ``dft_precision`` names another); the
-        posteriors and the decisions stay float32."""
+        posteriors and the decisions stay float32. ``carry_hops`` (recurrent
+        models only) threads the model's state from hop to hop."""
         super().__init__(model, variables, cfg, frontend, zmuv_mean, zmuv_std, spec, num_streams, compute_dtype,
                          dft_precision, device, carry_hops)
         self.window_samples = int(cfg.max_window_size_ms / 1000 * cfg.sample_rate)
@@ -193,19 +223,25 @@ class OnlineEngine(_HopEngine):
         self.last_fired = None
 
     def _features(self, audio: torch.Tensor) -> torch.Tensor:
-        """(N, window_samples) -> (N, F, T) ZMUV'd log-mels in the compute
-        dtype: the frontend kernel K1 on a card."""
+        """(N, window_samples) -> (N, C, F, T) ZMUV'd features in the compute
+        dtype: the frontend kernel K1's log-mels on a card, C = 1; for a
+        model that reads deltas (las) the plain stacked chain in exact
+        float32, C = 3."""
+        if self.spec.uses_deltas:
+            with exact_float32():
+                feats = log_mel_spectrogram(audio, self.frontend, stacked=True)
+            return ((feats - self.zmuv_mean) / self.zmuv_std).to(self.compute_dtype or torch.float32)
         return log_mel_spectrogram_cuda(
             audio, self.frontend, self.zmuv_mean, self.zmuv_std, precision=self._dft_precision,
             out_dtype=self.compute_dtype or torch.float32, layout="fm",
-        )
+        )[:, None]
 
     @torch.no_grad()
     @exact_if_float32
-    def _step(self, audio: torch.Tensor, state: DetectState, t_now):
+    def _step(self, audio: torch.Tensor, state: DetectState, t_now, carry=None):
         """One hop on (N, window_samples) device audio: (state, label,
-        fired_now, probs)."""
-        return self._score_and_detect(self._features(audio)[:, None], state, t_now)
+        fired_now, probs, new carry)."""
+        return self._score_and_detect(self._features(audio), state, t_now, carry)
 
     def ingest(self, window_audio) -> bool:
         """Feed the current window of every stream; True if the wakeword
@@ -222,7 +258,8 @@ class OnlineEngine(_HopEngine):
             audio = torch.nn.functional.pad(audio, (self.window_samples - audio.shape[-1], 0))
         audio = audio[:, -self.window_samples :].contiguous()
         self._maybe_rebase()
-        self.state, label, fired_now, _ = self._step(audio, self.state, self.curr_time)
+        self.state, label, fired_now, _, carry = self._step(audio, self.state, self.curr_time, self.carry)
+        self._keep_carry(carry)
         self.curr_time += self.stride_ms
         return self._fetch(label, fired_now)
 
@@ -262,6 +299,11 @@ class IncrementalOnlineEngine(_HopEngine):
     ):
         super().__init__(model, variables, cfg, frontend, zmuv_mean, zmuv_std, spec, num_streams, compute_dtype,
                          dft_precision, device, carry_hops)
+        if self.spec.uses_deltas:
+            raise ValueError(
+                "IncrementalOnlineEngine keeps a plain log-mel ring and cannot serve "
+                "delta-channel models (las); use OnlineEngine for those"
+            )
         hop, n_fft = frontend.hop_length, frontend.n_fft
         # the smallest tail in [n_fft - hop, n_fft) with tail = n_fft // 2 (mod hop)
         base = n_fft - hop
@@ -284,16 +326,17 @@ class IncrementalOnlineEngine(_HopEngine):
 
     @torch.no_grad()
     @exact_if_float32
-    def _step(self, new_audio: torch.Tensor, tail: torch.Tensor, ring: torch.Tensor, state: DetectState, t_now):
+    def _step(self, new_audio: torch.Tensor, tail: torch.Tensor, ring: torch.Tensor, state: DetectState, t_now,
+              carry=None):
         """One hop on (N, hop_samples) device audio: (tail, ring, state,
-        label, fired_now)."""
+        label, fired_now, new carry)."""
         buf = torch.cat([tail, new_audio], dim=-1)
         mels = log_mel_spectrogram(buf, self._frontend_nc, precision=chain_precision(self._dft_precision))
         mels = (mels - self.zmuv_mean) / self.zmuv_std  # (N, F, stride_frames)
         ring = torch.cat([ring[..., self.stride_frames :], mels], dim=-1)  # oldest -> newest
         feats = ring[:, None].to(self.compute_dtype or torch.float32)
-        state, label, fired_now, _ = self._score_and_detect(feats, state, t_now)
-        return buf[:, -self.tail_samples :], ring, state, label, fired_now
+        state, label, fired_now, _, carry = self._score_and_detect(feats, state, t_now, carry)
+        return buf[:, -self.tail_samples :], ring, state, label, fired_now, carry
 
     def push(self, new_audio) -> bool:
         """Feed every stream's newest ``hop_samples`` samples; True if the
@@ -303,8 +346,9 @@ class IncrementalOnlineEngine(_HopEngine):
         if tuple(audio.shape) != (self.num_streams, self.hop_samples):
             raise ValueError(f"push expects {(self.num_streams, self.hop_samples)}, got {tuple(audio.shape)}")
         self._maybe_rebase()
-        self.tail, self.mel_ring, self.state, label, fired_now = self._step(
-            audio, self.tail, self.mel_ring, self.state, self.curr_time
+        self.tail, self.mel_ring, self.state, label, fired_now, carry = self._step(
+            audio, self.tail, self.mel_ring, self.state, self.curr_time, self.carry
         )
+        self._keep_carry(carry)
         self.curr_time += self.stride_ms
         return self._fetch(label, fired_now)

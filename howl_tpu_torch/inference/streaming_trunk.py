@@ -250,6 +250,9 @@ class FusedStreamingOnlineEngine(_HopEngine):
     ):
         super().__init__(model, variables, cfg, frontend, zmuv_mean, zmuv_std, spec, num_streams, compute_dtype,
                          dft_precision, device)
+        if not self.spec.uses_trunk:
+            raise ValueError(f"FusedStreamingOnlineEngine serves a window classifier with a trunk (res8); "
+                             f"got {self.spec}")
         self.prefill_block = max(int(prefill_block), 1)
         hop, n_fft = frontend.hop_length, frontend.n_fft
         pool_t = self.model.pooling[0]

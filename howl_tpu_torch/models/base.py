@@ -11,9 +11,11 @@ registered: res8 and small-cnn (``cnn.py``, with seq-cnn), mobilenet
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -28,6 +30,15 @@ class ModelSpec:
     uses_deltas: bool = False  # consumes delta/accel channels (only LAS does)
     supports_trunk: bool = False  # fully-convolutional trunk + mean head (fused clip scoring)
     defaults: Dict[str, Any] = field(default_factory=dict)
+
+    @property
+    def uses_trunk(self) -> bool:
+        """Whether the engines score through res8's stem kernel and trunk: a
+        trunk-capable model that emits one output per window and carries no
+        state (the JAX engine's default for ``fused_trunk``). ``convert_static``
+        makes res8's spec sequential, and its windows then go through the
+        wrapped classifier as a whole."""
+        return self.supports_trunk and not self.is_sequential and not self.is_recurrent
 
 
 MODEL_REGISTRY: Dict[str, ModelSpec] = {}
@@ -63,31 +74,132 @@ def create_model(name: str, num_labels: int, **kwargs) -> nn.Module:
     return spec.factory(num_labels=num_labels, **{**spec.defaults, **kwargs})
 
 
+def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    """flax's default kernel init: variance scaling 1/fan_in, truncated
+    normal at two standard deviations."""
+    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978  # std of N(0, 1) truncated to [-2, 2]
+    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+class DropoutDraws:
+    """Where a model's dropout masks come from in training: drawn from
+    ``generator`` (keep where a uniform draw is at or above the rate), or,
+    with ``masks``, taken from that list in the order the forward asks for
+    them (the tests replay the JAX step's masks this way)."""
+
+    def __init__(self, generator: Optional[torch.Generator] = None, masks=None):
+        self.generator = generator
+        self.masks = None if masks is None else list(masks)
+
+    def keep(self, shape, rate: float, device) -> torch.Tensor:
+        if self.masks is not None:
+            return torch.as_tensor(np.array(self.masks.pop(0)), dtype=torch.bool, device=device)
+        return torch.rand(shape, generator=self.generator, device=device) >= rate
+
+
+def use_dropout_draws(model: nn.Module, draws: Optional[DropoutDraws]) -> None:
+    """Give every ``HowlModel`` inside ``model`` its dropout source (None:
+    PyTorch's global generator)."""
+    for m in model.modules():
+        if isinstance(m, HowlModel):
+            m.dropout_draws = draws
+
+
+def serve_in_weight_dtype(model: nn.Module) -> nn.Module:
+    """Clear the mixed-precision ``dtype`` of ``model`` and every module in
+    it, so that it computes in its weights' dtype: the engines cast the
+    weights to their compute dtype, as the JAX engines cast their
+    variables."""
+    for m in model.modules():
+        if "dtype" in vars(m):
+            m.dtype = None
+    return model
+
+
+class AffineBatchNorm(nn.BatchNorm2d):
+    """flax's ``BatchNorm()`` as a torch layer over NCHW: scale and bias, eps
+    1e-5. In eval mode it is ``nn.BatchNorm2d``'s own forward on the running
+    stats, which computes in float32 for a bf16 input and returns the
+    input's dtype, as flax does. In training it
+    normalizes with the batch's float32 mean and biased variance (E[x^2] -
+    E[x]^2, clipped at 0) and moves the running stats as flax's momentum
+    0.99 does, with that biased variance; ``torch.nn.BatchNorm2d`` would move
+    them with the unbiased one. The statistics and the normalization run in
+    float32 whatever the input's dtype, and the output takes the input's
+    dtype, as flax's ``BatchNorm(dtype=...)`` returns it."""
+
+    def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.99):
+        super().__init__(channels, eps=eps, momentum=1.0 - momentum)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)  # the running stats: one batch_norm call, float32 arithmetic for bf16 x
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            keep = 1.0 - self.momentum
+            self.running_mean.copy_(keep * self.running_mean + self.momentum * mean)
+            self.running_var.copy_(keep * self.running_var + self.momentum * var)
+            self.num_batches_tracked += 1
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias.float()[:, None, None]
+        return y.to(x.dtype)
+
+
 class HowlModel(nn.Module):
     """Shared helpers of the zoo's models other than res8.
 
-    ``dtype`` is the JAX modules' mixed-precision field. These models serve
-    in their parameters' dtype (the engines cast the weights, as the JAX
-    engines do, ``inference/config.cast_compute_dtype``); a compute dtype
-    other than the parameters' comes with these families' training (ROADMAP
-    Queue 1, item 8) and raises until then.
+    ``dtype`` is flax's mixed precision, as ``Res8`` has it: with
+    ``torch.bfloat16`` the convs, recurrences and hidden dense layers compute
+    in bf16 on bf16 casts of the parameters, while BatchNorm statistics and
+    the dense heads (``_head``) stay float32 and the parameters keep their
+    own dtype (float32 master weights in training). ``None`` computes in the
+    parameters' dtype, which is how the engines serve (they cast the
+    weights). Dropout is applied in training only, from ``dropout_draws``
+    (a ``DropoutDraws``; None takes PyTorch's global generator), with the
+    JAX modules' rates.
     """
 
     def __init__(self, dtype=None):
         super().__init__()
         self.dtype = dtype
+        self.dropout_draws: Optional[DropoutDraws] = None
 
-    def _check_dtype(self) -> None:
-        if self.dtype is not None and self.dtype != next(self.parameters()).dtype:
-            raise NotImplementedError(
-                f"{type(self).__name__} computes in its parameters' dtype: mixed precision (dtype={self.dtype}) "
-                "is not ported to PyTorch yet (ROADMAP Queue 1, item 8: the families' training)"
-            )
+    def compute_dtype(self) -> torch.dtype:
+        return self.dtype or next(self.parameters()).dtype
 
     def compute_length(self, length):
         """Frames of model output per frames of feature input (identity unless
         the model downsamples time)."""
         return length
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> "HowlModel":
+        """flax's initializers, drawn from ``generator``: lecun-normal conv,
+        dense and recurrent input kernels, orthogonal recurrent kernels (each
+        gate's), zero biases, BatchNorm scale 1, bias 0 and running stats 0
+        and 1, las's context vector uniform in +-0.25."""
+        for m in self.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                _lecun_normal_(m.weight, m.weight[0].numel(), generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()
+            elif isinstance(m, nn.RNNBase):
+                for name, p in m.named_parameters():
+                    if name.startswith("weight_ih"):
+                        _lecun_normal_(p, p.shape[1], generator)
+                    elif name.startswith("weight_hh"):
+                        for gate in p.split(m.hidden_size):
+                            nn.init.orthogonal_(gate, generator=generator)
+                    else:
+                        p.zero_()
+            vec = getattr(m, "context_vec", None)
+            if isinstance(vec, nn.Parameter):
+                vec.uniform_(-0.25, 0.25, generator=generator)
+        return self
 
     @staticmethod
     def _mels_only(x: torch.Tensor) -> torch.Tensor:
@@ -95,9 +207,30 @@ class HowlModel(nn.Module):
         return x[:, :1].transpose(-1, -2)
 
     @staticmethod
+    def _conv(layer: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """``layer`` over x in ``dtype``, on casts of its parameters."""
+        bias = None if layer.bias is None else layer.bias.to(dtype)
+        return F.conv2d(x.to(dtype), layer.weight.to(dtype), bias, layer.stride, layer.padding, layer.dilation,
+                        layer.groups)
+
+    @staticmethod
+    def _dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """A dense layer in ``dtype``, on casts of its parameters."""
+        return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+
+    @staticmethod
     def _head(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
         """A dense layer in float32, as the JAX modules compute their logits."""
-        return nn.functional.linear(x.float(), layer.weight.float(), layer.bias.float())
+        return F.linear(x.float(), layer.weight.float(), layer.bias.float())
+
+    def _dropout(self, x: torch.Tensor, rate: float) -> torch.Tensor:
+        """flax's ``Dropout(rate)``: in training, each value kept with
+        probability 1 - rate and scaled by 1 / (1 - rate), else zero."""
+        if not self.training or rate == 0.0:
+            return x
+        draws = self.dropout_draws or DropoutDraws()
+        keep = draws.keep(x.shape, rate, x.device)
+        return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 class ConvertedStaticModel(nn.Module):
@@ -112,6 +245,10 @@ class ConvertedStaticModel(nn.Module):
         self.inner = inner
         self.frame_window_size = frame_window_size
         self.frame_stride_size = frame_stride_size
+
+    def init_weights(self, generator: torch.Generator) -> "ConvertedStaticModel":
+        self.inner.init_weights(generator)
+        return self
 
     def compute_length(self, length):
         if length is None:

@@ -3,10 +3,13 @@ res8, small-cnn and seq-cnn.
 
 small-cnn and seq-cnn run in NCHW with time as H, as res8 does, their convs
 padded as the JAX modules pad theirs, max pools before an affine BatchNorm
-(eps 1e-5, running stats in eval mode), dense layers on features flattened
-in the JAX package's (time, frequency, channel) order, and logits in
-float32. Their parameter names are the JAX modules': conv0, bn1, conv1,
-bn2, fc1, fc2.
+with flax's semantics (``models.base.AffineBatchNorm``: running stats in
+eval mode; in training the batch's biased variance, which also moves the
+running variance), dense layers on features flattened in the JAX package's
+(time, frequency, channel) order, dropout 0.1 before the head in training,
+and logits in float32; ``dtype`` is flax's mixed precision
+(``models.base.HowlModel``). Their parameter names are the JAX modules':
+conv0, bn1, conv1, bn2, fc1, fc2.
 
 The rest of this docstring is res8's, the counterpart of the JAX ``Res8``.
 
@@ -44,19 +47,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from howl_tpu_torch.models.base import HowlModel, register_model
+from howl_tpu_torch.models.base import AffineBatchNorm, HowlModel, _lecun_normal_, register_model
 from howl_tpu_torch.ops.frontend import round_bf16
 from howl_tpu_torch.ops.stem_cuda import fold_stem_weights, res8_stem_cuda
 
 BN_MOMENTUM = 0.9  # flax's convention: running = momentum * running + (1 - momentum) * batch
 BN_EPS = 1e-5
-
-
-def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
-    """flax's default kernel init: variance scaling 1/fan_in, truncated
-    normal at two standard deviations."""
-    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978  # std of N(0, 1) truncated to [-2, 2]
-    torch.nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
 
 @register_model("res8", supports_trunk=True)
@@ -257,14 +253,16 @@ class Res8(nn.Module):
         fused clip-level scoring of the serving engine."""
         return self.head(self.trunk_features(x)[:, span_lo:span_hi].mean(dim=(1, 2)))
 
-    def forward(self, x: torch.Tensor, taps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, taps: Optional[torch.Tensor] = None, lengths=None) -> torch.Tensor:
+        """``lengths`` is taken for the zoo's signature's sake: res8 scores
+        whole windows, as the JAX module does."""
         return self.head(self.trunk_features(x, taps).mean(dim=(1, 2)))
 
 
-def _affine_bn(channels: int) -> nn.BatchNorm2d:
-    """flax's ``BatchNorm()`` defaults as a torch layer: scale and bias, eps
-    1e-5; in eval mode it normalizes with the running stats."""
-    return nn.BatchNorm2d(channels, eps=BN_EPS, momentum=0.01)
+def _affine_bn(channels: int) -> AffineBatchNorm:
+    """flax's ``BatchNorm()`` defaults (scale and bias, eps 1e-5, momentum
+    0.99) with flax's training semantics: ``models.base.AffineBatchNorm``."""
+    return AffineBatchNorm(channels, eps=BN_EPS)
 
 
 @register_model("small-cnn")
@@ -283,12 +281,11 @@ class SmallCnn(HowlModel):
         self.fc2 = nn.Linear(hidden_size, num_labels)
 
     def forward(self, x: torch.Tensor, lengths=None) -> torch.Tensor:
-        self._check_dtype()
-        x = self._mels_only(x).to(self.conv0.weight.dtype)  # (B, 1, T, F)
-        x = self.bn1(F.max_pool2d(F.relu(self.conv0(x)), 2))
-        x = self.bn2(F.max_pool2d(F.relu(self.conv1(x)), 2))
-        x = F.relu(self.fc1(x.permute(0, 2, 3, 1).flatten(1)))  # flattened as (T', F', C)
-        return self._head(self.fc2, x)
+        dt = self.compute_dtype()
+        x = self.bn1(F.max_pool2d(F.relu(self._conv(self.conv0, self._mels_only(x), dt)), 2))  # time as H
+        x = self.bn2(F.max_pool2d(F.relu(self._conv(self.conv1, x, dt)), 2))
+        x = F.relu(self._dense(self.fc1, x.permute(0, 2, 3, 1).flatten(1), dt))  # flattened as (T', F', C)
+        return self._head(self.fc2, self._dropout(x, 0.1))
 
 
 @register_model("seq-cnn", is_sequential=True)
@@ -313,9 +310,8 @@ class SequentialCnn(HowlModel):
         return length // 2
 
     def forward(self, x: torch.Tensor, lengths=None) -> torch.Tensor:
-        self._check_dtype()
-        x = self._mels_only(x).to(self.conv0.weight.dtype)  # (B, 1, T, F)
-        x = self.bn1(F.max_pool2d(F.relu(self.conv0(x)), 2))
-        x = self.bn2(F.max_pool2d(F.relu(self.conv1(x)), 2))
+        dt = self.compute_dtype()
+        x = self.bn1(F.max_pool2d(F.relu(self._conv(self.conv0, self._mels_only(x), dt)), 2))  # time as H
+        x = self.bn2(F.max_pool2d(F.relu(self._conv(self.conv1, x, dt)), 2))
         x = x.permute(2, 0, 3, 1).flatten(2)  # (T', B, F' * C), flattened as (F', C)
-        return self._head(self.fc2, F.relu(self.fc1(x)))  # (T', B, L)
+        return self._head(self.fc2, self._dropout(F.relu(self._dense(self.fc1, x, dt)), 0.1))  # (T', B, L)

@@ -5,8 +5,10 @@ convs use ``padding="SAME"``, which pads (total // 2, total - total // 2)
 with total = max((ceil(n / s) - 1) * s + k - n, 0): (0, 1) on an even axis
 and (1, 1) on an odd one at k 3, s 2, where ``nn.Conv2d(padding=1)`` would
 pad (1, 1) and shift every later layer. ``_same_conv`` pads as XLA does with
-``F.pad`` and convolves unpadded. BatchNorms are affine (eps 1e-5, running
-stats in eval mode), the classifier computes in float32.
+``F.pad`` and convolves unpadded. BatchNorms are affine, with flax's
+semantics (``models.base.AffineBatchNorm``), dropout comes before the
+classifier in training, the classifier computes in float32, and ``dtype``
+is flax's mixed precision (``models.base.HowlModel``).
 
 Parameter names follow the JAX tree: downsample, downsample_bn, stem,
 stem_bn, ``blocks.k`` for ``InvertedResidual_k`` (its ``convs.j`` and
@@ -44,12 +46,13 @@ def same_pads(n: int, k: int, s: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def _same_conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """``conv`` (built unpadded) over x with XLA's SAME padding on both axes."""
+def _same_conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``conv`` (built unpadded) over x in ``dtype`` with XLA's SAME padding
+    on both axes."""
     (kh, kw), (sh, sw) = conv.kernel_size, conv.stride
     top, bottom = same_pads(x.shape[-2], kh, sh)
     left, right = same_pads(x.shape[-1], kw, sw)
-    return conv(F.pad(x, (left, right, top, bottom)))
+    return HowlModel._conv(conv, F.pad(x.to(dtype), (left, right, top, bottom)), dtype)
 
 
 class InvertedResidual(nn.Module):
@@ -67,10 +70,10 @@ class InvertedResidual(nn.Module):
         self.convs = nn.ModuleList(convs)
         self.bns = nn.ModuleList(_affine_bn(c.out_channels) for c in convs)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         h = x
         for j, (conv, bn) in enumerate(zip(self.convs, self.bns)):
-            h = bn(_same_conv(conv, h))
+            h = bn(_same_conv(conv, h, dtype))
             if j < len(self.convs) - 1:
                 h = F.relu6(h)
         return x + h if self.use_residual else h
@@ -103,12 +106,11 @@ class MobileNetClassifier(HowlModel):
         self.classifier = nn.Linear(last, num_labels)
 
     def forward(self, x: torch.Tensor, lengths=None) -> torch.Tensor:
-        self._check_dtype()
-        h = self._mels_only(x).to(self.stem.weight.dtype)  # (B, 1, T, F)
-        h = F.relu(self.downsample_bn(self.downsample(h)))
+        dt = self.compute_dtype()
+        h = F.relu(self.downsample_bn(self._conv(self.downsample, self._mels_only(x), dt)))  # time as H
         h = F.max_pool2d(h, (2, 1))
-        h = F.relu6(self.stem_bn(_same_conv(self.stem, h)))
+        h = F.relu6(self.stem_bn(_same_conv(self.stem, h, dt)))
         for block in self.blocks:
-            h = block(h)
-        h = F.relu6(self.head_bn(self.head_conv(h)))
-        return self._head(self.classifier, h.mean(dim=(2, 3)))
+            h = block(h, dt)
+        h = F.relu6(self.head_bn(self._conv(self.head_conv, h, dt)))
+        return self._head(self.classifier, self._dropout(h.mean(dim=(2, 3)), self.dropout))

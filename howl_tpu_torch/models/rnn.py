@@ -2,13 +2,17 @@
 lstm, seq-lstm, gru and las, on ``nn.LSTM`` and ``nn.GRU``.
 
 The JAX modules run flax cells under ``lax.scan``, which XLA lowers; here
-the recurrences are PyTorch's own RNN modules. On a card they take cuDNN's
-kernels for float32 weights. PyTorch does not hand bf16 recurrences to
-cuDNN (``torch.backends.cudnn.is_acceptable`` is false for bf16 tensors): a
-bf16 engine casts the weights as the JAX engine casts its variables
-(``inference/config.cast_compute_dtype``) and its recurrences run on
-PyTorch's native CUDA RNN, a matrix product and a fused cell kernel a time
-step. :func:`recurrence_backend` names the one a tensor takes.
+the recurrences are PyTorch's own RNN modules. On an H100 they take cuDNN's
+kernels in float32 and in bf16 alike; a bf16 engine casts the weights as the
+JAX engine casts its variables (``inference/config.cast_compute_dtype``).
+``torch.backends.cudnn.is_acceptable`` is false for bf16 tensors, so
+``flatten_parameters`` leaves bf16 weights apart and cuDNN compacts them at
+every call (PyTorch warns so once). :func:`recurrence_backend` names the
+backend a tensor takes. ``dtype`` (flax's mixed precision,
+``models.base.HowlModel``) runs a recurrence on casts of its weights
+(``torch.func.functional_call``); BatchNorms follow flax
+(``models.base.AffineBatchNorm``), and in training gru and las drop out
+before their heads at the JAX modules' rates.
 
 Parameter names are the reference howl torch modules' (``lstm.*`` and
 ``dnn.*``; gru's ``conv_encoder.*`` and ``lstm_encoder.*``; las's
@@ -52,21 +56,36 @@ from howl_tpu_torch.models.cnn import _affine_bn
 
 def recurrence_backend(x: torch.Tensor) -> str:
     """"cudnn" when PyTorch hands a recurrence over ``x`` to cuDNN, "native"
-    for its own CUDA RNN, "cpu" on the CPU."""
+    for its own CUDA RNN, "cpu" on the CPU: read from the operators that a
+    one-step LSTM of x's dtype calls on x's device, since
+    ``torch.backends.cudnn.is_acceptable`` does not say it for bf16."""
     if x.device.type != "cuda":
         return "cpu"
-    return "cudnn" if torch.backends.cudnn.enabled and torch.backends.cudnn.is_acceptable(x) else "native"
+    probe = nn.LSTM(1, 1).to(x.device, x.dtype)
+    with torch.no_grad(), torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        probe(torch.zeros((1, 1, 1), device=x.device, dtype=x.dtype))
+    return "cudnn" if any(e.name == "aten::_cudnn_rnn" for e in prof.events()) else "native"
 
 
-def _run_rnn(rnn: nn.RNNBase, seq: torch.Tensor, lengths=None, carry=None):
-    """(outputs (B, T, D), final carry) of a batch-first RNN; with
+def _run_rnn(rnn: nn.RNNBase, seq: torch.Tensor, lengths=None, carry=None, dtype=None):
+    """(outputs (B, T, D), final carry) of a batch-first RNN in ``dtype``
+    (default: its weights'), on casts of its weights when they differ; with
     ``lengths``, a packed run whose carry is the last valid frame's and whose
     outputs past a length are zeros."""
+    dtype = dtype or rnn.weight_ih_l0.dtype
+    seq = seq.to(dtype)
+    if carry is not None:
+        carry = tuple(c.to(dtype) for c in carry) if isinstance(carry, tuple) else carry.to(dtype)
+    if dtype == rnn.weight_ih_l0.dtype:
+        run = rnn
+    else:  # flax's mixed precision: the cell computes on casts of its float32 parameters
+        cast = {name: p.to(dtype) for name, p in rnn.named_parameters()}
+        run = lambda *args: torch.func.functional_call(rnn, cast, args)  # noqa: E731
     if lengths is None:
-        return rnn(seq, carry)
+        return run(seq, carry)
     lengths = torch.as_tensor(lengths).to("cpu", torch.int64).clamp(1, seq.shape[1])
     packed = pack_padded_sequence(seq, lengths, batch_first=True, enforce_sorted=False)
-    out, carry = rnn(packed, carry)
+    out, carry = run(packed, carry)
     return pad_packed_sequence(out, batch_first=True, total_length=seq.shape[1])[0], carry
 
 
@@ -82,8 +101,8 @@ class _LstmBase(HowlModel):
         self.dnn = nn.Sequential(nn.Linear(hidden_size, 2 * hidden_size), nn.ReLU(),
                                  nn.Linear(2 * hidden_size, num_labels))
 
-    def _logits(self, h: torch.Tensor) -> torch.Tensor:
-        return self._head(self.dnn[2], F.relu(self.dnn[0](h)))
+    def _logits(self, h: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        return self._head(self.dnn[2], F.relu(self._dense(self.dnn[0], h, dtype)))
 
 
 @register_model("lstm", is_recurrent=True)
@@ -95,9 +114,9 @@ class SimpleLstm(_LstmBase):
         super().__init__(num_labels, hidden_size, n_mels, dtype)
 
     def forward(self, x, lengths=None, carry=None, return_carry: bool = False):
-        self._check_dtype()
-        _, carry = _run_rnn(self.lstm, _frames(x, self.lstm.weight_ih_l0.dtype), lengths, carry)
-        out = self._logits(carry[0][-1])
+        dt = self.compute_dtype()
+        _, carry = _run_rnn(self.lstm, _frames(x, dt), lengths, carry, dt)
+        out = self._logits(carry[0][-1], dt)
         return (out, carry) if return_carry else out
 
 
@@ -109,14 +128,14 @@ class SequentialLstm(_LstmBase):
         super().__init__(num_labels, hidden_size, n_mels, dtype)
 
     def forward(self, x, lengths=None, carry=None, return_carry: bool = False):
-        self._check_dtype()
-        seq = _frames(x, self.lstm.weight_ih_l0.dtype)
-        outputs, new_carry = self.lstm(seq, carry)  # flax's outputs run on past a length
-        out = self._logits(outputs).transpose(0, 1)  # (T, B, L)
+        dt = self.compute_dtype()
+        seq = _frames(x, dt)
+        outputs, new_carry = _run_rnn(self.lstm, seq, None, carry, dt)  # flax's outputs run on past a length
+        out = self._logits(outputs, dt).transpose(0, 1)  # (T, B, L)
         if not return_carry:
             return out
         if lengths is not None:
-            new_carry = _run_rnn(self.lstm, seq, lengths, carry)[1]
+            new_carry = _run_rnn(self.lstm, seq, lengths, carry, dt)[1]
         return out, new_carry
 
 
@@ -140,15 +159,18 @@ class SimpleGru(HowlModel):
                                  nn.Linear(2 * hidden_size, num_labels))
 
     def forward(self, x, lengths=None, carry=None, return_carry: bool = False):
-        self._check_dtype()
-        h = self.conv_encoder(x[:, :1].to(self.lstm_encoder.weight_ih_l0.dtype))  # (B, 1, F, T')
+        dt = self.compute_dtype()
+        enc = self.conv_encoder
+        h = enc[3](F.relu(enc[1](self._conv(enc[0], x[:, :1], dt))))  # (B, C, F, T'): conv, BN, ReLU, pool
+        h = enc[6](F.relu(self._conv(enc[4], h, dt)))  # conv, ReLU, BN: (B, 1, F, T')
         seq = h[:, 0].transpose(1, 2)  # (B, T', F)
         if lengths is not None:
             lengths = torch.as_tensor(lengths) + 4
             if self.use_maxpool:
                 lengths = lengths // 2
-        _, new_carry = _run_rnn(self.lstm_encoder, seq, lengths, carry)
-        out = self._head(self.dnn[3], F.relu(self.dnn[0](new_carry[-1])))
+        _, new_carry = _run_rnn(self.lstm_encoder, seq, lengths, carry, dt)
+        hidden = self._dropout(F.relu(self._dense(self.dnn[0], new_carry[-1], dt)), self.dnn[2].p)
+        out = self._head(self.dnn[3], hidden)
         return (out, new_carry) if return_carry else out
 
 
@@ -169,8 +191,11 @@ class LASEncoder(nn.Module):
                                           self.conv2, _affine_bn(c), nn.ReLU(), pool())
         self.lstm_encoder = nn.LSTM((n_mels + 4) * c, hidden_size, batch_first=True, bidirectional=True)
 
-    def forward(self, x: torch.Tensor, lengths=None):
-        h = self.conv_encoder(x.to(self.conv1.weight.dtype))  # (B, C, F', T')
+    def forward(self, x: torch.Tensor, lengths=None, dtype=None):
+        dt = dtype or self.conv1.weight.dtype
+        enc = self.conv_encoder
+        h = enc[3](F.relu(enc[1](HowlModel._conv(enc[0], x, dt))))  # conv, BN, ReLU, pool
+        h = enc[7](F.relu(enc[5](HowlModel._conv(enc[4], h, dt))))  # (B, C, F', T')
         seq = h.permute(0, 3, 1, 2).flatten(2)  # (B, T', C * F'): channel-major
         if lengths is not None:
             lengths = torch.as_tensor(lengths).to(x.device)
@@ -178,7 +203,7 @@ class LASEncoder(nn.Module):
                 lengths = (lengths - 3 + 4) // 1 + 1
                 if self.use_maxpool:
                     lengths = lengths // 2
-        return _run_rnn(self.lstm_encoder, seq, lengths)[0], lengths
+        return _run_rnn(self.lstm_encoder, seq, lengths, dtype=dt)[0], lengths
 
 
 class FixedAttentionModule(nn.Module):
@@ -219,11 +244,10 @@ class LASClassifier(HowlModel):
                                 nn.Linear(dnn_size, num_labels))
 
     def forward(self, x, lengths=None):
-        self._check_dtype()
-        seq, out_lengths = self.encoder(x, lengths)
+        seq, out_lengths = self.encoder(x, lengths, self.compute_dtype())
         seq = seq.float()
         mask = None
         if out_lengths is not None:
             mask = (torch.arange(seq.shape[1], device=seq.device)[None, :] < out_lengths[:, None]).float()
         context = self.attn(seq, mask)
-        return self._head(self.fc[3], F.relu(self._head(self.fc[0], context)))
+        return self._head(self.fc[3], self._dropout(F.relu(self._head(self.fc[0], context)), self.fc[2].p))

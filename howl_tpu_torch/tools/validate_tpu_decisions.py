@@ -52,6 +52,13 @@ the route its oracle's frontend takes. The rows:
                           ``family_audio``'s clips, at the word and threshold
                           ``family_setup`` picks from the float32
                           posteriors, every decision 0.01 from flipping.
+    lstm+full-window[bf16]  a recurrent family live: lstm's bf16
+                          ``OnlineEngine`` (K1 at "bf16") against its exact
+                          float32 one (K1 at "f32") on ``family_audio``'s
+                          streams, a window ending at every hop, at the word
+                          and threshold ``family_live_setup`` picks from the
+                          exact engine's per-hop posteriors; the live rows'
+                          rule.
 
 ``family_setup`` is shared with ``chip_smoke.py``: random weights in flax's
 initialization give every clip nearly the same posteriors through a deep
@@ -79,6 +86,7 @@ import torch
 from howl_tpu_torch.tools._study import CPU_SIZE, device_parser, pick_device
 
 FAMILIES = ("small-cnn", "lstm", "gru", "las", "mobilenet")
+LIVE_FAMILY = "lstm"  # the recurrent family whose live engine the gate holds
 THRESHOLD = 0.35
 CARD_SIZE = (16, 4.0)  # clips, seconds: the JAX tool's
 FAMILY_MARGIN = 0.01  # how far from flipping the family rows' decisions are picked
@@ -87,6 +95,10 @@ FAMILY_MARGIN = 0.01  # how far from flipping the family rows' decisions are pic
 # margin splits at every batch size the tools use
 FAMILY_WEIGHTS = {"small-cnn": (1.2, 1), "seq-cnn": (1.3, 1), "mobilenet": (1.2, 2), "lstm": (2.0, 0),
                   "seq-lstm": (2.0, 1), "gru": (1.2, 1), "las": (2.0, 2)}
+# a live engine's own (kernel gain, seed) where the offline one leaves no margin split on its per-hop posteriors,
+# chosen the same way: the incremental engine's first hops score windows that are part featurized silence, part
+# audio, and MobileNet's posteriors for those spread over every threshold at its offline weights
+FAMILY_LIVE_WEIGHTS = {("mobilenet", "incremental"): (1.2, 1)}
 FAMILY_ZMUV = (-6.0, 4.0)
 FAMILY_PERIOD = 160  # samples: one hop at 16 kHz
 
@@ -109,8 +121,28 @@ def compare_online(exact: tuple, fast: tuple) -> dict:
     return {"fired_eq": fired_eq, "label_agreement": lab_frac, "ok": fired_eq and lab_frac >= 0.99}
 
 
+def drive_live(eng, audio: torch.Tensor, whole_windows: bool = False) -> tuple:
+    """Push ``audio``'s streams hop by hop through a live engine (an
+    ``OnlineEngine`` gets the window ending at each hop, shorter at the
+    start, or with ``whole_windows`` only the whole windows, the first
+    ending at ``window_samples``; the others each hop's samples); (fire
+    flags, labels, newest float32 posteriors of the smoothing ring), each
+    (hops, streams[, L])."""
+    hop, fired, labels, probs = eng.hop_samples, [], [], []
+    first = eng.window_samples if whole_windows and hasattr(eng, "ingest") else hop
+    for end in range(first, audio.shape[1] + 1, hop):
+        if hasattr(eng, "ingest"):
+            eng.ingest(audio[:, max(0, end - eng.window_samples) : end])
+        else:
+            eng.push(audio[:, end - hop : end])
+        fired.append(eng.last_fired)
+        labels.append(eng.last_labels)
+        probs.append(eng.state.pred_ring[:, -1].float().cpu().numpy())
+    return np.stack(fired), np.stack(labels), np.stack(probs)
+
+
 def run_online(kind: str, dev, state, cfg, frontend, audio: torch.Tensor, dft_precision) -> tuple:
-    """Push ``audio``'s streams hop by hop through a bf16 live engine
+    """Push ``audio``'s streams hop by hop through a bf16 res8 live engine
     ("online": incremental, "trunk", "full-window": the window ending at
     each hop) with its frontend at ``dft_precision``; (fire flags, labels),
     each (hops, streams)."""
@@ -121,15 +153,7 @@ def run_online(kind: str, dev, state, cfg, frontend, audio: torch.Tensor, dft_pr
     cls = {"online": IncrementalOnlineEngine, "trunk": FusedStreamingOnlineEngine, "full-window": OnlineEngine}[kind]
     eng = cls(create_model("res8", num_labels=cfg.num_labels), state, cfg, frontend, num_streams=audio.shape[0],
               compute_dtype=torch.bfloat16, dft_precision=dft_precision, device=dev)
-    hop, fired, labels = eng.hop_samples, [], []
-    for end in range(hop, audio.shape[1] + 1, hop):
-        if kind == "full-window":
-            eng.ingest(audio[:, max(0, end - eng.window_samples) : end])
-        else:
-            eng.push(audio[:, end - hop : end])
-        fired.append(eng.last_fired)
-        labels.append(eng.last_labels)
-    return np.stack(fired), np.stack(labels)
+    return drive_live(eng, audio)[:2]
 
 
 def margin_word_threshold(probs: np.ndarray, margin: float, halves: bool = True) -> dict:
@@ -200,6 +224,64 @@ def family_engine(name: str, state, cfg, frontend, dev, compute_dtype=None, fron
                compute_dtype=compute_dtype, frontend_precision=frontend_precision, device=dev, **kw)
 
 
+def family_live_engine(name: str, kind: str, state, cfg, frontend, dev, compute_dtype=None, dft_precision="auto",
+                       **kw):
+    """A family's live engine: ``kind`` "full-window" (``OnlineEngine``) or
+    "incremental" (``IncrementalOnlineEngine``), one stream per clip of
+    ``family_audio`` once ``num_streams`` is given in ``kw``."""
+    from howl_tpu_torch.inference.online import IncrementalOnlineEngine, OnlineEngine
+    from howl_tpu_torch.models import create_model
+
+    cls = {"full-window": OnlineEngine, "incremental": IncrementalOnlineEngine}[kind]
+    return cls(create_model(name, num_labels=cfg.num_labels), state, cfg, frontend, *FAMILY_ZMUV,
+               compute_dtype=compute_dtype, dft_precision=dft_precision, device=dev, **kw)
+
+
+def _family_state(name: str, num_labels: int, weights=None):
+    """The family's seeded weights (``weights``: (kernel gain, seed), by
+    default ``FAMILY_WEIGHTS``'s) as a state dict, and the same rounded to
+    bf16 values (float32 tensors)."""
+    from howl_tpu_torch.compat import numpy_variables, variables_to_state_dict
+    from howl_tpu_torch.inference.config import cast_compute_dtype
+
+    gain, seed = weights or FAMILY_WEIGHTS[name]
+    state = variables_to_state_dict(name, numpy_variables(name, num_labels, np.random.default_rng(seed),
+                                                          kernel_gain=gain))
+    rounded = {k: cast_compute_dtype({k: v}, torch.bfloat16)[k].to(v.dtype) for k, v in state.items()}
+    return state, rounded
+
+
+def _picked(cfg, pick: dict):
+    word = pick["word"]
+    return dataclasses.replace(cfg, inference_sequence=(word,), negative_label=(word + 1) % cfg.num_labels,
+                               inference_threshold=pick["threshold"])
+
+
+def family_live_setup(name: str, kind: str, cfg, frontend, dev, audio: torch.Tensor, whole_windows: bool = False,
+                      **kw) -> tuple:
+    """(state dict, config, pick) for a family's live decision checks, as
+    ``family_setup`` picks for the offline ones: the word and threshold from
+    the exact float32 live engine's per-hop posteriors on ``audio``'s
+    streams (the frontend at "f32"; fed as ``drive_live`` feeds them; ``kw``
+    passed on, ``carry_hops`` included), the margin the larger of
+    ``FAMILY_MARGIN`` and twice the largest posterior that rounding the
+    weights to bf16 moves there. The weights are ``FAMILY_LIVE_WEIGHTS``'s
+    for the family and engine where it has an entry, else
+    ``FAMILY_WEIGHTS``'s."""
+    weights = FAMILY_LIVE_WEIGHTS.get((name, kind), FAMILY_WEIGHTS[name])
+    state, rounded = _family_state(name, cfg.num_labels, weights)
+
+    def probs(weights):
+        eng = family_live_engine(name, kind, weights, cfg, frontend, dev, dft_precision="f32",
+                                 num_streams=audio.shape[0], **kw)
+        return drive_live(eng, audio, whole_windows)[2]
+
+    exact = probs(state)
+    margin = max(FAMILY_MARGIN, 2 * float(np.abs(exact - probs(rounded)).max()))
+    pick = margin_word_threshold(exact, margin, halves=False)
+    return state, _picked(cfg, pick), {"gain": weights[0], "seed": weights[1], "margin": margin, **pick}
+
+
 def family_setup(name: str, cfg, frontend, dev, audio) -> tuple:
     """(state dict, config, pick) for a family's decision checks: the seeded
     numpy weights of ``FAMILY_WEIGHTS`` (``compat.numpy_variables``), and
@@ -209,23 +291,15 @@ def family_setup(name: str, cfg, frontend, dev, audio) -> tuple:
     posterior that rounding the weights to bf16 moves on ``audio``'s first
     16 clips (the float32 engine on both). No bf16 result enters the pick.
     Raises when no word and threshold split the clips at that margin."""
-    from howl_tpu_torch.compat import numpy_variables, variables_to_state_dict
-    from howl_tpu_torch.inference.config import cast_compute_dtype
-
     def probs(state, clips):
         eng = family_engine(name, state, cfg, frontend, dev, frontend_precision="f32")
         return eng.score_batch(clips)["probs"].cpu().numpy().transpose(1, 0, 2)
 
-    gain, seed = FAMILY_WEIGHTS[name]
-    state = variables_to_state_dict(name, numpy_variables(name, cfg.num_labels, np.random.default_rng(seed),
-                                                          kernel_gain=gain))
-    rounded = {k: cast_compute_dtype({k: v}, torch.bfloat16)[k].to(v.dtype) for k, v in state.items()}
+    state, rounded = _family_state(name, cfg.num_labels)
     margin = max(FAMILY_MARGIN, 2 * float(np.abs(probs(state, audio[:16]) - probs(rounded, audio[:16])).max()))
     pick = margin_word_threshold(probs(state, audio), margin, halves=False)
-    word = pick["word"]
-    cfg = dataclasses.replace(cfg, inference_sequence=(word,), negative_label=(word + 1) % cfg.num_labels,
-                              inference_threshold=pick["threshold"])
-    return state, cfg, {"gain": gain, "seed": seed, "margin": margin, **pick}
+    gain, seed = FAMILY_WEIGHTS[name]
+    return state, _picked(cfg, pick), {"gain": gain, "seed": seed, "margin": margin, **pick}
 
 
 def run(dev: torch.device, batch: int, clip_seconds: float, seed: int = 0) -> dict:
@@ -273,6 +347,14 @@ def run(dev: torch.device, batch: int, clip_seconds: float, seed: int = 0) -> di
         rows[name] = compare(
             family_engine(name, fam_state, fam_cfg, frontend, dev, frontend_precision="f32").infer_batch(fam_audio),
             family_engine(name, fam_state, fam_cfg, frontend, dev, torch.bfloat16, "bf16").infer_batch(fam_audio))
+    name = LIVE_FAMILY
+    live_state, live_cfg, pick = family_live_setup(name, "full-window", cfg, frontend, dev, fam_audio)
+    print(f"{name} live: word {pick['word']}, threshold {pick['threshold']:.4f}, {pick['distance']:.4f} from the "
+          f"nearest top posterior (margin {pick['margin']:.4f})", flush=True)
+    rows[f"{name}+full-window[bf16]"] = compare_online(*(
+        drive_live(family_live_engine(name, "full-window", live_state, live_cfg, frontend, dev, dtype, grade,
+                                      num_streams=batch), fam_audio)[:2]
+        for dtype, grade in ((None, "f32"), (torch.bfloat16, "bf16"))))
     for tag, rec in rows.items():
         if "fired_eq" in rec:
             print(f"{tag:22s}: fired_eq={rec['fired_eq']} label_agreement={rec['label_agreement']:.4f} -> "

@@ -1,8 +1,5 @@
-"""Loss functions (counterpart of ``howl_tpu/training/objectives.py``).
-
-Frame cross-entropy is ported; CTC needs the sequential models, which are
-not ported yet.
-"""
+"""Loss functions: frame cross-entropy and CTC (counterpart of
+``howl_tpu/training/objectives.py``)."""
 
 from __future__ import annotations
 
@@ -21,8 +18,17 @@ def frame_ce_loss(logits: torch.Tensor, labels: torch.Tensor, weights=None) -> t
     return losses.mean()
 
 
-def ctc_loss(logits_tbl, logit_lengths, labels, label_lengths, blank_id: int):
-    raise NotImplementedError(
-        "ctc_loss is not ported to PyTorch yet: it trains the sequential models "
-        "(ROADMAP Queue 1, item 8: remaining model zoo)"
-    )
+def ctc_loss(logits_tbl: torch.Tensor, logit_lengths, labels, label_lengths, blank_id: int) -> torch.Tensor:
+    """CTC over a sequential model's (T, B, L) per-frame logits: ``F.ctc_loss``
+    on their float32 log-softmax, the first ``logit_lengths[b]`` frames and
+    ``label_lengths[b]`` labels of each sequence, then each sequence's NLL
+    divided by its target length (floored at 1) and the batch mean, as
+    ``nn.CTCLoss(reduction="mean")`` computes it, the reference's loss,
+    which the JAX package restates on optax."""
+    log_probs = F.log_softmax(logits_tbl.float(), dim=-1)
+    device = log_probs.device
+    label_lengths = torch.as_tensor(label_lengths, device=device).long()
+    per_seq = F.ctc_loss(log_probs, torch.as_tensor(labels, device=device).long(),
+                         torch.as_tensor(logit_lengths, device=device).long(), label_lengths, blank=blank_id,
+                         reduction="none")
+    return (per_seq / torch.clamp(label_lengths, min=1)).mean()

@@ -3,43 +3,50 @@
 
     python -m howl_tpu_torch.training.run.train --model res8 --workspace WS -i CORPUS [--device cuda|cpu]
 
-It does what the JAX entry point does for res8 with the frame objective:
+It does what the JAX entry point does, for every model of the zoo:
 aligned-dataset loading, positive/negative splits by the transcript
 searcher, the ZMUV fit, the train loop with augmentation and noise-bank
-mixing (a bank refreshed from the whole noise corpus between epochs),
-``--fused-trunk`` trunk-span training and ``--bf16`` over float32 masters,
-dev evaluation every ``--eval-freq`` epochs keeping the best checkpoint, the
-final clean and noisy dev and test sweeps with ``errors.tsv``, the
-``--eval`` mode's ``<threshold>_results.csv``, and ``--resume`` from the
-whole train state. The flags are the JAX entry point's, plus ``--device``.
+mixing (a bank refreshed from the whole noise corpus between epochs), the
+frame objective on windows (``WakeWordFrameBatchifier``) or, with
+``OBJECTIVE=ctc``, CTC on whole utterances (``AudioSequenceBatchifier``
+sized by the corpus's longest clip from its WAV headers, labels from
+``WakeWordTokenizer``, the context's blank), ``CONVERT_STATIC`` (the
+classifier wrapped in ``ConvertedStaticModel(frame_window_size=40,
+frame_stride_size=10)`` and served as a sequential model), ``--fused-trunk``
+trunk-span training for res8 and ``--bf16`` (flax's mixed precision) over
+float32 masters for any family, dev evaluation every ``--eval-freq`` epochs
+keeping the best checkpoint, the final clean and noisy dev and test sweeps
+with ``errors.tsv``, the ``--eval`` mode's ``<threshold>_results.csv``, and
+``--resume`` from the whole train state. The flags are the JAX entry
+point's, plus ``--device``.
 
 The device is the card (``--device``, default ``SETTINGS.training.device``,
 ``"cuda"``); without one the run raises unless given ``--device cpu``. On
 the card the train step mixes its noise bank through the kernel of
 ``ops/augment_cuda.py`` (K3), and every evaluator batch runs
-``StreamingEngine.infer_batch``: the frontend and stem kernels of
-``ops/frontend_cuda.py`` (K1) and ``ops/stem_cuda.py`` (K2). On the CPU
+``StreamingEngine.infer_batch`` with the model's spec: the frontend kernel
+of ``ops/frontend_cuda.py`` (K1; las featurizes by its plain stacked chain)
+and, for res8, the stem kernel of ``ops/stem_cuda.py`` (K2). On the CPU
 each takes its plain PyTorch version.
 
 As in the JAX entry point, host code reads and windows a batch of clips per
 step and reads the loss back after every step; the rest of a step runs on
-the device. ``--bf16`` trains a bf16 res8 over float32 master weights; its
+the device. ``--bf16`` trains a bf16 model over float32 master weights; its
 features come from the plain float32 log-mel chain (``training/step.py``'s
 ``featurize``), whose matrix products run in float32, and the evaluator
 scores in bf16 from the exact float32 frontend, as the JAX evaluator does.
 Without ``--bf16`` each train step runs with TF32 off whatever the caller's
 global ``allow_tf32`` flags (``ops/tf32.py``), as the float32 engine scores.
 
-Refused, each with its ROADMAP item: models other than res8, the CTC
-objective and ``convert_static`` (item 8); ``--use-timestretch`` and more
-than one device (item 12).
+Refused, each with its ROADMAP item: ``--use-timestretch`` and more than
+one device (item 12).
 """
 
 from __future__ import annotations
 
 import sys
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from pathlib import Path
 from typing import NamedTuple, Optional
 
@@ -47,13 +54,14 @@ import numpy as np
 import torch
 
 from howl_tpu_torch.context import InferenceContext
+from howl_tpu_torch.data.common.tokenizer import WakeWordTokenizer
 from howl_tpu_torch.data.dataset.dataset import DatasetSplit, DatasetType, WakeWordDataset
 from howl_tpu_torch.data.dataset.dataset_loader import RecursiveNoiseDatasetLoader, WakeWordDatasetLoader
 from howl_tpu_torch.data.noise_bank import NoiseBankPrefetcher, NoiseBankSampler, windows_for_budget
-from howl_tpu_torch.data.transform.batchifier import WakeWordFrameBatchifier
+from howl_tpu_torch.data.transform.batchifier import AudioSequenceBatchifier, WakeWordFrameBatchifier
 from howl_tpu_torch.inference.config import EngineConfig
 from howl_tpu_torch.inference.engine import StreamingEngine
-from howl_tpu_torch.models import MODEL_REGISTRY, ConfusionMatrix, create_model
+from howl_tpu_torch.models import MODEL_REGISTRY, ConfusionMatrix, ConvertedStaticModel, create_model
 from howl_tpu_torch.models.base import model_spec
 from howl_tpu_torch.ops.augment import AugmentConfig
 from howl_tpu_torch.ops.frontend import FrontendConfig
@@ -69,6 +77,7 @@ from howl_tpu_torch.training.step import (
 )
 from howl_tpu_torch.utils import hash_utils
 from howl_tpu_torch.utils.args_utils import ArgumentParserBuilder, opt
+from howl_tpu_torch.utils.audio_utils import wav_num_samples
 from howl_tpu_torch.utils.logger import Logger
 from howl_tpu_torch.utils.random_utils import set_random_seed
 from howl_tpu_torch.workspace import Workspace
@@ -274,7 +283,7 @@ def _parser() -> ArgumentParserBuilder:
         opt(
             "--bf16",
             action="store_true",
-            help="mixed-precision training: a bf16 res8 over float32 master weights and "
+            help="mixed-precision training: a bf16 model over float32 master weights and "
             "optimizer state (checkpoints stay float32); the evaluator scores in bf16",
         ),
         opt(
@@ -313,12 +322,12 @@ def run(args=None, stats: Optional[LoopStats] = None) -> dict:
     use_frame = SETTINGS.training.objective == "frame"
     # the refusals come before any data is read
     spec = model_spec(args.model)
-    if not spec.supports_trunk:  # the zoo serves offline; its training waits (item 8)
-        raise _not_ported(f"training model {args.model!r}", "item 8: the families' training")
-    if not use_frame:
-        make_ctc_train_step(None, None)  # CTC raises (item 8)
     if SETTINGS.training.convert_static:
-        raise _not_ported("convert_static (ConvertedStaticModel)", "item 8: remaining model zoo")
+        # the static classifier wrapped into a per-frame sequential model (ref train.py:247-248)
+        spec = replace(spec, is_sequential=True)
+    if not use_frame and not spec.is_sequential:
+        raise ValueError(f"the CTC objective trains a sequential model (seq-lstm, seq-cnn, or any model with "
+                         f"CONVERT_STATIC); {args.model!r} scores one window at a time")
     if args.use_timestretch:
         raise _not_ported("--use-timestretch (ops/timestretch.py)", "item 12")
     if args.num_devices not in (0, 1):
@@ -368,7 +377,7 @@ def run(args=None, stats: Optional[LoopStats] = None) -> dict:
     trunk_context_samples = 0
     trunk_span = None
     if args.fused_trunk:
-        if not spec.supports_trunk:
+        if not use_frame or not spec.uses_trunk:
             raise SystemExit("--fused-trunk requires the frame objective and a trunk-capable model (res8)")
         # margin >= trunk receptive field: conv0 (1 frame/side) + 6 post-pool
         # 3x3 convs (6 pooled = 18 frames/side) -> 19 frames; round to 20
@@ -379,12 +388,21 @@ def run(args=None, stats: Optional[LoopStats] = None) -> dict:
         lo = round((trunk_context_samples // hop) / pool_t)
         trunk_span = (lo, lo + span)
 
-    batchifier = WakeWordFrameBatchifier(
-        ctx.negative_label,
-        window_size_ms=window_ms,
-        sample_rate=sample_rate,
-        context_samples=trunk_context_samples,
-    )
+    if use_frame:
+        batchifier = WakeWordFrameBatchifier(
+            ctx.negative_label,
+            window_size_ms=window_ms,
+            sample_rate=sample_rate,
+            context_samples=trunk_context_samples,
+        )
+    else:
+        # whole utterances, padded to the corpus's longest clip, read from the WAV headers without decoding
+        max_audio = max((wav_num_samples(m.path, sample_rate) for m in ww_train.metadata_list),
+                        default=window_samples)
+        batchifier = AudioSequenceBatchifier(
+            ctx.negative_label, WakeWordTokenizer(ctx.vocab, ignore_oov=False), sample_rate=sample_rate,
+            max_audio_samples=max_audio,
+        )
 
     # noise dataset -> the train step's bank on the device + host banks for the eval mixers
     noise_bank = None
@@ -448,11 +466,14 @@ def run(args=None, stats: Optional[LoopStats] = None) -> dict:
         # replace-mode (clear-label) mixing is OFF during training by default
         replace_prob=0.0,
         negative_label=ctx.negative_label,
+        blank_label=ctx.blank_label,
         trunk_span=trunk_span,
         use_deltas=spec.uses_deltas,
     )
     compute_dtype = torch.bfloat16 if args.bf16 else None
     model = create_model(args.model, num_labels=ctx.num_labels, dtype=compute_dtype)
+    if SETTINGS.training.convert_static:
+        model = ConvertedStaticModel(model, frame_window_size=40, frame_stride_size=10)
     steps_per_epoch = args.steps_per_epoch or max(len(ww_train) // batch_size, 1)
     state = create_train_state(
         model,
@@ -526,9 +547,8 @@ def run(args=None, stats: Optional[LoopStats] = None) -> dict:
     workspace.write_args(args)
     workspace.save_settings(SETTINGS)
 
-    train_step = make_classification_train_step(
-        model, step_cfg, torch.from_numpy(noise_bank).to(device) if noise_bank is not None else None
-    )
+    bank = torch.from_numpy(noise_bank).to(device) if noise_bank is not None else None
+    train_step = (make_classification_train_step if use_frame else make_ctc_train_step)(model, step_cfg, bank)
 
     # between-epoch bank refresh: decode the next draw on a background thread
     # while this epoch trains; the upload and set_bank happen here, between epochs
@@ -547,14 +567,14 @@ def run(args=None, stats: Optional[LoopStats] = None) -> dict:
                 t0 = time.perf_counter()
                 idxs = [int(order[(start + j) % len(order)]) for j in range(batch_size)]
                 batch = batchifier([ww_train[i] for i in idxs])
-                audio = torch.from_numpy(batch.audio_data).to(device)
-                labels = torch.from_numpy(batch.labels).to(device)
-                lengths = torch.from_numpy(batch.lengths).to(device)
+                lengths = (batch.lengths,) if use_frame else (batch.audio_lengths, batch.label_lengths)
+                audio, labels, *lengths = (torch.from_numpy(np.asarray(x)).to(device)
+                                           for x in (batch.audio_data, batch.labels, *lengths))
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
                 t1 = time.perf_counter()
                 with exact_float32(is_float32(compute_dtype)):  # TF32 off for the float32 step, not for --bf16
-                    state, metrics = train_step(state, audio, labels, lengths, key)
+                    state, metrics = train_step(state, audio, labels, *lengths, key)
                 losses.append(float(metrics["loss"]))
                 stats.prep_s += t1 - t0
                 stats.step_s += time.perf_counter() - t1

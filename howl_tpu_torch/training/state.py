@@ -19,7 +19,7 @@ from typing import Callable, Optional
 
 import torch
 
-from howl_tpu_torch.compat import res8_variables_to_state_dict
+from howl_tpu_torch.compat import variables_to_state_dict
 
 
 def exponential_decay(learning_rate: float, lr_decay: float, steps_per_epoch: int) -> Callable[[int], float]:
@@ -62,18 +62,20 @@ def create_train_state(
     passes ``"cpu"``. A CUDA device that does not exist raises; nothing
     falls back to the CPU.
 
-    ``variables`` are res8 variables in the JAX package's layout
-    (``{"params": ..., "batch_stats": ...}`` as numpy), so both packages
-    can start from the same weights; without them the model is initialized
-    with flax's initializers from ``generator``, which is then required.
-    Parameters are float32 master weights whatever the model's compute
-    dtype.
+    ``variables`` are the model's variables in the JAX package's layout
+    (``{"params": ..., "batch_stats": ...}`` as numpy, carried across by
+    ``compat.variables_to_state_dict``; a ``ConvertedStaticModel`` takes its
+    inner classifier's), so both packages can start from the same weights;
+    without them the model is initialized with flax's initializers from
+    ``generator``, which is then required. Parameters are float32 master
+    weights whatever the model's compute dtype.
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {str(device)!r} requested but CUDA is not available")
     if variables is not None:
-        model.load_state_dict(res8_variables_to_state_dict(variables), strict=True)
+        target = getattr(model, "inner", model)  # ConvertedStaticModel wraps the classifier the variables are of
+        target.load_state_dict(variables_to_state_dict(target.registered_name, variables), strict=True)
     elif generator is not None:
         model.init_weights(generator)
     else:

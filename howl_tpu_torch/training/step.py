@@ -4,19 +4,23 @@ call per batch (counterpart of ``howl_tpu/training/step.py``).
 The host hands over raw PCM windows on the device; everything else runs
 there: noise-bank mixing (the hand-written kernel of
 ``ops/augment_cuda.py``), timeshift and waveform noise, the VTLP log-mel
-frontend and ZMUV, SpecAugment, res8 forward and backward, AdamW and the
-BatchNorm running stats. PyTorch runs eagerly, so there is no program to
-compile; the state is updated in place.
+frontend and ZMUV, SpecAugment, the model's forward and backward, AdamW and
+the BatchNorm running stats. PyTorch runs eagerly, so there is no program
+to compile; the state is updated in place. The frame objective trains any
+model of the zoo on windows (cross-entropy; res8 also on context segments,
+``trunk_span``), the CTC objective a sequential one on whole utterances
+(``make_ctc_train_step``); as in JAX, the model sees the frame lengths
+``max(frontend.compute_lengths(sample lengths), 1)``.
 
 A step's randomness comes from a ``torch.Generator`` on the audio's device
 seeded from (key, step), as the JAX step folds ``state.step`` into its key,
-so a step is reproducible from its inputs. Its draws (``StepDraws``) can
-also be passed in, which is how the tests replay the JAX package's draws.
-The frontend's matrix products run in float32, the counterpart of both
-precisions the JAX step takes (HIGHEST, and HIGH with bf16 models); on a
-CUDA device that needs TF32 off, PyTorch's default for matrix products.
-``StepConfig`` has no ``dft_precision`` for that reason, and no
-``blank_label`` until CTC is ported.
+so a step is reproducible from its inputs; the model's dropout masks come
+from the same generator. Its draws (``StepDraws``) can also be passed in,
+dropout masks included, which is how the tests replay the JAX package's
+draws. The frontend's matrix products run in float32, the counterpart of
+both precisions the JAX step takes (HIGHEST, and HIGH with bf16 models); on
+a CUDA device that needs TF32 off, PyTorch's default for matrix products.
+``StepConfig`` has no ``dft_precision`` for that reason.
 """
 
 from __future__ import annotations
@@ -33,7 +37,8 @@ from howl_tpu_torch.ops.frontend import (
     log_mel_spectrogram_vtlp,
     stack_deltas,
 )
-from howl_tpu_torch.training.objectives import frame_ce_loss
+from howl_tpu_torch.models.base import DropoutDraws, use_dropout_draws
+from howl_tpu_torch.training.objectives import ctc_loss, frame_ce_loss
 from howl_tpu_torch.training.state import TrainState
 
 
@@ -46,6 +51,7 @@ class StepConfig(NamedTuple):
     vtlp_prob: float = 0.75
     replace_prob: float = 0.0
     negative_label: int = 0
+    blank_label: int = -1  # the CTC objective's blank
     # trunk-mode training: logits from trunk frames [lo, hi) via
     # Res8.windowed_logits, matching the engine's fused clip-level scoring
     trunk_span: Optional[Tuple[int, int]] = None
@@ -58,6 +64,9 @@ class StepDraws(NamedTuple):
     augment: Optional[aug.AugmentDraws]
     vtlp_alpha: Optional[torch.Tensor]  # 0-d warp; 1.0 where VTLP was not applied
     spec: Optional[aug.SpecDraws]
+    # the keep masks of the model's dropout layers in the order its forward applies them; None draws them from
+    # the step's generator
+    dropout: Optional[list] = None
 
 
 def step_generator(key: int, step: int, device) -> torch.Generator:
@@ -97,10 +106,49 @@ def featurize(audio: torch.Tensor, cfg: StepConfig, vtlp_alpha=None) -> torch.Te
     return (feats - cfg.zmuv_mean) / cfg.zmuv_std
 
 
-def _logits(model, feats: torch.Tensor, cfg: StepConfig) -> torch.Tensor:
+def frame_lengths(lengths, cfg: StepConfig):
+    """Sample lengths -> the frame lengths the model sees, floored at 1 (a
+    window shorter than n_fft would give a recurrent model a length below 1);
+    None stays None."""
+    if lengths is None:
+        return None
+    return torch.clamp(cfg.frontend.compute_lengths(lengths), min=1)
+
+
+def _logits(model, feats: torch.Tensor, cfg: StepConfig, lengths) -> torch.Tensor:
     if cfg.trunk_span is not None:
         return model.windowed_logits(feats, *cfg.trunk_span)
-    return model(feats)
+    return model(feats, lengths=frame_lengths(lengths, cfg))
+
+
+def _features(audio: torch.Tensor, cfg: StepConfig, draws: StepDraws, noise_bank):
+    """The step's augmented audio, then its features: (audio, replaced
+    rows or None, (B, C, F, T) features), without gradients."""
+    replaced = None
+    with torch.no_grad():
+        if cfg.augment is not None:
+            audio, replaced = aug.apply_augment_audio(audio, draws.augment, cfg.augment, noise_bank)
+        feats = featurize(audio, cfg, draws.vtlp_alpha if cfg.use_vtlp else None)
+        if cfg.augment is not None:
+            feats = aug.apply_spec_augment(feats, draws.spec)
+    return audio, replaced, feats
+
+
+def _train_forward(state: TrainState, gen: torch.Generator, draws: StepDraws, forward: Callable):
+    """``forward(model)`` -> (loss, outputs) in training mode with the
+    step's dropout masks (``draws.dropout``, else drawn from ``gen``), then
+    its backward and one AdamW update. Returns (loss, outputs)."""
+    model = state.model
+    model.train()
+    use_dropout_draws(model, DropoutDraws(gen, draws.dropout))
+    try:
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, out = forward(model)
+        loss.backward()
+    finally:
+        use_dropout_draws(model, None)
+    state.apply_gradients()
+    return loss, out
 
 
 class NoiseBankTrainStep:
@@ -145,26 +193,24 @@ def make_classification_train_step(model, cfg: StepConfig, noise_bank=None) -> C
     {"loss", "accuracy"}); ``state`` is updated in place and returned.
 
     With a noise bank the callable is a ``NoiseBankTrainStep`` whose bank
-    ``set_bank`` replaces. ``lengths`` is taken for the signature's sake:
-    res8 scores whole windows."""
+    ``set_bank`` replaces. ``lengths`` (true samples, or None) reach the
+    model as frame lengths (``frame_lengths``); res8 scores whole windows
+    whatever they are."""
 
     def train_step(state: TrainState, audio, labels, lengths, key, draws: Optional[StepDraws] = None, noise_bank=None):
         b, n = audio.shape
+        gen = step_generator(key, state.step, audio.device)
         if draws is None:
-            draws = draw_step(step_generator(key, state.step, audio.device), cfg, b, n, noise_bank)
-        with torch.no_grad():
-            if cfg.augment is not None:
-                audio, replaced = aug.apply_augment_audio(audio, draws.augment, cfg.augment, noise_bank)
-                labels = torch.where(replaced, cfg.negative_label, labels)
-            feats = featurize(audio, cfg, draws.vtlp_alpha if cfg.use_vtlp else None)
-            if cfg.augment is not None:
-                feats = aug.apply_spec_augment(feats, draws.spec)
-        state.model.train()
-        state.optimizer.zero_grad(set_to_none=True)
-        logits = _logits(state.model, feats, cfg)
-        loss = frame_ce_loss(logits, labels)
-        loss.backward()
-        state.apply_gradients()
+            draws = draw_step(gen, cfg, b, n, noise_bank)
+        _, replaced, feats = _features(audio, cfg, draws, noise_bank)
+        if replaced is not None:
+            labels = torch.where(replaced, cfg.negative_label, labels)
+
+        def forward(model):
+            logits = _logits(model, feats, cfg, lengths)
+            return frame_ce_loss(logits, labels), logits
+
+        loss, logits = _train_forward(state, gen, draws, forward)
         acc = (logits.detach().argmax(-1) == labels).float().mean()
         return state, {"loss": loss.detach(), "accuracy": acc}
 
@@ -175,18 +221,45 @@ def make_classification_train_step(model, cfg: StepConfig, noise_bank=None) -> C
 
 def make_classification_eval_step(model, cfg: StepConfig) -> Callable:
     """Returns (state, audio, lengths) -> (B, L) logits, with the running
-    BatchNorm stats and no augmentation."""
+    BatchNorm stats and no augmentation; ``lengths`` as the train step
+    takes them."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, audio, lengths=None):
         state.model.eval()
-        return state.model(featurize(audio, cfg))
+        return state.model(featurize(audio, cfg), lengths=frame_lengths(lengths, cfg))
 
     return eval_step
 
 
 def make_ctc_train_step(model, cfg: StepConfig, noise_bank=None) -> Callable:
-    raise NotImplementedError(
-        "make_ctc_train_step (CTC over the sequential models) is not ported to PyTorch yet "
-        "(ROADMAP Queue 1, item 8: remaining model zoo)"
-    )
+    """The CTC objective over a sequential model: returns (state, audio,
+    labels, audio_lengths, label_lengths, key, draws=None) -> (state,
+    {"loss"}), ``state`` updated in place, as the JAX step: augmentation
+    without replacement (``replace_prob`` 0), frame lengths
+    ``max(compute_lengths(audio_lengths), 1)`` into the model, its output
+    lengths through ``model.compute_length`` clipped to its frames, and
+    ``ctc_loss`` with ``cfg.blank_label``. With a noise bank the callable is
+    a ``NoiseBankTrainStep``."""
+    cfg = cfg._replace(replace_prob=0.0)
+
+    def train_step(state: TrainState, audio, labels, audio_lengths, label_lengths, key,
+                   draws: Optional[StepDraws] = None, noise_bank=None):
+        b, n = audio.shape
+        gen = step_generator(key, state.step, audio.device)
+        if draws is None:
+            draws = draw_step(gen, cfg, b, n, noise_bank)
+        _, _, feats = _features(audio, cfg, draws, noise_bank)
+        lengths = frame_lengths(audio_lengths, cfg)
+
+        def forward(model):
+            out = model(feats, lengths=lengths)  # (T', B, L)
+            out_lengths = torch.clamp(torch.as_tensor(model.compute_length(lengths)), max=out.shape[0])
+            return ctc_loss(out, out_lengths, labels, label_lengths, cfg.blank_label), out
+
+        loss, _ = _train_forward(state, gen, draws, forward)
+        return state, {"loss": loss.detach()}
+
+    if noise_bank is None:
+        return train_step
+    return NoiseBankTrainStep(train_step, noise_bank)

@@ -94,22 +94,22 @@ def test_compare_holds_the_jax_tools_rule():
 
 
 def test_decision_gate_runs_on_the_cpu_and_names_what_is_not_ported(capsys):
-    """Every row runs now, the families' too: thirteen rows, all OK, none
-    printed as not ported."""
+    """Every row runs now, the families' too: fourteen rows (lstm's live
+    engine the last), all OK, none printed as not ported."""
     assert validate_tpu_decisions.main(["--device", "cpu"]) == 0
     out = capsys.readouterr().out
     rows = validate_tpu_decisions.run(torch.device("cpu"), 2, 1.0)
     ran = list(rows)
     assert ran == ["res8+k1[bf16]+k2", "res8+k1[bf16x2]+k2", "res8+k1[bf16x3]+k2", "res8+k1[bf16]+k2+int8",
                    "res8 legacy[bf16]", "res8+online[bf16]", "res8+trunk[bf16]", "res8+full-window[bf16]",
-                   *validate_tpu_decisions.FAMILIES]
+                   *validate_tpu_decisions.FAMILIES, "lstm+full-window[bf16]"]
     assert all(rows[tag]["ok"] for tag in ran)
     # the live engines' rows hold the JAX tool's rule for them: fire flags equal, labels 99 %
-    for tag in ran[5:8]:
+    for tag in [*ran[5:8], ran[-1]]:
         assert set(rows[tag]) == {"fired_eq", "label_agreement", "ok"}
     for name in validate_tpu_decisions.FAMILIES:  # the families hold the offline rule
         assert set(rows[name]) == {"detected_eq", "first_fire_eq", "label_agreement", "ok"}
-    assert out.count("-> OK") == 13 and "not ported" not in out and out.rstrip().endswith("ALL OK")
+    assert out.count("-> OK") == 14 and "not ported" not in out and out.rstrip().endswith("ALL OK")
 
 
 def test_decision_gate_exits_1_on_a_mismatch(monkeypatch, capsys):

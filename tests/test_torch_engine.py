@@ -222,3 +222,35 @@ def test_unported_options_raise(slice_setup):
     clip = np.zeros((1, 8000), np.float32)
     np.testing.assert_array_equal(pt.infer_sweep_batch(clip, thresholds=(0.5,))[0],
                                   pt.infer_batch(clip, threshold=0.5)["detected"].numpy())
+
+
+def test_a_converted_res8_scores_through_its_classifier_as_jax_does(slice_setup):
+    """``CONVERT_STATIC``'s res8: ``ConvertedStaticModel`` around it and a
+    sequential spec that keeps ``supports_trunk``. Both engines score it as a
+    sequential model, neither through the stem kernel nor the fused trunk
+    (the JAX engine's ``fused_trunk`` rule, ``ModelSpec.uses_trunk``), and
+    agree on every frame; the fused trunk is refused for it."""
+    from dataclasses import replace
+
+    from howl_tpu.models.base import ConvertedStaticModel as JaxConvertedStaticModel
+    from howl_tpu_torch.models import ConvertedStaticModel, model_spec
+
+    variables, audio, lengths, cfg_kw = slice_setup
+    jax_spec = replace(jax_model_spec("res8"), is_sequential=True)
+    spec = replace(model_spec("res8"), is_sequential=True)
+    assert spec.supports_trunk and not spec.uses_trunk and model_spec("res8").uses_trunk
+    jx = JaxStreamingEngine(JaxConvertedStaticModel(jax_create_model("res8", num_labels=4)),
+                            {k: {"inner": v} for k, v in variables.items()}, JaxEngineConfig(**cfg_kw),
+                            JaxFrontendConfig(n_mels=40), *ZMUV, spec=jax_spec)
+    state = {f"inner.{k}": v for k, v in res8_variables_to_state_dict(variables).items()}
+    model = ConvertedStaticModel(create_model("res8", num_labels=4))
+    pt = StreamingEngine(model, state, EngineConfig(**cfg_kw), FrontendConfig(n_mels=40), *ZMUV, spec=spec,
+                         frontend_precision="auto", device="cpu")
+    assert not jx.fused_trunk and not pt.fused_trunk
+    want, got = jx.infer_batch(audio, lengths), pt.infer_batch(audio, lengths)
+    assert got["probs"].shape == want["probs"].shape and got["probs"].shape[1] == (pt.frontend.num_frames(audio.shape[1]) - 40) // 10 + 1
+    np.testing.assert_allclose(got["probs"].numpy(), np.asarray(want["probs"]), atol=1e-4)
+    _assert_decisions_equal(got, want)
+    with pytest.raises(ValueError, match="fused_trunk needs a window classifier"):
+        StreamingEngine(model, state, EngineConfig(**cfg_kw), FrontendConfig(n_mels=40), *ZMUV, spec=spec,
+                        fused_trunk=True, device="cpu")

@@ -1260,6 +1260,68 @@ def test_family_engine_on_cuda_matches_cpu(cuda, name):
     assert want["detected"].any() and not want["detected"].all()
 
 
+@pytest.mark.parametrize("name,kind,carry", [("lstm", "full-window", True), ("gru", "incremental", False)],
+                         ids=["lstm-full-window-carry", "gru-incremental"])
+def test_family_live_engine_on_cuda_matches_cpu(cuda, name, kind, carry):
+    """One family on each live engine at its registered width, float32 with
+    the exact frontend: the engine on the card (``OnlineEngine``: K1 "fm";
+    cuDNN's recurrences) against the same engine on the CPU, on the weights,
+    streams, word and threshold of the live checks (picked on the CPU), hop
+    by hop: labels and fire flags equal, posteriors within 1e-4."""
+    from howl_tpu_torch.bench import serving_config
+    from howl_tpu_torch.tools.validate_tpu_decisions import (
+        drive_live, family_audio, family_live_engine, family_live_setup,
+    )
+
+    frontend = FrontendConfig(n_mels=40)
+    audio = torch.from_numpy(family_audio(8, 8000 + 15 * 1000))
+    state, cfg, _ = family_live_setup(name, kind, serving_config(), frontend, torch.device("cpu"), audio, True,
+                                      carry_hops=carry)
+    runs = [drive_live(family_live_engine(name, kind, state, cfg, frontend, dev, dft_precision="f32", num_streams=8,
+                                          carry_hops=carry), audio.to(dev), True) for dev in ("cpu", cuda)]
+    (want_fired, want_labels, want_probs), (got_fired, got_labels, got_probs) = runs
+    np.testing.assert_allclose(got_probs, want_probs, rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(got_labels, want_labels)
+    np.testing.assert_array_equal(got_fired, want_fired)
+    assert want_fired.any(0).any() and not want_fired.any(0).all()
+
+
+def test_ctc_step_on_cuda_launches_the_mix_kernel_and_matches_cpu(cuda):
+    """One CTC step of seq-cnn at its registered width from the same weights,
+    draws and dropout mask: the card's loss within 1e-5 relative of the
+    CPU's (TF32 off), K3 launched once."""
+    from howl_tpu_torch.models import create_model
+    from howl_tpu_torch.ops.tf32 import exact_float32
+    from howl_tpu_torch.training.state import create_train_state
+    from howl_tpu_torch.training.step import StepConfig, draw_step, featurize, make_ctc_train_step
+
+    rng = np.random.default_rng(3)
+    b, n = 8, 16000
+    audio = torch.from_numpy((rng.standard_normal((b, n)) * 0.1).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, 3, (b, 3)).astype(np.int32))
+    audio_lengths = torch.from_numpy(rng.integers(12000, n + 1, b).astype(np.int32))
+    label_lengths = torch.from_numpy(rng.integers(1, 4, b).astype(np.int32))
+    bank = (rng.standard_normal((4, 9000)) * 0.05).astype(np.float32)
+    cfg = StepConfig(FrontendConfig(n_mels=40), 2.05, 1.0, augment=aug.AugmentConfig(), negative_label=3,
+                     blank_label=4, use_deltas=False)
+    template = create_model("seq-cnn", num_labels=5).eval()
+    t_out = template(featurize(audio, cfg)).shape[0]
+    draws = draw_step(torch.Generator().manual_seed(1), cfg, b, n, aug.prepare_noise_bank(bank, n))
+    draws = draws._replace(dropout=[rng.random((t_out, b, 128)) >= 0.1])
+    losses = {}
+    for dev in ("cpu", cuda):
+        model = create_model("seq-cnn", num_labels=5)
+        state = create_train_state(model, 0.01, generator=torch.Generator().manual_seed(0), device=dev)
+        step = make_ctc_train_step(model, cfg, torch.from_numpy(bank).to(dev))
+        before = mix_noise_bank_cuda.launches
+        with exact_float32():
+            _, metrics = step(state, audio.to(dev), labels.to(dev), audio_lengths.to(dev), label_lengths.to(dev), 0,
+                              draws=_to(draws, dev))
+        losses[str(dev)] = float(metrics["loss"])
+        assert mix_noise_bank_cuda.launches == before + (dev != "cpu")
+    assert np.isfinite(losses["cpu"]) and abs(losses["cpu"] - losses[str(cuda)]) <= 1e-5 * abs(losses["cpu"])
+
+
 @pytest.mark.parametrize("b", [1, 121, 4099])
 def test_stem_tc_kernel_on_41_frame_windows(cuda, b):
     """The per-window scorer's stem: 41-frame clips, 13 pooled frames in a

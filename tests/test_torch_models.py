@@ -228,8 +228,16 @@ def test_sequential_cnn_compute_length_is_the_jax_modules():
 
 
 def test_mixed_precision_dtype_waits_for_the_families_training():
-    model = create_model("lstm", num_labels=N_LABELS, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        model(torch.zeros((1, 3, 40, 41)))
+    """A bf16 lstm runs on bf16 casts of its float32 parameters: the
+    parameters stay float32, the logits are float32 and near the float32
+    model's (the mixed-precision forwards are held against flax's in
+    tests/test_torch_train_families.py)."""
+    model = port_model("lstm", jax_family_variables("lstm", 11))
+    x = torch.from_numpy(features(12))
+    want = model(x)
+    model.dtype = torch.bfloat16
+    got = model(x)
+    assert got.dtype == torch.float32 and all(p.dtype == torch.float32 for p in model.parameters())
+    np.testing.assert_allclose(got.detach().numpy(), want.detach().numpy(), atol=5e-2)
     assert recurrence_backend(torch.zeros(1)) == "cpu"
 

@@ -36,12 +36,12 @@ from howl_tpu.inference.online import IncrementalOnlineEngine as JaxIncrementalO
 from howl_tpu.inference.online import OnlineEngine as JaxOnlineEngine
 from howl_tpu.models import create_model as jax_create_model
 from howl_tpu.ops.frontend import FrontendConfig as JaxFrontendConfig
-from howl_tpu_torch.compat import res8_variables_to_state_dict
+from howl_tpu_torch.compat import numpy_variables, res8_variables_to_state_dict, variables_to_state_dict
 from howl_tpu_torch.inference import EngineConfig
 from howl_tpu_torch.inference import online
 from howl_tpu_torch.inference.online import IncrementalOnlineEngine, OnlineEngine
+from howl_tpu_torch.inference.streaming_trunk import FusedStreamingOnlineEngine
 from howl_tpu_torch.models import create_model
-from howl_tpu_torch.models.base import ModelSpec
 from howl_tpu_torch.ops.frontend import FrontendConfig, log_mel_spectrogram
 from howl_tpu_torch.ops.frontend_cuda import log_mel_spectrogram_cuda
 from howl_tpu_torch.ops.stem_cuda import res8_stem_cuda
@@ -226,14 +226,21 @@ def test_shapes_and_arguments_are_checked_as_in_jax(setup):
     full.ingest(long_)
     assert full.curr_time == full.stride_ms and full.last_labels.shape == (2,)
     assert isinstance(inc.push(np.zeros(inc.hop_samples, np.float32)[None].repeat(2, 0)), bool)
+    lstm = create_model("lstm", num_labels=4, hidden_size=8)
+    lstm_state = variables_to_state_dict("lstm", numpy_variables("lstm", 4, np.random.default_rng(0), hidden_size=8))
     for cls in (OnlineEngine, IncrementalOnlineEngine):
-        with pytest.raises(ValueError, match="recurrent.*item 8"):
+        with pytest.raises(ValueError, match="recurrent models only"):
             _port_engine(cls, variables, cfg_kw, carry_hops=True)
         with pytest.raises(NotImplementedError, match="item 12"):
             _port_engine(cls, variables, cfg_kw).shard_streams(None)
-        other = ModelSpec("small-cnn", create_model, supports_trunk=False)
-        with pytest.raises(NotImplementedError, match="item 8"):
-            _port_engine(cls, variables, cfg_kw, spec=other)
+        # a model without a trunk builds and decides (every family: tests/test_torch_online_families.py)
+        other = cls(lstm, lstm_state, EngineConfig(**cfg_kw), FrontendConfig(n_mels=40), *ZMUV, num_streams=2,
+                    carry_hops=True, device="cpu")
+        fed = np.zeros((2, other.hop_samples if cls is IncrementalOnlineEngine else 8000), np.float32)
+        assert isinstance(other.push(fed) if cls is IncrementalOnlineEngine else other.ingest(fed), bool)
+        assert other.last_labels.shape == (2,) and other.carry[0].shape == (1, 2, 8)
+    with pytest.raises(ValueError, match="res8"):
+        FusedStreamingOnlineEngine(lstm, lstm_state, EngineConfig(**cfg_kw), FrontendConfig(n_mels=40), device="cpu")
 
 
 def test_engines_ask_for_the_card_unless_given_the_cpu(setup, monkeypatch):

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from howl_tpu.models import create_model as jax_create_model
+from howl_tpu.training.objectives import ctc_loss as jax_ctc_loss
 from howl_tpu.training.objectives import frame_ce_loss as jax_frame_ce_loss
 from howl_tpu.training.state import create_train_state as jax_create_train_state
 from howl_tpu.training.state import param_count as jax_param_count
@@ -165,10 +166,15 @@ def test_frame_ce_loss_matches_optax():
         want = float(jax_frame_ce_loss(jnp.asarray(logits), jnp.asarray(labels), None if w is None else jnp.asarray(w)))
         got = float(objectives.frame_ce_loss(torch.from_numpy(logits), torch.from_numpy(labels), w))
         np.testing.assert_allclose(got, want, rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        objectives.ctc_loss(None, None, None, None, 0)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        make_ctc_train_step(None, StepConfig(None, 0.0, 1.0))
+    # CTC is ported (tests/test_torch_train_families.py holds it against JAX's on every case): one case here
+    logits = rng.standard_normal((8, 2, 4)).astype(np.float32)
+    lengths, targets, target_lengths = np.array([8, 6], np.int32), np.array([[1, 2], [3, 3]], np.int32), np.array([2, 2])
+    want = float(jax_ctc_loss(jnp.asarray(logits), jnp.asarray(lengths), jnp.asarray(targets),
+                              jnp.asarray(target_lengths), 0))
+    got = float(objectives.ctc_loss(torch.from_numpy(logits), torch.from_numpy(lengths), torch.from_numpy(targets),
+                                    torch.from_numpy(target_lengths), 0))
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    assert callable(make_ctc_train_step(None, StepConfig(None, 0.0, 1.0)))
 
 
 def test_state_dict_to_variables_is_the_bridge_inverse_and_flax_loads_it():

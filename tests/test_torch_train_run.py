@@ -325,10 +325,6 @@ def test_f9_bf16_decisions_equal_float32_on_the_ports_trained_weights(port_train
 
 
 @pytest.mark.parametrize("extra,env,item", [
-    (["--model", "las"], {}, "item 8"),
-    (["--model", "mobilenet"], {}, "item 8"),
-    ([], {"OBJECTIVE": "ctc"}, "item 8"),
-    ([], {"CONVERT_STATIC": "true"}, "item 8"),
     (["--use-timestretch"], {}, "item 12"),
     (["--num-devices", "2"], {}, "item 12"),
 ])
