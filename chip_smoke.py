@@ -229,6 +229,22 @@ them. In order it:
      where the float32 engine fires on some clips and not on others; a run whose engine decides one way on every
      clip is named "not held", with its largest word posterior. It prints each run's epochs, losses, steps/s and
      the dev positives that fired;
+ 17c. serves phase 17's trained res8 through the live serving surface: (a) writes it as a port workspace and as a
+     reference (castorini/howl) one and serves each through ``hub.load_workspace_engine`` as every engine kind (the
+     ``OnlineEngine``, incremental, streaming trunk, ``hop_block`` 3, ``auto``), float32 as the hub builds them, on
+     the 24 dev and test clips as streams with 0.5 s of silence after each, fed at the client's cadence: each
+     stream's detection must equal the hub's offline engine's (``load_workspace_streaming_engine``, one K1 and one
+     K2 launch a batch) on its clip, and between zeroed counters the port workspace's ``OnlineEngine``,
+     incremental and trunk engines must launch K1 and K2 as the same engines built directly (K1 and K2 once an
+     ``OnlineEngine`` hop, K2 once an incremental hop, K2 once in the trunk's prefill) and fire as they do;
+     ``HowlClient`` over two positive and two negative WAVs (each followed by 0.5 s of silence) must detect on
+     each as the offline engine decides, for the three per-hop engines; (b) ``MultiStreamServer`` at 512 streams
+     on the native mux (which must have built) runs 40 ticks of the incremental engine and prints the ticks'
+     mean and p99 ms, underruns, overruns and alarms; (c) runs ``bench_stream_mux``; (d) runs the four live
+     tools at 65,536 streams (``bench_streaming_trunk``, ``bench_trunk_blocked``, ``ablate_trunk_step``,
+     ``bench_online_dft_precision``: "bf16x3" against "bf16"), every time finite and positive; (e) runs
+     ``gen_capacity_table --calibrate 1024,16384,65536 --steps 16`` (server ticks of the push engines) and prints
+     the measured points beside the committed profiles' model;
  18. (d) runs the bench, ``howl_tpu_torch.bench.main``, which prints its
      JSON line (``bench.py``'s keys, each measured key the median of 5
      repeats with its spread); every measured key must be finite and
@@ -318,6 +334,11 @@ FAMILY_LIVE_HOPS = 24  # chained hops of each family's live engines (phase 11c):
 # of each, 6 dev and 6 test of each) and 12 noise clips; 60 epochs of 10 steps separate it on the CPU by 40
 ENTRY_CORPUS, ENTRY_EPOCHS, ENTRY_STEPS, ENTRY_RESUME_EPOCHS = 24, 60, 10, 2
 FAMILY_TRAIN_EPOCHS = 30  # each family's training through the entry point (phase 17b), chosen once for the time
+# the serving surface (phase 17c): silence after each clip on the live engines (the trunk engine decides lag hops
+# late), the multi-stream server's streams and ticks, the live tools' streams (the first live bottleneck's size),
+# their DFT-grade samples, and the capacity calibration's stream counts (the bench's latency counts)
+SERVE_PAD_S, SERVE_STREAMS, SERVE_TICKS, LIVE_TOOL_STREAMS, DFT_SAMPLES = 0.5, 512, 40, 65536, 3
+SERVE_CALIBRATION, SERVE_CALIBRATION_STEPS = (1024, 16384, 65536), 16  # a check: the profiles take 52 steps a point
 
 
 def _bound(n_bytes: float, ops: float, peak_flops: float) -> dict:
@@ -2378,7 +2399,229 @@ def drive_train_entry(dev) -> dict:
         if not detected_eq:
             raise AssertionError("the int8 engine's detections differ from the float32 engine's on the trained weights")
         return {**rates, "steps": stats.steps, "eval_batches": stats.eval_batches, "f9_max_dprob": dprob,
-                "int8_max_dprob": int8_dprob, "repeat_losses": repeat_losses, "epoch_losses": stats.epoch_losses}
+                "int8_max_dprob": int8_dprob, "repeat_losses": repeat_losses, "epoch_losses": stats.epoch_losses,
+                "state_dict": state_dict, "zmuv": zmuv}
+
+
+def _serving_workspaces(root, state_dict, zmuv: dict):
+    """(port workspace, reference-layout workspace) of the weights ``state_dict`` and ZMUV stats ``zmuv``, with
+    ``SETTINGS`` (phase 17's recipe) as their settings: ``model-best.pt``, ``zmuv.json``, ``settings.json`` and
+    ``cmd-args.json``; and castorini/howl's ``model-best.pt.bin``, ``zmuv.pt.bin`` and underscore-keyed
+    ``settings.json`` with its torch device string."""
+    import torch
+
+    from howl_tpu_torch.ops.zmuv import ZmuvTransform
+    from howl_tpu_torch.settings import SETTINGS
+    from howl_tpu_torch.workspace import Workspace
+
+    port = Workspace(root / "ws_port", delete_existing=False)
+    port.save_settings(SETTINGS)
+    port.save_zmuv(ZmuvTransform.from_state_dict(zmuv))
+    port.save_model(state_dict, best=True)
+    ref = root / "ws_reference"
+    ref.mkdir()
+    data = {f"_{k}": v for k, v in SETTINGS.to_dict().items() if k not in ("dataset", "resource")}
+    data["_training"]["device"] = "cuda:0"
+    (ref / "settings.json").write_text(json.dumps(data))
+    torch.save({k: torch.tensor([float(zmuv[k])]) for k in ("total", "mean", "mean2")}, ref / "zmuv.pt.bin")
+    torch.save(state_dict, ref / "model-best.pt.bin")
+    for path in (port.path, ref):
+        (path / "cmd-args.json").write_text(json.dumps({"model": "res8"}))
+    return port.path, ref
+
+
+def _feed_live(engine, audio) -> np.ndarray:
+    """Drive a live engine over (N, samples) device audio as ``HowlClient`` drives it: each hop's samples to an
+    engine with ``push`` (``hop_block`` hops a call to a blocked one), the window ending at each hop, once the
+    first is whole, to the ``OnlineEngine``. Returns the (hops, N) fire flags."""
+    hop = engine.hop_samples
+    fired = []
+    if hasattr(engine, "push"):
+        width = hop * getattr(engine, "hop_block", 1)
+        for end in range(width, audio.shape[1] + 1, width):
+            engine.push(audio[:, end - width : end])
+            fired += list(engine.last_fired.T) if engine.last_fired.ndim == 2 else [engine.last_fired]
+    else:
+        for end in range(engine.window_samples, audio.shape[1] + 1, hop):
+            engine.ingest(audio[:, end - engine.window_samples : end])
+            fired.append(engine.last_fired)
+    return np.stack(fired)
+
+
+def drive_serving_surface(dev, state_dict, zmuv: dict) -> dict:
+    """Phase 17c, the live serving surface (``howl_tpu_torch.hub``, ``client``, ``native``) on phase 17's trained
+    res8: (a) a port workspace and a reference-layout one, each served by ``hub.load_workspace_engine`` as every
+    engine kind on the dev and test clips (one stream each, ``SERVE_PAD_S`` of silence after each), each stream's
+    detection equal to the offline engine's (``hub.load_workspace_streaming_engine``) on its clip, K1's and K2's
+    launches equal to the directly built engines' on the same hops, and ``HowlClient`` over WAVs of four clips as
+    the offline engine decides them; (b) ``MultiStreamServer`` at ``SERVE_STREAMS`` streams on the native mux for
+    ``SERVE_TICKS`` ticks; (c) ``bench_stream_mux``; (d) the four live tools at ``LIVE_TOOL_STREAMS`` streams;
+    (e) ``gen_capacity_table --calibrate`` at ``SERVE_CALIBRATION``, ``SERVE_CALIBRATION_STEPS`` steps a point."""
+    from pathlib import Path
+
+    import torch
+
+    from howl_tpu_torch import hub, inference, native
+    from howl_tpu_torch.client import FileAudioSource, HowlClient
+    from howl_tpu_torch.client.stream_server import MultiStreamServer
+    from howl_tpu_torch.data.dataset.dataset_loader import WakeWordDatasetLoader
+    from howl_tpu_torch.inference.config import EngineConfig
+    from howl_tpu_torch.models import create_model
+    from howl_tpu_torch.ops.frontend import FrontendConfig
+    from howl_tpu_torch.ops.zmuv import ZmuvTransform
+    from howl_tpu_torch.tools import (
+        ablate_trunk_step, bench_online_dft_precision, bench_stream_mux, bench_streaming_trunk, bench_trunk_blocked,
+        gen_capacity_table,
+    )
+    from howl_tpu_torch.utils.audio_utils import write_wav
+
+    print(bench.card_line())
+    if not native.available():
+        raise AssertionError("the native serving runtime did not build (g++ and native/howl_native.cpp)")
+    out = {"launches": {}, "seconds": {}}
+    t_part = time.perf_counter()
+
+    def part(name: str) -> None:
+        nonlocal t_part
+        out["seconds"][name] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+    with entry_workdir() as tmp:
+        tmp = Path(tmp)
+        port_ws, ref_ws = _serving_workspaces(tmp, state_dict, zmuv)
+        _, ww_dev, ww_test = WakeWordDatasetLoader().load_splits(Path("ww"), sample_rate=SAMPLE_RATE, mono=True)
+        clips = np.stack([ds[i].audio_data for ds in (ww_dev, ww_test) for i in range(len(ds))])
+        n = len(clips)
+        _zero_launch_counts()
+        offline, ctx = hub.load_workspace_streaming_engine(port_ws, device=dev)
+        want = offline.infer_batch(clips)["detected"].cpu().numpy()
+        torch.cuda.synchronize()
+        out["launches"]["offline"] = _launch_counts()
+        if (out["launches"]["offline"]["k1"], out["launches"]["offline"]["k2"]) != (1, 1):
+            raise AssertionError(f"the hub's offline engine: one K1 and one K2 launch a batch expected: "
+                                 f"{out['launches']['offline']}")
+        if want.all() or not want.any():
+            raise AssertionError(f"the trained weights decide every clip one way offline: {want.tolist()}")
+        pad = int(SERVE_PAD_S * SAMPLE_RATE)
+        audio = torch.from_numpy(np.pad(clips, ((0, 0), (0, pad))).astype(np.float32)).to(dev)
+        kinds = {"online": {}, "incremental": {"incremental": True}, "trunk": {"streaming_trunk": True},
+                 "blocked": {"streaming_trunk": True, "hop_block": 3}, "auto": {"auto": True}}
+        direct_cls = {"online": inference.OnlineEngine, "incremental": inference.IncrementalOnlineEngine,
+                      "trunk": inference.FusedStreamingOnlineEngine}
+        for layout, ws in (("port", port_ws), ("reference", ref_ws)):
+            for kind, flags in kinds.items():
+                _zero_launch_counts()
+                eng, _ = hub.load_workspace_engine(ws, num_streams=n, device=dev, **flags)
+                t0 = time.perf_counter()
+                fired = _feed_live(eng, audio)
+                hop_ms = (time.perf_counter() - t0) * 1e3 / len(fired)
+                torch.cuda.synchronize()
+                counts = _launch_counts()
+                got = fired.any(0)
+                tag = f"{layout} {kind} ({type(eng).__name__}, hop_block {getattr(eng, 'hop_block', 1)})"
+                print(f"hub {tag}: {len(fired)} hops of {n} streams, {hop_ms:.2f} ms a hop; K1 {counts['k1']} (tc "
+                      f"{counts['k1_tc']}), K2 {counts['k2']} (tc {counts['k2_tc']}); detections "
+                      f"{'equal' if got.tolist() == want.tolist() else 'DIFFER FROM'} the offline engine's "
+                      f"({int(got.sum())} of {n})", flush=True)
+                if got.tolist() != want.tolist():
+                    raise AssertionError(f"hub {tag}: detections {got.tolist()} against offline {want.tolist()}")
+                out["launches"][f"{layout} {kind}"] = counts
+                if layout == "port" and kind in direct_cls:
+                    _zero_launch_counts()
+                    extra = {"carry_hops": False} if kind != "trunk" else {}
+                    stats = ZmuvTransform.from_state_dict(zmuv)
+                    direct = direct_cls[kind](create_model("res8", num_labels=ctx.num_labels), state_dict,
+                                              EngineConfig.from_settings(ctx), FrontendConfig.from_settings(),
+                                              stats.mean, stats.std, num_streams=n, device=dev, **extra)
+                    direct_fired = _feed_live(direct, audio)
+                    torch.cuda.synchronize()
+                    direct_counts = _launch_counts()
+                    hops = len(fired)
+                    expect = {"online": (hops, hops), "incremental": (0, hops), "trunk": (0, 1)}[kind]
+                    print(f"  direct {type(direct).__name__}: K1 {direct_counts['k1']}, K2 {direct_counts['k2']}; fire "
+                          f"flags {'equal' if np.array_equal(direct_fired, fired) else 'DIFFER'}", flush=True)
+                    if direct_counts != counts or (counts["k1"], counts["k2"]) != expect:
+                        raise AssertionError(f"hub {tag}: launches {counts}, the direct engine's {direct_counts}, "
+                                             f"(K1, K2) {expect} expected")
+                    if not np.array_equal(direct_fired, fired):
+                        raise AssertionError(f"hub {tag}: fire flags differ from the directly built engine's")
+                del eng
+        silence = tmp / "silence.wav"
+        write_wav(silence, np.zeros(pad, np.float32), SAMPLE_RATE)
+        wavs = sorted(Path("ww/audio").glob("pos_*.wav"))[:2] + sorted(Path("ww/audio").glob("neg_*.wav"))[:2]
+        from howl_tpu_torch.utils.audio_utils import silent_load
+
+        wav_want = offline.infer_batch(np.stack([silent_load(w) for w in wavs]))["detected"].cpu().tolist()
+        for kind in ("online", "incremental", "trunk"):
+            got = []
+            for wav in wavs:
+                client = HowlClient.from_workspace(port_ws, source=FileAudioSource([wav, silence]), device=dev,
+                                                   **kinds[kind])
+                client.start().join()
+                got.append(client.detections > 0)
+            print(f"HowlClient ({kind}) over {len(wavs)} WAVs: detections {got}, the offline engine's {wav_want}",
+                  flush=True)
+            if got != wav_want:
+                raise AssertionError(f"HowlClient ({kind}): detections {got} against the offline engine's {wav_want}")
+        part("(a) hub and client")
+
+        # (b) many streams through one batched engine, fed by the native mux
+        eng, _ = hub.load_workspace_engine(port_ws, num_streams=SERVE_STREAMS, incremental=True, device=dev)
+        server = MultiStreamServer(eng)
+        buf = (np.random.default_rng(SEED).standard_normal((SERVE_STREAMS, (SERVE_TICKS + 1) * eng.hop_samples))
+               * 0.1).astype(np.float32)
+        ticks_ms = []
+        for t in range(SERVE_TICKS + 1):
+            for s in range(SERVE_STREAMS):
+                server.push(s, buf[s, t * eng.hop_samples : (t + 1) * eng.hop_samples])
+            t0 = time.perf_counter()
+            result = server.tick()
+            ticks_ms.append((time.perf_counter() - t0) * 1e3)
+            if (result.status != 1).any() or result.fired.shape != (SERVE_STREAMS,):
+                raise AssertionError(f"tick {t}: statuses {np.unique(result.status).tolist()}, fired "
+                                     f"{result.fired.shape}")
+        ticks_ms = ticks_ms[1:]  # the first tick is the warm-up
+        out["server"] = {"native": native.available(), "streams": SERVE_STREAMS, "ticks": len(ticks_ms),
+                         "mean_ms": float(np.mean(ticks_ms)), "p99_ms": float(np.percentile(ticks_ms, 99)),
+                         "underruns": int(server.underruns.sum()), "overruns": int(server.overruns.sum()),
+                         "alarms": server.alarms, "late_ticks": server.late_ticks}
+        print(f"MultiStreamServer, {SERVE_STREAMS} streams on the native mux (available() {native.available()}), "
+              f"IncrementalOnlineEngine in float32: {len(ticks_ms)} ticks, mean {out['server']['mean_ms']:.3f} ms, "
+              f"p99 {out['server']['p99_ms']:.3f} ms a tick; underruns {out['server']['underruns']}, overruns "
+              f"{out['server']['overruns']}, late ticks {server.late_ticks}, alarms {server.alarms}", flush=True)
+        if server.underruns.sum() or server.overruns.sum():
+            raise AssertionError("the server under- or overran with every stream's audio pushed before each tick")
+        del eng, server, offline
+        torch.cuda.empty_cache()
+        part("(b) server")
+
+    # (c) the mux alone, (d) the live tools, (e) the capacity calibration
+    out["mux"] = bench_stream_mux.main(["--device", "cuda"])
+    if not out["mux"]["native"]:
+        raise AssertionError("bench_stream_mux ran the numpy fallback")
+    part("(c) mux")
+    streams = str(LIVE_TOOL_STREAMS)
+    out["trunk_vs_incremental"] = bench_streaming_trunk.main(["--device", "cuda", streams, "12"])
+    torch.cuda.empty_cache()
+    out["blocked"] = bench_trunk_blocked.main(["--device", "cuda", streams, "4"])
+    torch.cuda.empty_cache()
+    out["ablation"] = ablate_trunk_step.main(["--device", "cuda", streams, "4"])
+    torch.cuda.empty_cache()
+    out["dft"] = bench_online_dft_precision.main(["--device", "cuda", "--counts", streams,
+                                                  "--samples", str(DFT_SAMPLES)])
+    torch.cuda.empty_cache()
+    times = [out["trunk_vs_incremental"]["trunk_ms"], out["trunk_vs_incremental"]["incremental_ms"],
+             out["blocked"]["per_hop"], *out["blocked"]["blocked"].values(),
+             *(out["ablation"][leg] for leg in ablate_trunk_step.LEGS),
+             *(r[q] for r in out["dft"].values() for q in ("p50", "p99"))]
+    if not all(np.isfinite(times)) or min(times) <= 0:
+        raise AssertionError(f"a live tool printed a time that is not finite and positive: {times}")
+    part("(d) live tools")
+    cal_counts = ",".join(map(str, SERVE_CALIBRATION))
+    out["calibration"] = gen_capacity_table.main(["--device", "cuda", "--calibrate", cal_counts,
+                                                  "--steps", str(SERVE_CALIBRATION_STEPS)])
+    part("(e) calibration")
+    print("serving surface seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in out["seconds"].items()), flush=True)
+    return out
 
 
 def drive_families_train(dev) -> dict:
@@ -2864,11 +3107,15 @@ def main() -> int:
     check_train_step_against_cpu(dev)
     train_path = drive_train_path(dev)
     lap("train path")
-    drive_train_entry(dev)
+    entry = drive_train_entry(dev)
     lap("train entry point")
     families_train = drive_families_train(dev)
     k3["launches_families_train"] = {tag: rec["k3_launches"] for tag, rec in families_train.items()}
     lap("the families trained")
+    serving = drive_serving_surface(dev, entry["state_dict"], entry["zmuv"])
+    k1["launches_serving"] = {tag: c["k1"] for tag, c in serving["launches"].items()}
+    k2["launches_serving"] = {tag: c["k2"] for tag, c in serving["launches"].items()}
+    lap("serving surface")
     check_bench_record(bench.main(["--device", "cuda"]))
     lap("bench (d)")
     print("phase seconds: " + ", ".join(f"{name} {sec:.1f}" for name, sec in laps))

@@ -31,11 +31,24 @@ The other families go through :func:`variables_to_state_dict` and
 
 :func:`numpy_variables` makes seeded weights in the JAX layout for any
 family, for the tools and the smoke run.
+
+Reference (castorini/howl) workspaces: ``model{-best}.pt.bin`` (torch state
+dicts), ``zmuv.pt.bin`` (the ZMUV buffers) and an underscore-keyed
+``settings.json``. Since the port's models carry the reference's parameter
+names and layouts (res8's, and the rows above for lstm, seq-lstm, gru and
+las, las's channel-major LSTM inputs included), a reference state dict loads
+into the port's model as it is: :func:`load_reference_workspace` reads one
+without writing anything (the hub serves it so), and
+:func:`import_reference_workspace` writes it out as a port workspace. The
+families are the JAX package's ``SUPPORTED_IMPORT_FAMILIES``.
 """
 
 from __future__ import annotations
 
+import json
 from collections import OrderedDict
+from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -284,3 +297,109 @@ def numpy_variables(name: str, num_labels: int, rng: np.random.Generator, kernel
 
     return {k: fill(k, template[k]) for k in sorted(template)}
 
+
+
+# ---- reference (castorini/howl) workspaces ----
+
+SUPPORTED_IMPORT_FAMILIES = ("res8", "lstm", "seq-lstm", "gru", "las")
+
+
+def reference_settings_to_dict(ref_data: dict) -> dict:
+    """A reference ``settings.json`` (sections ``_audio``, ``_training``, ...)
+    -> the layout ``HowlSettings.load_dict`` reads. The field names are
+    shared; ``load_dict`` drops the reference-only ones, and ``device`` is
+    dropped here: the reference's is a torch device string of the machine
+    that trained, the port's comes from the caller."""
+    return {key.lstrip("_"): {k: v for k, v in value.items() if k != "device"}
+            for key, value in ref_data.items() if isinstance(value, dict)}
+
+
+def is_reference_workspace(path) -> bool:
+    """True where ``path`` holds a reference workspace: its torch checkpoints,
+    or an underscore-keyed ``settings.json``."""
+    p = Path(path)
+    if (p / "model-best.pt.bin").exists() or (p / "model.pt.bin").exists():
+        return True
+    settings = p / "settings.json"
+    if settings.exists():
+        try:
+            data = json.loads(settings.read_text())
+        except ValueError:
+            return False
+        return isinstance(data, dict) and bool(data) and all(k.startswith("_") for k in data)
+    return False
+
+
+def _torch_load(path: Path) -> dict:
+    return torch.load(str(path), map_location="cpu", weights_only=True)
+
+
+def reference_model_name(src_path, model_name: Optional[str] = None) -> str:
+    """``model_name``, else the ``model`` entry of the workspace's
+    ``cmd-args.json``; a family outside ``SUPPORTED_IMPORT_FAMILIES`` raises."""
+    src = Path(src_path)
+    if model_name is None:
+        args_path = src / "cmd-args.json"
+        if args_path.exists():
+            model_name = json.loads(args_path.read_text()).get("model")
+        if model_name is None:
+            raise ValueError("model_name not given and the source cmd-args.json is missing or has no 'model' entry; "
+                             "pass the architecture explicitly (e.g. 'res8')")
+    if model_name not in SUPPORTED_IMPORT_FAMILIES:
+        raise NotImplementedError(f"reference checkpoints are read for {SUPPORTED_IMPORT_FAMILIES}; got "
+                                  f"{model_name!r}. Retrain the others with howl_tpu_torch.training.run.train.")
+    return model_name
+
+
+def load_reference_workspace(src_path, model_name: Optional[str] = None, settings=None):
+    """Read a reference workspace and write nothing: (model_name, settings,
+    {best: state dict}, zmuv or None). ``settings`` (a ``HowlSettings``, the
+    global one for the hub) takes the snapshot; a fresh one by default.
+    ``{True: ...}`` is always there: a workspace with only ``model.pt.bin``
+    serves it as its best."""
+    from howl_tpu_torch.ops.zmuv import ZmuvTransform
+    from howl_tpu_torch.settings import HowlSettings
+
+    src = Path(src_path)
+    if not (src / "settings.json").exists():
+        raise FileNotFoundError(f"{src} has no settings.json: not a reference workspace")
+    model_name = reference_model_name(src, model_name)
+    settings = settings if settings is not None else HowlSettings()
+    settings.load_dict(reference_settings_to_dict(json.loads((src / "settings.json").read_text())))
+
+    zmuv = None
+    if (src / "zmuv.pt.bin").exists():
+        z = {k: float(torch.as_tensor(v).reshape(-1)[0]) for k, v in _torch_load(src / "zmuv.pt.bin").items()}
+        try:
+            # a file without its stats fails here, not as garbage-normalized features later
+            zmuv = ZmuvTransform(z["mean"], z["mean2"], z["total"])
+        except KeyError as e:
+            raise ValueError(f"{src / 'zmuv.pt.bin'} lacks the reference ZmuvTransform buffers (total, mean, mean2); "
+                             f"found {sorted(z)}") from e
+
+    state_dicts = {}
+    for fname, best in (("model-best.pt.bin", True), ("model.pt.bin", False)):
+        if (src / fname).exists():
+            state_dicts[best] = {k: v.float() if v.is_floating_point() else v for k, v in _torch_load(src / fname).items()}
+    if not state_dicts:
+        raise FileNotFoundError(f"{src} has neither model-best.pt.bin nor model.pt.bin")
+    if True not in state_dicts:
+        state_dicts[True] = state_dicts[False]
+    return model_name, settings, state_dicts, zmuv
+
+
+def import_reference_workspace(src_path, dst_path, model_name: Optional[str] = None):
+    """Write a reference workspace out as a port workspace (``settings.json``,
+    ``cmd-args.json``, ``zmuv.json``, ``model{-best}.pt``); returns the
+    ``Workspace``, which ``hub.load_workspace_engine(dst_path)`` serves."""
+    from howl_tpu_torch.workspace import Workspace
+
+    model_name, settings, state_dicts, zmuv = load_reference_workspace(src_path, model_name)
+    workspace = Workspace(Path(dst_path), delete_existing=False)
+    workspace.save_settings(settings)
+    (workspace.path / "cmd-args.json").write_text(json.dumps({"model": model_name}))
+    if zmuv is not None:
+        workspace.save_zmuv(zmuv)
+    for best, state_dict in state_dicts.items():
+        workspace.save_model(state_dict, best=best)
+    return workspace

@@ -59,7 +59,7 @@ from howl_tpu_torch.inference.detect import DetectState, apply_inference_weights
 from howl_tpu_torch.inference.engine import _not_ported
 from howl_tpu_torch.models.base import ModelSpec, model_spec, serve_in_weight_dtype
 from howl_tpu_torch.ops.frontend import FrontendConfig, log_mel_spectrogram
-from howl_tpu_torch.ops.frontend_cuda import frontend_grade, log_mel_spectrogram_cuda
+from howl_tpu_torch.ops.frontend_cuda import frontend_grade, log_mel_spectrogram_cuda, log_mel_spectrogram_plain
 from howl_tpu_torch.ops.tf32 import exact_float32, exact_if_float32
 
 _REBASE_AT = float(2**22)  # ms
@@ -70,10 +70,14 @@ def _rebase_times(state: DetectState, delta: float) -> DetectState:
     return state._replace(pred_times=state.pred_times - delta, label_times=state.label_times - delta)
 
 
-def chain_precision(precision):
-    """A frontend precision as the plain log-mel chain takes it: None for
-    the float32 grade, else the name of the grade."""
-    return None if frontend_grade(precision) == "f32" else precision
+def chain_log_mels(audio: torch.Tensor, frontend: FrontendConfig, precision) -> torch.Tensor:
+    """Log-mels (B, F, T) of the plain chain a hop runs at a frontend grade:
+    the chain's own float32 and "bf16" grades, and K1's plain version for
+    the grades the chain lacks ("bf16x3", "bf16x2")."""
+    grade = frontend_grade(precision)
+    if grade in ("f32", "bf16"):
+        return log_mel_spectrogram(audio, frontend, precision=None if grade == "f32" else grade)
+    return log_mel_spectrogram_plain(audio, frontend, precision=grade, layout="fm")
 
 
 class _HopEngine:
@@ -331,7 +335,7 @@ class IncrementalOnlineEngine(_HopEngine):
         """One hop on (N, hop_samples) device audio: (tail, ring, state,
         label, fired_now, new carry)."""
         buf = torch.cat([tail, new_audio], dim=-1)
-        mels = log_mel_spectrogram(buf, self._frontend_nc, precision=chain_precision(self._dft_precision))
+        mels = chain_log_mels(buf, self._frontend_nc, self._dft_precision)
         mels = (mels - self.zmuv_mean) / self.zmuv_std  # (N, F, stride_frames)
         ring = torch.cat([ring[..., self.stride_frames :], mels], dim=-1)  # oldest -> newest
         feats = ring[:, None].to(self.compute_dtype or torch.float32)

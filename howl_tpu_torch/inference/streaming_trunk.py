@@ -35,11 +35,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from howl_tpu_torch.inference.config import EngineConfig
+from howl_tpu_torch.inference.config import EngineConfig, hop_geometry
 from howl_tpu_torch.inference.detect import DetectState
-from howl_tpu_torch.inference.online import _HopEngine, chain_precision
+from howl_tpu_torch.inference.online import _HopEngine, chain_log_mels
 from howl_tpu_torch.models.base import ModelSpec
-from howl_tpu_torch.ops.frontend import FrontendConfig, log_mel_spectrogram
+from howl_tpu_torch.ops.frontend import FrontendConfig
 from howl_tpu_torch.ops.tf32 import exact_if_float32
 
 
@@ -159,6 +159,18 @@ class TrunkSchedule:
         }
 
 
+def trunk_schedule(cfg: EngineConfig, frontend: FrontendConfig, pool_t: int) -> TrunkSchedule:
+    """The schedule of a trunk engine on ``cfg`` and ``frontend`` whose stem
+    pools ``pool_t`` mel frames; the hub checks ``hop_block`` against its
+    period before it reads any weights."""
+    window_frames, stride_frames, _ = hop_geometry(cfg, frontend)
+    hop, n_fft = frontend.hop_length, frontend.n_fft
+    # the prefill's mel frontier: the last centered frame wholly inside the
+    # preroll (frame i spans [i*hop - n_fft/2, i*hop + n_fft/2))
+    m0 = (window_frames * hop - n_fft // 2) // hop + 1
+    return TrunkSchedule(m0, stride_frames, pool_t, max(window_frames // pool_t, 1))
+
+
 def make_chained_runner(engine: "FusedStreamingOnlineEngine", ring_hops: int, super_steps: int):
     """A bulk replay of hops through a freshly reset engine, for the bench:
     returns ``(run, init)``, and ``carry, last_fired = run(buf, *carry)``
@@ -256,11 +268,8 @@ class FusedStreamingOnlineEngine(_HopEngine):
         self.prefill_block = max(int(prefill_block), 1)
         hop, n_fft = frontend.hop_length, frontend.n_fft
         pool_t = self.model.pooling[0]
-        self.span = max(self.window_frames // pool_t, 1)
-        # the prefill's mel frontier: the last centered frame wholly inside the
-        # preroll (frame i spans [i*hop - n_fft/2, i*hop + n_fft/2))
-        self.m0 = (self.window_frames * hop - n_fft // 2) // hop + 1
-        self.schedule = TrunkSchedule(self.m0, self.stride_frames, pool_t, self.span)
+        self.schedule = trunk_schedule(cfg, frontend, pool_t)
+        self.span, self.m0 = self.schedule.span, self.schedule.m0
         self.hop_block = int(hop_block)
         p0 = (self.m0 - 1 - pool_t) // pool_t
         if self.hop_block == 1:
@@ -337,7 +346,7 @@ class FusedStreamingOnlineEngine(_HopEngine):
 
     def _mels(self, audio: torch.Tensor, frontend: FrontendConfig) -> torch.Tensor:
         """ZMUV'd log-mels (B, F, T) in float32 from the plain chain."""
-        mels = log_mel_spectrogram(audio, frontend, precision=chain_precision(self._dft_precision))
+        mels = chain_log_mels(audio, frontend, self._dft_precision)
         return (mels - self.zmuv_mean) / self.zmuv_std
 
     @torch.no_grad()

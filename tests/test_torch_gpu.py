@@ -1713,3 +1713,118 @@ def test_int8_fused_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         int8_trunk_fused_cuda(x, p._replace(w_scale=tuple(w.cpu() for w in p.w_scale)))
     with pytest.raises(RuntimeError, match="no backward"):
         int8_trunk_fused_cuda(x.requires_grad_(), p)
+
+
+# ---- the live serving surface: the hub's engines, the native mux ----
+
+
+def _serving_workspace(root, seed=5):
+    """A port workspace of seeded res8 weights, 500 ms windows every 62.5 ms,
+    40 mels, a one-word sequence."""
+    import json
+
+    from howl_tpu_torch import bench
+    from howl_tpu_torch.compat import res8_variables_to_state_dict
+    from howl_tpu_torch.ops.zmuv import ZmuvTransform
+    from howl_tpu_torch.settings import HowlSettings
+    from howl_tpu_torch.workspace import Workspace
+
+    settings = HowlSettings()
+    settings.load_dict({"audio_transform": {"num_mels": 40}, "inference_engine": {"inference_sequence": [1]},
+                        "training": {"vocab": ["hey", "fire", "fox"], "max_window_size_seconds": 0.5,
+                                     "eval_stride_size_seconds": 0.0625}})
+    ws = Workspace(root, delete_existing=False)
+    ws.save_settings(settings)
+    ws.save_zmuv(ZmuvTransform(-6.0, 52.0, 1000.0))
+    state = res8_variables_to_state_dict(bench.res8_numpy_variables(np.random.default_rng(seed), 4))
+    ws.save_model(state, best=True)
+    (root / "cmd-args.json").write_text(json.dumps({"model": "res8"}))
+    return root, state
+
+
+@pytest.mark.parametrize("kind", ["online", "incremental", "trunk"])
+def test_hub_engines_launch_the_kernels_as_direct_engines(cuda, tmp_path, kind):
+    """A hub-built engine on the card launches K1 and K2 as the same engine
+    built directly (K1 and K2 once an ``OnlineEngine`` hop, K2 once an
+    incremental hop, K2 once in the trunk's prefill) and decides as it does,
+    hop for hop, in float32 as the hub builds it."""
+    from howl_tpu_torch import hub
+    from howl_tpu_torch.inference import EngineConfig, FusedStreamingOnlineEngine, IncrementalOnlineEngine, OnlineEngine
+    from howl_tpu_torch.models import create_model
+    from howl_tpu_torch.settings import SETTINGS
+
+    ws, state = _serving_workspace(tmp_path)
+    flags = {"online": {}, "incremental": {"incremental": True}, "trunk": {"streaming_trunk": True}}[kind]
+    cls = {"online": OnlineEngine, "incremental": IncrementalOnlineEngine, "trunk": FusedStreamingOnlineEngine}[kind]
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    audio = torch.randn((8, 24000), generator=gen, device=cuda) * 0.1
+    runs = []
+    try:
+        for build in ("hub", "direct"):
+            for fn in (log_mel_spectrogram_cuda, res8_stem_cuda):
+                fn.launches = fn.launches_tc = 0
+            if build == "hub":
+                eng, ctx = hub.load_workspace_engine(ws, num_streams=8, device=cuda, **flags)
+            else:
+                eng = cls(create_model("res8", num_labels=4), state, EngineConfig.from_settings(ctx),
+                          FrontendConfig.from_settings(), -6.0, 4.0, num_streams=8, device=cuda)
+            hop, fired, probs = eng.hop_samples, [], []
+            for end in range(eng.window_samples if kind == "online" else hop, 24000 + 1, hop):
+                if kind == "online":
+                    eng.ingest(audio[:, end - eng.window_samples : end])
+                else:
+                    eng.push(audio[:, end - hop : end])
+                fired.append(eng.last_fired)
+                probs.append((eng.last_probs if kind == "trunk" else eng.state.pred_ring[:, -1]).cpu().numpy())
+            torch.cuda.synchronize()
+            runs.append(((log_mel_spectrogram_cuda.launches, res8_stem_cuda.launches), np.stack(fired),
+                         np.stack(probs), len(fired)))
+    finally:
+        SETTINGS.reset()
+    (hub_counts, hub_fired, hub_probs, hops), (direct_counts, direct_fired, direct_probs, _) = runs
+    assert hub_counts == direct_counts == {"online": (hops, hops), "incremental": (0, hops), "trunk": (0, 1)}[kind]
+    np.testing.assert_array_equal(hub_fired, direct_fired)
+    np.testing.assert_array_equal(hub_probs, direct_probs)
+
+
+def test_native_mux_holds_its_batches_under_producer_threads(cuda):
+    """Four producer threads push recognizable audio while the consumer
+    gathers: the compiled mux drops nothing with room to spare, and every
+    stream's consumed audio is its pushed sequence."""
+    import threading
+
+    from howl_tpu_torch.native import NativeStreamMux, available
+
+    assert available(), "the native mux must build on the card's host"
+    n_streams, total, hop = 4, 4096, 64
+    mux = NativeStreamMux(n_streams, capacity=8192)
+
+    def seq(s, start, n):
+        return (s * 1000.0 + start + np.arange(n)).astype(np.float32)
+
+    def producer(s):
+        rng = np.random.default_rng(s)
+        sent = 0
+        while sent < total:
+            n = min(int(rng.integers(1, 200)), total - sent)
+            mux.push(s, seq(s, sent, n))
+            sent += n
+
+    threads = [threading.Thread(target=producer, args=(s,)) for s in range(n_streams)]
+    for t in threads:
+        t.start()
+    consumed = [[] for _ in range(n_streams)]
+    for _ in range(10 * total // hop):
+        batch, status = mux.gather(hop)
+        assert (status != -1).all(), "an overrun with room to spare"
+        for s in np.flatnonzero(status == 1):
+            consumed[s].append(batch[s])
+        if all(not t.is_alive() for t in threads) and all(mux.pending(s) < hop for s in range(n_streams)):
+            break
+    for t in threads:
+        t.join(timeout=30)
+        assert not t.is_alive()
+    for s in range(n_streams):
+        got = np.concatenate(consumed[s])
+        assert len(got) >= total - hop + 1
+        np.testing.assert_array_equal(got, seq(s, 0, len(got)))

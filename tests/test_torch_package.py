@@ -46,7 +46,7 @@ def test_imports_without_jax_or_flax():
     )
     assert proc.returncode == 0, proc.stderr
     names = proc.stdout.split()
-    assert len(names) >= 69  # every module of every slice, training, its entry point and the tools included, was imported
+    assert len(names) >= 89  # every module of every slice, training, its entry points, serving and the tools, was imported
     for module in ("inference.engine", "training.step", "tools.bench_pallas_micro", "tools.bench_hbm_sweep",
                    "tools.hbm_sweep_kernels", "tools._study", "bench", "tools.validate_tpu_decisions",
                    "tools.ablate_serving_slope", "tools.ablate_train_step", "tools.reconcile_train_f32",
@@ -54,7 +54,12 @@ def test_imports_without_jax_or_flax():
                    "training.run.train", "workspace", "settings", "context", "models.metric", "data.noise_bank",
                    "data.transform.batchifier", "data.dataset.dataset", "data.dataset.dataset_loader",
                    "data.common.labeler", "data.common.searcher", "utils.audio_utils", "utils.tb_events",
-                   "utils.parallel", "utils.hash_utils", "utils.logger", "utils.args_utils"):
+                   "utils.parallel", "utils.hash_utils", "utils.logger", "utils.args_utils",
+                   # the live serving surface and its tools
+                   "hub", "client", "client.howl_client", "client.stream_server", "native", "inference.capacity",
+                   "training.run.import_workspace", "tools.bench_stream_mux", "tools._trunk_setup",
+                   "tools.bench_streaming_trunk", "tools.bench_trunk_blocked", "tools.ablate_trunk_step",
+                   "tools.bench_online_dft_precision", "tools.gen_capacity_table"):
         assert f"howl_tpu_torch.{module}" in names
 
 
