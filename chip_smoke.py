@@ -245,6 +245,16 @@ them. In order it:
      ``bench_online_dft_precision``: "bf16x3" against "bf16"), every time finite and positive; (e) runs
      ``gen_capacity_table --calibrate 1024,16384,65536 --steps 16`` (server ticks of the push engines) and prints
      the measured points beside the committed profiles' model;
+ 17d. the config-driven ``Trainer`` and the wake-word experiment harness on phase 17's corpora, res8 in float32:
+     (a) a ``TrainingConfig`` of phase 17's recipe, written by ``Workspace.save_config`` and read back equal, trained
+     by ``Trainer.train`` with ``--use-timestretch`` (6 epochs of 10 steps): K3 once a step, K1 and K2 once an
+     evaluator batch, ``model-best.pt`` and ``training_config.json`` written; (b) ``eval_wake_word_detection.run -n
+     2 --sharded-seeds`` (40 epochs of 10 sweep steps): K3 once a sweep step over both seeds' 32 examples, not once a
+     seed, K1 and K2 once an evaluator batch of the seeds' threshold sweeps, the seeds' weights different, the clean
+     report with a row for every set, threshold and metric and tp + fn the positive set's size at every threshold,
+     ``generate_roc.load_metrics`` reading it; each seed's first-step loss equal to its own single-model step's
+     within 1e-6 relative; it prints the sweep's steps/s against two single-seed runs on the same batches (in
+     turns, after a warm-up pass of each) and the phase's seconds;
  18. (d) runs the bench, ``howl_tpu_torch.bench.main``, which prints its
      JSON line (``bench.py``'s keys, each measured key the median of 5
      repeats with its spread); every measured key must be finite and
@@ -252,7 +262,8 @@ them. In order it:
      stream count of ``bench.py``, and its ``rungs["int8"]`` must name the
      fused kernel, one launch a batch;
  19. prints one JSON line with each of the seventeen kernels' launches (K1's also on each family's
-     paths of phases 11b and 11c, K3's also on each training run of phase 17b), error and times
+     paths of phases 11b and 11c and K1's and K2's on phase 17d's harness, K3's also on each training run of
+     phase 17b and on phase 17d's Trainer and seed sweep), error and times
      beside its plain version's and its bound on this card (the larger of
      its bytes over 3.35 TB/s and its operations over the peak rate of
      their type, both counted from this run's shapes: what the function
@@ -334,6 +345,11 @@ FAMILY_LIVE_HOPS = 24  # chained hops of each family's live engines (phase 11c):
 # of each, 6 dev and 6 test of each) and 12 noise clips; 60 epochs of 10 steps separate it on the CPU by 40
 ENTRY_CORPUS, ENTRY_EPOCHS, ENTRY_STEPS, ENTRY_RESUME_EPOCHS = 24, 60, 10, 2
 FAMILY_TRAIN_EPOCHS = 30  # each family's training through the entry point (phase 17b), chosen once for the time
+# the config-driven Trainer and the experiment harness (phase 17d): the Trainer's epochs of ENTRY_STEPS steps with
+# time-stretching on, the harness's seeds and epochs of ENTRY_STEPS sweep steps (enough that its seeds fire on some
+# clips, so the reports' curves move), and the tolerance of a seed's first-step loss against its own single-model
+# step (tests/test_torch_seed_sweep.py's)
+CONFIG_EPOCHS, HARNESS_SEEDS, HARNESS_EPOCHS, SWEEP_LOSS_RTOL = 6, 2, 40, 1e-6
 # the serving surface (phase 17c): silence after each clip on the live engines (the trunk engine decides lag hops
 # late), the multi-stream server's streams and ticks, the live tools' streams (the first live bottleneck's size),
 # their DFT-grade samples, and the capacity calibration's stream counts (the bench's latency counts)
@@ -2624,6 +2640,177 @@ def drive_serving_surface(dev, state_dict, zmuv: dict) -> dict:
     return out
 
 
+def drive_config_and_harness(dev) -> dict:
+    """(17d) On phase 17's tone corpus and noise corpus (``entry_workdir``), res8 in float32: (a) a
+    ``TrainingConfig`` of phase 17's recipe, written with ``Workspace.save_config`` and read back equal with
+    ``load_config``, trained by ``Trainer.train`` with ``--use-timestretch`` for ``CONFIG_EPOCHS`` epochs of
+    ``ENTRY_STEPS`` steps: K3 once a step, K1 and K2 once an evaluator batch, ``model-best.pt`` and
+    ``training_config.json`` written, the results holding ``test_pos``; (b) the experiment harness,
+    ``eval_wake_word_detection.run -n 2 --sharded-seeds``, ``HARNESS_EPOCHS`` epochs of ``ENTRY_STEPS`` sweep
+    steps: K3 once a sweep step (not once a seed), K1 and K2 once an evaluator batch of the two seeds' threshold
+    sweeps, the seeds' weights different, ``reports/report_clean.csv`` with a row for every set, threshold and
+    metric and tp + fn the positive set's size at every threshold, ``generate_roc.load_metrics`` reading it; each
+    seed's first-step loss equal to its own single-model step's at its key within ``SWEEP_LOSS_RTOL``; then the
+    sweep's steps/s against two single-seed runs on the same ``ENTRY_STEPS`` batches, after a warm-up pass of each,
+    in turns (sweep, singles, singles, sweep). Prints the phase's seconds and the card's name and power limit.
+    Returns the launch counts and rates."""
+    import argparse
+    import os
+    from pathlib import Path
+
+    import torch
+
+    from howl_tpu_torch.config import ContextConfig, DatasetConfig, ModelConfig, TrainingConfig
+    from howl_tpu_torch.context import InferenceContext
+    from howl_tpu_torch.data.dataset.dataset_loader import WakeWordDatasetLoader
+    from howl_tpu_torch.ops.tf32 import exact_float32
+    from howl_tpu_torch.parallel import make_seed_sweep_step
+    from howl_tpu_torch.settings import SETTINGS
+    from howl_tpu_torch.trainer import Trainer
+    from howl_tpu_torch.training.run import eval_wake_word_detection as harness
+    from howl_tpu_torch.training.run import train
+    from howl_tpu_torch.training.run.generate_roc import load_metrics
+    from howl_tpu_torch.workspace import Workspace
+
+    print(bench.card_line())
+    t_phase = time.perf_counter()
+    out = {}
+    with entry_workdir():
+        # (a) the Trainer from a TrainingConfig, phase 17's recipe
+        cfg = TrainingConfig(
+            batch_size=16, learning_rate=0.01, num_epochs=CONFIG_EPOCHS, lr_decay=0.955, weight_decay=0.00001,
+            max_window_size_seconds=0.5, use_noise_dataset=True,
+            noise_datasets=[DatasetConfig(path=ENTRY_RECIPE["NOISE_DATASET_PATH"])],
+            train_datasets=[DatasetConfig(path="ww")],
+            context_config=ContextConfig(vocab=["hey", "fire", "fox"], sequence=[0, 1, 2]),
+            model_config=ModelConfig(architecture="res8"),
+        )
+        cfg.train_datasets[0].audio_transform_config.num_mels = N_MELS
+        Workspace(Path("cfg_ws")).save_config(cfg)
+        loaded = Workspace(Path("cfg_ws"), delete_existing=False).load_config()
+        if loaded != cfg or cfg.workspace_path != "cfg_ws":
+            raise AssertionError(f"save_config / load_config: {loaded} != {cfg}")
+        stats = train.LoopStats()
+        _zero_launch_counts()
+        results = Trainer(loaded).train(["--device", "cuda", "--use-timestretch", "--steps-per-epoch", str(ENTRY_STEPS)],
+                                        stats)
+        torch.cuda.synchronize()
+        counts = _launch_counts()
+        loop_s = stats.prep_s + stats.step_s
+        print(f"17d (a) Trainer from a TrainingConfig, --use-timestretch: {stats.steps} steps, {stats.steps / loop_s:.1f} "
+              f"steps/s (host batch preparation with the stretch {stats.prep_s:.3f} s, train step {stats.step_s:.3f} s), "
+              f"epoch losses {stats.epoch_losses[0]!r} -> {stats.epoch_losses[-1]!r}; {stats.eval_batches} evaluator "
+              f"batches; launches K1 {counts['k1']}, K2 {counts['k2']}, K3 {counts['k3']}; test positives fired "
+              f"{results['test_pos']['tp']} of {results['test_pos']['tp'] + results['test_pos']['fn']}")
+        if counts["k3"] != stats.steps or stats.steps != CONFIG_EPOCHS * ENTRY_STEPS:
+            raise AssertionError(f"17d (a): K3 launched {counts['k3']} times in {stats.steps} steps")
+        if (counts["k1"], counts["k2"]) != (stats.eval_batches, stats.eval_batches):
+            raise AssertionError(f"17d (a): K1 {counts['k1']}, K2 {counts['k2']} for {stats.eval_batches} evaluator batches")
+        for name in ("model-best.pt", "training_config.json"):
+            if not Path("cfg_ws", name).exists():
+                raise AssertionError(f"17d (a): the Trainer wrote no {name}")
+        if "test_pos" not in results or not np.isfinite(stats.epoch_losses).all():
+            raise AssertionError(f"17d (a): results {sorted(results)}, losses {stats.epoch_losses}")
+        out["k3_trainer"], out["k1_trainer"] = counts["k3"], counts["k1"]
+
+        # (b) the harness: two seeds in one sweep, then every seed's threshold sweep and the reports
+        os.environ["NUM_EPOCHS"] = str(HARNESS_EPOCHS)
+        SETTINGS.reset()
+        argv = ["--workspace", "exp", "-i", "ww", "-n", str(HARNESS_SEEDS), "--sharded-seeds", "--steps-per-epoch",
+                str(ENTRY_STEPS), "--device", "cuda"]
+        stats = train.LoopStats()
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        record = harness.run(argv, stats)
+        torch.cuda.synchronize()
+        harness_s = time.perf_counter() - t0
+        counts = _launch_counts()
+        sweep = record["train"]
+        print(f"17d (b) harness -n {HARNESS_SEEDS} --sharded-seeds: {sweep['steps']} sweep steps "
+              f"({sweep['steps'] / sweep['step_s']:.1f} sweep steps/s in the harness's loop), {stats.eval_batches} "
+              f"evaluator batches, {len(record['thresholds'])} thresholds, {harness_s:.1f} s; launches K1 {counts['k1']}, "
+              f"K2 {counts['k2']}, K3 {counts['k3']}; per-seed epoch losses {sweep['epoch_losses']}")
+        if counts["k3"] != sweep["steps"] or sweep["steps"] != HARNESS_EPOCHS * ENTRY_STEPS:
+            raise AssertionError(f"17d (b): K3 launched {counts['k3']} times in {sweep['steps']} sweep steps of "
+                                 f"{HARNESS_SEEDS} seeds (once a sweep step expected)")
+        if (counts["k1"], counts["k2"]) != (stats.eval_batches, stats.eval_batches) or not stats.eval_batches:
+            raise AssertionError(f"17d (b): K1 {counts['k1']}, K2 {counts['k2']} for {stats.eval_batches} evaluator batches")
+        weights = [torch.load(Path("exp", f"seed_{s}", "model-best.pt"), weights_only=True) for s in range(HARNESS_SEEDS)]
+        if all(torch.equal(weights[0][k], weights[1][k]) for k in weights[0]):
+            raise AssertionError("17d (b): the two seeds' workspaces hold the same weights")
+        ctx = InferenceContext(vocab=["hey", "fire", "fox"])
+        _, dev_ds, test_ds = WakeWordDatasetLoader().load_splits(Path("ww"), sample_rate=SAMPLE_RATE, mono=True,
+                                                                 frame_labeler=ctx.labeler)
+        positives = {split: sum(bool(ctx.searcher.search(ds.metadata_list[i].transcription)) for i in range(len(ds)))
+                     for split, ds in (("Dev", dev_ds), ("Test", test_ds))}
+        rows = Path("exp", "reports", "report_clean.csv").read_text().splitlines()[1:]
+        table = {(r.split(",")[0], float(r.split(",")[1]), r.split(",")[2]): float(r.split(",")[3]) for r in rows}
+        sets = [f"{split} {kind}" for split in ("Dev", "Test") for kind in ("positive", "negative")]
+        metrics = ("tp", "tn", "fp", "fn", "tp_rate", "fah")
+        if set(table) != {(n, float(t), m) for n in sets for t in record["thresholds"] for m in metrics}:
+            raise AssertionError("17d (b): report_clean.csv lacks a row of a set, threshold or metric")
+        for split, size in positives.items():
+            bad = [t for t in record["thresholds"]
+                   if table[(f"{split} positive", float(t), "tp")] + table[(f"{split} positive", float(t), "fn")] != size]
+            if bad or not size:
+                raise AssertionError(f"17d (b): {split} positives: tp + fn != {size} at thresholds {bad}")
+        points = load_metrics(Path("exp", "reports", "report_clean.csv"), "Test")
+        if len(points) != len(record["thresholds"]):
+            raise AssertionError(f"17d (b): load_metrics read {len(points)} points for {len(record['thresholds'])} thresholds")
+        print("17d (b) Test ROC (threshold, false alarms an hour, false rejection rate): "
+              + ", ".join(f"({t}, {fah:.1f}, {frr:.2f})" for t, fah, frr in points[::4]))
+
+        # each seed's first sweep step against its own single-model step, then the sweep's rate against single seeds
+        SETTINGS.reset()
+        args = argparse.Namespace(model="res8", dataset_paths=["ww"], use_stitched_datasets=False, use_augment=True,
+                                  steps_per_epoch=ENTRY_STEPS)
+        seeds = list(range(HARNESS_SEEDS))
+        setup = harness.seed_training(args, seeds, dev)
+        batches = setup.batches()
+        batches = [next(batches) for _ in range(ENTRY_STEPS)]
+        with exact_float32():
+            first = []
+            for s in seeds:
+                state = setup.create_states([s])[0]
+                _, m = setup.train_step(state, *(x[s] for x in batches[0]), s)
+                first.append(float(m["loss"]))
+            want = sweep["step_losses"][0].tolist()
+            print(f"17d seed sweep: first-step losses {[repr(x) for x in want]}, each seed's single-model step at its key "
+                  f"{[repr(x) for x in first]}")
+            if any(abs(a - b) > SWEEP_LOSS_RTOL * abs(b) for a, b in zip(want, first)):
+                raise AssertionError(f"17d: the sweep's first-step losses {want} are not the single steps' {first}")
+            states, step = setup.create_states(), make_seed_sweep_step(setup.train_step)
+            singles = [setup.create_states([s])[0] for s in seeds]
+
+            def sweep_pass() -> float:
+                t0 = time.perf_counter()
+                for batch in batches:
+                    _, m = step(states, *batch, seeds)
+                    m["loss"].cpu()
+                return time.perf_counter() - t0
+
+            def singles_pass() -> float:
+                t0 = time.perf_counter()
+                for s, state in zip(seeds, singles):
+                    for batch in batches:
+                        _, m = setup.train_step(state, *(x[s] for x in batch), s)
+                        float(m["loss"])
+                return time.perf_counter() - t0
+
+            sweep_pass(), singles_pass()  # a warm-up pass of each
+            turns = [fn() for fn in (sweep_pass, singles_pass, singles_pass, sweep_pass)]
+        out["sweep_steps_per_s"] = sorted(ENTRY_STEPS / t for t in turns[::3])
+        out["singles_steps_per_s"] = sorted(ENTRY_STEPS / t for t in turns[1:3])
+        print(f"17d seed sweep on the same {ENTRY_STEPS} batches on the device (host clock, each loss read back; a warm-up "
+              f"pass of each, then in turns sweep, singles, singles, sweep: {', '.join(f'{t:.3f}' for t in turns)} s): "
+              f"{HARNESS_SEEDS} seeds in one sweep {out['sweep_steps_per_s'][0]:.1f}-{out['sweep_steps_per_s'][1]:.1f} "
+              f"sweep steps/s, {HARNESS_SEEDS} single-seed runs one after another "
+              f"{out['singles_steps_per_s'][0]:.1f}-{out['singles_steps_per_s'][1]:.1f} steps/s of all seeds")
+        out["k3_sweep"], out["k1_harness"], out["k2_harness"] = counts["k3"], counts["k1"], counts["k2"]
+    print(f"17d config-driven Trainer and experiment harness: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def drive_families_train(dev) -> dict:
     """(17b) Each of the seven other families trained through the entry point on the card with ``--bf16`` (flax's
     mixed precision over float32 masters), on phase 17's tone corpus and recipe (``entry_workdir``: the noise corpus
@@ -3116,6 +3303,10 @@ def main() -> int:
     k1["launches_serving"] = {tag: c["k1"] for tag, c in serving["launches"].items()}
     k2["launches_serving"] = {tag: c["k2"] for tag, c in serving["launches"].items()}
     lap("serving surface")
+    harness = drive_config_and_harness(dev)
+    k1["launches_harness"], k2["launches_harness"] = harness["k1_harness"], harness["k2_harness"]
+    k3["launches_trainer"], k3["launches_seed_sweep"] = harness["k3_trainer"], harness["k3_sweep"]
+    lap("config-driven trainer and harness")
     check_bench_record(bench.main(["--device", "cuda"]))
     lap("bench (d)")
     print("phase seconds: " + ", ".join(f"{name} {sec:.1f}" for name, sec in laps))

@@ -18,8 +18,11 @@ served offline and live (``inference/online.py``; res8 also by
 noise-bank mix (``ops/augment_cuda.py``) is the third kernel; the training
 entry point ``python -m howl_tpu_torch.training.run.train`` for every model
 with its settings, datasets, batchifiers, noise banks, workspace and batched
-evaluator; the bench (``python -m howl_tpu_torch.bench``) and the kernel
-studies (``tools/``).
+evaluator; the config-driven ``Trainer`` and the wake-word experiment
+harness (N seeds trained at once on one card, a threshold sweep, reports
+and ROC tools); the serving surface (``hub``, ``client``, ``native``); the
+bench (``python -m howl_tpu_torch.bench``) and the kernel studies
+(``tools/``).
 """
 
 __version__ = "0.1.0"

@@ -30,8 +30,6 @@ from dataclasses import replace
 from pathlib import Path
 from typing import Optional, Tuple
 
-import torch
-
 from howl_tpu_torch import compat
 from howl_tpu_torch.context import InferenceContext
 from howl_tpu_torch.inference.capacity import CapacityError, CapacityWarning, check_capacity, recommend
@@ -41,17 +39,13 @@ from howl_tpu_torch.inference.streaming_trunk import FusedStreamingOnlineEngine,
 from howl_tpu_torch.models import ConvertedStaticModel, create_model, model_spec
 from howl_tpu_torch.ops.frontend import FrontendConfig
 from howl_tpu_torch.settings import SETTINGS
+from howl_tpu_torch.utils.platform import resolve_device
 from howl_tpu_torch.workspace import Workspace
 
 # published model name -> (architecture, workspace path inside howl-models)
 PRETRAINED_MODELS = {
     "hey_fire_fox": ("res8", "howl/hey-fire-fox"),
 }
-
-
-def _check_device(device) -> None:
-    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but CUDA is not available")
 
 
 def _workspace_header(path: Path, model_name: Optional[str]) -> Tuple[str, bool]:
@@ -161,7 +155,7 @@ def load_workspace_engine(
     if carry_hops and streaming_trunk:
         raise ValueError("carry_hops applies to recurrent models on the window-scoring engines; "
                          "the streaming-trunk engine serves the res8 family only")
-    _check_device(device)
+    resolve_device(device)
 
     # the checks that need the model: settings.json and cmd-args.json read, no weights yet
     path = Path(workspace_path)
@@ -225,7 +219,7 @@ def load_workspace_streaming_engine(workspace_path, model_name: Optional[str] = 
     Offline scoring has no cadence to miss, so no capacity check applies."""
     from howl_tpu_torch.inference.engine import StreamingEngine
 
-    _check_device(device)
+    resolve_device(device)
     model, spec, state_dict, cfg, frontend, zmuv, ctx = _load_workspace_stack(workspace_path, model_name, best)
     engine = StreamingEngine(model, state_dict, cfg, frontend, zmuv.mean, zmuv.std, spec=spec, device=device,
                              **engine_kwargs)

@@ -1,6 +1,8 @@
 """Training (counterpart of ``howl_tpu/training``): the train state, the
 objectives (frame cross-entropy and CTC), the train and eval steps for every
-model of the zoo, and the entry point
+model of the zoo, the entry point
 ``python -m howl_tpu_torch.training.run.train`` with its checkpoints
-(``howl_tpu_torch/workspace.py``). ``trainer.py`` and ``config.py`` wait for
-ROADMAP Queue 1, item 14."""
+(``howl_tpu_torch/workspace.py``), the config-driven ``Trainer``
+(``howl_tpu_torch/trainer.py``, ``config.py``) and the wake-word experiment
+harness with its seed sweep on one card (``training/run/
+eval_wake_word_detection.py``, ``parallel/seed_sweep.py``)."""

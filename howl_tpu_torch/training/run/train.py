@@ -17,8 +17,10 @@ trunk-span training for res8 and ``--bf16`` (flax's mixed precision) over
 float32 masters for any family, dev evaluation every ``--eval-freq`` epochs
 keeping the best checkpoint, the final clean and noisy dev and test sweeps
 with ``errors.tsv``, the ``--eval`` mode's ``<threshold>_results.csv``, and
-``--resume`` from the whole train state. The flags are the JAX entry
-point's, plus ``--device``.
+``--resume`` from the whole train state, and with ``--use-timestretch``
+(and augmentation on) each step's sampled clips time-stretched on the host
+before they are windowed (``ops/timestretch.py``). The flags are the JAX
+entry point's, plus ``--device``.
 
 The device is the card (``--device``, default ``SETTINGS.training.device``,
 ``"cuda"``); without one the run raises unless given ``--device cpu``. On
@@ -38,8 +40,7 @@ scores in bf16 from the exact float32 frontend, as the JAX evaluator does.
 Without ``--bf16`` each train step runs with TF32 off whatever the caller's
 global ``allow_tf32`` flags (``ops/tf32.py``), as the float32 engine scores.
 
-Refused, each with its ROADMAP item: ``--use-timestretch`` and more than
-one device (item 12).
+Refused, with its ROADMAP item: more than one device (item 12).
 """
 
 from __future__ import annotations
@@ -65,6 +66,7 @@ from howl_tpu_torch.models import MODEL_REGISTRY, ConfusionMatrix, ConvertedStat
 from howl_tpu_torch.models.base import model_spec
 from howl_tpu_torch.ops.augment import AugmentConfig
 from howl_tpu_torch.ops.frontend import FrontendConfig
+from howl_tpu_torch.ops.timestretch import TimestretchSampleAugment
 from howl_tpu_torch.ops.tf32 import exact_float32, is_float32
 from howl_tpu_torch.ops.zmuv import fit_zmuv
 from howl_tpu_torch.settings import SETTINGS
@@ -79,23 +81,13 @@ from howl_tpu_torch.utils import hash_utils
 from howl_tpu_torch.utils.args_utils import ArgumentParserBuilder, opt
 from howl_tpu_torch.utils.audio_utils import wav_num_samples
 from howl_tpu_torch.utils.logger import Logger
+from howl_tpu_torch.utils.platform import resolve_device
 from howl_tpu_torch.utils.random_utils import set_random_seed
 from howl_tpu_torch.workspace import Workspace
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to PyTorch yet (ROADMAP Queue 1, {item})")
-
-
-def resolve_device(name: str) -> torch.device:
-    """The device a run asks for: a CUDA device that exists, or the CPU.
-    Nothing falls back to the CPU by itself."""
-    if str(name).split(":")[0] not in ("cuda", "cpu"):
-        raise ValueError(f"device {name!r}: the port trains on 'cuda' or 'cpu'")
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {name!r} requested but CUDA is not available (pass --device cpu to run on the CPU)")
-    return device
 
 
 def build_noise_bank(
@@ -279,7 +271,12 @@ def _parser() -> ArgumentParserBuilder:
             "and logits pool the central window span of clip-contextual trunk "
             "features, matching the engine's fused clip-level scoring",
         ),
-        opt("--use-timestretch", action="store_true", help="not ported yet (ROADMAP Queue 1, item 12)"),
+        opt(
+            "--use-timestretch",
+            action="store_true",
+            help="time-stretch the sampled clips on the host before windowing (phase vocoder, rate ~ N(1, 0.2) "
+            "clipped to [0.3, 1.7]); applies only with augmentation on",
+        ),
         opt(
             "--bf16",
             action="store_true",
@@ -328,8 +325,6 @@ def run(args=None, stats: Optional[LoopStats] = None) -> dict:
     if not use_frame and not spec.is_sequential:
         raise ValueError(f"the CTC objective trains a sequential model (seq-lstm, seq-cnn, or any model with "
                          f"CONVERT_STATIC); {args.model!r} scores one window at a time")
-    if args.use_timestretch:
-        raise _not_ported("--use-timestretch (ops/timestretch.py)", "item 12")
     if args.num_devices not in (0, 1):
         raise _not_ported(f"--num-devices {args.num_devices} (data parallelism over several cards)", "item 12")
 
@@ -559,6 +554,10 @@ def run(args=None, stats: Optional[LoopStats] = None) -> dict:
 
     key = SETTINGS.training.seed + 1  # the step folds in its own count (training/step.py: step_generator)
     rng = np.random.default_rng(SETTINGS.training.seed)
+    # whole clips stretched before the batchifier windows them: the stretch changes lengths and label times
+    timestretch = None
+    if args.use_timestretch and args.use_augment:
+        timestretch = TimestretchSampleAugment(seed=SETTINGS.training.seed)
     for epoch_idx in range(SETTINGS.training.num_epochs):
         order = rng.permutation(len(ww_train))
         losses = []
@@ -566,7 +565,10 @@ def run(args=None, stats: Optional[LoopStats] = None) -> dict:
             for start in range(0, steps_per_epoch * batch_size, batch_size):
                 t0 = time.perf_counter()
                 idxs = [int(order[(start + j) % len(order)]) for j in range(batch_size)]
-                batch = batchifier([ww_train[i] for i in idxs])
+                samples = [ww_train[i] for i in idxs]
+                if timestretch is not None:
+                    samples = timestretch(samples)
+                batch = batchifier(samples)
                 lengths = (batch.lengths,) if use_frame else (batch.audio_lengths, batch.label_lengths)
                 audio, labels, *lengths = (torch.from_numpy(np.asarray(x)).to(device)
                                            for x in (batch.audio_data, batch.labels, *lengths))

@@ -160,7 +160,7 @@ class NoiseBankTrainStep:
     step: (state, audio, labels, lengths, key, draws=None)."""
 
     def __init__(self, step: Callable, noise_bank):
-        self._step = step
+        self.inner = step  # the bankless step, which takes the prepared bank as ``noise_bank``
         self._prepared: dict = {}
         self._bank = None
         self.set_bank(noise_bank)
@@ -185,7 +185,7 @@ class NoiseBankTrainStep:
         return prep
 
     def __call__(self, state, audio, *rest, **kw):
-        return self._step(state, audio, *rest, noise_bank=self.prepared_for(audio.shape[-1], audio.device), **kw)
+        return self.inner(state, audio, *rest, noise_bank=self.prepared_for(audio.shape[-1], audio.device), **kw)
 
 
 def make_classification_train_step(model, cfg: StepConfig, noise_bank=None) -> Callable:
@@ -195,11 +195,14 @@ def make_classification_train_step(model, cfg: StepConfig, noise_bank=None) -> C
     With a noise bank the callable is a ``NoiseBankTrainStep`` whose bank
     ``set_bank`` replaces. ``lengths`` (true samples, or None) reach the
     model as frame lengths (``frame_lengths``); res8 scores whole windows
-    whatever they are."""
+    whatever they are. ``gen``, when given, is the step's generator
+    (``step_generator(key, state.step)``) already past the draws, as the
+    seed sweep passes it; the callable's ``cfg`` is ``cfg``."""
 
-    def train_step(state: TrainState, audio, labels, lengths, key, draws: Optional[StepDraws] = None, noise_bank=None):
+    def train_step(state: TrainState, audio, labels, lengths, key, draws: Optional[StepDraws] = None, noise_bank=None,
+                   gen: Optional[torch.Generator] = None):
         b, n = audio.shape
-        gen = step_generator(key, state.step, audio.device)
+        gen = gen if gen is not None else step_generator(key, state.step, audio.device)
         if draws is None:
             draws = draw_step(gen, cfg, b, n, noise_bank)
         _, replaced, feats = _features(audio, cfg, draws, noise_bank)
@@ -214,6 +217,7 @@ def make_classification_train_step(model, cfg: StepConfig, noise_bank=None) -> C
         acc = (logits.detach().argmax(-1) == labels).float().mean()
         return state, {"loss": loss.detach(), "accuracy": acc}
 
+    train_step.cfg = cfg
     if noise_bank is None:
         return train_step
     return NoiseBankTrainStep(train_step, noise_bank)
@@ -240,13 +244,14 @@ def make_ctc_train_step(model, cfg: StepConfig, noise_bank=None) -> Callable:
     ``max(compute_lengths(audio_lengths), 1)`` into the model, its output
     lengths through ``model.compute_length`` clipped to its frames, and
     ``ctc_loss`` with ``cfg.blank_label``. With a noise bank the callable is
-    a ``NoiseBankTrainStep``."""
+    a ``NoiseBankTrainStep``; ``gen`` and ``cfg`` as the classification
+    step's."""
     cfg = cfg._replace(replace_prob=0.0)
 
     def train_step(state: TrainState, audio, labels, audio_lengths, label_lengths, key,
-                   draws: Optional[StepDraws] = None, noise_bank=None):
+                   draws: Optional[StepDraws] = None, noise_bank=None, gen: Optional[torch.Generator] = None):
         b, n = audio.shape
-        gen = step_generator(key, state.step, audio.device)
+        gen = gen if gen is not None else step_generator(key, state.step, audio.device)
         if draws is None:
             draws = draw_step(gen, cfg, b, n, noise_bank)
         _, _, feats = _features(audio, cfg, draws, noise_bank)
@@ -260,6 +265,7 @@ def make_ctc_train_step(model, cfg: StepConfig, noise_bank=None) -> Callable:
         loss, _ = _train_forward(state, gen, draws, forward)
         return state, {"loss": loss.detach()}
 
+    train_step.cfg = cfg
     if noise_bank is None:
         return train_step
     return NoiseBankTrainStep(train_step, noise_bank)

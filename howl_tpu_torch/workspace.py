@@ -11,16 +11,17 @@ Layout inside a workspace directory:
   zmuv.json                      — fitted ZMUV statistics
   settings.json                  — settings snapshot
   cmd-args.json                  — CLI invocation record
+  training_config.json           — ``TrainingConfig`` snapshot (config-driven runs)
   metrics.jsonl                  — append-only scalar log (time, step, name, value)
   logs/                          — the same scalars as TensorBoard event files
   errors.tsv                     — the evaluator's misclassified clips
 
-``zmuv.json``, ``settings.json``, ``cmd-args.json``, ``metrics.jsonl``,
-``logs/`` and ``errors.tsv`` have the JAX workspace's names and formats. The
-checkpoints do not: the JAX package writes flax msgpack (``.flax``), which
-this package does not read. Weights trained by the JAX package come across
-through ``howl_tpu_torch.compat``. ``save_config``/``load_config`` wait for
-``config.py`` (ROADMAP Queue 1, item 14).
+``zmuv.json``, ``settings.json``, ``cmd-args.json``,
+``training_config.json``, ``metrics.jsonl``, ``logs/`` and ``errors.tsv``
+have the JAX workspace's names and formats. The checkpoints do not: the JAX
+package writes flax msgpack (``.flax``), which this package does not read.
+Weights trained by the JAX package come across through
+``howl_tpu_torch.compat``.
 """
 
 from __future__ import annotations
@@ -133,14 +134,17 @@ class Workspace:
         return settings
 
     def save_config(self, training_config, training_config_path: Optional[Path] = None):
-        raise NotImplementedError(
-            "Workspace.save_config (TrainingConfig) is not ported to PyTorch yet (ROADMAP Queue 1, item 14: config.py)"
-        )
+        """Persist a TrainingConfig snapshot (ref workspace.py:83-96); the
+        config's ``workspace_path`` becomes this workspace."""
+        path = Path(training_config_path) if training_config_path else self.path / "training_config.json"
+        training_config.workspace_path = str(self.path)
+        path.write_text(training_config.json(indent=4))
 
     def load_config(self, training_config_path: Optional[Path] = None):
-        raise NotImplementedError(
-            "Workspace.load_config (TrainingConfig) is not ported to PyTorch yet (ROADMAP Queue 1, item 14: config.py)"
-        )
+        from howl_tpu_torch.config import TrainingConfig
+
+        path = Path(training_config_path) if training_config_path else self.path / "training_config.json"
+        return TrainingConfig.parse_file(path)
 
     def write_args(self, args):
         data = {k: v for k, v in vars(args).items() if not k.startswith("_")}

@@ -1828,3 +1828,65 @@ def test_native_mux_holds_its_batches_under_producer_threads(cuda):
         got = np.concatenate(consumed[s])
         assert len(got) >= total - hop + 1
         np.testing.assert_array_equal(got, seq(s, 0, len(got)))
+
+
+# ---- the seed sweep: all seeds' noise mixed in one K3 launch ----
+
+
+@pytest.mark.parametrize("s,b,n,bank_w", [(2, 16, 8000, 10240), (4, 1024, 8000, 32000), (3, 7, 7919, 5000)],
+                         ids=["2x16", "4x1024", "3x7-ragged-narrow"])
+def test_mix_kernel_stacked_over_seeds_matches_plain_bitwise(cuda, s, b, n, bank_w):
+    """K3 over S x B examples in one launch, as a sweep step makes it, against
+    its plain version on the stacked rows and against S launches of B rows."""
+    gen = torch.Generator(device=cuda).manual_seed(s * b)
+    bank = aug.prepare_noise_bank(torch.randn((8, bank_w), generator=gen, device=cuda) * 0.1, n)
+    audio = torch.randn((s, b, n), generator=gen, device=cuda) * 0.3
+    draws = [aug.draw_mix_noise_bank(torch.Generator(device=cuda).manual_seed(i), b, bank, aug.AugmentConfig(),
+                                     replace_prob=0.3) for i in range(s)]
+    rows, offs, alpha = (torch.cat([getattr(d, k) for d in draws]) for k in ("rows", "offs", "alpha"))
+    before = mix_noise_bank_cuda.launches
+    got = mix_noise_bank_cuda(audio.reshape(s * b, n), bank.extended, rows, offs, alpha)
+    torch.cuda.synchronize()
+    assert mix_noise_bank_cuda.launches == before + 1
+    assert torch.equal(_bits(got), _bits(mix_noise_bank_plain(audio.reshape(s * b, n), bank.extended, rows, offs,
+                                                              alpha)))
+    for i, d in enumerate(draws):
+        alone = mix_noise_bank_cuda(audio[i].contiguous(), bank.extended, d.rows, d.offs, d.alpha)
+        assert torch.equal(_bits(got[i * b : (i + 1) * b]), _bits(alone))
+
+
+def test_seed_sweep_step_on_cuda_mixes_once_and_matches_single_steps(cuda):
+    """Two seeds, two sweep steps on the card: one K3 launch a sweep step;
+    after the first, each seed's loss within 1e-6 relative of its own
+    single-model step at its key (chip_smoke.py's tolerance) and its weights
+    within 2 lr (cuDNN's backward may sum in another order between calls,
+    and AdamW's first update turns a gradient at float32 noise into +-lr)."""
+    from howl_tpu_torch.models import create_model
+    from howl_tpu_torch.ops.tf32 import exact_float32
+    from howl_tpu_torch.parallel import create_seed_states, make_seed_sweep_step
+    from howl_tpu_torch.training.step import StepConfig, make_classification_train_step
+
+    rng = np.random.default_rng(0)
+    audio = torch.from_numpy((rng.standard_normal((2, 16, 8000)) * 0.1).astype(np.float32)).to(cuda)
+    labels = torch.from_numpy(rng.integers(0, 4, (2, 16))).to(cuda)
+    bank = torch.from_numpy((rng.standard_normal((4, 9000)) * 0.05).astype(np.float32)).to(cuda)
+    cfg = StepConfig(FrontendConfig(n_mels=40), 2.05, 1.0, augment=aug.AugmentConfig(), replace_prob=0.2,
+                     negative_label=3, use_deltas=False)
+    opt = dict(learning_rate=0.01, lr_decay=0.99, steps_per_epoch=100)
+    states = create_seed_states(create_model("res8", num_labels=4), [0, 1], device=cuda, **opt)
+    singles = [create_seed_states(create_model("res8", num_labels=4), [s], device=cuda, **opt)[0] for s in (0, 1)]
+    sweep = make_seed_sweep_step(make_classification_train_step(create_model("res8", num_labels=4), cfg, bank))
+    single = make_classification_train_step(create_model("res8", num_labels=4), cfg, bank)
+    with exact_float32():
+        for step in range(2):
+            before = mix_noise_bank_cuda.launches
+            states, metrics = sweep(states, audio, labels, None, [0, 1])
+            torch.cuda.synchronize()
+            assert mix_noise_bank_cuda.launches == before + 1
+            assert bool(torch.isfinite(metrics["loss"]).all())
+            if step == 0:
+                for s in (0, 1):
+                    singles[s], m = single(singles[s], audio[s], labels[s], None, s)
+                    assert abs(float(metrics["loss"][s]) - float(m["loss"])) <= 1e-6 * abs(float(m["loss"]))
+                    got, want = states[s].model.state_dict(), singles[s].model.state_dict()
+                    assert all(float((got[k].float() - want[k].float()).abs().max()) <= 2 * 0.01 + 1e-6 for k in got)

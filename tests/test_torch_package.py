@@ -8,6 +8,7 @@
   entry points, and a build without nvcc raises.
 """
 
+import json
 import re
 import subprocess
 import sys
@@ -46,7 +47,7 @@ def test_imports_without_jax_or_flax():
     )
     assert proc.returncode == 0, proc.stderr
     names = proc.stdout.split()
-    assert len(names) >= 89  # every module of every slice, training, its entry points, serving and the tools, was imported
+    assert len(names) >= 101  # every module of every slice, training, its entry points, serving and the tools, was imported
     for module in ("inference.engine", "training.step", "tools.bench_pallas_micro", "tools.bench_hbm_sweep",
                    "tools.hbm_sweep_kernels", "tools._study", "bench", "tools.validate_tpu_decisions",
                    "tools.ablate_serving_slope", "tools.ablate_train_step", "tools.reconcile_train_f32",
@@ -59,7 +60,11 @@ def test_imports_without_jax_or_flax():
                    "hub", "client", "client.howl_client", "client.stream_server", "native", "inference.capacity",
                    "training.run.import_workspace", "tools.bench_stream_mux", "tools._trunk_setup",
                    "tools.bench_streaming_trunk", "tools.bench_trunk_blocked", "tools.ablate_trunk_step",
-                   "tools.bench_online_dft_precision", "tools.gen_capacity_table"):
+                   "tools.bench_online_dft_precision", "tools.gen_capacity_table",
+                   # the config-driven trainer and the experiment harness
+                   "config", "trainer", "utils.platform", "ops.timestretch", "parallel", "parallel.seed_sweep",
+                   "training.run.refactored_train", "training.run.eval_wake_word_detection", "training.run.run_exp",
+                   "training.run.generate_roc", "training.run.generate_precise_roc", "inference.oracle"):
         assert f"howl_tpu_torch.{module}" in names
 
 
@@ -105,6 +110,19 @@ def test_entry_points_ask_for_the_card_unless_given_the_cpu(monkeypatch):
         create_model("res8", num_labels=2), 0.01, generator=torch.Generator().manual_seed(0), device="cpu"
     )
     assert next(state.model.parameters()).device.type == "cpu" and state.step == 0
+    # the seed sweep's states and the device resolver behind every entry point's --device
+    from howl_tpu_torch.parallel import create_seed_states
+    from howl_tpu_torch.utils.platform import ensure_platform, resolve_device
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        create_seed_states(create_model("res8", num_labels=2), [0, 1], learning_rate=0.01)
+    assert [s.step for s in create_seed_states(create_model("res8", num_labels=2), [0, 1], learning_rate=0.01,
+                                               device="cpu")] == [0, 0]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ensure_platform()  # SETTINGS.training.device, "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda:0")
+    assert ensure_platform("cpu") == resolve_device("cpu") == torch.device("cpu")
 
 
 def test_wrappers_refuse_devices_they_have_no_route_for():
@@ -213,3 +231,27 @@ def test_ring_constants_of_the_wrappers_are_the_cuda_headers():
     assert (constants["kMinRingSlots"], constants["kMaxRingSlots"]) == (hk.MIN_K, hk.MAX_K)
     assert (constants["kCols"], constants["kCornerRows"], constants["kCornerCols"]) == (
         hk.COLS, hk.CORNER_ROWS, hk.OUT_COLS)
+
+
+@pytest.mark.parametrize("entry", ["train", "refactored_train", "eval_wake_word_detection", "run_exp"])
+def test_new_entry_points_ask_for_the_card_unless_given_the_cpu(entry, tmp_path, monkeypatch):
+    """Each entry point that runs a model raises without a card, before it
+    reads or writes anything, unless given ``--device cpu``; given it, it
+    runs on the CPU until it finds the empty corpus."""
+    import importlib
+
+    mod = importlib.import_module(f"howl_tpu_torch.training.run.{entry}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for split in ("training", "dev", "test"):
+        (tmp_path / f"aligned-metadata-{split}.jsonl").write_text("")
+    config = tmp_path / "config.json"
+    config.write_text(json.dumps({"train_datasets": [{"path": str(tmp_path)}], "workspace_path": str(tmp_path / "ws"),
+                                  "context_config": {"vocab": ["hey"], "sequence": [0]}}))
+    args = {"train": ["--model", "res8", "--workspace", str(tmp_path / "ws"), "-i", str(tmp_path)],
+            "refactored_train": ["--config", str(config)]}.get(
+        entry, ["--workspace", str(tmp_path / "ws"), "-i", str(tmp_path), "--sharded-seeds"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.run(args)
+    assert not (tmp_path / "ws").exists()
+    with pytest.raises(SystemExit, match="no training clips"):
+        mod.run(args + ["--device", "cpu"])

@@ -15,8 +15,9 @@ against howl_tpu's on the synthetic-tone corpus of ``tests/fixtures.py``.
   equal decisions, ``errors.tsv`` included.
 * ``--eval`` and ``--resume`` on the port's workspace; F9 on the port's
   trained weights (the bf16 engine at the "bf16" frontend grade decides as
-  the float32 engine at the exact grade on every dev and test clip); every
-  refusal with its ROADMAP item; the card by default.
+  the float32 engine at the exact grade on every dev and test clip); the
+  refusal of more than one device with its ROADMAP item; the card by
+  default.
 
 On the CPU the kernels K1, K2 and K3 take their plain versions.
 """
@@ -325,7 +326,7 @@ def test_f9_bf16_decisions_equal_float32_on_the_ports_trained_weights(port_train
 
 
 @pytest.mark.parametrize("extra,env,item", [
-    (["--use-timestretch"], {}, "item 12"),
+    (["--num-devices", "4"], {}, "item 12"),
     (["--num-devices", "2"], {}, "item 12"),
 ])
 def test_refusals_cite_their_roadmap_item(tmp_path, monkeypatch, extra, env, item):

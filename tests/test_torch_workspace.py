@@ -135,8 +135,11 @@ def test_metrics_args_and_logs_in_the_jax_format(tmp_path):
     assert json.loads((tmp_path / "cmd-args.json").read_text())["dataset_paths"] == [str(tmp_path)]
     Workspace(tmp_path)  # a new run clears the old metrics and logs
     assert not (tmp_path / "metrics.jsonl").exists() and not (tmp_path / "logs").exists()
-    with pytest.raises(NotImplementedError, match="item 14"):
-        ws.load_config()
+    # the config snapshot (tests/test_torch_config.py holds it against the JAX workspace's)
+    from howl_tpu_torch.config import TrainingConfig
+
+    ws.save_config(TrainingConfig(batch_size=4))
+    assert ws.load_config() == TrainingConfig(batch_size=4, workspace_path=str(tmp_path))
 
 
 def test_train_state_resume_is_exact(tmp_path):
