@@ -243,7 +243,7 @@ them. In order it:
      mean and p99 ms, underruns, overruns and alarms; (c) runs ``bench_stream_mux``; (d) runs the four live
      tools at 65,536 streams (``bench_streaming_trunk``, ``bench_trunk_blocked``, ``ablate_trunk_step``,
      ``bench_online_dft_precision``: "bf16x3" against "bf16"), every time finite and positive; (e) runs
-     ``gen_capacity_table --calibrate 1024,16384,65536 --steps 16`` (server ticks of the push engines) and prints
+     ``gen_capacity_table --calibrate 1024,16384,65536 --steps 8`` (server ticks of the push engines) and prints
      the measured points beside the committed profiles' model;
  17d. the config-driven ``Trainer`` and the wake-word experiment harness on phase 17's corpora, res8 in float32:
      (a) a ``TrainingConfig`` of phase 17's recipe, written by ``Workspace.save_config`` and read back equal, trained
@@ -255,6 +255,19 @@ them. In order it:
      ``generate_roc.load_metrics`` reading it; each seed's first-step loss equal to its own single-model step's
      within 1e-6 relative; it prints the sweep's steps/s against two single-seed runs on the same batches (in
      turns, after a warm-up pass of each) and the phase's seconds;
+ 17e. GSC pretraining and the dataset pipeline, in phase 17's working directory (its noise corpus and recipe): (a)
+     ``generate_dataset.sh``'s three steps on a Common Voice-layout tone corpus of 72 clips (``write_cv_corpus``:
+     "hey fire fox", a longer sentence with it, a sentence with one of its words, one with none): raw mining of
+     positives and negatives, stub alignment of both, stitching of the positives (64, 16 and 16 clips, each with its
+     three word labels), then res8 trained in float32 through the entry point with ``--use-stitched-datasets`` and the
+     noise corpus, 4 epochs of 10 steps: K3 once a step, K1 and K2 once an evaluator batch; (b) ``pretrain_gsc`` on a
+     Speech Commands-layout tone corpus of the GSC-10 words (64 clips of 1 s a word, 10 % silence, 12 labels, batch
+     64, 40 mels), res8 at 45 maps in float32 for 3 epochs (its loss must fall and its test accuracy beat chance),
+     then ``--sharded-seeds 2 --bf16`` (each seed's first sweep step's loss bit for bit its own single-model step's at
+     its key on its batch, ``seed_0/`` and ``seed_1/`` written), then ``eval_commands_recognition --models res8 -n 2
+     --epochs 2`` (its report written). GSC pretraining launches neither K1 (the plain log-mel chain) nor K3 (no noise
+     bank), as in JAX, and K2 once an eval batch (the eval step scores res8 through the stem kernel). It prints the
+     stitched counts, steps/s, accuracies, launch counts and the phase's seconds;
  18. (d) runs the bench, ``howl_tpu_torch.bench.main``, which prints its
      JSON line (``bench.py``'s keys, each measured key the median of 5
      repeats with its spread); every measured key must be finite and
@@ -263,7 +276,8 @@ them. In order it:
      fused kernel, one launch a batch;
  19. prints one JSON line with each of the seventeen kernels' launches (K1's also on each family's
      paths of phases 11b and 11c and K1's and K2's on phase 17d's harness, K3's also on each training run of
-     phase 17b and on phase 17d's Trainer and seed sweep), error and times
+     phase 17b and on phase 17d's Trainer and seed sweep, K1's, K2's and K3's on phase 17e's stitched training and
+     GSC runs), error and times
      beside its plain version's and its bound on this card (the larger of
      its bytes over 3.35 TB/s and its operations over the peak rate of
      their type, both counted from this run's shapes: what the function
@@ -350,11 +364,24 @@ FAMILY_TRAIN_EPOCHS = 30  # each family's training through the entry point (phas
 # clips, so the reports' curves move), and the tolerance of a seed's first-step loss against its own single-model
 # step (tests/test_torch_seed_sweep.py's)
 CONFIG_EPOCHS, HARNESS_SEEDS, HARNESS_EPOCHS, SWEEP_LOSS_RTOL = 6, 2, 40, 1e-6
+# GSC pretraining and the dataset pipeline (phase 17e): (a) a Common Voice-layout tone corpus of STITCH_CLIPS clips
+# mined, stub-aligned and stitched (STITCH_SAMPLES stitched train, dev and test clips), then trained through the entry
+# point with --use-stitched-datasets for STITCH_EPOCHS epochs of ENTRY_STEPS steps; (b) a Speech Commands-layout tone
+# corpus of the GSC-10 words, GSC_CLIPS 1 s clips a word (6 steps of 64 an epoch with 10 % silence, 12 labels), res8
+# for GSC_EPOCHS epochs in float32, the two-seed bf16 sweep for as many, and the protocol harness, two seeds of
+# GSC_PROTOCOL_EPOCHS epochs
+GSC_WORDS = ("yes", "no", "up", "down", "left", "right", "on", "off", "stop", "go")
+STITCH_CLIPS, STITCH_SAMPLES, STITCH_EPOCHS = 72, (64, 16, 16), 4
+GSC_CLIPS, GSC_EPOCHS, GSC_PROTOCOL_EPOCHS, GSC_BATCH = 64, 3, 2, 64
+GSC_RECIPE = {"DATASET_PATH": "gsc", "VOCAB": json.dumps(GSC_WORDS), "BATCH_SIZE": str(GSC_BATCH),
+              "MAX_WINDOW_SIZE_SECONDS": "1.0", "EVAL_WINDOW_SIZE_SECONDS": "1.0", "NUM_MELS": str(N_MELS),
+              "LEARNING_RATE": "0.01", "LR_DECAY": "0.8", "WEIGHT_DECAY": "0.00001", "NUM_EPOCHS": str(GSC_EPOCHS),
+              "USE_NOISE_DATASET": "False"}
 # the serving surface (phase 17c): silence after each clip on the live engines (the trunk engine decides lag hops
 # late), the multi-stream server's streams and ticks, the live tools' streams (the first live bottleneck's size),
 # their DFT-grade samples, and the capacity calibration's stream counts (the bench's latency counts)
 SERVE_PAD_S, SERVE_STREAMS, SERVE_TICKS, LIVE_TOOL_STREAMS, DFT_SAMPLES = 0.5, 512, 40, 65536, 3
-SERVE_CALIBRATION, SERVE_CALIBRATION_STEPS = (1024, 16384, 65536), 16  # a check: the profiles take 52 steps a point
+SERVE_CALIBRATION, SERVE_CALIBRATION_STEPS = (1024, 16384, 65536), 8  # a check: the profiles take 52 steps a point
 
 
 def _bound(n_bytes: float, ops: float, peak_flops: float) -> dict:
@@ -2811,6 +2838,212 @@ def drive_config_and_harness(dev) -> dict:
     return out
 
 
+def write_cv_corpus(root, n: int, seconds: float = 1.5):
+    """A Common Voice-layout tone corpus: ``clips/*.wav`` and ``train.tsv``, ``dev.tsv``, ``test.tsv`` with
+    ``client_id``, ``path`` and ``sentence``. Clip i is a tone of 300 + 50 (i % 8) Hz with noise drawn from the seed
+    i, said by client i % 5; it goes to train where i % 6 < 4, else to dev (4) or test (5), and says, by i // 6 % 4,
+    "hey fire fox", "hey fire fox is here", "the fire is warm" (a word of the phrase, not the phrase) or "nothing to
+    see here"."""
+    from pathlib import Path
+
+    from howl_tpu_torch.utils.audio_utils import write_wav
+
+    root = Path(root)
+    (root / "clips").mkdir(parents=True, exist_ok=True)
+    sentences = ("hey fire fox", "hey fire fox is here", "the fire is warm", "nothing to see here")
+    tsvs = ("train.tsv",) * 4 + ("dev.tsv", "test.tsv")
+    rows = {name: ["client_id\tpath\tsentence"] for name in tsvs}
+    t = np.arange(int(seconds * SAMPLE_RATE)) / SAMPLE_RATE
+    for i in range(n):
+        noise = np.random.default_rng(i).standard_normal(t.shape)
+        write_wav(root / "clips" / f"cv_{i:03d}.wav",
+                  (0.3 * np.sin(2 * np.pi * (300 + 50 * (i % 8)) * t) + 0.02 * noise).astype(np.float32), SAMPLE_RATE)
+        rows[tsvs[i % 6]].append(f"client{i % 5}\tcv_{i:03d}.wav\t{sentences[i // 6 % 4]}")
+    for name, lines in rows.items():
+        (root / name).write_text("\n".join(lines) + "\n")
+    return root
+
+
+def write_gsc_corpus(root, words=GSC_WORDS, n_per_word: int = GSC_CLIPS, seconds: float = 1.0):
+    """A Speech Commands-layout tone corpus, as ``tests/fixtures.py``'s ``make_gsc_corpus`` writes it:
+    ``<word>/<word>_<i>.wav``, ``testing_list.txt`` and ``validation_list.txt``; word k is a tone of 300 + 150 k Hz,
+    jittered by 3 % a clip, with noise; clip i % 5 == 3 is dev, 4 test, the rest train."""
+    from pathlib import Path
+
+    from howl_tpu_torch.utils.audio_utils import write_wav
+
+    root = Path(root)
+    rng = np.random.default_rng(0)
+    t = np.arange(int(seconds * SAMPLE_RATE)) / SAMPLE_RATE
+    lists = {3: [], 4: []}
+    for k, word in enumerate(words):
+        (root / word).mkdir(parents=True, exist_ok=True)
+        for i in range(n_per_word):
+            f = (300.0 + 150.0 * k) * (1.0 + 0.03 * rng.standard_normal())
+            clip = 0.3 * np.sin(2 * np.pi * f * t) + 0.02 * rng.standard_normal(t.shape)
+            name = f"{word}/{word}_{i:03d}.wav"
+            write_wav(root / name, clip.astype(np.float32), SAMPLE_RATE)
+            if i % 5 in lists:
+                lists[i % 5].append(name)
+    (root / "validation_list.txt").write_text("\n".join(lists[3]) + "\n")
+    (root / "testing_list.txt").write_text("\n".join(lists[4]) + "\n")
+    return root
+
+
+def _gsc_counts(what: str, stats, counts: dict) -> None:
+    """GSC pretraining launches neither K1 (its features come from the plain chain) nor K3 (its step has no bank);
+    K2, res8's stem kernel, once an eval batch."""
+    print(f"{what}: {stats.steps} steps ({stats.steps / max(stats.prep_s + stats.step_s, 1e-9):.1f} steps/s: host batch "
+          f"preparation {stats.prep_s:.3f} s, train step {stats.step_s:.3f} s), {stats.eval_batches} eval batches; "
+          f"launches K1 {counts['k1']}, K2 {counts['k2']}, K3 {counts['k3']}")
+    if (counts["k1"], counts["k2"], counts["k3"]) != (0, stats.eval_batches, 0) or not stats.eval_batches:
+        raise AssertionError(f"{what}: K1 {counts['k1']}, K2 {counts['k2']}, K3 {counts['k3']} launches for "
+                             f"{stats.eval_batches} eval batches (0, one an eval batch, 0 expected)")
+
+
+def drive_gsc_and_dataset_pipeline(dev) -> dict:
+    """(17e) In phase 17's working directory (``entry_workdir``: its noise corpus, its recipe): (a) the dataset
+    pipeline of ``generate_dataset.sh`` on a Common Voice-layout tone corpus (``write_cv_corpus``):
+    ``generate_raw_audio_dataset`` (positives and negatives), ``attach_alignment --alignment-type stub`` on both,
+    ``stitch_vocab_samples --disable-detect-keyword`` after a seeded ``random``; every stitched clip says the phrase with
+    all three word labels; then res8 trained on the positive set and its stitched set through the entry point
+    (``--use-stitched-datasets``) in float32 with the noise corpus, ``STITCH_EPOCHS`` epochs of ``ENTRY_STEPS`` steps:
+    K3 once a step, K1 and K2 once an evaluator batch. (b) GSC pretraining on a Speech Commands-layout tone corpus
+    (``write_gsc_corpus``) at the protocol's widths: res8 at 45 maps, float32, ``GSC_EPOCHS`` epochs, 10 % silence (12
+    labels); then ``--sharded-seeds 2 --bf16``, each seed's first sweep step's loss bit for bit its own single-model
+    step's at its key on its batch; then ``eval_commands_recognition --models res8 -n 2``. GSC pretraining launches
+    neither K1 nor K3, as in JAX, and K2 once an eval batch. Prints the stitched counts, steps/s, accuracies, launch
+    counts and the phase's seconds. Returns the launch counts and rates."""
+    import math
+    import os
+    import random
+    from pathlib import Path
+
+    import torch
+
+    from howl_tpu_torch.context import InferenceContext
+    from howl_tpu_torch.data.dataset.dataset_loader import WakeWordDatasetLoader
+    from howl_tpu_torch.models import create_model
+    from howl_tpu_torch.parallel import create_seed_states
+    from howl_tpu_torch.settings import SETTINGS
+    from howl_tpu_torch.training.run import (
+        attach_alignment,
+        eval_commands_recognition,
+        generate_raw_audio_dataset,
+        pretrain_gsc,
+        stitch_vocab_samples,
+        train,
+    )
+    from howl_tpu_torch.training.step import make_classification_train_step
+    from howl_tpu_torch.workspace import Workspace
+
+    print(bench.card_line())
+    t_phase = time.perf_counter()
+    out = {}
+    with entry_workdir(), _restored_env(*GSC_RECIPE):
+        # (a) Common Voice -> mined -> aligned -> stitched -> trained
+        t0 = time.perf_counter()
+        write_cv_corpus(Path("cv"), STITCH_CLIPS)
+        generate_raw_audio_dataset.run(["-i", "cv", "--dataset-type", "common-voice", "-o", "datasets", "--overwrite"])
+        root = Path("datasets", "hey_fire_fox")
+        for kind in ("positive", "negative"):
+            attach_alignment.run(["-i", str(root / kind), "--alignment-type", "stub"])
+        random.seed(SEED)
+        stitch_vocab_samples.run(["-i", str(root / "positive"), "--max-num-training-samples", str(STITCH_SAMPLES[0]),
+                                  "--max-num-dev-samples", str(STITCH_SAMPLES[1]), "--max-num-test-samples",
+                                  str(STITCH_SAMPLES[2]), "--disable-detect-keyword"])
+        etl_s = time.perf_counter() - t0
+        ctx = InferenceContext(vocab=["hey", "fire", "fox"])
+        kw = dict(sample_rate=SAMPLE_RATE, mono=True, frame_labeler=ctx.labeler)
+        raw = {kind: [len(ds) for ds in WakeWordDatasetLoader().load_splits(root / kind, **kw)]
+               for kind in ("positive", "negative")}
+        stitched = WakeWordDatasetLoader().load_splits(root / "positive", prefix="stitched-", **kw)
+        labels_ok = all(sorted(ds[i].label_data.timestamp_label_map.values()) == [0, 1, 2]
+                        for ds in stitched for i in range(len(ds)))
+        print(f"17e (a) dataset pipeline on {STITCH_CLIPS} Common Voice-layout clips in {etl_s:.1f} s: aligned positives "
+              f"{raw['positive']}, negatives {raw['negative']} (train, dev, test); stitched {[len(ds) for ds in stitched]}, "
+              f"every one with its three word labels: {labels_ok}")
+        if [len(ds) for ds in stitched] != list(STITCH_SAMPLES) or not labels_ok or not all(raw["positive"]):
+            raise AssertionError(f"17e (a): stitched {[len(ds) for ds in stitched]} (labels {labels_ok}), raw {raw}")
+        os.environ["NUM_EPOCHS"] = str(STITCH_EPOCHS)
+        SETTINGS.reset()
+        results, counts, stats = _train_entry(
+            ["--model", "res8", "--workspace", "stitched_ws", "-i", str(root / "positive"), "--use-stitched-datasets",
+             "--device", "cuda", "--eval-freq", "0", "--steps-per-epoch", str(ENTRY_STEPS)],
+            "17e (a) res8 on the stitched dataset")
+        loop_s = stats.prep_s + stats.step_s
+        print(f"17e (a) {stats.steps / loop_s:.1f} steps/s, epoch losses {[round(x, 4) for x in stats.epoch_losses]}; "
+              f"test positives fired {results['test_pos']['tp']} of {results['test_pos']['tp'] + results['test_pos']['fn']}, "
+              f"noisy sweeps {sorted(k for k in results if 'noisy' in k)}")
+        if stats.steps != STITCH_EPOCHS * ENTRY_STEPS or not np.isfinite(stats.epoch_losses).all() \
+                or "test_noisy_pos" not in results:
+            raise AssertionError(f"17e (a): {stats.steps} steps, losses {stats.epoch_losses}, results {sorted(results)}")
+        out.update(k3_stitched=counts["k3"], k1_stitched=counts["k1"], k2_stitched=counts["k2"],
+                   stitched_steps_per_s=stats.steps / loop_s)
+
+        # (b) GSC pretraining at the protocol's widths
+        write_gsc_corpus(Path(GSC_RECIPE["DATASET_PATH"]))
+        os.environ.update(GSC_RECIPE)
+        SETTINGS.reset()
+        train_ds, dev_ds, test_ds = pretrain_gsc.load_splits(0.1)
+        steps_per_epoch = len(train_ds) // GSC_BATCH
+        runs = {}
+        for tag, argv in (("single", ["--workspace", "gsc_ws", "--silence-proportion", "0.1"]),
+                          ("sweep", ["--workspace", "gsc_sweep", "--silence-proportion", "0.1", "--sharded-seeds", "2",
+                                     "--bf16"])):
+            stats = train.LoopStats()
+            _zero_launch_counts()
+            result = pretrain_gsc.run(["--model", "res8", "--num-labels", "12", "--device", "cuda", *argv], stats)
+            torch.cuda.synchronize()
+            _gsc_counts(f"17e (b) pretrain_gsc {' '.join(argv[2:])}", stats, _launch_counts())
+            print(f"17e (b) {tag}: {result}; epoch losses {stats.epoch_losses}")
+            runs[tag] = (result, stats)
+        result, stats = runs["single"]
+        if stats.steps != GSC_EPOCHS * steps_per_epoch or not stats.epoch_losses[-1] < stats.epoch_losses[0] \
+                or not result["test_acc"] > 1 / 12:
+            raise AssertionError(f"17e (b): {stats.steps} steps, losses {stats.epoch_losses}, accuracies {result}")
+        sweep, sweep_stats = runs["sweep"]
+        if sorted(sweep) != ["dev_acc", "per_seed_dev_acc", "per_seed_test_acc", "test_acc"] or \
+                not all(Path("gsc_sweep", f"seed_{s}", "model-best.pt").exists() for s in (0, 1)):
+            raise AssertionError(f"17e (b) sweep: {sweep}")
+        # each seed's first sweep step against its own single-model step at its key, on its batch
+        audio, labels, lengths = next(pretrain_gsc.seed_batches(train_ds, 2, 0, dev))
+        zmuv = Workspace(Path("gsc_sweep"), delete_existing=False).load_zmuv()
+        model = create_model("res8", num_labels=12, dtype=torch.bfloat16)
+        step = make_classification_train_step(model, pretrain_gsc.step_config("res8", zmuv, use_augment=True))
+        singles = []
+        for s in (0, 1):
+            state = create_seed_states(model, [s], device=dev,
+                                       **pretrain_gsc.optimizer_settings(steps_per_epoch))[0]
+            singles.append(float(step(state, audio[s], labels[s], lengths[s], s)[1]["loss"]))
+        print(f"17e (b) seed sweep: first-step losses {[repr(x) for x in sweep_stats.step_losses[0]]}, each seed's "
+              f"single-model step at its key {[repr(x) for x in singles]}")
+        if singles != sweep_stats.step_losses[0]:
+            raise AssertionError(f"17e (b): the sweep's first-step losses {sweep_stats.step_losses[0]} are not the single "
+                                 f"steps' {singles}")
+        # the commands-recognition protocol: two seeds, each a pretrain_gsc run of GSC_PROTOCOL_EPOCHS epochs
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        report = eval_commands_recognition.run(["--models", "res8", "-n", "2", "--epochs", str(GSC_PROTOCOL_EPOCHS),
+                                                "--workspace", "gsc_protocol", "-i", GSC_RECIPE["DATASET_PATH"],
+                                                "--device", "cuda"])
+        torch.cuda.synchronize()
+        counts = _launch_counts()
+        dev_n, test_n = (len(ds.metadata_list) for ds in (dev_ds, test_ds))  # the protocol adds no silence
+        eval_batches = 2 * (GSC_PROTOCOL_EPOCHS * math.ceil(dev_n / GSC_BATCH) + math.ceil(test_n / GSC_BATCH))
+        print(f"17e (b) eval_commands_recognition -n 2 --epochs {GSC_PROTOCOL_EPOCHS}: {report['res8']} in "
+              f"{time.perf_counter() - t0:.1f} s; launches K1 {counts['k1']}, K2 {counts['k2']}, K3 {counts['k3']}")
+        rows = Path("gsc_protocol", "commands_recognition_report.csv").read_text().splitlines()
+        if (counts["k1"], counts["k2"], counts["k3"]) != (0, eval_batches, 0) or len(report["res8"]["accuracies"]) != 2 \
+                or rows[0] != "model,mean,std,p90,p95,p99" or not rows[1].startswith("res8,"):
+            raise AssertionError(f"17e (b) protocol: launches {counts} ({eval_batches} eval batches), {report}, {rows}")
+        out.update(k2_gsc=runs["single"][1].eval_batches, k2_gsc_sweep=sweep_stats.eval_batches, k2_protocol=counts["k2"],
+                   gsc_steps_per_s=stats.steps / (stats.prep_s + stats.step_s),
+                   sweep_steps_per_s=sweep_stats.steps / (sweep_stats.prep_s + sweep_stats.step_s))
+    print(f"17e GSC pretraining and the dataset pipeline: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def drive_families_train(dev) -> dict:
     """(17b) Each of the seven other families trained through the entry point on the card with ``--bf16`` (flax's
     mixed precision over float32 masters), on phase 17's tone corpus and recipe (``entry_workdir``: the noise corpus
@@ -3238,7 +3471,8 @@ def main() -> int:
         return 0
     print_sass_counts(_build.library_path())
     print(f"cut for the run's time: the main and train paths' own chained timings take {SMOKE_REPEATS} repeats "
-          f"(3 before the live engines' phases); the bench's line keeps its 5 and bench.py's sizes")
+          f"(3 before the live engines' phases); the capacity calibration's points {SERVE_CALIBRATION_STEPS} steps "
+          f"(16 before phase 17e); the bench's line keeps its 5 and bench.py's sizes")
     laps = [("build", time.perf_counter() - t0)]
     t_lap = time.perf_counter()
 
@@ -3307,6 +3541,13 @@ def main() -> int:
     k1["launches_harness"], k2["launches_harness"] = harness["k1_harness"], harness["k2_harness"]
     k3["launches_trainer"], k3["launches_seed_sweep"] = harness["k3_trainer"], harness["k3_sweep"]
     lap("config-driven trainer and harness")
+    gsc = drive_gsc_and_dataset_pipeline(dev)
+    k1["launches_stitched_training"], k2["launches_stitched_training"] = gsc["k1_stitched"], gsc["k2_stitched"]
+    k3["launches_stitched_training"] = gsc["k3_stitched"]
+    k1["launches_gsc"] = k3["launches_gsc"] = 0  # held at 0 by the phase's checks
+    k2["launches_gsc"] = {"pretrain_gsc": gsc["k2_gsc"], "sharded_seeds": gsc["k2_gsc_sweep"],
+                          "commands_recognition": gsc["k2_protocol"]}
+    lap("GSC pretraining and the dataset pipeline")
     check_bench_record(bench.main(["--device", "cuda"]))
     lap("bench (d)")
     print("phase seconds: " + ", ".join(f"{name} {sec:.1f}" for name, sec in laps))

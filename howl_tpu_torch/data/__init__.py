@@ -1,3 +1,3 @@
-"""Data model, datasets and host-side batch sampling (counterpart of
-``howl_tpu/data``). The ETL generators and the GSC / Common Voice / Hey Snips
-loaders are not ported yet (ROADMAP Queue 1, item 12)."""
+"""Data model, datasets, corpus loaders, dataset writers and host-side batch
+sampling (counterpart of ``howl_tpu/data``). The dataset ETL lives in
+``howl_tpu_torch/etl`` and the aligners in ``howl_tpu_torch/align``."""

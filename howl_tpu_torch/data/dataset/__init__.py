@@ -1,7 +1,6 @@
-"""Datasets: metadata containers and the howl-format and noise-corpus loaders
-(counterpart of ``howl_tpu/data/dataset``). The GSC, Common Voice and Hey
-Snips loaders and the dataset writer are not ported yet (ROADMAP Queue 1,
-item 12)."""
+"""Datasets: metadata containers, the corpus loaders (howl format, noise,
+Google Speech Commands, Common Voice, Hey Snips), the loader factory and the
+dataset writers (counterpart of ``howl_tpu/data/dataset``)."""
 
 from howl_tpu_torch.data.dataset.dataset import (
     AudioClassificationDataset,
@@ -17,6 +16,7 @@ from howl_tpu_torch.data.dataset.dataset_loader import (
     RegisteredPathDatasetLoader,
     WakeWordDatasetLoader,
 )
+from howl_tpu_torch.data.dataset.gsc_loader import GoogleSpeechCommandsDatasetLoader
 
 __all__ = [
     "AudioClassificationDataset",
@@ -25,6 +25,7 @@ __all__ = [
     "AudioDataset",
     "DatasetSplit",
     "DatasetType",
+    "GoogleSpeechCommandsDatasetLoader",
     "RecursiveNoiseDatasetLoader",
     "RegisteredPathDatasetLoader",
     "WakeWordDataset",

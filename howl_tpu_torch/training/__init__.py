@@ -3,6 +3,8 @@ objectives (frame cross-entropy and CTC), the train and eval steps for every
 model of the zoo, the entry point
 ``python -m howl_tpu_torch.training.run.train`` with its checkpoints
 (``howl_tpu_torch/workspace.py``), the config-driven ``Trainer``
-(``howl_tpu_torch/trainer.py``, ``config.py``) and the wake-word experiment
+(``howl_tpu_torch/trainer.py``, ``config.py``), the wake-word experiment
 harness with its seed sweep on one card (``training/run/
-eval_wake_word_detection.py``, ``parallel/seed_sweep.py``)."""
+eval_wake_word_detection.py``, ``parallel/seed_sweep.py``), and GSC keyword
+pretraining with the commands-recognition protocol (``training/run/
+pretrain_gsc.py``, ``eval_commands_recognition.py``)."""

@@ -230,7 +230,8 @@ class LoopStats:
     device: ``prep_s`` reads, windows and uploads the train batches,
     ``step_s`` runs the train steps until each loss is on the host;
     ``eval_*`` sum the evaluator's calls; ``epoch_losses`` holds each
-    epoch's mean train loss."""
+    epoch's mean train loss and ``step_losses`` each step's loss (a list of
+    the seeds' losses for a seed sweep)."""
 
     steps: int = 0
     examples: int = 0
@@ -240,6 +241,7 @@ class LoopStats:
     eval_audio_ms: float = 0.0
     eval_s: float = 0.0
     epoch_losses: list = field(default_factory=list)
+    step_losses: list = field(default_factory=list)
 
 
 def _parser() -> ArgumentParserBuilder:
@@ -578,6 +580,7 @@ def run(args=None, stats: Optional[LoopStats] = None) -> dict:
                 with exact_float32(is_float32(compute_dtype)):  # TF32 off for the float32 step, not for --bf16
                     state, metrics = train_step(state, audio, labels, *lengths, key)
                 losses.append(float(metrics["loss"]))
+                stats.step_losses.append(losses[-1])
                 stats.prep_s += t1 - t0
                 stats.step_s += time.perf_counter() - t1
                 stats.steps += 1

@@ -1890,3 +1890,95 @@ def test_seed_sweep_step_on_cuda_mixes_once_and_matches_single_steps(cuda):
                     assert abs(float(metrics["loss"][s]) - float(m["loss"])) <= 1e-6 * abs(float(m["loss"]))
                     got, want = states[s].model.state_dict(), singles[s].model.state_dict()
                     assert all(float((got[k].float() - want[k].float()).abs().max()) <= 2 * 0.01 + 1e-6 for k in got)
+
+
+# ---- GSC pretraining and the dataset pipeline ----
+
+# tests/test_torch_train_run.py's LOSS_RTOL: the card's float32 convolutions sum in another order than the CPU's, and
+# AdamW's first update turns a gradient at float32 noise into +-lr, so a few steps' losses drift by up to ~2e-3
+TRAIN_LOSS_RTOL = 5e-3
+
+
+def _train_env(monkeypatch, env: dict) -> None:
+    from howl_tpu_torch.settings import SETTINGS
+
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    SETTINGS.reset()
+
+
+def _metric(ws, name: str) -> list:
+    import json
+
+    return [r["value"] for r in map(json.loads, (ws / "metrics.jsonl").read_text().splitlines()) if r["name"] == name]
+
+
+def test_gsc_pretraining_on_cuda_matches_cpu(cuda, tmp_path, monkeypatch):
+    """``pretrain_gsc --no-augment``, one epoch of 3 steps, on the card and on
+    the CPU from the same initial weights (both from the run's seed): losses
+    within TRAIN_LOSS_RTOL, dev and test accuracies equal; on the card K1 and
+    K3 never launch (plain features, no noise bank) and K2 once an eval batch."""
+    from chip_smoke import write_gsc_corpus
+    from howl_tpu_torch.settings import SETTINGS
+    from howl_tpu_torch.training.run import pretrain_gsc, train
+
+    words = ("yes", "no", "up", "down")
+    corpus = write_gsc_corpus(tmp_path / "gsc", words=words, n_per_word=10)
+    _train_env(monkeypatch, {"DATASET_PATH": str(corpus), "VOCAB": str(list(words)).replace("'", '"'),
+                             "BATCH_SIZE": "8", "LEARNING_RATE": "0.001", "MAX_WINDOW_SIZE_SECONDS": "1.0",
+                             "NUM_MELS": "40", "NUM_EPOCHS": "1"})
+    out, stats = {}, {}
+    try:
+        for dev in ("cpu", "cuda"):
+            stats[dev] = train.LoopStats()
+            k1, k2, k3 = log_mel_spectrogram_cuda.launches, res8_stem_cuda.launches, mix_noise_bank_cuda.launches
+            out[dev] = pretrain_gsc.run(["--model", "res8", "--num-labels", "5", "--no-augment", "--workspace",
+                                         str(tmp_path / dev), "--device", dev], stats[dev])
+            torch.cuda.synchronize()
+            launched = (log_mel_spectrogram_cuda.launches - k1, res8_stem_cuda.launches - k2,
+                        mix_noise_bank_cuda.launches - k3)
+            assert launched == ((0, stats[dev].eval_batches, 0) if dev == "cuda" else (0, 0, 0))
+    finally:
+        SETTINGS.reset()
+    assert stats["cuda"].steps == stats["cpu"].steps == 3 and stats["cuda"].eval_batches == 2
+    np.testing.assert_allclose(stats["cuda"].step_losses, stats["cpu"].step_losses, rtol=TRAIN_LOSS_RTOL)
+    np.testing.assert_allclose(_metric(tmp_path / "cuda", "Training/Loss"), _metric(tmp_path / "cpu", "Training/Loss"),
+                               rtol=TRAIN_LOSS_RTOL)
+    assert out["cuda"] == out["cpu"]
+
+
+def test_etl_stitched_dataset_training_on_cuda_launches_the_mix_kernel_once_a_step(cuda, tmp_path, monkeypatch):
+    """``generate_dataset.sh``'s three steps through the port on a Common
+    Voice-layout tone corpus, then res8 trained on the card on the positive
+    set and its stitched set (``--use-stitched-datasets``) with a noise
+    corpus: K3 once a train step, K1 and K2 once an evaluator batch."""
+    import random
+
+    from chip_smoke import write_cv_corpus, write_noise_dir
+    from howl_tpu_torch.settings import SETTINGS
+    from howl_tpu_torch.training.run import attach_alignment, generate_raw_audio_dataset, stitch_vocab_samples, train
+
+    cv = write_cv_corpus(tmp_path / "cv", 36)
+    _train_env(monkeypatch, {"VOCAB": '["hey","fire","fox"]', "INFERENCE_SEQUENCE": "[0,1,2]", "BATCH_SIZE": "8",
+                             "MAX_WINDOW_SIZE_SECONDS": "0.5", "NUM_MELS": "40", "NUM_EPOCHS": "2",
+                             "USE_NOISE_DATASET": "true", "NOISE_DATASET_PATH": str(write_noise_dir(tmp_path / "bg", 4))})
+    try:
+        generate_raw_audio_dataset.run(["-i", str(cv), "-o", str(tmp_path / "datasets")])
+        positive = tmp_path / "datasets" / "hey_fire_fox" / "positive"
+        attach_alignment.run(["-i", str(positive), "--alignment-type", "stub"])
+        random.seed(0)
+        stitch_vocab_samples.run(["-i", str(positive), "--max-num-training-samples", "16", "--max-num-dev-samples", "4",
+                                  "--max-num-test-samples", "4", "--disable-detect-keyword"])
+        stats = train.LoopStats()
+        counters = (mix_noise_bank_cuda, log_mel_spectrogram_cuda, res8_stem_cuda)
+        before = [fn.launches for fn in counters]
+        results = train.run(["--model", "res8", "--workspace", str(tmp_path / "ws"), "-i", str(positive),
+                             "--use-stitched-datasets", "--eval-freq", "0", "--steps-per-epoch", "3", "--device", "cuda"],
+                            stats)
+        torch.cuda.synchronize()
+    finally:
+        SETTINGS.reset()
+    k3, k1, k2 = (fn.launches - b for fn, b in zip(counters, before))
+    assert stats.steps == 6 and k3 == stats.steps
+    assert k1 == k2 == stats.eval_batches > 0
+    assert np.isfinite(stats.epoch_losses).all() and "test_noisy_pos" in results

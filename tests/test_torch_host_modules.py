@@ -168,10 +168,16 @@ def test_args_registry_and_parallel_map():
         t_args.strtobool("maybe")
     parser = t_args.ArgumentParserBuilder().add_options(t_args.opt("--x", type=int, default=3)).build()
     assert parser.parse_args(["--x", "5"]).x == 5
+    import howl_tpu.data.dataset.common_voice_loader  # noqa: F401  (each loader module registers its names)
+    import howl_tpu.data.dataset.hey_snips_loader  # noqa: F401
+    import howl_tpu_torch.data.dataset.common_voice_loader  # noqa: F401
+    import howl_tpu_torch.data.dataset.hey_snips_loader  # noqa: F401
+    from howl_tpu.data.dataset.dataset_loader import RegisteredPathDatasetLoader as JRegistered
     from howl_tpu_torch.data.dataset.dataset_loader import RegisteredPathDatasetLoader, WakeWordDatasetLoader
 
     assert RegisteredPathDatasetLoader.find_registered_class("wake-word") is WakeWordDatasetLoader
-    assert RegisteredPathDatasetLoader.registered_names() == ["clip", "wake-word"]
+    assert RegisteredPathDatasetLoader.registered_names() == JRegistered.registered_names() == [
+        "clip", "gsc", "hey-snips", "mozilla-cv", "mozilla-kw", "mozilla-ww", "wake-word"]
     items = list(range(37))
     for workers in (1, 4):
         assert t_parallel.parallel_map(lambda x: x * x, items, num_workers=workers) == \

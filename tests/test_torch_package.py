@@ -47,7 +47,7 @@ def test_imports_without_jax_or_flax():
     )
     assert proc.returncode == 0, proc.stderr
     names = proc.stdout.split()
-    assert len(names) >= 101  # every module of every slice, training, its entry points, serving and the tools, was imported
+    assert len(names) >= 124  # every module of every slice, training, its entry points, serving, the tools and the dataset pipeline, was imported
     for module in ("inference.engine", "training.step", "tools.bench_pallas_micro", "tools.bench_hbm_sweep",
                    "tools.hbm_sweep_kernels", "tools._study", "bench", "tools.validate_tpu_decisions",
                    "tools.ablate_serving_slope", "tools.ablate_train_step", "tools.reconcile_train_f32",
@@ -64,7 +64,15 @@ def test_imports_without_jax_or_flax():
                    # the config-driven trainer and the experiment harness
                    "config", "trainer", "utils.platform", "ops.timestretch", "parallel", "parallel.seed_sweep",
                    "training.run.refactored_train", "training.run.eval_wake_word_detection", "training.run.run_exp",
-                   "training.run.generate_roc", "training.run.generate_precise_roc", "inference.oracle"):
+                   "training.run.generate_roc", "training.run.generate_precise_roc", "inference.oracle",
+                   # GSC pretraining and the dataset pipeline
+                   "data.dataset.gsc_loader", "training.run.pretrain_gsc", "training.run.eval_commands_recognition",
+                   "data.dataset.constants", "data.dataset.common_voice_loader", "data.dataset.hey_snips_loader",
+                   "data.dataset.factory", "data.dataset.dataset_writer", "align", "align.base", "align.textgrid",
+                   "align.mfa", "align.stub", "align.vad", "etl", "etl.raw_generator", "etl.aligned_generator",
+                   "etl.stitcher", "etl.stitched_generator", "utils.keyword_detector",
+                   "training.run.generate_raw_audio_dataset", "training.run.attach_alignment",
+                   "training.run.stitch_vocab_samples"):
         assert f"howl_tpu_torch.{module}" in names
 
 
