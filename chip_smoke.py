@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py [--profile DIR | --profile-only DIR]
     python3 chip_smoke.py --train-repeat    (phase 17's short training alone)
+    python3 chip_smoke.py --trace-batch WS DIR    (phase 17f (a)'s traced batch alone)
 
 Needs one CUDA device and nvcc; exits non-zero, printing no result, without
 them. In order it:
@@ -268,6 +269,19 @@ them. In order it:
      --epochs 2`` (its report written). GSC pretraining launches neither K1 (the plain log-mel chain) nor K3 (no noise
      bank), as in JAX, and K2 once an eval batch (the eval step scores res8 through the stem kernel). It prints the
      stitched counts, steps/s, accuracies, launch counts and the phase's seconds;
+ 17f. the exports, vision pretraining, the demo, profiling and scale-out on phase 17's trained res8: (a)
+     ``utils.profiling.trace`` around one offline bf16 batch of 512 clips in a process of its own (``python3
+     chip_smoke.py --trace-batch WS DIR``: after an earlier profiler session in the same process the profiler
+     records copies but no kernel), whose trace must name K1's and K2's kernels; (b) K1 on the Meyda basis (22,050 Hz, f_max 8 kHz, 40 mels, the exact grade) against
+     ``MeydaMelSpectrogram`` at rtol 1e-3 / atol 1e-4 in the exp domain; (c) ``export_honkling`` equal to the host's
+     dump of the same weights; (d) K2 at 32 mel rows (``check_stem_32``: both routes in bf16 and "fma" in float32
+     against ``res8_stem_plain``, bf16 timed in turns at 512 images), then ``pretrain`` on a 512-image
+     CIFAR-layout corpus, K2 ("fma") once an eval batch; (e) ``demo --streams 4 --incremental`` (K2 once a tick) and
+     the single-stream demo through ``HowlClient`` (K1 and K2 once a hop), their printed lines echoed; (f) the three
+     live engines at 512 streams sharded two ways on the one card, each hop's decisions equal to the unsharded
+     engine's, K1 and K2 once a hop a shard where the engine launches them; (g) ``train --num-devices 2`` (NCCL)
+     against ``--num-devices 1`` where two cards are visible, otherwise a line saying it did not run. It prints the
+     phase's seconds;
  18. (d) runs the bench, ``howl_tpu_torch.bench.main``, which prints its
      JSON line (``bench.py``'s keys, each measured key the median of 5
      repeats with its spread); every measured key must be finite and
@@ -277,7 +291,8 @@ them. In order it:
  19. prints one JSON line with each of the seventeen kernels' launches (K1's also on each family's
      paths of phases 11b and 11c and K1's and K2's on phase 17d's harness, K3's also on each training run of
      phase 17b and on phase 17d's Trainer and seed sweep, K1's, K2's and K3's on phase 17e's stitched training and
-     GSC runs), error and times
+     GSC runs, K1's and K2's on phase 17f's demo and sharded engines, K2's on its pretraining with its record at 32
+     mel rows), error and times
      beside its plain version's and its bound on this card (the larger of
      its bytes over 3.35 TB/s and its operations over the peak rate of
      their type, both counted from this run's shapes: what the function
@@ -358,7 +373,7 @@ FAMILY_LIVE_HOPS = 24  # chained hops of each family's live engines (phase 11c):
 # the training entry point: envs/res8.env on a tone corpus of 24 positives and 24 negatives (12 train clips
 # of each, 6 dev and 6 test of each) and 12 noise clips; 60 epochs of 10 steps separate it on the CPU by 40
 ENTRY_CORPUS, ENTRY_EPOCHS, ENTRY_STEPS, ENTRY_RESUME_EPOCHS = 24, 60, 10, 2
-FAMILY_TRAIN_EPOCHS = 30  # each family's training through the entry point (phase 17b), chosen once for the time
+FAMILY_TRAIN_EPOCHS = 26  # each family's training through the entry point (phase 17b), sized for the time (30 before 17f)
 # the config-driven Trainer and the experiment harness (phase 17d): the Trainer's epochs of ENTRY_STEPS steps with
 # time-stretching on, the harness's seeds and epochs of ENTRY_STEPS sweep steps (enough that its seeds fire on some
 # clips, so the reports' curves move), and the tolerance of a seed's first-step loss against its own single-model
@@ -381,7 +396,7 @@ GSC_RECIPE = {"DATASET_PATH": "gsc", "VOCAB": json.dumps(GSC_WORDS), "BATCH_SIZE
 # late), the multi-stream server's streams and ticks, the live tools' streams (the first live bottleneck's size),
 # their DFT-grade samples, and the capacity calibration's stream counts (the bench's latency counts)
 SERVE_PAD_S, SERVE_STREAMS, SERVE_TICKS, LIVE_TOOL_STREAMS, DFT_SAMPLES = 0.5, 512, 40, 65536, 3
-SERVE_CALIBRATION, SERVE_CALIBRATION_STEPS = (1024, 16384, 65536), 8  # a check: the profiles take 52 steps a point
+SERVE_CALIBRATION, SERVE_CALIBRATION_STEPS = (1024, 16384, 65536), 4  # a check: the profiles take 52 steps a point
 
 
 def _bound(n_bytes: float, ops: float, peak_flops: float) -> dict:
@@ -3044,6 +3059,283 @@ def drive_gsc_and_dataset_pipeline(dev) -> dict:
     return out
 
 
+# phase 17f: the exports, vision pretraining, the demo, profiling and scale-out. A CIFAR-10-layout corpus of
+# PRETRAIN_IMAGES images (five train batches of 80, a test batch of 112) for PRETRAIN_EPOCHS epochs at batch
+# PRETRAIN_BATCH; the sharded live engines at SHARD_STREAMS streams over SHARD_WAYS shards of one card; K2 at 32 mel
+# rows timed at STEM32_BATCH images
+PRETRAIN_IMAGES, PRETRAIN_EPOCHS, PRETRAIN_BATCH, STEM32_BATCH = (400, 112), 5, 32, 512
+SHARD_STREAMS, SHARD_WAYS = 512, 2
+
+
+def write_cifar10(root, n_train: int, n_test: int, seed: int = SEED):
+    """A CIFAR-10 python-format directory: ``data_batch_1..5`` of ``n_train / 5`` images each and a ``test_batch``
+    of ``n_test``, uint8 (N, 3072) rows and labels; class c brightens channel 0 by a ramp over the columns, so the
+    classes separate."""
+    import pickle
+    from pathlib import Path
+
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    for name, n in [(f"data_batch_{i}", n_train // 5) for i in range(1, 6)] + [("test_batch", n_test)]:
+        labels = rng.integers(0, 10, n)
+        x = rng.normal(100.0, 20.0, (n, 3, 32, 32))
+        x[:, 0] += np.linspace(0.0, 1.0, 32)[None, None, :] * (labels[:, None, None] + 1) * 12.0
+        with (root / name).open("wb") as f:
+            pickle.dump({b"data": np.clip(x, 0, 255).astype(np.uint8).reshape(n, -1), b"labels": labels.tolist()}, f)
+    return root
+
+
+def trace_batch_main() -> int:
+    """``python3 chip_smoke.py --trace-batch WS DIR``: the workspace's res8 as the hub's offline engine in bf16, one
+    batch of ``BATCH`` random clips of ``CLIP_SECONDS`` warmed, then one traced by ``utils.profiling.trace`` into
+    DIR; its last line is {"k1": K1's kernel names in the trace, "k2": K2's, "ms", "trace", "bytes"}."""
+    from pathlib import Path
+
+    import torch
+
+    from howl_tpu_torch import hub
+    from howl_tpu_torch.ops import _build
+    from howl_tpu_torch.utils.profiling import StepTimer, trace
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py --trace-batch needs a CUDA device")
+    workspace, out_dir = sys.argv[2], Path(sys.argv[3])
+    _build.kernel_library()
+    dev = torch.device("cuda", 0)
+    engine, _ = hub.load_workspace_streaming_engine(workspace, device=dev, compute_dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    batch = torch.randn((BATCH, int(CLIP_SECONDS * SAMPLE_RATE)), generator=gen, device=dev) * 0.1
+    engine.infer_batch(batch)  # warm
+    timer = StepTimer()
+    with trace(out_dir) as prof, timer:
+        engine.infer_batch(batch)
+    # a kernel's key is its name, e.g. "(anonymous namespace)::stem_tc_kernel(...)" or "logmel_tc_kernel<40, 1>"
+    names = {e.key.split("::")[-1].split("(")[0] for e in prof.key_averages()}
+    print(json.dumps({"k1": sorted(n for n in names if n.startswith("logmel")),
+                      "k2": sorted(n for n in names if n.startswith("stem_")), "ms": timer.summary()["mean_ms"],
+                      "trace": str(prof.trace_path), "bytes": prof.trace_path.stat().st_size}))
+    return 0
+
+
+def check_stem_32(dev) -> dict:
+    """K2 at 32 mel rows (vision pretraining's (B, 32, 32) images as (B, T, F) mels), a geometry no other phase runs:
+    "fma" in float32 and bf16 and "tc" in bf16 against ``res8_stem_plain`` at the eval batch and at
+    ``STEM32_BATCH``; at ``STEM32_BATCH`` in bf16 "tc", "fma" and plain timed in turns. Returns the record."""
+    import torch
+
+    from howl_tpu_torch.ops.frontend import round_bf16
+    from howl_tpu_torch.ops.stem_cuda import res8_stem_cuda, res8_stem_plain, stem_route
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 32)
+    taps = torch.randn((3, 3, 45), generator=gen, device=dev) / 3.0
+    errs = {}
+    for batch in (PRETRAIN_BATCH, STEM32_BATCH):
+        images = torch.rand((batch, 32, 32), generator=gen, device=dev)
+        for dtype, routes in ((torch.float32, ("fma",)), (torch.bfloat16, ("tc", "fma"))):
+            mel = images.to(dtype).contiguous()
+            w = round_bf16(taps) if dtype == torch.bfloat16 else taps
+            ref = res8_stem_plain(mel, w)
+            tol = _bf16_ulp(ref) if dtype == torch.bfloat16 else 1e-5
+            for route in routes:
+                got = res8_stem_cuda(mel, w, route=route)
+                err = float((got.float() - ref.float()).abs().max())
+                errs[batch, route, str(dtype)[6:]] = err
+                if got.shape != ref.shape or not bool(torch.isfinite(got.float()).all()) or err > tol:
+                    raise AssertionError(f"17f: K2 {route} {dtype} at {tuple(mel.shape)}: {tuple(got.shape)}, "
+                                         f"max_abs_err {err:.3e} over {tol:.3e}")
+    if (stem_route(torch.float32, 32, 45), stem_route(torch.bfloat16, 32, 45)) != ("fma", "tc"):
+        raise AssertionError("17f: the stem routes at 32 mel rows are not fma (float32) and tc (bf16)")
+    mel = images.to(torch.bfloat16).contiguous()
+    w = round_bf16(taps)
+    turns = [_cuda_ms(lambda: res8_stem_plain(mel, w), 20), _cuda_ms(lambda: res8_stem_cuda(mel, w, route="fma"), 20),
+             _cuda_ms(lambda: res8_stem_cuda(mel, w, route="tc"), 20), _cuda_ms(lambda: res8_stem_cuda(mel, w, route="tc"), 20),
+             _cuda_ms(lambda: res8_stem_cuda(mel, w, route="fma"), 20), _cuda_ms(lambda: res8_stem_plain(mel, w), 20)]
+    out = res8_stem_cuda(mel, w)
+    ops = mel.numel() * 45 * 9 * 2 + out.numel() * 12
+    record = {"ms": (turns[2] + turns[3]) / 2, "fma_ms": (turns[1] + turns[4]) / 2, "plain_ms": (turns[0] + turns[5]) / 2,
+              "max_abs_err": max(errs.values()), **_bound(_nbytes(mel, w, out), ops, PEAK_BF16_FLOPS)}
+    print(f"17f K2 at (B, 32, 32): max_abs_err {', '.join(f'{k[1]} {k[2]} B={k[0]} {v:.3e}' for k, v in errs.items())}; "
+          f"bf16 at B={STEM32_BATCH}: tc {record['ms']:.4f} ms, fma {record['fma_ms']:.4f} ms, plain "
+          f"{record['plain_ms']:.4f} ms, bound {record['bound_ms']:.4f} ms by {record['bound_by']}")
+    return record
+
+
+def _printed(fn, argv) -> tuple:
+    """(fn(argv), the lines it printed), the lines echoed with a prefix."""
+    import io
+    from contextlib import redirect_stdout
+
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        result = fn(argv)
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        print(f"    | {line}")
+    return result, lines
+
+
+def drive_exports_and_scaleout(dev, state_dict, zmuv: dict) -> dict:
+    """(17f) On phase 17's trained res8, in its working directory: (a) ``utils.profiling.trace`` around one offline
+    bf16 batch in a process of its own (``trace_batch_main``), whose trace must name K1's and K2's kernels; (b) K1 on the Meyda basis (22,050 Hz, f_max 8 kHz, 40
+    mels, exact grade) against ``MeydaMelSpectrogram`` (rtol 1e-3, atol 1e-4 in the exp domain); (c)
+    ``export_honkling`` of the trained weights equal to the dump made on the host; (d) ``pretrain`` on a CIFAR-layout
+    corpus: K2 at 32 mel rows (``check_stem_32``) and once an eval batch; (e) ``demo --streams 4 --incremental``
+    (K2 once a tick) and the single-stream demo (K1 and K2 once a hop); (f) the three live engines at
+    ``SHARD_STREAMS`` streams sharded ``SHARD_WAYS`` ways on the one card, deciding as the unsharded engines on every
+    hop, K1 and K2 once a hop a shard where the engine launches them; (g) ``train --num-devices 2`` on NCCL against
+    ``--num-devices 1`` where two cards are visible. Returns the launch counts and K2's record at 32 rows."""
+    import os
+    from pathlib import Path
+
+    import torch
+
+    from howl_tpu_torch import hub
+    from howl_tpu_torch.data.dataset.dataset_loader import WakeWordDatasetLoader
+    from howl_tpu_torch.ops.frontend import FrontendConfig
+    from howl_tpu_torch.ops.frontend_cuda import log_mel_spectrogram_cuda
+    from howl_tpu_torch.ops.meyda import MeydaMelSpectrogram
+    from howl_tpu_torch.parallel.mesh import make_mesh
+    from howl_tpu_torch.settings import SETTINGS
+    from howl_tpu_torch.training.run import demo, export_honkling, pretrain, train
+
+    print(bench.card_line())
+    t_phase = time.perf_counter()
+    out = {}
+    with entry_workdir() as tmp:
+        tmp = Path(tmp)
+        port_ws, _ = _serving_workspaces(tmp, state_dict, zmuv)
+        # (a) one offline batch under the profiler, in a process of its own: after an earlier phase's profiler
+        # session in this process the profiler records the copies but no kernel (seen in a whole run)
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--trace-batch", str(port_ws.resolve()),
+                               str(tmp / "trace")], cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"17f (a): the traced batch failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        traced = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(f"17f (a) trace of one bf16 batch of {BATCH} clips of {CLIP_SECONDS:g} s in a process of its own "
+              f"({traced['ms']:.1f} ms): {Path(traced['trace']).name}, {traced['bytes']} bytes; K1 {traced['k1']}, "
+              f"K2 {traced['k2']}")
+        if not (traced["k1"] and traced["k2"]):
+            raise AssertionError(f"17f (a): the trace names no K1 or no K2 kernel: {traced}")
+        _, ww_dev, ww_test = WakeWordDatasetLoader().load_splits(Path("ww"), sample_rate=SAMPLE_RATE, mono=True)
+        clips = np.stack([ds[i].audio_data for ds in (ww_dev, ww_test) for i in range(len(ds))])
+        # (b) K1 on the Meyda basis
+        cfg = FrontendConfig(sample_rate=22050, n_fft=512, hop_length=200, n_mels=40, f_max=8000.0)
+        audio = (np.random.default_rng(SEED).standard_normal((4, 22050)) * 0.1).astype(np.float32)
+        _zero_launch_counts()
+        dev_mels = log_mel_spectrogram_cuda(torch.from_numpy(audio).to(dev), cfg, precision="highest")
+        torch.cuda.synchronize()
+        k1_meyda = _launch_counts()["k1"]
+        host = MeydaMelSpectrogram(n_fft=512, n_mels=40, sample_rate=22050, hop_length=200)(audio)
+        got = np.exp(dev_mels.cpu().numpy())
+        err = float(np.max(np.abs(got - host) / (1e-4 + 1e-3 * np.abs(host))))
+        print(f"17f (b) K1 ({k1_meyda} launch) on the Meyda basis (22,050 Hz, f_max 8 kHz, 40 mels): {got.shape}, "
+              f"max |diff| / (atol + rtol |meyda|) = {err:.3f}")
+        if k1_meyda != 1 or got.shape != host.shape or not err <= 1.0:
+            raise AssertionError(f"17f (b): K1 on the Meyda basis disagrees with MeydaMelSpectrogram ({err:.3f})")
+        # (c) the honkling export
+        export_honkling.run(["-i", str(port_ws), "-o", "weights.js", "--name", "RES8", "--model", "res8"])
+        want = "weights['RES8'] = " + json.dumps(export_honkling.honkling_dict(
+            "res8", "RES8", {k: v.detach().cpu() for k, v in state_dict.items()}))
+        same = Path("weights.js").read_text() == want
+        print(f"17f (c) export_honkling: {Path('weights.js').stat().st_size} bytes, equal to the host's dump: {same}")
+        if not same:
+            raise AssertionError("17f (c): export_honkling's file is not the host's dump")
+        # (d) vision pretraining
+        out["stem_32"] = check_stem_32(dev)
+        write_cifar10(Path("cifar"), *PRETRAIN_IMAGES)
+        with _restored_env("NUM_EPOCHS", "BATCH_SIZE"):
+            os.environ.update({"NUM_EPOCHS": str(PRETRAIN_EPOCHS), "BATCH_SIZE": str(PRETRAIN_BATCH)})
+            SETTINGS.reset()
+            _zero_launch_counts()
+            t0 = time.perf_counter()
+            result = pretrain.run(["--model", "res8", "--workspace", "pretrain_ws", "-i", "cifar", "--device", "cuda"])
+            torch.cuda.synchronize()
+            pre_s = time.perf_counter() - t0
+        SETTINGS.reset()
+        counts = _launch_counts()
+        eval_batches = PRETRAIN_IMAGES[1] // PRETRAIN_BATCH
+        print(f"17f (d) pretrain on {sum(PRETRAIN_IMAGES)} CIFAR-layout images, {PRETRAIN_EPOCHS} epochs at batch "
+              f"{PRETRAIN_BATCH} in {pre_s:.1f} s: test_acc {result['test_acc']:.4f}; K2 {counts['k2']} launches "
+              f"(tc {counts['k2_tc']}) for {eval_batches} eval batches, K1 {counts['k1']}, K3 {counts['k3']}")
+        if (counts["k2"], counts["k2_tc"], counts["k1"], counts["k3"]) != (eval_batches, 0, 0, 0) or \
+                not Path("pretrain_ws", "model-best.pt").exists() or not 0.0 <= result["test_acc"] <= 1.0:
+            raise AssertionError(f"17f (d): launches {counts}, result {result}")
+        out["k2_pretrain"] = counts["k2"]
+        # (e) the demo, four streams on the incremental engine, then one stream through the client
+        wavs = [str(Path("ww", "audio", name)) for name in ("pos_000.wav", "pos_002.wav", "neg_000.wav", "neg_002.wav")]
+        _zero_launch_counts()
+        server, lines = _printed(demo.run, ["--workspace", str(port_ws), "--wav", *wavs, "--streams", "4",
+                                            "--incremental", "--device", "cuda"])
+        torch.cuda.synchronize()
+        counts = _launch_counts()
+        print(f"17f (e) demo --streams 4 --incremental: {server.ticks} ticks, detections {server.detections.tolist()}; "
+              f"K1 {counts['k1']}, K2 {counts['k2']} launches")
+        if (counts["k1"], counts["k2"]) != (0, server.ticks) or not lines[-1].startswith("served 4 streams"):
+            raise AssertionError(f"17f (e): demo --streams: K1 {counts['k1']}, K2 {counts['k2']} for {server.ticks} ticks")
+        out["demo_streams"] = counts
+        _zero_launch_counts()
+        _, lines = _printed(demo.run, ["--workspace", str(port_ws), "--wav", wavs[0], "--device", "cuda"])
+        torch.cuda.synchronize()
+        counts = _launch_counts()
+        print(f"17f (e) demo, one stream through HowlClient: {sum('detected' in x for x in lines)} detection lines; "
+              f"K1 {counts['k1']}, K2 {counts['k2']} launches (one of each a hop)")
+        if counts["k1"] != counts["k2"] or not counts["k1"]:
+            raise AssertionError(f"17f (e): the single-stream demo launched K1 {counts['k1']}, K2 {counts['k2']}")
+        out["demo_client"] = counts
+        # (f) the live engines sharded over one card
+        reps = -(-SHARD_STREAMS // len(clips))
+        pad = int(SERVE_PAD_S * SAMPLE_RATE)
+        live = torch.from_numpy(np.pad(np.tile(clips, (reps, 1))[:SHARD_STREAMS], ((0, 0), (0, pad)))).to(dev)
+        mesh = make_mesh(data=SHARD_WAYS, devices=[dev] * SHARD_WAYS)
+        out["sharded"] = {}
+        for kind, flags in (("online", {}), ("incremental", {"incremental": True}),
+                            ("trunk", {"streaming_trunk": True})):
+            base, _ = hub.load_workspace_engine(port_ws, num_streams=SHARD_STREAMS, device=dev, **flags)
+            sharded, _ = hub.load_workspace_engine(port_ws, num_streams=SHARD_STREAMS, device=dev, **flags)
+            sharded.shard_streams(mesh)
+            want = _feed_live(base, live)
+            _zero_launch_counts()
+            t0 = time.perf_counter()
+            got = _feed_live(sharded, live)
+            torch.cuda.synchronize()
+            hop_ms = (time.perf_counter() - t0) * 1e3 / len(got)
+            counts = _launch_counts()
+            hops = len(got)
+            per_hop = {"online": (1, 1), "incremental": (0, 1), "trunk": (0, 0)}[kind]
+            print(f"17f (f) {kind} engine, {SHARD_STREAMS} streams in {SHARD_WAYS} shards on {dev}: {hops} hops, "
+                  f"{hop_ms:.2f} ms a hop; decisions equal to the unsharded engine's on every hop: "
+                  f"{bool(np.array_equal(got, want))} ({int(want.sum())} fires); K1 {counts['k1']}, K2 {counts['k2']}")
+            if not np.array_equal(got, want) or (counts["k1"], counts["k2"]) != (
+                    per_hop[0] * SHARD_WAYS * hops, per_hop[1] * SHARD_WAYS * hops):
+                raise AssertionError(f"17f (f) {kind}: decisions equal {np.array_equal(got, want)}, launches {counts} "
+                                     f"for {hops} hops of {SHARD_WAYS} shards")
+            out["sharded"][kind] = {"k1": counts["k1"], "k2": counts["k2"], "hops": hops, "hop_ms": hop_ms}
+        # (g) data parallelism over two cards
+        if torch.cuda.device_count() >= 2:
+            with _restored_env("NUM_EPOCHS"):
+                os.environ["NUM_EPOCHS"] = "2"
+                SETTINGS.reset()
+                losses = {}
+                for n in (1, 2):
+                    stats = train.LoopStats()
+                    train.run(["--model", "res8", "--workspace", f"dp{n}", "-i", "ww", "--device", "cuda", "--eval-freq",
+                               "0", "--steps-per-epoch", str(ENTRY_STEPS), "--num-devices", str(n)], stats)
+                    losses[n] = stats.epoch_losses
+            SETTINGS.reset()
+            rel = max(abs(a - b) / abs(b) for a, b in zip(losses[2], losses[1]))
+            print(f"17f (g) train --num-devices 2 (NCCL) against 1, 2 epochs: {losses[2]} vs {losses[1]}, max rel {rel:.2e}")
+            if not rel <= 5e-3:
+                raise AssertionError(f"17f (g): two ranks' epoch losses {losses[2]} are not one process's {losses[1]}")
+        else:
+            print(f"17f (g) train --num-devices 2 did not run: this host shows {torch.cuda.device_count()} card "
+                  "(NCCL puts no two ranks on one card); two ranks ran on the CPU only (tests/test_torch_scaleout.py)")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"17f exports, vision pretraining, the demo, profiling and scale-out: {out['seconds']:.1f} s")
+    return out
+
+
 def drive_families_train(dev) -> dict:
     """(17b) Each of the seven other families trained through the entry point on the card with ``--bf16`` (flax's
     mixed precision over float32 masters), on phase 17's tone corpus and recipe (``entry_workdir``: the noise corpus
@@ -3472,7 +3764,8 @@ def main() -> int:
     print_sass_counts(_build.library_path())
     print(f"cut for the run's time: the main and train paths' own chained timings take {SMOKE_REPEATS} repeats "
           f"(3 before the live engines' phases); the capacity calibration's points {SERVE_CALIBRATION_STEPS} steps "
-          f"(16 before phase 17e); the bench's line keeps its 5 and bench.py's sizes")
+          f"(16 before phase 17e, 8 before 17f); each family's training {FAMILY_TRAIN_EPOCHS} epochs (30 before 17f); "
+          f"the bench's line keeps its 5 and bench.py's sizes")
     laps = [("build", time.perf_counter() - t0)]
     t_lap = time.perf_counter()
 
@@ -3548,6 +3841,14 @@ def main() -> int:
     k2["launches_gsc"] = {"pretrain_gsc": gsc["k2_gsc"], "sharded_seeds": gsc["k2_gsc_sweep"],
                           "commands_recognition": gsc["k2_protocol"]}
     lap("GSC pretraining and the dataset pipeline")
+    scale = drive_exports_and_scaleout(dev, entry["state_dict"], entry["zmuv"])
+    k1["launches_demo"] = {"streams_incremental": scale["demo_streams"]["k1"], "client": scale["demo_client"]["k1"]}
+    k2["launches_demo"] = {"streams_incremental": scale["demo_streams"]["k2"], "client": scale["demo_client"]["k2"]}
+    k1["launches_sharded"] = {kind: rec["k1"] for kind, rec in scale["sharded"].items()}
+    k2["launches_sharded"] = {kind: rec["k2"] for kind, rec in scale["sharded"].items()}
+    k2["launches_pretrain"] = scale["k2_pretrain"]
+    k2["pretrain_32_rows"] = scale["stem_32"]
+    lap("exports, pretraining, demo, profiling and scale-out")
     check_bench_record(bench.main(["--device", "cuda"]))
     lap("bench (d)")
     print("phase seconds: " + ", ".join(f"{name} {sec:.1f}" for name, sec in laps))
@@ -3615,4 +3916,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(train_repeat_main() if sys.argv[1:] == ["--train-repeat"] else main())
+    sys.exit(train_repeat_main() if sys.argv[1:] == ["--train-repeat"]
+             else trace_batch_main() if sys.argv[1:2] == ["--trace-batch"] else main())

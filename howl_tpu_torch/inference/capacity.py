@@ -166,8 +166,8 @@ def check_capacity(kind: str, num_streams: int, hop_block: int = 1, hop_ms: floa
         msg = (
             f"{prof.label} cannot sustain {num_streams} streams on one card: predicted ~{predicted:.1f} ms/step "
             f"against a {budget:.1f} ms budget (sustainable ~{sustainable}). Use hub.load_workspace_engine(auto=True) "
-            f"to pick a cheaper engine, raise hop_block, or split the streams over ~{n_cards} cards "
-            f"(engine.shard_streams, ROADMAP item 12)."
+            f"to pick a cheaper engine, raise hop_block, or split the streams over ~{n_cards} cards: "
+            f"engine.shard_streams(make_mesh(data={n_cards}))."
         )
     return CapacityReport(ok, kind, hop_block, num_streams, predicted, budget, sustainable, msg)
 
@@ -192,7 +192,7 @@ def recommend(num_streams: int, supports_trunk: bool = True, hop_ms: float = HOP
     n_cards = math.ceil(num_streams / max(sustainable, 1))
     raise CapacityError(
         f"no single-card engine sustains {num_streams} streams (best: {best_kind} hop_block={best_block} at "
-        f"~{sustainable}); split the streams over ~{n_cards} cards (engine.shard_streams, ROADMAP item 12)"
+        f"~{sustainable}); split the streams over ~{n_cards} cards: engine.shard_streams(make_mesh(data={n_cards}))"
     )
 
 

@@ -88,10 +88,6 @@ from howl_tpu_torch.ops.tf32 import exact_float32, exact_if_float32
 WINDOW_CHUNK = 16384
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported to PyTorch yet (ROADMAP Queue 1, {item})")
-
-
 class StreamingEngine:
     """Sliding-window scoring + smoothing + FSM over batches of clips."""
 

@@ -28,10 +28,22 @@ N, L) output is scored by its last frame's logits. ``carry_hops``
 (recurrent models only: lstm, seq-lstm, gru) threads that carry from hop to
 hop, so each window is scored from the previous hop's final state; by
 default every hop starts from zeros, as the offline engine scores windows
-and as the reference serves live. ``reset`` clears it. ``shard_streams`` (a
-mesh of cards) raises and cites its ROADMAP item. Every engine runs on the
-card unless the caller passes ``device="cpu"``; a CUDA device that does not
-exist raises.
+and as the reference serves live. ``reset`` clears it. Every engine runs on
+the card unless the caller passes ``device="cpu"``; a CUDA device that does
+not exist raises.
+
+``shard_streams(mesh)`` (``parallel.mesh.make_mesh``) splits the streams
+over the mesh's devices in this one process, with no collectives: each
+device holds a shard, an engine of ``num_streams / k`` streams with its own
+replica of the weights and its slice of every per-stream state (the
+detection rings, the recurrent carry, the incremental engine's mel ring and
+audio tail, the trunk engine's caches and rings). ``push`` and ``ingest``
+keep their whole-(N, hop) signature: every shard is stepped before any
+result is read back, so launches on different cards overlap, and the
+decisions come back as (N,) arrays in stream order. Reading a per-stream
+attribute of a sharded engine (``state``, ``mel_ring``, ``last_probs``,
+...) gathers the shards' on the first device; ``reset`` and assigning
+``variables`` reach every shard.
 
 Timestamps are float32 on the device; once the clock passes 2^22 ms (~70
 min) the engines move it and every ring timestamp back by 2^21 ms, so the
@@ -56,7 +68,6 @@ from howl_tpu_torch.inference.config import (
     serving_dft_precision,
 )
 from howl_tpu_torch.inference.detect import DetectState, apply_inference_weights, detect_step, init_state
-from howl_tpu_torch.inference.engine import _not_ported
 from howl_tpu_torch.models.base import ModelSpec, model_spec, serve_in_weight_dtype
 from howl_tpu_torch.ops.frontend import FrontendConfig, log_mel_spectrogram
 from howl_tpu_torch.ops.frontend_cuda import frontend_grade, log_mel_spectrogram_cuda, log_mel_spectrogram_plain
@@ -68,6 +79,32 @@ _REBASE_DELTA = float(2**21)  # ms
 
 def _rebase_times(state: DetectState, delta: float) -> DetectState:
     return state._replace(pred_times=state.pred_times - delta, label_times=state.label_times - delta)
+
+
+def _take_streams(x, lo: int, hi: int, device, axis: int = 0):
+    """Streams [lo, hi) of a per-stream state (a tensor, a tuple or
+    NamedTuple or dict of them, or None) on ``device``."""
+    if x is None:
+        return None
+    if torch.is_tensor(x):
+        return x.narrow(axis, lo, hi - lo).to(device).contiguous()
+    if isinstance(x, dict):
+        return {k: _take_streams(v, lo, hi, device, axis) for k, v in x.items()}
+    parts = [_take_streams(v, lo, hi, device, axis) for v in x]
+    return type(x)(*parts) if hasattr(x, "_fields") else type(x)(parts)
+
+
+def _gather_streams(parts: list, device, axis: int = 0):
+    """The shards' per-stream states joined in stream order on ``device``."""
+    first = parts[0]
+    if first is None:
+        return None
+    if torch.is_tensor(first):
+        return torch.cat([p.to(device) for p in parts], dim=axis)
+    if isinstance(first, dict):
+        return {k: _gather_streams([p[k] for p in parts], device, axis) for k in first}
+    joined = [_gather_streams(list(group), device, axis) for group in zip(*parts)]
+    return type(first)(*joined) if hasattr(first, "_fields") else type(first)(joined)
 
 
 def chain_log_mels(audio: torch.Tensor, frontend: FrontendConfig, precision) -> torch.Tensor:
@@ -83,7 +120,17 @@ def chain_log_mels(audio: torch.Tensor, frontend: FrontendConfig, precision) -> 
 class _HopEngine:
     """What the online engines share: the device, the weights (res8's stem
     kernel taps re-derived whenever ``variables`` is assigned), the hop
-    geometry, and the step's tail from the model to decisions."""
+    geometry, the step's tail from the model to decisions, and the split of
+    the streams over a mesh (``shard_streams``).
+
+    A subclass names its per-stream state in ``_STREAM_STATE`` (stream axis
+    0; the recurrent carry's is 1) and its clocks in ``_CLOCKS``, and
+    implements ``_advance`` (one step of its own streams on its device,
+    returning the step's labels and fire flags on the device)."""
+
+    _STREAM_STATE = ("state", "carry")
+    _STREAM_AXIS = {"carry": 1}  # PyTorch's recurrent carry is (layers, N, H)
+    _CLOCKS = ("curr_time",)
 
     def __init__(self, model, variables, cfg: EngineConfig, frontend: FrontendConfig, zmuv_mean: float,
                  zmuv_std: float, spec: Optional[ModelSpec], num_streams: int, compute_dtype, dft_precision,
@@ -126,20 +173,98 @@ class _HopEngine:
     @variables.setter
     def variables(self, value):
         """Load a new state dict, rounded to the compute dtype, and for res8
-        re-derive the stem kernel's taps from it."""
+        re-derive the stem kernel's taps from it; on a sharded engine, into
+        every shard's replica as well."""
         self._variables = cast_compute_dtype(value, self.compute_dtype)
         self.model.load_state_dict(self._variables, strict=True)
         self._stem_taps = self.model.stem_taps(self.frontend.n_mels) if self.spec.uses_trunk else None
+        for shard in self.__dict__.get("_shards") or ():
+            shard.variables = value
+
+    # ---- streams split over a mesh ----
+
+    @property
+    def shards(self) -> list:
+        """The engine's shards after ``shard_streams`` (empty before)."""
+        return list(self.__dict__.get("_shards") or ())
 
     def shard_streams(self, mesh):
-        raise _not_ported("shard_streams (the streams split over a mesh of cards)", "item 12")
+        """Split the streams over ``mesh``'s devices (``parallel.mesh.Mesh``;
+        a device may repeat): shard i holds streams [i * N / k, (i + 1) * N /
+        k) on device i with its own replica of the weights. Returns the
+        engine."""
+        if self.shards:
+            raise ValueError("the streams are already sharded")
+        devices = mesh.device_list()
+        n = len(devices)
+        if self.num_streams % n:
+            raise ValueError(
+                f"num_streams={self.num_streams} must be divisible by the mesh's {n} devices "
+                f"(mesh {dict(mesh.shape)})"
+            )
+        per = self.num_streams // n
+        shards = []
+        for i, dev in enumerate(devices):
+            shard = copy.copy(self)
+            shard.device = torch.device(dev)
+            shard.num_streams = per
+            shard.model = copy.deepcopy(self.model).to(shard.device)
+            shard.variables = self._variables  # the replica's weights, and its stem taps on its device
+            for name in self._STREAM_STATE:
+                lo = i * per
+                setattr(shard, name, _take_streams(getattr(self, name), lo, lo + per, shard.device,
+                                                   self._STREAM_AXIS.get(name, 0)))
+            shards.append(shard)
+        for name in self._STREAM_STATE + self._CLOCKS:
+            self.__dict__.pop(name, None)
+        self._shards = shards
+        return self
+
+    def __getattr__(self, name):
+        shards = self.__dict__.get("_shards")
+        if shards and name in self._CLOCKS:
+            return getattr(shards[0], name)
+        if shards and name in self._STREAM_STATE:
+            return _gather_streams([getattr(s, name) for s in shards], shards[0].device,
+                                   self._STREAM_AXIS.get(name, 0))
+        raise AttributeError(f"{type(self).__name__!r} object has no attribute {name!r}")
+
+    def _reset_shards(self, *per_stream) -> bool:
+        """On a sharded engine, reset every shard (each ``per_stream``
+        argument with N rows split by stream) and the host results; False
+        on an engine that is not sharded."""
+        shards = self.shards
+        if not shards:
+            return False
+        per = self.num_streams // len(shards)
+        for i, shard in enumerate(shards):
+            shard.reset(*(a[i * per : (i + 1) * per] if getattr(a, "ndim", np.ndim(a)) > 1 else a
+                          for a in per_stream))
+        self.last_labels = None
+        self.last_fired = None
+        return True
+
+    def _hop(self, audio: torch.Tensor) -> bool:
+        """One step of every stream on (N, samples) audio: each shard (or
+        the engine itself) advances, then the results come to the host."""
+        shards = self.shards
+        if not shards:
+            return self._fetch(*self._advance(audio.to(self.device)))
+        outs = [s._advance(part.to(s.device)) for s, part in zip(shards, audio.split(self.num_streams // len(shards)))]
+        host = torch.cat([torch.stack([lab.to(torch.int32), fired.to(torch.int32)]).cpu() for lab, fired in outs],
+                         dim=1).numpy()
+        self.last_labels, self.last_fired = host[0], host[1].astype(bool)
+        return bool(self.last_fired.any())
 
     def _new_state(self) -> DetectState:
         return init_state(self.num_streams, self.cfg.num_labels, self._s_steps, self._w_steps, self.device)
 
     def _as_audio(self, audio) -> torch.Tensor:
-        """(samples,) or (N, samples) audio -> float32 (N, samples) on the device."""
-        audio = torch.as_tensor(audio, dtype=torch.float32).to(self.device)
+        """(samples,) or (N, samples) audio -> float32 (N, samples), on the
+        device unless the engine is sharded (each shard moves its part)."""
+        audio = torch.as_tensor(audio, dtype=torch.float32)
+        if not self.shards:
+            audio = audio.to(self.device)
         return audio[None] if audio.ndim == 1 else audio
 
     def _maybe_rebase(self) -> None:
@@ -220,6 +345,8 @@ class OnlineEngine(_HopEngine):
 
     def reset(self):
         """Clear the histories."""
+        if self._reset_shards():
+            return
         self.state = self._new_state()
         self.carry = None
         self.curr_time = 0.0
@@ -260,12 +387,14 @@ class OnlineEngine(_HopEngine):
             )
         if audio.shape[-1] < self.window_samples:
             audio = torch.nn.functional.pad(audio, (self.window_samples - audio.shape[-1], 0))
-        audio = audio[:, -self.window_samples :].contiguous()
+        return self._hop(audio[:, -self.window_samples :].contiguous())
+
+    def _advance(self, audio: torch.Tensor):
         self._maybe_rebase()
         self.state, label, fired_now, _, carry = self._step(audio, self.state, self.curr_time, self.carry)
         self._keep_carry(carry)
         self.curr_time += self.stride_ms
-        return self._fetch(label, fired_now)
+        return label, fired_now
 
     def infer(self, window_audio) -> bool:
         """Reference-API-shaped alias for ``ingest``."""
@@ -285,6 +414,8 @@ class IncrementalOnlineEngine(_HopEngine):
     frame ends ``tail + hop - n_fft`` samples behind the stream head (144
     samples at the defaults).
     """
+
+    _STREAM_STATE = _HopEngine._STREAM_STATE + ("mel_ring", "tail")
 
     def __init__(
         self,
@@ -318,6 +449,8 @@ class IncrementalOnlineEngine(_HopEngine):
     def reset(self):
         """Featurized silence in the ring (the ZMUV'd log of the offset, what
         a zeroed audio ring would featurize to), a zero tail, empty histories."""
+        if self._reset_shards():
+            return
         n, f, w = self.num_streams, self.frontend.n_mels, self.window_frames
         silence = (float(np.log(self.frontend.log_offset)) - self.zmuv_mean) / self.zmuv_std
         self.mel_ring = torch.full((n, f, w), silence, dtype=torch.float32, device=self.device)
@@ -349,10 +482,13 @@ class IncrementalOnlineEngine(_HopEngine):
         audio = self._as_audio(new_audio)
         if tuple(audio.shape) != (self.num_streams, self.hop_samples):
             raise ValueError(f"push expects {(self.num_streams, self.hop_samples)}, got {tuple(audio.shape)}")
+        return self._hop(audio)
+
+    def _advance(self, audio: torch.Tensor):
         self._maybe_rebase()
         self.tail, self.mel_ring, self.state, label, fired_now, carry = self._step(
             audio, self.tail, self.mel_ring, self.state, self.curr_time, self.carry
         )
         self._keep_carry(carry)
         self.curr_time += self.stride_ms
-        return self._fetch(label, fired_now)
+        return label, fired_now

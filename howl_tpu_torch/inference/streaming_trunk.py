@@ -241,8 +241,12 @@ class FusedStreamingOnlineEngine(_HopEngine):
     fused-trunk scorer's up to the order of float32 sums. ``hop_block=H`` (a
     multiple of ``schedule.period``) scores H hops in one step: the same
     per-hop decisions, seen at the block's end (at worst ``lag + H - 1``
-    hops after the audio).
+    hops after the audio). ``shard_streams`` splits the streams, the caches
+    and the rings over a mesh (``online.py``).
     """
+
+    _STREAM_STATE = _HopEngine._STREAM_STATE + ("mel_cache", "rings", "s6_ring", "tail", "last_probs")
+    _CLOCKS = _HopEngine._CLOCKS + ("_j",)
 
     def __init__(
         self,
@@ -315,6 +319,8 @@ class FusedStreamingOnlineEngine(_HopEngine):
         (silence by default), as a zeroed ring buffer would; every trunk
         cache is prefilled from the preroll's whole-clip trunk, so frame
         values match the offline trunk of (preroll + pushed audio)."""
+        if self._reset_shards(preroll_audio):
+            return
         n = self.num_streams
         want = (n, self.window_frames * self.frontend.hop_length)
         if preroll_audio is None:
@@ -439,11 +445,16 @@ class FusedStreamingOnlineEngine(_HopEngine):
         the window ``schedule.lag`` hops back. Blocked: (num_streams,
         hop_block * hop_samples); the flags cover the block's ``hop_block``
         windows (``last_fired`` is (B, hop_block))."""
-        if self.hop_block > 1:
-            return self._push_block(new_audio)
         audio = self._as_audio(new_audio)
-        if tuple(audio.shape) != (self.num_streams, self.hop_samples):
-            raise ValueError(f"push expects {(self.num_streams, self.hop_samples)}, got {tuple(audio.shape)}")
+        want = (self.num_streams, self.hop_block * self.hop_samples)
+        if tuple(audio.shape) != want:
+            raise ValueError(f"push expects {want}" + (f" (hop_block={self.hop_block})" if self.hop_block > 1 else "")
+                             + f", got {tuple(audio.shape)}")
+        return self._hop(audio)
+
+    def _advance(self, audio: torch.Tensor):
+        if self.hop_block > 1:
+            return self._advance_block(audio)
         self._j += 1
         emitting = self._j - self.schedule.lag >= 0  # window k = j - lag is decided now
         if emitting:
@@ -453,17 +464,12 @@ class FusedStreamingOnlineEngine(_HopEngine):
             self._j % self.schedule.period, audio, self.tail, self.mel_cache, self.rings, self.s6_ring,
             self.state, self.curr_time, emitting,
         )
-        fired = self._fetch(label, fired_now)
         if emitting:
             self.curr_time += self.stride_ms
-        return fired
+        return label, fired_now
 
-    def _push_block(self, new_audio) -> bool:
+    def _advance_block(self, audio: torch.Tensor):
         H = self.hop_block
-        audio = self._as_audio(new_audio)
-        want = (self.num_streams, H * self.hop_samples)
-        if tuple(audio.shape) != want:
-            raise ValueError(f"push expects {want} (hop_block={H}), got {tuple(audio.shape)}")
         k0 = self._j + 1 - self.schedule.lag  # the window of the block's first hop
         self._j += H
         self._maybe_rebase()
@@ -474,6 +480,5 @@ class FusedStreamingOnlineEngine(_HopEngine):
          self.last_probs) = self._block_step(
             audio, self.tail, self.mel_cache, self.rings, self.s6_ring, self.state, k0, t_base
         )
-        fired = self._fetch(labels, fireds)  # (B, H): hop h decides window k0 + h
         self.curr_time += (max(0, k0 + H) - max(0, k0)) * self.stride_ms
-        return fired
+        return labels, fireds  # (B, H): hop h decides window k0 + h

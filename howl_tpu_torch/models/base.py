@@ -85,16 +85,25 @@ class DropoutDraws:
     """Where a model's dropout masks come from in training: drawn from
     ``generator`` (keep where a uniform draw is at or above the rate), or,
     with ``masks``, taken from that list in the order the forward asks for
-    them (the tests replay the JAX step's masks this way)."""
+    them (the tests replay the JAX step's masks this way). With ``rows``
+    (lo, hi, total), one rank of a data-parallel step, each mask is the
+    global batch's, drawn (or given) for ``total`` rows on the batch axis,
+    of which the rank keeps rows [lo, hi)."""
 
-    def __init__(self, generator: Optional[torch.Generator] = None, masks=None):
+    def __init__(self, generator: Optional[torch.Generator] = None, masks=None, rows=None):
         self.generator = generator
         self.masks = None if masks is None else list(masks)
+        self.rows = rows
 
-    def keep(self, shape, rate: float, device) -> torch.Tensor:
+    def keep(self, shape, rate: float, device, batch_axis: int = 0) -> torch.Tensor:
+        if self.rows is not None:
+            lo, hi, total = self.rows
+            shape = tuple(shape[:batch_axis]) + (total,) + tuple(shape[batch_axis + 1 :])
         if self.masks is not None:
-            return torch.as_tensor(np.array(self.masks.pop(0)), dtype=torch.bool, device=device)
-        return torch.rand(shape, generator=self.generator, device=device) >= rate
+            keep = torch.as_tensor(np.array(self.masks.pop(0)), dtype=torch.bool, device=device)
+        else:
+            keep = torch.rand(shape, generator=self.generator, device=device) >= rate
+        return keep if self.rows is None else keep.narrow(batch_axis, lo, hi - lo)
 
 
 def use_dropout_draws(model: nn.Module, draws: Optional[DropoutDraws]) -> None:
@@ -103,6 +112,38 @@ def use_dropout_draws(model: nn.Module, draws: Optional[DropoutDraws]) -> None:
     for m in model.modules():
         if isinstance(m, HowlModel):
             m.dropout_draws = draws
+
+
+def use_data_group(model: nn.Module, group) -> None:
+    """Give every BatchNorm of ``model`` (res8's and ``AffineBatchNorm``)
+    the data group whose global batch its training statistics span (None:
+    this process's batch alone)."""
+    for m in model.modules():
+        if hasattr(m, "data_group"):
+            m.data_group = group
+
+
+def batch_moments(xf: torch.Tensor, group=None):
+    """Per-channel mean and biased variance (E[x^2] - E[x]^2, clipped at 0)
+    of float32 (B, C, H, W) ``xf``. With a data group (a
+    ``parallel.mesh.DataGroup`` of more than one rank) over the global
+    batch: each rank's sums of x and x^2 and its element count are
+    all-reduced in float32 by the differentiable all-reduce, so the
+    gradient through the statistics reaches every rank's rows."""
+    if group is None or group.size == 1:
+        mean = xf.mean(dim=(0, 2, 3))
+        return mean, torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+    import warnings
+
+    from torch.distributed.nn.functional import all_reduce
+
+    c = xf.shape[1]
+    count = xf.new_full((1,), float(xf.numel() // c))
+    with warnings.catch_warnings():  # newer PyTorch marks it deprecated; its replacement has no backward
+        warnings.simplefilter("ignore", FutureWarning)
+        sums = all_reduce(torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)), count]))
+    mean, sq = sums[:c] / sums[-1], sums[c : 2 * c] / sums[-1]
+    return mean, torch.clamp(sq - mean * mean, min=0.0)
 
 
 def serve_in_weight_dtype(model: nn.Module) -> nn.Module:
@@ -130,13 +171,13 @@ class AffineBatchNorm(nn.BatchNorm2d):
 
     def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.99):
         super().__init__(channels, eps=eps, momentum=1.0 - momentum)
+        self.data_group = None  # training statistics over a data group's global batch (``use_data_group``)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)  # the running stats: one batch_norm call, float32 arithmetic for bf16 x
         xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        mean, var = batch_moments(xf, self.data_group)
         with torch.no_grad():
             keep = 1.0 - self.momentum
             self.running_mean.copy_(keep * self.running_mean + self.momentum * mean)
@@ -223,13 +264,14 @@ class HowlModel(nn.Module):
         """A dense layer in float32, as the JAX modules compute their logits."""
         return F.linear(x.float(), layer.weight.float(), layer.bias.float())
 
-    def _dropout(self, x: torch.Tensor, rate: float) -> torch.Tensor:
+    def _dropout(self, x: torch.Tensor, rate: float, batch_axis: int = 0) -> torch.Tensor:
         """flax's ``Dropout(rate)``: in training, each value kept with
-        probability 1 - rate and scaled by 1 / (1 - rate), else zero."""
+        probability 1 - rate and scaled by 1 / (1 - rate), else zero.
+        ``batch_axis`` is the axis of ``x`` that holds the batch's rows."""
         if not self.training or rate == 0.0:
             return x
         draws = self.dropout_draws or DropoutDraws()
-        keep = draws.keep(x.shape, rate, x.device)
+        keep = draws.keep(x.shape, rate, x.device, batch_axis)
         return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 

@@ -47,7 +47,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from howl_tpu_torch.models.base import AffineBatchNorm, HowlModel, _lecun_normal_, register_model
+from howl_tpu_torch.models.base import AffineBatchNorm, HowlModel, _lecun_normal_, batch_moments, register_model
 from howl_tpu_torch.ops.frontend import round_bf16
 from howl_tpu_torch.ops.stem_cuda import fold_stem_weights, res8_stem_cuda
 
@@ -73,6 +73,7 @@ class Res8(nn.Module):
         self.num_maps = num_maps
         self.pooling = tuple(pooling)
         self.dtype = dtype
+        self.data_group = None  # training BatchNorm statistics over a data group's global batch (``use_data_group``)
         self.conv0 = nn.Conv2d(1, num_maps, 3, padding=1, bias=False)
         for i in range(1, 7):
             setattr(self, f"conv{i}", nn.Conv2d(num_maps, num_maps, 3, padding=1, bias=False))
@@ -127,8 +128,7 @@ class Res8(nn.Module):
         if not self.training:
             return bn(x)
         xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        mean, var = batch_moments(xf, self.data_group)
         with torch.no_grad():
             bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1 - BN_MOMENTUM) * mean)
             bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1 - BN_MOMENTUM) * var)
@@ -314,4 +314,4 @@ class SequentialCnn(HowlModel):
         x = self.bn1(F.max_pool2d(F.relu(self._conv(self.conv0, self._mels_only(x), dt)), 2))  # time as H
         x = self.bn2(F.max_pool2d(F.relu(self._conv(self.conv1, x, dt)), 2))
         x = x.permute(2, 0, 3, 1).flatten(2)  # (T', B, F' * C), flattened as (F', C)
-        return self._head(self.fc2, self._dropout(F.relu(self._dense(self.fc1, x, dt)), 0.1))  # (T', B, L)
+        return self._head(self.fc2, self._dropout(F.relu(self._dense(self.fc1, x, dt)), 0.1, batch_axis=1))  # (T', B, L)

@@ -8,10 +8,11 @@ The reference farms one training process per GPU (polling ``ps aux``) and
 re-runs a full eval per threshold. Here:
 
   * seeds train one after another through the entry point
-    (``training.run.train``), or with ``--sharded-seeds`` all at once on the
-    card (``parallel/seed_sweep.py``: one sweep step trains every seed, with
-    one launch of the noise-bank mix kernel, K3, over all seeds' examples);
-    existing seed workspaces are kept;
+    (``training.run.train``), or with ``--sharded-seeds`` all at once
+    (``parallel/seed_sweep.py``: one sweep step trains every seed, with one
+    launch of the noise-bank mix kernel, K3, a card over its seeds'
+    examples; seed s on card s mod k of the visible cards); existing seed
+    workspaces are kept;
   * the threshold sweep scores every clip once through the offline engine
     (``hub.load_workspace_streaming_engine``; on the card the frontend
     kernel K1 and, for res8, the stem kernel K2, once an evaluator batch)
@@ -181,13 +182,15 @@ class SeedTraining:
     steps_per_epoch: int
     opt_kwargs: dict
     make_batchifier: Callable
+    mesh: object = None  # the seeds' devices (``parallel.seed_sweep.sweep_mesh``); None: all on ``device``
 
     def create_states(self, seeds=None) -> list:
-        """Fresh train states of ``seeds`` (default: all), seed s's from its seed."""
+        """Fresh train states of ``seeds`` (default: all), seed s's from its
+        seed, the i-th on the mesh's device i mod k."""
         from howl_tpu_torch.parallel.seed_sweep import create_seed_states
 
         return create_seed_states(self.model, self.seeds if seeds is None else seeds, device=self.device,
-                                  **self.opt_kwargs)
+                                  mesh=self.mesh, **self.opt_kwargs)
 
     def batches(self):
         """The sweep's batches in step order, without end: (audio (S, B, n),
@@ -203,11 +206,13 @@ class SeedTraining:
                        for bf, r in zip(batchifiers, sample_rngs)]
             fields = ("audio_data", "labels", "lengths") if self.use_frame else (
                 "audio_data", "labels", "audio_lengths", "label_lengths")
-            yield shard_seed_batch([np.stack([getattr(b, f) for b in batches]) for f in fields], self.device)
+            yield shard_seed_batch([np.stack([getattr(b, f) for b in batches]) for f in fields], self.device,
+                                   self.mesh)
 
 
-def seed_training(args, seeds, device) -> SeedTraining:
-    """The shared setup of :func:`train_seeds_sharded` on ``device``: the
+def seed_training(args, seeds, device, mesh=None) -> SeedTraining:
+    """The shared setup of :func:`train_seeds_sharded` on ``device`` (the
+    seeds spread over ``mesh`` when given): the
     train splits of ``args.dataset_paths``, the noise bank, the ZMUV fit on
     128 clips, the model of ``args.model`` and its frame or CTC step."""
     from howl_tpu_torch.context import InferenceContext
@@ -299,11 +304,12 @@ def seed_training(args, seeds, device) -> SeedTraining:
     opt_kwargs = dict(learning_rate=SETTINGS.training.learning_rate, weight_decay=SETTINGS.training.weight_decay,
                       lr_decay=SETTINGS.training.lr_decay, steps_per_epoch=steps_per_epoch)
     return SeedTraining(list(seeds), device, use_frame, ww_train, zmuv, model, train_step, batch_size, steps_per_epoch,
-                        opt_kwargs, make_batchifier)
+                        opt_kwargs, make_batchifier, mesh)
 
 
 def train_seeds_sharded(args, base: Path, seeds) -> dict:
-    """Train all seeds of the wake-word model at once on one card (frame OR
+    """Train all seeds of the wake-word model at once on the card, or across
+    the visible cards, seed s on card s mod k (frame OR
     ctc objective, as the reference harness sweeps any objective by env vars,
     ref eval_wake_word_detection.py:187-207): one sweep step a step for every
     seed (``parallel/seed_sweep.py``), seed s at key s, then per-seed
@@ -314,13 +320,14 @@ def train_seeds_sharded(args, base: Path, seeds) -> dict:
     sweep steps' seconds until each loss was on the host, "prep_s": the
     batches' seconds}."""
     from howl_tpu_torch.ops.tf32 import exact_float32
-    from howl_tpu_torch.parallel.seed_sweep import make_seed_sweep_step
+    from howl_tpu_torch.parallel.seed_sweep import make_seed_sweep_step, sweep_mesh
     from howl_tpu_torch.workspace import Workspace
 
     device = resolve_device(getattr(args, "device", None) or SETTINGS.training.device)
     seeds = list(seeds)
-    setup = seed_training(args, seeds, device)
-    Logger.info(f"seed sweep: {len(seeds)} seeds stacked on {device}")
+    mesh = sweep_mesh(len(seeds), device)
+    setup = seed_training(args, seeds, device, mesh)
+    Logger.info(f"seed sweep: {len(seeds)} seeds on {mesh}")
     states = setup.create_states()
     sweep_step = make_seed_sweep_step(setup.train_step)
     batches = setup.batches()

@@ -17,8 +17,9 @@ in bf16 over float32 masters. The samplers are seeded as JAX seeds them: the
 train sampler by the epoch, the eval samplers unshuffled, with the last
 partial batch padded and only its ``valid`` rows counted.
 
-``--sharded-seeds N`` (N > 1) trains seeds 0..N-1 at once on the card
-through ``parallel/seed_sweep.py``: seed s starts from its own weights, draws
+``--sharded-seeds N`` (N > 1) trains seeds 0..N-1 at once through
+``parallel/seed_sweep.py``, seed s on card s mod k of the visible cards:
+seed s starts from its own weights, draws
 its steps at key s (where JAX keys seed s by ``PRNGKey(s)``) and reads its
 own batches (sampler seed ``1000 * (s + 1) + epoch``); each seed's dev and
 test accuracy come back with their means, and each seed's weights go to
@@ -33,7 +34,14 @@ through the stem kernel of ``ops/stem_cuda.py`` (K2) on the card, once an
 eval batch; JAX's eval step takes XLA's stem there. Float32 steps and eval
 batches run with TF32 off (``ops/tf32.py``).
 
-Refused, with its ROADMAP item: more than one device (item 12).
+``--num-devices N`` trains data-parallel on N ranks, one card each, as
+``training/run/train.py`` does (``parallel/data_parallel.py``: the ranks
+launched by the command or found under ``torchrun``; every rank reads the
+sampler's global batch and draws the whole batch's randomness, BatchNorm
+takes the global statistics, the gradients are averaged); each eval batch's
+rows are split over the ranks and the correct counts summed. Only rank 0
+writes the workspace. With ``--sharded-seeds`` the seeds spread over the
+cards instead and ``--num-devices`` is not read, as in JAX.
 """
 
 from __future__ import annotations
@@ -54,9 +62,11 @@ from howl_tpu_torch.ops.augment import AugmentConfig
 from howl_tpu_torch.ops.frontend import FrontendConfig
 from howl_tpu_torch.ops.tf32 import exact_float32, is_float32
 from howl_tpu_torch.ops.zmuv import ZmuvTransform
-from howl_tpu_torch.parallel.seed_sweep import create_seed_states, make_seed_sweep_step, shard_seed_batch
+from howl_tpu_torch.parallel import data_parallel
+from howl_tpu_torch.parallel.mesh import replicate, shard_batch
+from howl_tpu_torch.parallel.seed_sweep import create_seed_states, make_seed_sweep_step, shard_seed_batch, sweep_mesh
 from howl_tpu_torch.settings import SETTINGS
-from howl_tpu_torch.training.run.train import LoopStats, _not_ported
+from howl_tpu_torch.training.run.train import LoopStats, open_workspace
 from howl_tpu_torch.training.state import create_train_state, param_count
 from howl_tpu_torch.training.step import StepConfig, make_classification_eval_step, make_classification_train_step
 from howl_tpu_torch.utils.args_utils import ArgumentParserBuilder, opt
@@ -118,36 +128,52 @@ def optimizer_settings(steps_per_epoch: int) -> dict:
                 lr_decay=SETTINGS.training.lr_decay, steps_per_epoch=steps_per_epoch)
 
 
-def seed_batches(train_ds, n_seeds: int, epoch: int, device) -> Iterator[tuple]:
+def seed_batches(train_ds, n_seeds: int, epoch: int, device, mesh=None) -> Iterator[tuple]:
     """One epoch of the sweep's batches: (audio (S, B, n), labels (S, B),
-    lengths (S, B)) on ``device``, seed s's from its own shuffled sampler,
-    seeded ``1000 * (s + 1) + epoch`` (ref pretrain_gsc.py:89)."""
+    lengths (S, B)) on ``device`` (seed s's on its mesh device with a
+    mesh), seed s's from its own shuffled sampler, seeded ``1000 * (s + 1) +
+    epoch`` (ref pretrain_gsc.py:89)."""
     samplers = [iter(make_sampler(train_ds, True, True, seed=1000 * (s + 1) + epoch)) for s in range(n_seeds)]
     for batches in zip(*samplers):
         arrays = (np.stack([getattr(b, k) for b in batches]) for k in ("audio_data", "labels", "lengths"))
-        yield shard_seed_batch(tuple(arrays), device)
+        yield shard_seed_batch(tuple(arrays), device, mesh)
 
 
 def evaluate_accuracy(eval_step, states, sampler, prefix: str, device, stats: Optional[LoopStats] = None,
-                      exact: bool = True) -> np.ndarray:
-    """Accuracy of each state in ``states`` on the sampler's batches,
-    counting each batch's ``valid`` rows only. ``stats`` gains one eval batch
-    a state a batch and their wall time."""
+                      exact: bool = True, group=None) -> np.ndarray:
+    """Accuracy of each state in ``states`` (on its own device) on the
+    sampler's batches, counting each batch's ``valid`` rows only. With a
+    data group each rank scores its share of each batch's rows (the batch
+    padded to a multiple of the group's size) and the correct counts are
+    summed over the group. ``stats`` gains one eval batch a state a batch
+    and their wall time."""
     corr = np.zeros(len(states))
     tot = 0
     t0 = time.perf_counter()
     for batch in sampler:
-        audio = torch.from_numpy(batch.audio_data).to(device)
-        lengths = torch.from_numpy(batch.lengths).to(device)
         valid = getattr(batch, "valid", len(batch.labels))
+        audio, lengths, labels = batch.audio_data, batch.lengths, np.asarray(batch.labels)
+        lo = 0
+        if group is not None:
+            pad = -len(labels) % group.size
+            audio, lengths, labels = (np.concatenate([x, np.zeros((pad,) + x.shape[1:], x.dtype)])
+                                      for x in (audio, lengths, labels))
+            local = len(labels) // group.size
+            lo = group.rank * local
+            audio, lengths, labels = audio[lo : lo + local], lengths[lo : lo + local], labels[lo : lo + local]
+        keep = lo + np.arange(len(labels)) < valid
         for i, state in enumerate(states):
+            dev = next(state.model.parameters()).device
             with exact_float32(exact):
-                logits = eval_step(state, audio, lengths)
-            preds = logits.float().cpu().numpy().argmax(-1)[:valid]
-            corr[i] += int((preds == batch.labels[:valid]).sum())
+                logits = eval_step(state, torch.from_numpy(np.ascontiguousarray(audio)).to(dev),
+                                   torch.from_numpy(np.ascontiguousarray(lengths)).to(dev))
+            preds = logits.float().cpu().numpy().argmax(-1)
+            corr[i] += int(((preds == labels) & keep).sum())
             if stats is not None:
                 stats.eval_batches += 1
         tot += valid
+    if group is not None:
+        corr = data_parallel.all_sum(torch.from_numpy(corr).to(group.device), group).cpu().numpy()
     if stats is not None:
         stats.eval_s += time.perf_counter() - t0
     accs = corr / max(tot, 1)
@@ -164,7 +190,9 @@ def run_sharded_seeds(n_seeds: int, model, step_cfg, train_ds, dev_ds, test_ds, 
     seed's dev and test accuracy and its ``seed_<s>/`` checkpoint."""
     steps_per_epoch = max(len(train_ds) // SETTINGS.training.batch_size, 1)
     seeds = list(range(n_seeds))
-    states = create_seed_states(model, seeds, device=device, **optimizer_settings(steps_per_epoch))
+    mesh = sweep_mesh(n_seeds, device)
+    Logger.info(f"seed sweep on {mesh}")
+    states = create_seed_states(model, seeds, device=device, mesh=mesh, **optimizer_settings(steps_per_epoch))
     sweep_step = make_seed_sweep_step(make_classification_train_step(model, step_cfg))
     eval_step = make_classification_eval_step(model, step_cfg)
     keys = seeds  # seed s draws at key s, where JAX keys seed s by PRNGKey(s)
@@ -172,9 +200,9 @@ def run_sharded_seeds(n_seeds: int, model, step_cfg, train_ds, dev_ds, test_ds, 
     for epoch_idx in range(SETTINGS.training.num_epochs):
         losses = []
         t0 = time.perf_counter()
-        for audio, labels, lengths in seed_batches(train_ds, n_seeds, epoch_idx, device):
+        for audio, labels, lengths in seed_batches(train_ds, n_seeds, epoch_idx, device, mesh):
             if device.type == "cuda":
-                torch.cuda.synchronize(device)
+                torch.cuda.synchronize()
             t1 = time.perf_counter()
             with exact_float32(exact):
                 states, metrics = sweep_step(states, audio, labels, lengths, keys)
@@ -182,7 +210,7 @@ def run_sharded_seeds(n_seeds: int, model, step_cfg, train_ds, dev_ds, test_ds, 
             stats.prep_s += t1 - t0
             stats.step_s += time.perf_counter() - t1
             stats.steps += 1
-            stats.examples += int(labels.numel())
+            stats.examples += n_seeds * SETTINGS.training.batch_size
             stats.step_losses.append(losses[-1].tolist())
             t0 = time.perf_counter()
         mean_loss = np.mean(np.stack(losses), axis=0) if losses else np.full(n_seeds, np.nan)
@@ -221,7 +249,8 @@ def _parser() -> ArgumentParserBuilder:
             "--num-devices",
             type=int,
             default=0,
-            help="data-parallel size: 0 or 1 (one card); more waits for ROADMAP Queue 1, item 12",
+            help="data-parallel ranks, one card each (gloo ranks with --device cpu); 0 = the largest divisor of the "
+            "batch size no larger than the visible cards",
         ),
         opt("--use-augment", action="store_true", default=True),
         opt("--no-augment", dest="use_augment", action="store_false"),
@@ -251,22 +280,33 @@ def run(args=None, stats: Optional[LoopStats] = None) -> dict:
     accuracies, as the JAX entry point does; with ``--sharded-seeds`` also
     each seed's. A ``LoopStats`` passed as ``stats`` is filled with where the
     run spent its time and each step's loss."""
-    args = _parser().parser.parse_args(args)
+    argv = list(sys.argv[1:] if args is None else args)
+    args = _parser().parser.parse_args(argv)
     device = ensure_platform(args.device)
     stats = stats if stats is not None else LoopStats()
-    if args.num_devices not in (0, 1):
-        raise _not_ported(f"--num-devices {args.num_devices} (data parallelism over several cards)", "item 12")
+    group = data_parallel.current_group()
+    if group is None and args.sharded_seeds <= 1:
+        n_data = data_parallel.data_size(args.num_devices, SETTINGS.training.batch_size, device)
+        if n_data > 1 or data_parallel.under_torchrun():
+            return data_parallel.run_ranks("howl_tpu_torch.training.run.pretrain_gsc", argv, n_data, device,
+                                           stats=stats)
+    elif group is not None:
+        device = group.device
 
-    workspace = Workspace(Path(args.workspace), delete_existing=not args.eval)
+    workspace = open_workspace(Path(args.workspace), not args.eval, group)
     set_random_seed(SETTINGS.training.seed)
     train_ds, dev_ds, test_ds = load_splits(args.silence_proportion)
     Logger.info(f"splits: train={len(train_ds)} dev={len(dev_ds)} test={len(test_ds)}")
     Logger.info(f"device: {device}")
 
-    zmuv = workspace.load_zmuv()
+    zmuv = workspace.load_zmuv() if workspace.writes else None
+    if group is not None:  # rank 0's reading, before any rank writes: every rank then fits, or not, alike
+        zmuv = data_parallel.broadcast_object(zmuv, group)
     if zmuv is None:
         zmuv = fit_zmuv(make_sampler(train_ds, True, True), FrontendConfig.from_settings(), device=device)
         workspace.save_zmuv(zmuv)
+        if group is not None:  # rank 0's fit on every rank, to the bit
+            zmuv = data_parallel.broadcast_object(zmuv, group)
     step_cfg = step_config(args.model, zmuv, args.use_augment)
     compute_dtype = torch.bfloat16 if args.bf16 else None
     exact = is_float32(compute_dtype)  # TF32 off for float32 steps and eval batches, not for --bf16
@@ -282,12 +322,14 @@ def run(args=None, stats: Optional[LoopStats] = None) -> dict:
     state = create_train_state(model, generator=torch.Generator().manual_seed(SETTINGS.training.seed), device=device,
                                **optimizer_settings(steps_per_epoch))
     Logger.info(f"{param_count(state)} parameters")
-    train_step = make_classification_train_step(model, step_cfg)
+    if group is not None:
+        replicate(state.model)
+    train_step = make_classification_train_step(model, step_cfg, group=group)
     eval_step = make_classification_eval_step(model, step_cfg)
 
     def accuracy(ds, prefix: str) -> float:
         return float(evaluate_accuracy(eval_step, [state], make_sampler(ds, False, False), prefix, device, stats,
-                                       exact)[0])
+                                       exact, group)[0])
 
     if args.load_weights or args.eval:
         state.model.load_state_dict(workspace.load_model(best=True), strict=True)
@@ -303,8 +345,11 @@ def run(args=None, stats: Optional[LoopStats] = None) -> dict:
         losses = []
         t0 = time.perf_counter()
         for batch in make_sampler(train_ds, True, True, seed=epoch_idx):
-            audio, labels, lengths = (torch.from_numpy(x).to(device) for x in (batch.audio_data, batch.labels,
-                                                                               batch.lengths))
+            arrays = (batch.audio_data, batch.labels, batch.lengths)
+            if group is not None:  # this rank's rows of the global batch
+                audio, labels, lengths = shard_batch(arrays, group)
+            else:
+                audio, labels, lengths = (torch.from_numpy(x).to(device) for x in arrays)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             t1 = time.perf_counter()

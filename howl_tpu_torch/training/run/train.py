@@ -40,7 +40,18 @@ scores in bf16 from the exact float32 frontend, as the JAX evaluator does.
 Without ``--bf16`` each train step runs with TF32 off whatever the caller's
 global ``allow_tf32`` flags (``ops/tf32.py``), as the float32 engine scores.
 
-Refused, with its ROADMAP item: more than one device (item 12).
+``--num-devices N`` trains data-parallel on N ranks, one card each
+(``parallel/data_parallel.py``): the command launches the ranks itself, or
+under ``torchrun`` joins the group it finds; NCCL on cards, gloo with
+``--device cpu``. The default, as in JAX, is the largest divisor of the
+batch size no larger than the visible cards. Every rank reads the global
+batch and draws the whole batch's randomness, then trains on its rows;
+BatchNorm takes the global batch's statistics and the gradients are
+averaged before AdamW, so N ranks compute what one process computes. The
+evaluator splits each batch's rows over the ranks and gathers the
+decisions. Only rank 0 writes the workspace; ``--resume`` restores every
+rank. More ranks than visible cards raise before anything is read or
+written.
 """
 
 from __future__ import annotations
@@ -69,6 +80,8 @@ from howl_tpu_torch.ops.frontend import FrontendConfig
 from howl_tpu_torch.ops.timestretch import TimestretchSampleAugment
 from howl_tpu_torch.ops.tf32 import exact_float32, is_float32
 from howl_tpu_torch.ops.zmuv import fit_zmuv
+from howl_tpu_torch.parallel import data_parallel
+from howl_tpu_torch.parallel.mesh import DataGroup, replicate, shard_batch
 from howl_tpu_torch.settings import SETTINGS
 from howl_tpu_torch.training.state import create_train_state, param_count
 from howl_tpu_torch.training.step import (
@@ -83,11 +96,7 @@ from howl_tpu_torch.utils.audio_utils import wav_num_samples
 from howl_tpu_torch.utils.logger import Logger
 from howl_tpu_torch.utils.platform import resolve_device
 from howl_tpu_torch.utils.random_utils import set_random_seed
-from howl_tpu_torch.workspace import Workspace
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to PyTorch yet (ROADMAP Queue 1, {item})")
+from howl_tpu_torch.workspace import ReadOnlyWorkspace, Workspace
 
 
 def build_noise_bank(
@@ -144,10 +153,17 @@ class BatchedEvaluator:
     """Scores whole eval splits through ``StreamingEngine.infer_batch`` with
     length bucketing: one engine call per bucket of at most ``max_batch``
     clips. ``batches`` counts those calls and ``seconds`` their wall time
-    (host clock; the decisions are read back, which waits for the device)."""
+    (host clock; the decisions are read back, which waits for the device).
 
-    def __init__(self, engine: StreamingEngine, bucket_seconds: float = 1.0, max_batch: int = 256):
+    With a data group, each batch is padded to a multiple of the group's
+    size with zero-length rows (every window invalid) and each rank scores
+    its share of the rows; the decisions are gathered on every rank, so the
+    confusion matrices and sweeps are the one-process evaluator's."""
+
+    def __init__(self, engine: StreamingEngine, bucket_seconds: float = 1.0, max_batch: int = 256,
+                 group: Optional[DataGroup] = None):
         self.engine = engine
+        self.group = group
         self.bucket_samples = int(bucket_seconds * engine.cfg.sample_rate)
         self.max_batch = max_batch
         self.batches = 0
@@ -180,7 +196,27 @@ class BatchedEvaluator:
                 if mixer_bank is not None:
                     audio = mix_for_eval(audio, mixer_bank, seed=mixer_seed, fold=batch_counter)
                 batch_counter += 1
-                yield chunk, audio, torch.from_numpy(lengths)
+                yield chunk, *self._rows(audio, torch.from_numpy(lengths))
+
+    def _rows(self, audio: torch.Tensor, lengths: torch.Tensor):
+        """This rank's rows of a batch padded to a multiple of the group's
+        size (the whole batch without a group)."""
+        if self.group is None:
+            return audio, lengths
+        pad = -audio.shape[0] % self.group.size
+        audio = torch.nn.functional.pad(audio, (0, 0, 0, pad))
+        lengths = torch.cat([lengths, lengths.new_zeros(pad)])
+        local = audio.shape[0] // self.group.size
+        lo = self.group.rank * local
+        return audio[lo : lo + local], lengths[lo : lo + local]
+
+    def _gather(self, detected, dim: int = 0) -> np.ndarray:
+        """Decisions of this rank's rows -> the whole batch's, as numpy."""
+        detected = torch.as_tensor(detected)
+        if self.group is None:
+            return detected.cpu().numpy()
+        rows = data_parallel.gather_rows(detected.to(self.group.device, torch.int32), self.group, dim)
+        return rows.cpu().numpy().astype(bool)
 
     def evaluate(self, dataset, positive_set: bool, mixer_bank: Optional[np.ndarray] = None, mixer_seed: int = 0):
         """Returns (ConfusionMatrix, errors list, total_audio_ms)."""
@@ -190,7 +226,7 @@ class BatchedEvaluator:
         for chunk, audio, lengths in self._batches(dataset, mixer_bank, mixer_seed):
             result = self.engine.infer_batch(audio, lengths)
             self.batches += 1
-            detected = torch.as_tensor(result["detected"]).cpu().numpy()[: len(chunk)]
+            detected = self._gather(result["detected"])[: len(chunk)]
             conf.increment_array(detected, np.full(len(chunk), positive_set))
             for row, (_, sample) in enumerate(chunk):
                 if bool(detected[row]) != positive_set:
@@ -215,7 +251,7 @@ class BatchedEvaluator:
         results = {t: ConfusionMatrix() for t in thresholds}
         t0 = time.perf_counter()
         for chunk, audio, lengths in self._batches(dataset, mixer_bank, mixer_seed):
-            detected = self.engine.infer_sweep_batch(audio, lengths, thresholds)  # (K, B)
+            detected = self._gather(self.engine.infer_sweep_batch(audio, lengths, thresholds), dim=1)  # (K, B)
             self.batches += 1
             labels = np.full(len(chunk), positive_set)
             for k, t in enumerate(thresholds):
@@ -244,6 +280,15 @@ class LoopStats:
     step_losses: list = field(default_factory=list)
 
 
+def open_workspace(path: Path, delete_existing: bool, group: Optional[DataGroup]) -> Workspace:
+    """The run's workspace: rank 0 (or the one process) opens it, the other
+    ranks read it once rank 0 has (a ``ReadOnlyWorkspace``)."""
+    workspace = Workspace(path, delete_existing=delete_existing) if group is None or group.rank == 0 else None
+    if group is not None:
+        data_parallel.barrier(group)
+    return workspace or ReadOnlyWorkspace(path)
+
+
 def _parser() -> ArgumentParserBuilder:
     apb = ArgumentParserBuilder()
     apb.add_options(
@@ -264,7 +309,8 @@ def _parser() -> ArgumentParserBuilder:
             "--num-devices",
             type=int,
             default=0,
-            help="data-parallel size: 0 or 1 (one card); more waits for ROADMAP Queue 1, item 12",
+            help="data-parallel ranks, one card each (gloo ranks with --device cpu); 0 = the largest divisor of the "
+            "batch size no larger than the visible cards",
         ),
         opt(
             "--fused-trunk",
@@ -312,8 +358,10 @@ def _parser() -> ArgumentParserBuilder:
 def run(args=None, stats: Optional[LoopStats] = None) -> dict:
     """Train (or with ``--eval`` evaluate) and return the final evaluation's
     confusion matrices by split, as the JAX entry point does. A ``LoopStats``
-    passed as ``stats`` is filled with where the run spent its time."""
-    args = _parser().parser.parse_args(args)
+    passed as ``stats`` is filled with where the run spent its time (rank
+    0's, with several ranks)."""
+    argv = list(sys.argv[1:] if args is None else args)
+    args = _parser().parser.parse_args(argv)
     device = resolve_device(args.device)
     stats = stats if stats is not None else LoopStats()
     if args.seed is not None:
@@ -327,11 +375,16 @@ def run(args=None, stats: Optional[LoopStats] = None) -> dict:
     if not use_frame and not spec.is_sequential:
         raise ValueError(f"the CTC objective trains a sequential model (seq-lstm, seq-cnn, or any model with "
                          f"CONVERT_STATIC); {args.model!r} scores one window at a time")
-    if args.num_devices not in (0, 1):
-        raise _not_ported(f"--num-devices {args.num_devices} (data parallelism over several cards)", "item 12")
+    group = data_parallel.current_group()
+    if group is None:
+        n_data = data_parallel.data_size(args.num_devices, SETTINGS.training.batch_size, device)
+        if n_data > 1 or data_parallel.under_torchrun():
+            return data_parallel.run_ranks("howl_tpu_torch.training.run.train", argv, n_data, device, stats=stats)
+    else:
+        device = group.device
 
     set_random_seed(SETTINGS.training.seed)
-    workspace = Workspace(Path(args.workspace), delete_existing=not (args.eval or args.resume))
+    workspace = open_workspace(Path(args.workspace), not (args.eval or args.resume), group)
 
     Logger.heading("Loading datasets")
     ctx = InferenceContext(
@@ -437,7 +490,9 @@ def run(args=None, stats: Optional[LoopStats] = None) -> dict:
 
     Logger.heading("ZMUV normalization")
     frontend_cfg = FrontendConfig.from_settings()
-    zmuv = workspace.load_zmuv()
+    zmuv = workspace.load_zmuv() if workspace.writes else None
+    if group is not None:  # rank 0's reading, before any rank writes: every rank then fits, or not, alike
+        zmuv = data_parallel.broadcast_object(zmuv, group)
     if zmuv is None:
         rng = np.random.default_rng(0)
         idxs = rng.permutation(len(ww_train))[:256]
@@ -445,13 +500,13 @@ def run(args=None, stats: Optional[LoopStats] = None) -> dict:
             (torch.from_numpy(batchifier([ww_train[int(i)]]).audio_data).to(device) for i in idxs), frontend_cfg
         )
         workspace.save_zmuv(zmuv)
+        if group is not None:  # rank 0's fit on every rank, to the bit
+            zmuv = data_parallel.broadcast_object(zmuv, group)
     Logger.info(f"zmuv: mean={zmuv.mean:.4f} std={zmuv.std:.4f}")
 
     Logger.heading("Model preparation")
     batch_size = SETTINGS.training.batch_size
-    if args.num_devices and batch_size % args.num_devices:
-        raise SystemExit(f"--num-devices {args.num_devices} must divide the batch size {batch_size}")
-    Logger.info(f"device: {device}")
+    Logger.info(f"device: {device}" + (f" (rank {group.rank} of {group.size})" if group is not None else ""))
 
     step_cfg = StepConfig(
         frontend=frontend_cfg,
@@ -482,6 +537,8 @@ def run(args=None, stats: Optional[LoopStats] = None) -> dict:
         device=device,
     )
     Logger.info(f"{param_count(state)} parameters")
+    if group is not None:
+        replicate(state.model)
 
     if args.resume and workspace.has_train_state():
         # exact resume: params + optimizer state + step counter (the reference
@@ -503,20 +560,21 @@ def run(args=None, stats: Optional[LoopStats] = None) -> dict:
 
     def evaluate_engine(dataset, prefix: str, positive_set: bool, save: bool = False, mixer_bank=None, epoch_idx: int = 0):
         engine = make_engine()
-        evaluator = BatchedEvaluator(engine)
+        evaluator = BatchedEvaluator(engine, group=group)
         conf, errors, total_ms = evaluator.evaluate(dataset, positive_set, mixer_bank)
         stats.eval_batches += evaluator.batches
         stats.eval_s += evaluator.seconds
         stats.eval_audio_ms += total_ms
         Logger.info(f"{prefix}: {conf} mcc={conf.mcc:.4f}")
-        with (workspace.path / "errors.tsv").open("a") as error_file:
-            print(prefix, file=error_file)
-            for row in errors:
-                error_file.write("\t".join(map(str, row)) + "\n")
+        if workspace.writes:
+            with (workspace.path / "errors.tsv").open("a") as error_file:
+                print(prefix, file=error_file)
+                for row in errors:
+                    error_file.write("\t".join(map(str, row)) + "\n")
         if save and not args.eval and positive_set:
             workspace.log_scalar(f"{prefix}/Metric/tp_rate", conf.tp / max(len(dataset), 1), epoch_idx)
             workspace.increment_model(state.model.state_dict(), conf.tp)
-        if args.eval:
+        if args.eval and workspace.writes:
             threshold = engine.cfg.inference_threshold
             with (workspace.path / f"{round(threshold, 2)}_results.csv").open("a") as f:
                 f.write(f"{prefix},{threshold},{conf.tp},{conf.tn},{conf.fp},{conf.fn}\n")
@@ -545,7 +603,8 @@ def run(args=None, stats: Optional[LoopStats] = None) -> dict:
     workspace.save_settings(SETTINGS)
 
     bank = torch.from_numpy(noise_bank).to(device) if noise_bank is not None else None
-    train_step = (make_classification_train_step if use_frame else make_ctc_train_step)(model, step_cfg, bank)
+    train_step = (make_classification_train_step if use_frame else make_ctc_train_step)(model, step_cfg, bank,
+                                                                                       group=group)
 
     # between-epoch bank refresh: decode the next draw on a background thread
     # while this epoch trains; the upload and set_bank happen here, between epochs
@@ -572,8 +631,11 @@ def run(args=None, stats: Optional[LoopStats] = None) -> dict:
                     samples = timestretch(samples)
                 batch = batchifier(samples)
                 lengths = (batch.lengths,) if use_frame else (batch.audio_lengths, batch.label_lengths)
-                audio, labels, *lengths = (torch.from_numpy(np.asarray(x)).to(device)
-                                           for x in (batch.audio_data, batch.labels, *lengths))
+                arrays = (batch.audio_data, batch.labels, *lengths)
+                if group is not None:  # this rank's rows of the global batch
+                    audio, labels, *lengths = shard_batch(arrays, group)
+                else:
+                    audio, labels, *lengths = (torch.from_numpy(np.asarray(x)).to(device) for x in arrays)
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
                 t1 = time.perf_counter()

@@ -37,7 +37,7 @@ from howl_tpu_torch.ops.frontend import (
     log_mel_spectrogram_vtlp,
     stack_deltas,
 )
-from howl_tpu_torch.models.base import DropoutDraws, use_dropout_draws
+from howl_tpu_torch.models.base import DropoutDraws, use_data_group, use_dropout_draws
 from howl_tpu_torch.training.objectives import ctc_loss, frame_ce_loss
 from howl_tpu_torch.training.state import TrainState
 
@@ -134,21 +134,57 @@ def _features(audio: torch.Tensor, cfg: StepConfig, draws: StepDraws, noise_bank
     return audio, replaced, feats
 
 
-def _train_forward(state: TrainState, gen: torch.Generator, draws: StepDraws, forward: Callable):
+def _train_forward(state: TrainState, gen: torch.Generator, draws: StepDraws, forward: Callable, group=None,
+                   rows=None):
     """``forward(model)`` -> (loss, outputs) in training mode with the
     step's dropout masks (``draws.dropout``, else drawn from ``gen``), then
-    its backward and one AdamW update. Returns (loss, outputs)."""
+    its backward and one AdamW update. Returns (loss, outputs). With a data
+    group (``parallel.mesh.DataGroup``), ``rows`` (lo, hi, total) are this
+    rank's rows of the global batch: the dropout masks are the global
+    batch's rows [lo, hi), BatchNorm normalizes by the global batch's
+    statistics, and the gradients are the group's mean before the update."""
     model = state.model
     model.train()
-    use_dropout_draws(model, DropoutDraws(gen, draws.dropout))
+    use_dropout_draws(model, DropoutDraws(gen, draws.dropout, rows))
+    use_data_group(model, group)
     try:
         state.optimizer.zero_grad(set_to_none=True)
         loss, out = forward(model)
         loss.backward()
     finally:
         use_dropout_draws(model, None)
+        use_data_group(model, None)
+    if group is not None:
+        from howl_tpu_torch.parallel.data_parallel import average_gradients
+
+        average_gradients(model.parameters(), group)
     state.apply_gradients()
     return loss, out
+
+
+def _global_draws(gen, cfg: StepConfig, b: int, n: int, noise_bank, draws: Optional[StepDraws], group):
+    """The step's draws for this process's ``b`` rows, and the rows (lo,
+    hi, total) of a data group's global batch (None without a group): the
+    draws of the whole global batch, drawn (or given) for ``total`` rows,
+    then this rank's rows of them."""
+    rows = group.rows(b) if group is not None else None
+    total = rows[2] if rows else b
+    if draws is None:
+        draws = draw_step(gen, cfg, total, n, noise_bank)
+    if rows:
+        from howl_tpu_torch.parallel.data_parallel import take_rows
+
+        draws = draws._replace(augment=take_rows(draws.augment, *rows), spec=take_rows(draws.spec, *rows))
+    return draws, rows
+
+
+def _metric(x: torch.Tensor, group) -> torch.Tensor:
+    """A step metric, the group's mean with a data group."""
+    if group is None:
+        return x.detach()
+    from howl_tpu_torch.parallel.data_parallel import all_mean
+
+    return all_mean(x, group)
 
 
 class NoiseBankTrainStep:
@@ -168,27 +204,35 @@ class NoiseBankTrainStep:
     def set_bank(self, noise_bank):
         self._prepared.clear()
         if isinstance(noise_bank, aug.PreparedNoiseBank):
-            self._prepared[noise_bank.window] = noise_bank
+            self._prepared[(noise_bank.window, str(noise_bank.extended.device))] = noise_bank
             self._bank = None
         else:
             self._bank = noise_bank
 
     def prepared_for(self, window: int, device=None) -> aug.PreparedNoiseBank:
-        prep = self._prepared.get(window)
+        """The bank prepared for ``window``-sample windows on ``device``
+        (each device of a seed sweep across cards holds its copy)."""
+        if device is None:  # where the bank lies
+            if self._bank is None:
+                device = next(iter(self._prepared))[1]
+            else:
+                device = self._bank.device if torch.is_tensor(self._bank) else "cpu"
+        key = (window, str(torch.device(device)))
+        prep = self._prepared.get(key)
         if prep is None:
             if self._bank is None:
                 raise ValueError(
-                    f"noise bank was prepared for windows {sorted(self._prepared)}; "
-                    f"cannot serve {window}-sample windows (set_bank with a raw array to re-derive)"
+                    f"noise bank was prepared for (window, device) {sorted(self._prepared)}; cannot serve "
+                    f"{window}-sample windows on {device} (set_bank with a raw array to re-derive)"
                 )
-            prep = self._prepared[window] = aug.prepare_noise_bank(self._bank, window, device)
+            prep = self._prepared[key] = aug.prepare_noise_bank(self._bank, window, device)
         return prep
 
     def __call__(self, state, audio, *rest, **kw):
         return self.inner(state, audio, *rest, noise_bank=self.prepared_for(audio.shape[-1], audio.device), **kw)
 
 
-def make_classification_train_step(model, cfg: StepConfig, noise_bank=None) -> Callable:
+def make_classification_train_step(model, cfg: StepConfig, noise_bank=None, group=None) -> Callable:
     """Returns (state, audio, labels, lengths, key, draws=None) -> (state,
     {"loss", "accuracy"}); ``state`` is updated in place and returned.
 
@@ -197,14 +241,19 @@ def make_classification_train_step(model, cfg: StepConfig, noise_bank=None) -> C
     model as frame lengths (``frame_lengths``); res8 scores whole windows
     whatever they are. ``gen``, when given, is the step's generator
     (``step_generator(key, state.step)``) already past the draws, as the
-    seed sweep passes it; the callable's ``cfg`` is ``cfg``."""
+    seed sweep passes it; the callable's ``cfg`` is ``cfg``.
+
+    With a data group (``parallel.mesh.DataGroup``), ``audio``, ``labels``
+    and ``lengths`` are this rank's rows of the global batch
+    (``parallel.mesh.shard_batch``), ``draws`` when given are the global
+    batch's, and the metrics are the global batch's means
+    (``parallel/data_parallel.py``)."""
 
     def train_step(state: TrainState, audio, labels, lengths, key, draws: Optional[StepDraws] = None, noise_bank=None,
                    gen: Optional[torch.Generator] = None):
         b, n = audio.shape
         gen = gen if gen is not None else step_generator(key, state.step, audio.device)
-        if draws is None:
-            draws = draw_step(gen, cfg, b, n, noise_bank)
+        draws, rows = _global_draws(gen, cfg, b, n, noise_bank, draws, group)
         _, replaced, feats = _features(audio, cfg, draws, noise_bank)
         if replaced is not None:
             labels = torch.where(replaced, cfg.negative_label, labels)
@@ -213,9 +262,9 @@ def make_classification_train_step(model, cfg: StepConfig, noise_bank=None) -> C
             logits = _logits(model, feats, cfg, lengths)
             return frame_ce_loss(logits, labels), logits
 
-        loss, logits = _train_forward(state, gen, draws, forward)
+        loss, logits = _train_forward(state, gen, draws, forward, group, rows)
         acc = (logits.detach().argmax(-1) == labels).float().mean()
-        return state, {"loss": loss.detach(), "accuracy": acc}
+        return state, {"loss": _metric(loss, group), "accuracy": _metric(acc, group)}
 
     train_step.cfg = cfg
     if noise_bank is None:
@@ -236,7 +285,7 @@ def make_classification_eval_step(model, cfg: StepConfig) -> Callable:
     return eval_step
 
 
-def make_ctc_train_step(model, cfg: StepConfig, noise_bank=None) -> Callable:
+def make_ctc_train_step(model, cfg: StepConfig, noise_bank=None, group=None) -> Callable:
     """The CTC objective over a sequential model: returns (state, audio,
     labels, audio_lengths, label_lengths, key, draws=None) -> (state,
     {"loss"}), ``state`` updated in place, as the JAX step: augmentation
@@ -244,16 +293,15 @@ def make_ctc_train_step(model, cfg: StepConfig, noise_bank=None) -> Callable:
     ``max(compute_lengths(audio_lengths), 1)`` into the model, its output
     lengths through ``model.compute_length`` clipped to its frames, and
     ``ctc_loss`` with ``cfg.blank_label``. With a noise bank the callable is
-    a ``NoiseBankTrainStep``; ``gen`` and ``cfg`` as the classification
-    step's."""
+    a ``NoiseBankTrainStep``; ``gen``, ``cfg`` and ``group`` as the
+    classification step's."""
     cfg = cfg._replace(replace_prob=0.0)
 
     def train_step(state: TrainState, audio, labels, audio_lengths, label_lengths, key,
                    draws: Optional[StepDraws] = None, noise_bank=None, gen: Optional[torch.Generator] = None):
         b, n = audio.shape
         gen = gen if gen is not None else step_generator(key, state.step, audio.device)
-        if draws is None:
-            draws = draw_step(gen, cfg, b, n, noise_bank)
+        draws, rows = _global_draws(gen, cfg, b, n, noise_bank, draws, group)
         _, _, feats = _features(audio, cfg, draws, noise_bank)
         lengths = frame_lengths(audio_lengths, cfg)
 
@@ -262,8 +310,8 @@ def make_ctc_train_step(model, cfg: StepConfig, noise_bank=None) -> Callable:
             out_lengths = torch.clamp(torch.as_tensor(model.compute_length(lengths)), max=out.shape[0])
             return ctc_loss(out, out_lengths, labels, label_lengths, cfg.blank_label), out
 
-        loss, _ = _train_forward(state, gen, draws, forward)
-        return state, {"loss": loss.detach()}
+        loss, _ = _train_forward(state, gen, draws, forward, group, rows)
+        return state, {"loss": _metric(loss, group)}
 
     train_step.cfg = cfg
     if noise_bank is None:

@@ -47,6 +47,8 @@ def _host_state_dict(state_dict) -> dict:
 
 
 class Workspace:
+    writes = True  # False for a ``ReadOnlyWorkspace``
+
     def __init__(self, path: Path, best_quality: float = float("-inf"), delete_existing: bool = True):
         self.path = Path(path)
         self.best_quality = best_quality
@@ -187,3 +189,39 @@ class Workspace:
 
     def heading(self, msg: str):
         Logger.heading(msg)
+
+
+class ReadOnlyWorkspace(Workspace):
+    """A workspace that another process writes: it reads checkpoints, the
+    train state and ``zmuv.json`` and writes nothing (``writes`` False).
+    The data-parallel ranks other than rank 0 hold one."""
+
+    writes = False
+
+    def __init__(self, path: Path):
+        self.path = Path(path)
+        self.best_quality = float("-inf")
+        self._metrics_file = None
+        self._tb_writer = None
+
+    def save_model(self, state_dict, best: bool = False):
+        pass
+
+    def save_train_state(self, state):
+        pass
+
+    def save_zmuv(self, zmuv: ZmuvTransform):
+        pass
+
+    def save_settings(self, settings: HowlSettings = SETTINGS):
+        pass
+
+    def write_args(self, args):
+        pass
+
+    def log_scalar(self, name: str, value: float, step: int = 0):
+        pass
+
+    def close(self):
+        pass
+

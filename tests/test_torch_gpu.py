@@ -1344,8 +1344,14 @@ def test_bench_cpu_sized_run_on_the_card(cuda):
     known = bench.peak_bf16_flops(torch.cuda.get_device_name(cuda)) is not None
     for key in ("value", "legacy_realtime_factor", "train_examples_per_sec", "train_noise_examples_per_sec",
                 "train_examples_per_sec_f32", *(("mfu", "train_mfu") if known else ())):
-        assert np.isfinite(record[key]) and record[key] > 0, key
-        assert 0 < record["spread"][key][0] <= record["spread"][key][1], key
+        lo, hi = record["spread"][key]
+        # the utilizations are rounded to 4 decimals, which at these sizes can read 0.0 on a slow host: hold
+        # the unrounded median of the two repeats, the mean of the spread's ends, and the rounding against it
+        value = (lo + hi) / 2 if key in ("mfu", "train_mfu") else record[key]
+        assert np.isfinite(value) and value > 0, key
+        assert 0 < lo <= hi, key
+        if key in ("mfu", "train_mfu"):
+            assert record[key] == round(value, 4), key
     if not known:
         assert record["mfu"] is None and record["train_mfu"] is None
     for scorer in ("headline", "legacy"):
@@ -1982,3 +1988,53 @@ def test_etl_stitched_dataset_training_on_cuda_launches_the_mix_kernel_once_a_st
     assert stats.steps == 6 and k3 == stats.steps
     assert k1 == k2 == stats.eval_batches > 0
     assert np.isfinite(stats.epoch_losses).all() and "test_noisy_pos" in results
+
+
+# ---- vision pretraining's stem geometry and the streams sharded on one card ----
+
+
+@pytest.mark.parametrize("b", [1, 32, 512])
+@pytest.mark.parametrize("route,dtype", [("fma", torch.float32), ("fma", torch.bfloat16), ("tc", torch.bfloat16)])
+def test_stem_kernel_at_32_mel_rows(cuda, b, route, dtype):
+    """K2 on (B, 32, 32) images as mels, the geometry of vision pretraining's
+    eval step (``training/run/pretrain.py``): "fma" in float32 (the route
+    the float32 eval takes) and both routes in bf16, against
+    ``res8_stem_plain``."""
+    mel, taps = _stem_operands(cuda, b, 32, n_mels=32, dtype=dtype)
+    taps = taps if dtype == torch.bfloat16 else taps.float()
+    got = res8_stem_cuda(mel, taps, route=route)
+    ref = res8_stem_plain(mel, taps)
+    assert tuple(got.shape) == (b, 10, 8, 45) and got.dtype == dtype
+    assert stem_route(torch.float32, 32, 45) == "fma" and stem_route(torch.bfloat16, 32, 45) == "tc"
+    tol = _bf16_ulp(ref) if dtype == torch.bfloat16 else 1e-5
+    assert float((got.float() - ref.float()).abs().max()) <= tol
+
+
+def test_online_engine_sharded_two_ways_on_one_card(cuda):
+    """``OnlineEngine.shard_streams(make_mesh(data=2, devices=[cuda:0,
+    cuda:0]))``: each shard launches K1 and K2 once a hop, and the decisions
+    and smoothing rings are the unsharded engine's."""
+    from howl_tpu_torch.inference import EngineConfig
+    from howl_tpu_torch.inference.online import OnlineEngine
+    from howl_tpu_torch.models import create_model
+    from howl_tpu_torch.parallel.mesh import make_mesh
+
+    model = create_model("res8", num_labels=3)
+    state_dict = model.init_weights(torch.Generator().manual_seed(0)).state_dict()
+    cfg = EngineConfig(inference_sequence=(0, 1), max_window_size_ms=500.0, eval_stride_size_ms=62.5,
+                       negative_label=2, num_labels=3)
+    make = lambda: OnlineEngine(model, state_dict, cfg, FrontendConfig(n_mels=40), num_streams=64,  # noqa: E731
+                                device=cuda)
+    base, sharded = make(), make().shard_streams(make_mesh(data=2, devices=[cuda, cuda]))
+    rng = np.random.default_rng(5)
+    audio = torch.from_numpy((rng.standard_normal((64, 8000 + 1000 * 8)) * 0.1).astype(np.float32)).to(cuda)
+    for j in range(9):
+        window = audio[:, j * 1000 : j * 1000 + 8000]
+        log_mel_spectrogram_cuda.launches = res8_stem_cuda.launches = 0
+        fired = sharded.ingest(window)
+        torch.cuda.synchronize()
+        assert (log_mel_spectrogram_cuda.launches, res8_stem_cuda.launches) == (2, 2)
+        assert base.ingest(window) == fired
+        np.testing.assert_array_equal(base.last_fired, sharded.last_fired)
+        np.testing.assert_array_equal(base.last_labels, sharded.last_labels)
+    torch.testing.assert_close(sharded.state.pred_ring, base.state.pred_ring, atol=1e-5, rtol=0)

@@ -19,7 +19,8 @@ howl_tpu's, on ``tests/fixtures.py``'s GSC tone corpus, on the CPU.
   ``seed_1/`` are written, the result has the JAX run's keys, and each
   seed's first sweep step equals that seed's single-model step at key s on
   its own batch, bit for bit.
-* ``--num-devices 2`` raises citing item 12 before anything is written; the
+* ``--num-devices 2`` on a host with one card raises before anything is
+  written (two ranks run on the CPU in tests/test_torch_scaleout.py); the
   card is asked for unless ``--device cpu``; ``--help`` runs without jax.
 * ``eval_commands_recognition`` with the same ``pretrain_gsc.run`` results
   patched into both packages writes JAX's report CSV and raw JSON byte for
@@ -216,8 +217,10 @@ def test_sharded_seeds_write_each_seed_and_step_as_single_models(corpus, tmp_pat
 
 def test_more_than_one_device_is_refused_citing_item_12(tmp_path, monkeypatch):
     _set_env(monkeypatch, {**ENV, "DATASET_PATH": str(tmp_path)})
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tgsc.run(ARGS + ["--workspace", str(tmp_path / "ws"), "--num-devices", "2", "--device", "cpu"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="--num-devices 2 needs 2 cards, one a rank; 1 visible"):
+        tgsc.run(ARGS + ["--workspace", str(tmp_path / "ws"), "--num-devices", "2"])
     assert not (tmp_path / "ws").exists()  # refused before anything was read or written
 
 

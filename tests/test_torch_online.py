@@ -45,6 +45,7 @@ from howl_tpu_torch.models import create_model
 from howl_tpu_torch.ops.frontend import FrontendConfig, log_mel_spectrogram
 from howl_tpu_torch.ops.frontend_cuda import log_mel_spectrogram_cuda
 from howl_tpu_torch.ops.stem_cuda import res8_stem_cuda
+from howl_tpu_torch.parallel.mesh import make_mesh
 from howl_tpu_torch.tools.validate_tpu_decisions import margin_word_threshold
 
 torch.set_num_threads(1)
@@ -231,8 +232,8 @@ def test_shapes_and_arguments_are_checked_as_in_jax(setup):
     for cls in (OnlineEngine, IncrementalOnlineEngine):
         with pytest.raises(ValueError, match="recurrent models only"):
             _port_engine(cls, variables, cfg_kw, carry_hops=True)
-        with pytest.raises(NotImplementedError, match="item 12"):
-            _port_engine(cls, variables, cfg_kw).shard_streams(None)
+        with pytest.raises(ValueError, match="num_streams=4 must be divisible by the mesh's 3 devices"):
+            _port_engine(cls, variables, cfg_kw).shard_streams(make_mesh(data=3, devices=["cpu"] * 3))
         # a model without a trunk builds and decides (every family: tests/test_torch_online_families.py)
         other = cls(lstm, lstm_state, EngineConfig(**cfg_kw), FrontendConfig(n_mels=40), *ZMUV, num_streams=2,
                     carry_hops=True, device="cpu")

@@ -47,7 +47,7 @@ def test_imports_without_jax_or_flax():
     )
     assert proc.returncode == 0, proc.stderr
     names = proc.stdout.split()
-    assert len(names) >= 124  # every module of every slice, training, its entry points, serving, the tools and the dataset pipeline, was imported
+    assert len(names) >= 132  # every module of every slice, training, its entry points, serving, the tools, the dataset pipeline and scale-out, was imported
     for module in ("inference.engine", "training.step", "tools.bench_pallas_micro", "tools.bench_hbm_sweep",
                    "tools.hbm_sweep_kernels", "tools._study", "bench", "tools.validate_tpu_decisions",
                    "tools.ablate_serving_slope", "tools.ablate_train_step", "tools.reconcile_train_f32",
@@ -72,8 +72,32 @@ def test_imports_without_jax_or_flax():
                    "align.mfa", "align.stub", "align.vad", "etl", "etl.raw_generator", "etl.aligned_generator",
                    "etl.stitcher", "etl.stitched_generator", "utils.keyword_detector",
                    "training.run.generate_raw_audio_dataset", "training.run.attach_alignment",
-                   "training.run.stitch_vocab_samples"):
+                   "training.run.stitch_vocab_samples",
+                   # the exports, vision pretraining, the demo, profiling and scale-out
+                   "ops.meyda", "utils.profiling", "training.run.pretrain", "training.run.export_honkling",
+                   "training.run.generate_precise_dataset", "training.run.demo", "parallel.mesh",
+                   "parallel.data_parallel"):
         assert f"howl_tpu_torch.{module}" in names
+
+
+def test_every_module_of_the_jax_package_has_its_counterpart():
+    """A file at the same path for every .py file of howl_tpu, but the three
+    Pallas kernels (``ops/*_cuda.py`` replace them)."""
+    jax_files = {p.relative_to(REPO / "howl_tpu") for p in (REPO / "howl_tpu").rglob("*.py")}
+    port_files = {p.relative_to(REPO / "howl_tpu_torch") for p in (REPO / "howl_tpu_torch").rglob("*.py")}
+    assert sorted(str(p) for p in jax_files - port_files) == [
+        "ops/augment_pallas.py", "ops/frontend_pallas.py", "ops/stem_pallas.py"]
+
+
+@pytest.mark.parametrize("entry", ["pretrain", "export_honkling", "generate_precise_dataset", "demo"])
+def test_new_entry_points_print_their_help_without_jax(entry):
+    code = _NO_JAX.split("import howl_tpu_torch")[0] + (
+        f"import runpy, sys\nsys.argv = ['{entry}', '--help']\n"
+        f"runpy.run_module('howl_tpu_torch.training.run.{entry}', run_name='__main__')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "usage:" in proc.stdout and ("--device" in proc.stdout) == (entry in ("pretrain", "demo"))
 
 
 def test_chip_smoke_imports_nothing_of_jax_or_the_jax_package():

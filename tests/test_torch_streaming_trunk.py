@@ -35,6 +35,7 @@ from howl_tpu_torch.inference import EngineConfig, StreamingEngine
 from howl_tpu_torch.inference.streaming_trunk import FusedStreamingOnlineEngine, TrunkSchedule, make_chained_runner
 from howl_tpu_torch.models import create_model
 from howl_tpu_torch.ops.frontend import FrontendConfig
+from howl_tpu_torch.parallel.mesh import make_mesh
 
 torch.set_num_threads(1)
 
@@ -308,8 +309,8 @@ def test_shapes_and_arguments_are_checked_as_in_jax(variables, monkeypatch):
     assert eng.push(np.zeros((2, eng.hop_samples), np.float32)) is False and eng._j == 1
     with pytest.raises(ValueError, match="hop_block=3"):
         _engine(variables, BASE, hop_block=3).push(np.zeros((2, eng.hop_samples), np.float32))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        eng.shard_streams(None)
+    with pytest.raises(ValueError, match="num_streams=2 must be divisible by the mesh's 3 devices"):
+        eng.shard_streams(make_mesh(data=3, devices=["cpu"] * 3))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         FusedStreamingOnlineEngine(create_model("res8", num_labels=4), res8_variables_to_state_dict(variables),

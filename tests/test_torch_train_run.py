@@ -16,7 +16,7 @@ against howl_tpu's on the synthetic-tone corpus of ``tests/fixtures.py``.
 * ``--eval`` and ``--resume`` on the port's workspace; F9 on the port's
   trained weights (the bf16 engine at the "bf16" frontend grade decides as
   the float32 engine at the exact grade on every dev and test clip); the
-  refusal of more than one device with its ROADMAP item; the card by
+  refusal of a rank count that does not split the batch; the card by
   default.
 
 On the CPU the kernels K1, K2 and K3 take their plain versions.
@@ -326,13 +326,16 @@ def test_f9_bf16_decisions_equal_float32_on_the_ports_trained_weights(port_train
 
 
 @pytest.mark.parametrize("extra,env,item", [
-    (["--num-devices", "4"], {}, "item 12"),
-    (["--num-devices", "2"], {}, "item 12"),
+    (["--num-devices", "4"], {"BATCH_SIZE": "6"}, "must divide the batch size 6"),
+    (["--num-devices", "3"], {"BATCH_SIZE": "16"}, "must divide the batch size 16"),
 ])
 def test_refusals_cite_their_roadmap_item(tmp_path, monkeypatch, extra, env, item):
+    """Data parallelism (ROADMAP item 12) refuses a rank count that does not
+    split the batch, before anything is read or launched
+    (tests/test_torch_scaleout.py holds the rest)."""
     _set_env(monkeypatch, env)
     args = ["--model", "res8", "--workspace", str(tmp_path / "ws"), "-i", str(tmp_path), "--device", "cpu", *extra]
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(SystemExit, match=item):
         ttrain.run(args)
     assert not (tmp_path / "ws").exists()  # refused before anything was read or written
 
