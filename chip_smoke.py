@@ -282,13 +282,25 @@ them. In order it:
      engine's, K1 and K2 once a hop a shard where the engine launches them; (g) ``train --num-devices 2`` (NCCL)
      against ``--num-devices 1`` where two cards are visible, otherwise a line saying it did not run. It prints the
      phase's seconds;
- 18. (d) runs the bench, ``howl_tpu_torch.bench.main``, which prints its
+ 18. K1's frame tiles and the last root tools (``drive_frontend_tiles_and_tools``): (a) every tile K1 is compiled
+     for at 40 mels ("tc" 64, 128, 256; "fma" 16, 32, 64), in every grade the instance serves, float32 and bf16
+     output, both layouts, bit for bit the route's default tile (128, 32) on 512 clips of 8 s and on 3 clips of
+     30,001 samples, and within phase 3's tolerance of the plain version, each instance and grade timed; the split
+     grades' 256-frame block and the FMA kernel's three-pass 64-frame block must be refused before any launch;
+     (b) the three frontend tools at full size, ``sweep_frontend_blocks`` (every tile at "bf16x2"),
+     ``bench_frontend_variants`` and ``bench_frontend_tail_1pass``, K1's launch counters (all, "tc", and each
+     instance's) zeroed before each tool and read after, every leg's line echoed; each tool must launch each
+     instance it names, and the variants tool must leave TF32 off; (c) ``howl_tpu_torch.bench_train`` at its card
+     sizes (batch 128 and 24 steps, batch 1024 for the last line), its three JSON lines echoed, every rate finite
+     and positive and every loss finite. It prints the phase's seconds;
+ 19. (d) runs the bench, ``howl_tpu_torch.bench.main``, which prints its
      JSON line (``bench.py``'s keys, each measured key the median of 5
      repeats with its spread); every measured key must be finite and
      positive, the seven online keys included, each latency at every
      stream count of ``bench.py``, and its ``rungs["int8"]`` must name the
      fused kernel, one launch a batch;
- 19. prints one JSON line with each of the seventeen kernels' launches (K1's also on each family's
+ 20. prints one JSON line with each of the seventeen kernels' launches, and of K1's six tile instances at
+     40 mels (their launches those of phase 18's tools; K1's also on each family's
      paths of phases 11b and 11c and K1's and K2's on phase 17d's harness, K3's also on each training run of
      phase 17b and on phase 17d's Trainer and seed sweep, K1's, K2's and K3's on phase 17e's stitched training and
      GSC runs, K1's and K2's on phase 17f's demo and sharded engines, K2's on its pretraining with its record at 32
@@ -587,6 +599,71 @@ def check_frontend(audio, cfg, zmuv) -> dict:
     return record
 
 
+def check_frontend_tiles(audio, cfg, zmuv, odd_audio) -> dict:
+    """Every frame tile K1 is compiled for at 40 mels ("tc": 64, 128, 256; "fma": 16, 32, 64), in every grade the
+    instance serves (``route_and_tile`` refuses a block that does not fit), with float32 and bf16 output in both
+    layouts: bit for bit the route's default tile (128, 32) on ``audio`` and on ``odd_audio`` (clips whose rows are
+    not 16-byte aligned, so every tile reads its span sample by sample), and within check_frontend's tolerance of
+    the plain version. Times each instance and grade at bf16 output, "tm" (5 calls after a warm-up). Returns
+    {(route, tile): {"grades", "ms_<grade>", "max_abs_err_<grade>", "bit_equal_default"}}."""
+    import torch
+
+    from howl_tpu_torch.ops.frontend_cuda import (
+        FMA_TILE, FMA_TILES, GRADES, TC_TILE, TC_TILES, log_mel_spectrogram_cuda, log_mel_spectrogram_plain,
+        route_and_tile,
+    )
+
+    mean, std = zmuv
+    instances = [("tc", t) for t in TC_TILES[cfg.n_mels]] + [("fma", t) for t in FMA_TILES]
+    default = {"tc": TC_TILE, "fma": FMA_TILE}
+    out = {inst: {"grades": [], "bit_equal_default": True} for inst in instances}
+    for grade in GRADES:
+        served = []
+        for route, tile in instances:
+            try:
+                route_and_tile(cfg, grade, tile, route)
+                served.append((route, tile))
+            except ValueError as e:
+                print(f"K1 {route} tile {tile} {grade}: not served ({e})")
+        for out_dtype in (torch.float32, torch.bfloat16):
+            for layout in ("tm", "fm"):
+                kw = dict(precision=grade, out_dtype=out_dtype, layout=layout)
+                ref = log_mel_spectrogram_plain(audio, cfg, mean, std, **kw)
+                tol = (1e-3 if grade in ("f32", "bf16x3") else 2e-2) / std
+                if out_dtype == torch.bfloat16:
+                    tol += _bf16_ulp(ref)
+                base = {r: (log_mel_spectrogram_cuda(audio, cfg, mean, std, route=r, **kw),
+                            log_mel_spectrogram_cuda(odd_audio, cfg, mean, std, route=r, **kw)) for r in default}
+                for route, tile in served:
+                    n = log_mel_spectrogram_cuda.launches_by_tile.get((route, tile), 0)
+                    got = log_mel_spectrogram_cuda(audio, cfg, mean, std, route=route, frame_tile=tile, **kw)
+                    got_odd = log_mel_spectrogram_cuda(odd_audio, cfg, mean, std, route=route, frame_tile=tile, **kw)
+                    torch.cuda.synchronize()
+                    if log_mel_spectrogram_cuda.launches_by_tile[route, tile] != n + 2:
+                        raise AssertionError(f"K1 {route} tile {tile}: two calls did not launch that instance twice")
+                    same = torch.equal(got, base[route][0]) and torch.equal(got_odd, base[route][1])
+                    err = float((got.float() - ref.float()).abs().max())
+                    ok = same and bool(torch.isfinite(got.float()).all()) and err <= tol
+                    print(f"K1 {route:3s} tile {tile:3d} {grade:6s} out={str(out_dtype)[6:]:8s} {layout}: bit for bit "
+                          f"the {default[route]}-frame tile {same}, max_abs_err={err:.3e} tol={tol:.3e}")
+                    if not ok:
+                        raise AssertionError(f"K1 {route} tile {tile} {grade}/{out_dtype}/{layout} disagrees")
+                    rec = out[route, tile]
+                    if grade not in rec["grades"]:
+                        rec["grades"].append(grade)
+                    if (out_dtype, layout) == (torch.bfloat16, "tm"):
+                        rec[f"max_abs_err_{grade}"] = err
+                del ref, base
+        for route, tile in served:
+            out[route, tile][f"ms_{grade}"] = _cuda_ms(lambda: log_mel_spectrogram_cuda(
+                audio, cfg, mean, std, precision=grade, out_dtype=torch.bfloat16, layout="tm", route=route,
+                frame_tile=tile), 5)
+    for (route, tile), rec in out.items():
+        print(f"K1 {route} tile {tile}: " + ", ".join(f"{g} {rec['ms_' + g]:.3f} ms" for g in rec["grades"])
+              + " per batch (bf16 out, tm)")
+    return out
+
+
 def check_stem(mel_bf16, taps) -> dict:
     """Both stem kernels vs the plain res8 stem: "tc" in bf16, "fma" in bf16
     and float32; returns the record of the main path's case (bf16), whose
@@ -788,9 +865,14 @@ def print_sass_counts(library) -> None:
         if kernel:
             args = re.findall(r"IL([bi])(\d+)E(?:L([bi])(\d+)E)?", name)
             names = {("b", "0"): "float32", ("b", "1"): "bf16", ("i", "40"): "mel width 40", ("i", "80"): "mel width 80"}
-            if kernel[-1] == "logmel_tc_kernel" and args:  # <mel width, the bf16 parts of the split operands>
+            if kernel[-1] == "logmel_tc_kernel" and args:  # <mel width, the bf16 parts of the split operands, tile>
                 names.update({("i", "1"): "one or two passes", ("i", "2"): "three passes", ("i", "3"): "six passes"})
             parts = [names.get(pair, "".join(pair)) for a in args[:1] for pair in zip(a[::2], a[1::2]) if pair[0]]
+            if kernel[-1] in ("logmel_tc_kernel", "logmel_kernel"):  # their last argument is the frame tile
+                tile = re.search(r"L[bi]\d+ELi(\d+)EEE", name)
+                if kernel[-1] == "logmel_kernel":  # <three passes, tile>; else W is one float32 matrix
+                    parts = ["three passes" if parts[:1] == ["bf16"] else "one pass"]
+                parts = parts[:2] + ([f"{tile.group(1)}-frame tile"] if tile else [])
             variant = f" ({', '.join(parts)})" if parts else ""
             counts = {op: len(re.findall(rf"\b{op}\b", body)) for op in opcodes}
             print(f"SASS of {kernel[-1]}{variant}: " + ", ".join(f"{n} {op}" for op, n in counts.items()))
@@ -3421,6 +3503,84 @@ def drive_families_train(dev) -> dict:
     return out
 
 
+def _k1_counts() -> dict:
+    from howl_tpu_torch.ops.frontend_cuda import log_mel_spectrogram_cuda as k1
+
+    return {"k1": k1.launches, "k1_tc": k1.launches_tc, **{f"{r}{t}": n for (r, t), n in k1.launches_by_tile.items()}}
+
+
+def _zero_k1_counts() -> None:
+    from howl_tpu_torch.ops.frontend_cuda import log_mel_spectrogram_cuda as k1
+
+    k1.launches = k1.launches_tc = 0
+    k1.launches_by_tile.clear()
+
+
+def drive_frontend_tiles_and_tools(dev) -> dict:
+    """Phase 18: (a) ``check_frontend_tiles`` at 512 x 8 s and on 3 odd clips; (b) the three frontend tools at full
+    size, K1's counters zeroed before each and read after; (c) ``bench_train`` at its card sizes. Returns
+    {"tiles": the instances' records, "launches": {tool: counts}, "bench_train": its three records, "seconds"}."""
+    import io
+    import math
+
+    import torch
+
+    from howl_tpu_torch import bench_train
+    from howl_tpu_torch.ops.frontend import FrontendConfig
+    from howl_tpu_torch.ops.frontend_cuda import log_mel_spectrogram_plain
+    from howl_tpu_torch.tools import bench_frontend_tail_1pass, bench_frontend_variants, sweep_frontend_blocks
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    audio = torch.randn((BATCH, int(CLIP_SECONDS * SAMPLE_RATE)), generator=gen, device=dev) * 0.1
+    odd = torch.randn((3, 30001), generator=gen, device=dev) * 0.1
+    cfg = FrontendConfig(n_mels=N_MELS)
+    ref = log_mel_spectrogram_plain(audio, cfg, precision="f32")
+    tiles = check_frontend_tiles(audio, cfg, (float(ref.mean()), float(ref.std())), odd)
+    del ref, audio, odd
+    refused = {(r, t) for (r, t), rec in tiles.items() if len(rec["grades"]) < 4}
+    if refused != {("tc", 256), ("fma", 64)} or tiles["fma", 64]["grades"] != ["f32", "bf16x2", "bf16"]:
+        raise AssertionError(f"K1's refused instances are not the reckoned ones: {sorted(refused)}")
+    print(f"18 (a) K1's tiles checked: {time.perf_counter() - t_phase:.1f} s")
+
+    launches = {}
+    for name, tool, argv, want in (
+        ("sweep_frontend_blocks", sweep_frontend_blocks, [], [f"tc{t}" for t in (64, 128, 256)]
+         + [f"fma{t}" for t in (16, 32, 64)]),
+        ("bench_frontend_variants", bench_frontend_variants, [], [f"tc{t}" for t in (64, 128, 256)]),
+        ("bench_frontend_tail_1pass", bench_frontend_tail_1pass, [], ["tc128", "tc256"]),
+    ):
+        _zero_k1_counts()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            results = tool.main(["--device", "cuda", *argv])
+        counts = _k1_counts()
+        print(out.getvalue().rstrip())
+        print(f"18 (b) {name}: {time.perf_counter() - t0:.1f} s; K1 launches {json.dumps(counts)}")
+        if not all(counts.get(key, 0) > 0 for key in want) or counts["k1"] == 0:
+            raise AssertionError(f"{name} did not launch each K1 instance it names ({want}): {counts}")
+        if not all(isinstance(v, (str, dict)) or (math.isfinite(v) and v > 0) for v in results.values()):
+            raise AssertionError(f"{name}: a leg's time is not finite and positive: {results}")
+        if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+            raise AssertionError(f"{name} left TF32 on")
+        launches[name] = counts
+
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        records = bench_train.main(["--device", "cuda"])
+    print(out.getvalue().rstrip())
+    for rec, batch in zip(records, (128, 128, 1024)):
+        if not (rec["unit"] == f"steps_per_sec_batch{batch}" and math.isfinite(rec["value"]) and rec["value"] > 0
+                and math.isfinite(rec["final_loss"])):
+            raise AssertionError(f"bench_train: {rec}")
+    print(f"18 (c) bench_train: {time.perf_counter() - t0:.1f} s")
+    seconds = time.perf_counter() - t_phase
+    print(f"18 K1's frame tiles and the last root tools: {seconds:.1f} s")
+    return {"tiles": tiles, "launches": launches, "bench_train": records, "seconds": seconds}
+
+
 def check_bench_record(record: dict) -> None:
     """(d) The bench's line: every measured key finite and positive with a
     [min, max] spread around it, the seven online keys included (the
@@ -3849,6 +4009,8 @@ def main() -> int:
     k2["launches_pretrain"] = scale["k2_pretrain"]
     k2["pretrain_32_rows"] = scale["stem_32"]
     lap("exports, pretraining, demo, profiling and scale-out")
+    last_tools = drive_frontend_tiles_and_tools(dev)
+    lap("K1's frame tiles and the last root tools")
     check_bench_record(bench.main(["--device", "cuda"]))
     lap("bench (d)")
     print("phase seconds: " + ", ".join(f"{name} {sec:.1f}" for name, sec in laps))
@@ -3908,6 +4070,18 @@ def main() -> int:
                                       ("stream_repro", "micro_stream.cu", 204), ("manual_read", "hbm_manual_read.cu", 238),
                                       ("manual_write", "hbm_manual_write.cu", 285), ("manual_copy", "hbm_manual_copy.cu", 333),
                                       ("hbm2hbm", "hbm2hbm.cu", 414))
+        ),
+        *(
+            {"name": f"log_mel_frontend_{route}_tile{tile}", "route": "cuda",
+             "source": f"howl_tpu_torch/csrc/{'frontend_tc.cu' if route == 'tc' else 'frontend.cu'}",
+             "replaces": "howl_tpu/ops/frontend_pallas.py:119",
+             "launches": sum(c.get(f"{route}{tile}", 0) for c in last_tools["launches"].values()),
+             "max_abs_err": rec["max_abs_err_bf16"], "ms": rec["ms_bf16"], "plain_ms": k1["plain_ms"],
+             "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
+             "launches_by_tool": {tool: c.get(f"{route}{tile}", 0) for tool, c in last_tools["launches"].items()},
+             **{key: val for key, val in rec.items() if key.startswith(("ms_", "max_abs_err_"))},
+             "grades": rec["grades"], "bit_equal_default_tile": rec["bit_equal_default"]}
+            for (route, tile), rec in last_tools["tiles"].items()
         ),
     ]
     print(json.dumps({"kernels": kernels}))

@@ -533,14 +533,18 @@ def train_setup(dev, audio: np.ndarray, labels: np.ndarray, bank_shape: Optional
     return audio, labels, bank, cfg, state_for
 
 
-def chained_step_ms(step, state, audio: torch.Tensor, labels: torch.Tensor, n_steps: int) -> float:
+def chained_step_ms(step, state, audio: torch.Tensor, labels: torch.Tensor, n_steps: int,
+                    metrics: Optional[list] = None) -> float:
     """Milliseconds per step of a chain of ``n_steps`` train steps through
-    ``state`` (CUDA events on a card, the host clock on the CPU)."""
+    ``state`` (CUDA events on a card, the host clock on the CPU); the last
+    step's metrics are appended to ``metrics`` when it is given."""
     from howl_tpu_torch.tools._study import chain_ms
 
     def chain():
         for _ in range(n_steps):
-            step(state, audio, labels, None, 0)  # the step's draws follow (0, state.step)
+            out = step(state, audio, labels, None, 0)  # the step's draws follow (0, state.step)
+        if metrics is not None:
+            metrics.append(out[1])
 
     return chain_ms(chain, audio.device) / n_steps
 

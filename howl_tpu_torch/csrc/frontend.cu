@@ -20,7 +20,11 @@
 // in bf16 with float32 accumulation) is later work.
 //
 // What the design does about it:
-//  * One block takes one clip and a tile of kFramesPerBlock frames. It loads
+//  * One block takes one clip and a tile of kFramesPerBlock frames, a
+//    template parameter the host picks (16, 32 or 64; 32 by default), with
+//    8 threads a frame, so at 256 bins every thread owns one item of the
+//    product below whatever the tile. A frame's sums run in the same order
+//    whatever tile holds it, so every tile gives the same bits. It loads
 //    the tile's audio span -- its hop rows plus the n_fft - hop lookahead --
 //    into shared memory once, applying the reflect padding as it reads, so
 //    the 2.56x overlapping frames tensor is never built in device memory.
@@ -57,8 +61,6 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kFramesPerBlock = 32;
 constexpr int kFramesPerThread = 8;
 constexpr int kBinsPerThread = 4;
 constexpr int kChunk = 16;  // W rows staged per step
@@ -80,22 +82,27 @@ __device__ __forceinline__ float padded_sample(const float* row, long S, long pa
 
 __host__ __device__ __forceinline__ int round_up4(int x) { return (x + 3) & ~3; }
 
+// the threads of a block of kFramesPerBlock frames
+__host__ __device__ constexpr int block_threads(int frames) { return 8 * frames; }
+
 // Shared memory of one block: the span (twice with three passes: hi, lo), W's
 // staged rows (twice: hi, lo), the power tile.
+template <int kFramesPerBlock>
 __host__ __device__ __forceinline__ size_t smem_floats(int span, int n_bins_pad, bool three) {
   const int parts = three ? 2 : 1;
   return static_cast<size_t>(parts) * round_up4(span) + static_cast<size_t>(parts) * kChunk * 2 * n_bins_pad +
          static_cast<size_t>(kFramesPerBlock) * n_bins_pad;
 }
 
-template <bool kThree>
-__global__ void __launch_bounds__(kThreads)
+template <bool kThree, int kFramesPerBlock>
+__global__ void __launch_bounds__(block_threads(kFramesPerBlock))
 logmel_kernel(const float* __restrict__ audio, const float* __restrict__ w,
               const float* __restrict__ fb, const float* __restrict__ w_lo,
               const float* __restrict__ fb_lo, void* __restrict__ out, int S, int n_frames,
               int n_fft, int hop, int pad, int n_bins_pad, int n_mels, int round_audio,
               int round_power, int round_mel, int out_bf16, int layout_fm, float log_offset,
               float mean, float inv_std) {
+  constexpr int kThreads = block_threads(kFramesPerBlock);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int span = (kFramesPerBlock - 1) * hop + n_fft;
@@ -240,36 +247,50 @@ logmel_kernel(const float* __restrict__ audio, const float* __restrict__ w,
   }
 }
 
-}  // namespace
-
-// audio (B, S) float32; w (n_fft, 2*n_bins_pad) float32; fb (n_bins_pad,
-// n_mels) float32; w_lo and fb_lo null, or (three passes) W's and fb's bf16
-// remainders shaped as w and fb, with W_hi and fb_hi as w and fb; out
-// (B, n_frames, n_mels) ("tm") or (B, n_mels, n_frames) ("fm"), float32 or
-// bf16. All contiguous. Returns cudaGetLastError() after the launch (or the
-// error of the shared-memory attribute call).
-extern "C" int howl_logmel_forward(const void* audio, const void* w, const void* fb, const void* w_lo,
-                                   const void* fb_lo, void* out, int B, int S, int n_frames, int n_fft,
-                                   int hop, int center, int n_bins_pad, int n_mels, int round_audio,
-                                   int round_power, int round_mel, int out_bf16, int layout_fm,
-                                   float log_offset, float mean, float inv_std, void* stream) {
-  if (B == 0 || n_frames == 0) return 0;
-  if (n_bins_pad % kBinsPerThread != 0) return static_cast<int>(cudaErrorInvalidValue);
+template <int kFramesPerBlock>
+int launch(const float* audio, const float* w, const float* fb, const float* w_lo, const float* fb_lo, void* out,
+           int B, int S, int n_frames, int n_fft, int hop, int center, int n_bins_pad, int n_mels, int round_audio,
+           int round_power, int round_mel, int out_bf16, int layout_fm, float log_offset, float mean,
+           float inv_std, cudaStream_t stream) {
   const bool three = w_lo != nullptr;
-  if (three != (fb_lo != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   const int span = (kFramesPerBlock - 1) * hop + n_fft;
-  const size_t smem = smem_floats(span, n_bins_pad, three) * sizeof(float);
-  auto kernel = three ? logmel_kernel<true> : logmel_kernel<false>;
+  const size_t smem = smem_floats<kFramesPerBlock>(span, n_bins_pad, three) * sizeof(float);
+  auto kernel = three ? logmel_kernel<true, kFramesPerBlock> : logmel_kernel<false, kFramesPerBlock>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks = static_cast<long long>((n_frames + kFramesPerBlock - 1) / kFramesPerBlock) * B;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(blocks));
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(audio), static_cast<const float*>(w), static_cast<const float*>(fb),
-      static_cast<const float*>(w_lo), static_cast<const float*>(fb_lo), out, S, n_frames, n_fft, hop,
-      center ? n_fft / 2 : 0, n_bins_pad, n_mels, round_audio, round_power, round_mel, out_bf16, layout_fm,
-      log_offset, mean, inv_std);
+  kernel<<<grid, block_threads(kFramesPerBlock), smem, stream>>>(
+      audio, w, fb, w_lo, fb_lo, out, S, n_frames, n_fft, hop, center ? n_fft / 2 : 0, n_bins_pad, n_mels,
+      round_audio, round_power, round_mel, out_bf16, layout_fm, log_offset, mean, inv_std);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// audio (B, S) float32; w (n_fft, 2*n_bins_pad) float32; fb (n_bins_pad,
+// n_mels) float32; w_lo and fb_lo null, or (three passes) W's and fb's bf16
+// remainders shaped as w and fb, with W_hi and fb_hi as w and fb;
+// frame_tile the frames a block owns, 16, 32 or 64; out (B, n_frames,
+// n_mels) ("tm") or (B, n_mels, n_frames) ("fm"), float32 or bf16. All
+// contiguous. Returns cudaGetLastError() after the launch, the error of the
+// shared-memory attribute call, or cudaErrorInvalidValue for a frame_tile
+// the kernel is not built for.
+extern "C" int howl_logmel_forward(const void* audio, const void* w, const void* fb, const void* w_lo,
+                                   const void* fb_lo, void* out, int B, int S, int n_frames, int n_fft,
+                                   int hop, int center, int n_bins_pad, int n_mels, int round_audio,
+                                   int round_power, int round_mel, int out_bf16, int layout_fm,
+                                   float log_offset, float mean, float inv_std, int frame_tile, void* stream) {
+  if (B == 0 || n_frames == 0) return 0;
+  if (n_bins_pad % kBinsPerThread != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if ((w_lo != nullptr) != (fb_lo != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  decltype(&launch<32>) fn = frame_tile == 16 ? launch<16> : frame_tile == 32 ? launch<32>
+                           : frame_tile == 64 ? launch<64> : nullptr;
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return fn(static_cast<const float*>(audio), static_cast<const float*>(w), static_cast<const float*>(fb),
+            static_cast<const float*>(w_lo), static_cast<const float*>(fb_lo), out, B, S, n_frames, n_fft, hop,
+            center, n_bins_pad, n_mels, round_audio, round_power, round_mel, out_bf16, layout_fm, log_offset, mean,
+            inv_std, static_cast<cudaStream_t>(stream));
 }

@@ -39,11 +39,18 @@
 // reads whole from L2.
 //
 // What the design does about it:
-//  * A block owns one clip and kTile = 128 frames: two warpgroups of 64
-//    frames each, 256 threads. The tile's audio span, (kTile - 1) * hop +
-//    n_fft samples, is read once with the reflect padding applied, rounded
-//    to bf16 and kept in shared memory; the overlapping frames are never
-//    built. A (frames) comes from registers: the fragment of a thread is
+//  * A block owns one clip and a tile of kTile frames, a template parameter
+//    the host picks (64, 128 or 256 at 40 mels, 128 at 80; 128 by default):
+//    one warpgroup of 64 frames for a tile of 64, otherwise two warpgroups,
+//    256 threads, each taking its 64-frame row blocks in kTile / 128 rounds
+//    (a thread's 128 sums leave no registers for a second row block at
+//    once, and a third warpgroup's would not fit an SM's register file).
+//    Every round streams W through the ring once more, so W's reads from L2
+//    follow the frames whatever the tile; the span does not. A frame's sums
+//    run in the same order whatever tile holds it, so every tile gives the
+//    same bits. The tile's audio span, (kTile - 1) * hop + n_fft samples,
+//    is read once with the reflect padding applied, rounded to bf16 and
+//    kept in shared memory; the overlapping frames are never built. A (frames) comes from registers: the fragment of a thread is
 //    pairs of neighbouring samples of a frame, one 32-bit shared-memory load
 //    each at sample t * hop + k (hop is even).
 //  * W is packed by the host in the very image the wgmma descriptor reads
@@ -120,8 +127,6 @@ namespace {
 
 using namespace hopper;
 
-constexpr int kTile = 128;                        // frames a block owns
-constexpr int kThreads = 256;                     // two warpgroups of 64 frames
 constexpr int kHalfBins = 128;                    // bins of one N = 256 tile: [re | im]
 constexpr int kStepBytes = 16 * 2 * kHalfBins * 2;  // 16 rows of k of a tile: 8 KB
 constexpr int kStageSteps = 4;                    // 64 rows of k a stage
@@ -134,21 +139,29 @@ __host__ __device__ __forceinline__ int round_up16(int x) { return (x + 15) & ~1
 
 __host__ __device__ __forceinline__ int fb_image_bytes(int n_halves, int mel_n) { return n_halves * kHalfBins * mel_n * 2; }
 
+// A tile of kTile frames: its warpgroups of 64 frames (one for a tile of 64, else two), its threads, and the rounds
+// in which the warpgroups take its row blocks of 64 frames
+__host__ __device__ constexpr int tile_warpgroups(int tile) { return tile < 128 ? 1 : 2; }
+__host__ __device__ constexpr int tile_threads(int tile) { return 128 * tile_warpgroups(tile); }
+__host__ __device__ constexpr int tile_rounds(int tile) { return tile / (64 * tile_warpgroups(tile)); }
+
+template <int kTile>
 __host__ __device__ __forceinline__ int span_samples(int n_fft, int hop) { return (kTile - 1) * hop + n_fft; }
 
 // The operands' parts, kParts: 1 for "bf16" and "bf16x2" (the image's n_passes passes of W against the span's bf16
 // part), 2 for "bf16x3" (hi and lo of the span, the power and fb; W_hi and W_lo), 3 for "f32" (hi, mid and lo of
 // all four). The span's bytes: one bf16 span a part, or for "f32" the span in float32.
-template <int kParts>
+template <int kParts, int kTile>
 __host__ __device__ __forceinline__ int span_bytes(int n_fft, int hop) {
-  return kParts == 3 ? round_up16(span_samples(n_fft, hop) * 4) : kParts * round_up16(span_samples(n_fft, hop) * 2);
+  return kParts == 3 ? round_up16(span_samples<kTile>(n_fft, hop) * 4)
+                     : kParts * round_up16(span_samples<kTile>(n_fft, hop) * 2);
 }
 
 // the block's shared memory: the ring, fb's parts, the span's, a full and an empty barrier a slot and fb's
-template <int kMelN, int kParts>
+template <int kMelN, int kParts, int kTile>
 __host__ __device__ __forceinline__ int block_smem(int n_fft, int hop, int n_halves) {
   constexpr int slots = kParts > 1 ? kSlotsX3 : kSlots;
-  return slots * kStageBytes + kParts * fb_image_bytes(n_halves, kMelN) + span_bytes<kParts>(n_fft, hop) +
+  return slots * kStageBytes + kParts * fb_image_bytes(n_halves, kMelN) + span_bytes<kParts, kTile>(n_fft, hop) +
          (2 * slots + 1) * static_cast<int>(sizeof(uint64_t));
 }
 
@@ -182,9 +195,10 @@ __device__ __forceinline__ float padded_sample(const float* row, long S, long pa
 }
 
 // kParts 2: the three-pass grade, n_passes 3 (the image holds W_hi and W_lo; a W_hi stage also multiplies the span's
-// remainder); kParts 3: the exact grade, n_passes 6 (the image holds W_hi, W_mid and W_lo)
-template <int kMelN, int kParts>
-__global__ void __launch_bounds__(kThreads, 1)
+// remainder); kParts 3: the exact grade, n_passes 6 (the image holds W_hi, W_mid and W_lo); kTile the frames a block
+// owns
+template <int kMelN, int kParts, int kTile>
+__global__ void __launch_bounds__(tile_threads(kTile), 1)
 logmel_tc_kernel(const float* __restrict__ audio, const unsigned char* __restrict__ w_img,
                  const unsigned char* __restrict__ fb_img, void* __restrict__ out, int S, int n_frames, int n_fft,
                  int hop, int pad, int n_halves, int n_passes, int n_mels, int round_mel, int out_bf16,
@@ -192,15 +206,20 @@ logmel_tc_kernel(const float* __restrict__ audio, const unsigned char* __restric
   constexpr bool kX3 = kParts == 2;
   constexpr bool kF32 = kParts == 3;
   constexpr int kRingSlots = kParts > 1 ? kSlotsX3 : kSlots;
+  constexpr int kThreads = tile_threads(kTile);
+  constexpr int kWarpgroups = tile_warpgroups(kTile);
+  constexpr int kRounds = tile_rounds(kTile);
+  static_assert(kTile == 64 * kWarpgroups * kRounds, "a tile is whole row blocks of 64 frames");
+  static_assert(kTile * kMelN * 4 <= kRingSlots * kStageBytes, "the tile's outputs are staged in the ring");
   extern __shared__ __align__(128) unsigned char smem[];
   const int fb_bytes = fb_image_bytes(n_halves, kMelN);  // one part's image
-  const int span = span_samples(n_fft, hop);
+  const int span = span_samples<kTile>(n_fft, hop);
   unsigned char* ring = smem;
   unsigned char* s_fb = ring + kRingSlots * kStageBytes;  // fb_hi, then fb_lo (or fb_mid and fb_lo)
   __nv_bfloat16* s_audio = reinterpret_cast<__nv_bfloat16*>(s_fb + kParts * fb_bytes);  // x_hi, then x_lo
   __nv_bfloat16* s_audio_lo = s_audio + round_up16(span * 2) / 2;
   float* s_audio_f32 = reinterpret_cast<float*>(s_audio);  // "f32": the span in float32 instead
-  uint64_t* full = reinterpret_cast<uint64_t*>(s_fb + kParts * fb_bytes + span_bytes<kParts>(n_fft, hop));
+  uint64_t* full = reinterpret_cast<uint64_t*>(s_fb + kParts * fb_bytes + span_bytes<kParts, kTile>(n_fft, hop));
   uint64_t* empty = full + kRingSlots;
   uint64_t* fb_full = empty + kRingSlots;
 
@@ -212,13 +231,18 @@ logmel_tc_kernel(const float* __restrict__ audio, const unsigned char* __restric
   const int b = blockIdx.x / n_tiles;
   const int t0 = (blockIdx.x % n_tiles) * kTile;
 
-  // The stages of W in the order they are consumed, which is the order of the image: per half, per pass of W (hi
+  // The stages of W in the order they are consumed: per round, the image in its order, per half, per pass of W (hi
   // then lo for the three-pass grade, hi, mid, lo for "f32"), 64 rows of k at a time; the last stage of a pass is
   // short when n_fft is no multiple of 64.
   const int k_steps = n_fft / 16;
   const int stages_per_pass = (k_steps + kStageSteps - 1) / kStageSteps;
   const int w_passes = kParts > 1 ? kParts : n_passes;
-  const int n_stages = n_halves * w_passes * stages_per_pass;
+  const int image_stages = n_halves * w_passes * stages_per_pass;
+  const int n_stages = kRounds * image_stages;
+  // stage i's round and its place in the image; no division where a tile is one round, since load_a runs in the
+  // loop of the products
+  auto round_of = [&](int i) { return kRounds == 1 ? 0 : i / image_stages; };
+  auto image_stage = [&](int i) { return kRounds == 1 ? i : i % image_stages; };
   auto stage_steps = [&](int i) {
     const int left = k_steps - (i % stages_per_pass) * kStageSteps;
     return left < kStageSteps ? left : kStageSteps;
@@ -226,7 +250,8 @@ logmel_tc_kernel(const float* __restrict__ audio, const unsigned char* __restric
   auto load_stage = [&](int i) {  // one thread
     const int slot = i % kRingSlots;
     const uint32_t bytes = stage_steps(i) * kStepBytes;
-    const size_t first_step = static_cast<size_t>(i / stages_per_pass) * k_steps + (i % stages_per_pass) * kStageSteps;
+    const int at = image_stage(i);
+    const size_t first_step = static_cast<size_t>(at / stages_per_pass) * k_steps + (at % stages_per_pass) * kStageSteps;
     mbar_arrive_expect_tx(&full[slot], bytes);
     bulk_load(ring + slot * kStageBytes, w_img + first_step * kStepBytes, bytes, &full[slot]);
   };
@@ -293,17 +318,20 @@ logmel_tc_kernel(const float* __restrict__ audio, const unsigned char* __restric
   const int wg = warp >> 2;
   const int g = lane >> 2;
   const int tig = lane & 3;
-  const int row = wg * 64 + (warp & 3) * 16 + g;  // this thread's first frame of the tile; the second is row + 8
-  const bool active = t0 + wg * 64 < n_frames;    // a warpgroup with no frame of the clip computes nothing
-  const int x_off = row * hop + 2 * tig;
+  // this thread's first frame of the tile in round r; the second is 8 frames on
+  auto row_of = [&](int r) { return (r * kWarpgroups + wg) * 64 + (warp & 3) * 16 + g; };
+  const int x_off0 = row_of(0) * hop + 2 * tig;  // its first sample in round 0; a round is kWarpgroups * 64 frames on
+  // a warpgroup with no frame of the clip in a round computes nothing in it
+  auto active_in = [&](int r) { return t0 + (r * kWarpgroups + wg) * 64 < n_frames; };
 
-  // the A fragments of a stage's products: samples k0 + 16 ks + {2 tig, 2 tig + 1} and + 8 of both frames, from
-  // the span's part `part` (0 its bf16 part; 1 its remainder, the three-pass grade's second products of a W_hi
-  // stage; for "f32" 0, 1 or 2, hi, mid or lo, split from the float32 span as they are loaded)
+  // the A fragments of a stage's products: samples k0 + 16 ks + {2 tig, 2 tig + 1} and + 8 of both frames of the
+  // stage's round, from the span's part `part` (0 its bf16 part; 1 its remainder, the three-pass grade's second
+  // products of a W_hi stage; for "f32" 0, 1 or 2, hi, mid or lo, split from the float32 span as they are loaded)
   uint32_t a[kStageSteps * 4];
   auto load_a = [&](int i, int part) {
     const int k0 = (i % stages_per_pass) * kStageSteps * 16;
     const int steps = stage_steps(i);
+    const int x_off = x_off0 + round_of(i) * (kWarpgroups * 64 * hop);
     if constexpr (kF32) {
       const float* xa = s_audio_f32 + x_off;
       const float* xb = xa + 8 * hop;
@@ -335,136 +363,149 @@ logmel_tc_kernel(const float* __restrict__ audio, const unsigned char* __restric
     }
   };
 
+  // the round's mel sums, and those of the rounds before, kept until the ring is free to stage them (a round is a
+  // run-time loop, so each finished round's sums are copied out under a constant index, not indexed by the round)
   float mel[kMelN / 2];
-#pragma unroll
-  for (int i = 0; i < kMelN / 2; ++i) mel[i] = 0.f;
+  float mel_done[kRounds > 1 ? kRounds - 1 : 1][kMelN / 2];
 #pragma unroll
   for (int i = 0; i < kStageSteps * 4; ++i) a[i] = 0u;
-  if (active) load_a(0, 0);
+  if (active_in(0)) load_a(0, 0);
 
   int stage = 0;
-  for (int h = 0; h < n_halves; ++h) {
-    float acc[128];  // (64, 256) sums: d[4j + i] is re of bin 8j + 2 tig + (i & 1), d[64 + 4j + i] its im
-    if constexpr (kF32) {
-      // The first product of a half reads acc under a run-time scale, so the compiler keeps the last half's sums
-      // live through its mel products unless they are written here: beside the power's three fragment sets they
-      // would spill and serialize the wgmma.
+  for (int rd = 0; rd < kRounds; ++rd) {  // the rounds of the tile's row blocks
+    const bool active = active_in(rd);
 #pragma unroll
-      for (int i = 0; i < 128; ++i) acc[i] = 0.f;
-    }
-    for (int j = 0; j < w_passes * stages_per_pass; ++j, ++stage) {
-      const int slot = stage % kRingSlots;
-      const int steps = stage_steps(stage);
-      mbar_wait(&full[slot], (stage / kRingSlots) & 1);
-      if (active) {
-        const uint32_t w_s = smem_u32(ring + slot * kStageBytes);
-        // one group of the stage's products with the A fragments in registers, waited for: then the fragments may
-        // be loaded again
-        auto products = [&](bool first) {
-          wgmma_fence();
-          auto product = [&](int ks) {
-            wgmma_m64n256k16(acc, a[ks * 4], a[ks * 4 + 1], a[ks * 4 + 2], a[ks * 4 + 3],
-                             wgmma_desc(w_s + ks * kStepBytes, kStepBytes / 2, 128), !first || ks > 0);
+    for (int i = 0; i < kMelN / 2; ++i) mel[i] = 0.f;
+    for (int h = 0; h < n_halves; ++h) {
+      float acc[128];  // (64, 256) sums: d[4j + i] is re of bin 8j + 2 tig + (i & 1), d[64 + 4j + i] its im
+      if constexpr (kF32) {
+        // The first product of a half reads acc under a run-time scale, so the compiler keeps the last half's sums
+        // live through its mel products unless they are written here: beside the power's three fragment sets they
+        // would spill and serialize the wgmma.
+#pragma unroll
+        for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+      }
+      for (int j = 0; j < w_passes * stages_per_pass; ++j, ++stage) {
+        const int slot = stage % kRingSlots;
+        const int steps = stage_steps(stage);
+        mbar_wait(&full[slot], (stage / kRingSlots) & 1);
+        if (active) {
+          const uint32_t w_s = smem_u32(ring + slot * kStageBytes);
+          // one group of the stage's products with the A fragments in registers, waited for: then the fragments may
+          // be loaded again
+          auto products = [&](bool first) {
+            wgmma_fence();
+            auto product = [&](int ks) {
+              wgmma_m64n256k16(acc, a[ks * 4], a[ks * 4 + 1], a[ks * 4 + 2], a[ks * 4 + 3],
+                               wgmma_desc(w_s + ks * kStepBytes, kStepBytes / 2, 128), !first || ks > 0);
+            };
+            if (steps == kStageSteps) {  // no branch between the products of a full stage
+#pragma unroll
+              for (int ks = 0; ks < kStageSteps; ++ks) product(ks);
+            } else {
+#pragma unroll
+              for (int ks = 0; ks < kStageSteps - 1; ++ks)
+                if (ks < steps) product(ks);
+            }
+            wgmma_commit();
+            wgmma_wait<0>();
+            wgmma_keep(a);
           };
-          if (steps == kStageSteps) {  // no branch between the products of a full stage
-#pragma unroll
-            for (int ks = 0; ks < kStageSteps; ++ks) product(ks);
-          } else {
-#pragma unroll
-            for (int ks = 0; ks < kStageSteps - 1; ++ks)
-              if (ks < steps) product(ks);
+          products(j == 0);
+          if (kX3 && j < stages_per_pass) {  // a W_hi stage: x_lo @ W_hi from the same slot
+            load_a(stage, 1);
+            products(false);
           }
-          wgmma_commit();
-          wgmma_wait<0>();
-          wgmma_keep(a);
+          if (kF32 && j < 2 * stages_per_pass) {  // a W_hi or W_mid stage: x_mid against it
+            load_a(stage, 1);
+            products(false);
+          }
+          if (kF32 && j < stages_per_pass) {  // a W_hi stage: x_lo against it
+            load_a(stage, 2);
+            products(false);
+          }
+          if (stage + 1 < n_stages) load_a(stage + 1, 0);  // the products have read them: the next stage's
+        }
+        if (lane == 0) mbar_arrive(&empty[slot]);
+        if (warp == 0 && stage + kRingSlots < n_stages) {
+          // every warp has released the slot: refill it (the wait by the whole warp, see the top of the file)
+          mbar_wait(&empty[slot], (stage / kRingSlots) & 1);
+          if (lane == 0) load_stage(stage + kRingSlots);
+        }
+      }
+      if (active) {
+        wgmma_keep(acc);
+        // power = re^2 + im^2, each product and the sum rounded as float32, then to bf16: the A fragments of the
+        // mel product over this half's 128 bins, 16 bins a step; for "bf16x3" also the bf16 rounding of the rest;
+        // for "f32" the power's mid part in q and its lo part in u
+        uint32_t p[32];
+        uint32_t q[kParts > 1 ? 32 : 1];
+        uint32_t u[kF32 ? 32 : 1];
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float re0 = acc[4 * j + 2 * r], re1 = acc[4 * j + 2 * r + 1];
+            const float im0 = acc[64 + 4 * j + 2 * r], im1 = acc[64 + 4 * j + 2 * r + 1];
+            const float pw0 = __fadd_rn(__fmul_rn(re0, re0), __fmul_rn(im0, im0));
+            const float pw1 = __fadd_rn(__fmul_rn(re1, re1), __fmul_rn(im1, im1));
+            p[2 * j + r] = pack_bf16(pw0, pw1);
+            if constexpr (kX3) q[2 * j + r] = pack_bf16(__fsub_rn(pw0, round_bf16(pw0)), __fsub_rn(pw1, round_bf16(pw1)));
+            if constexpr (kF32) {
+              q[2 * j + r] = pack_part(pw0, pw1, 1);
+              u[2 * j + r] = pack_part(pw0, pw1, 2);
+            }
+          }
+        if (rd == 0 && h == 0) mbar_wait(fb_full, 0);
+        // fb's image: per 16 bins two by kMelN / 8 core matrices; fb_lo's image follows fb_hi's (fb_mid's and fb_lo's
+        // for "f32")
+        const uint32_t fb_s = smem_u32(s_fb) + h * (kHalfBins / 16) * (kMelN * 32);
+        auto mel_product = [&](const uint32_t(&frag)[32], uint32_t fb_at) {
+#pragma unroll
+          for (int kk = 0; kk < kHalfBins / 16; ++kk)
+            wgmma_m64nNk16(mel, frag[4 * kk], frag[4 * kk + 1], frag[4 * kk + 2], frag[4 * kk + 3],
+                           wgmma_desc(fb_at + kk * (kMelN * 32), kMelN * 16, 128), 1);
         };
-        products(j == 0);
-        if (kX3 && j < stages_per_pass) {  // a W_hi stage: x_lo @ W_hi from the same slot
-          load_a(stage, 1);
-          products(false);
+        wgmma_fence();
+        mel_product(p, fb_s);
+        if constexpr (kX3) {
+          mel_product(q, fb_s);             // p_lo @ fb_hi
+          mel_product(p, fb_s + fb_bytes);  // p_hi @ fb_lo
         }
-        if (kF32 && j < 2 * stages_per_pass) {  // a W_hi or W_mid stage: x_mid against it
-          load_a(stage, 1);
-          products(false);
+        if constexpr (kF32) {  // the other five of the six: hi x mid, mid x hi, hi x lo, mid x mid, lo x hi
+          mel_product(p, fb_s + fb_bytes);
+          mel_product(q, fb_s);
+          mel_product(p, fb_s + 2 * fb_bytes);
+          mel_product(q, fb_s + fb_bytes);
+          mel_product(u, fb_s);
         }
-        if (kF32 && j < stages_per_pass) {  // a W_hi stage: x_lo against it
-          load_a(stage, 2);
-          products(false);
-        }
-        if (stage + 1 < n_stages) load_a(stage + 1, 0);  // the products have read them: the next stage's
-      }
-      if (lane == 0) mbar_arrive(&empty[slot]);
-      if (warp == 0 && stage + kRingSlots < n_stages) {
-        // every warp has released the slot: refill it (the wait by the whole warp, see the top of the file)
-        mbar_wait(&empty[slot], (stage / kRingSlots) & 1);
-        if (lane == 0) load_stage(stage + kRingSlots);
+        wgmma_commit();
+        wgmma_wait<0>();
+        wgmma_keep(p);
+        wgmma_keep(q);
+        wgmma_keep(u);
+        wgmma_keep(mel);
       }
     }
-    if (active) {
-      wgmma_keep(acc);
-      // power = re^2 + im^2, each product and the sum rounded as float32, then to bf16: the A fragments of the
-      // mel product over this half's 128 bins, 16 bins a step; for "bf16x3" also the bf16 rounding of the rest;
-      // for "f32" the power's mid part in q and its lo part in u
-      uint32_t p[32];
-      uint32_t q[kParts > 1 ? 32 : 1];
-      uint32_t u[kF32 ? 32 : 1];
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
+    for (int q = 0; q < kRounds - 1; ++q)
+      if (q == rd)
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const float re0 = acc[4 * j + 2 * r], re1 = acc[4 * j + 2 * r + 1];
-          const float im0 = acc[64 + 4 * j + 2 * r], im1 = acc[64 + 4 * j + 2 * r + 1];
-          const float pw0 = __fadd_rn(__fmul_rn(re0, re0), __fmul_rn(im0, im0));
-          const float pw1 = __fadd_rn(__fmul_rn(re1, re1), __fmul_rn(im1, im1));
-          p[2 * j + r] = pack_bf16(pw0, pw1);
-          if constexpr (kX3) q[2 * j + r] = pack_bf16(__fsub_rn(pw0, round_bf16(pw0)), __fsub_rn(pw1, round_bf16(pw1)));
-          if constexpr (kF32) {
-            q[2 * j + r] = pack_part(pw0, pw1, 1);
-            u[2 * j + r] = pack_part(pw0, pw1, 2);
-          }
-        }
-      if (h == 0) mbar_wait(fb_full, 0);
-      // fb's image: per 16 bins two by kMelN / 8 core matrices; fb_lo's image follows fb_hi's (fb_mid's and fb_lo's
-      // for "f32")
-      const uint32_t fb_s = smem_u32(s_fb) + h * (kHalfBins / 16) * (kMelN * 32);
-      auto mel_product = [&](const uint32_t(&frag)[32], uint32_t fb_at) {
-#pragma unroll
-        for (int kk = 0; kk < kHalfBins / 16; ++kk)
-          wgmma_m64nNk16(mel, frag[4 * kk], frag[4 * kk + 1], frag[4 * kk + 2], frag[4 * kk + 3],
-                         wgmma_desc(fb_at + kk * (kMelN * 32), kMelN * 16, 128), 1);
-      };
-      wgmma_fence();
-      mel_product(p, fb_s);
-      if constexpr (kX3) {
-        mel_product(q, fb_s);             // p_lo @ fb_hi
-        mel_product(p, fb_s + fb_bytes);  // p_hi @ fb_lo
-      }
-      if constexpr (kF32) {  // the other five of the six: hi x mid, mid x hi, hi x lo, mid x mid, lo x hi
-        mel_product(p, fb_s + fb_bytes);
-        mel_product(q, fb_s);
-        mel_product(p, fb_s + 2 * fb_bytes);
-        mel_product(q, fb_s + fb_bytes);
-        mel_product(u, fb_s);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      wgmma_keep(p);
-      wgmma_keep(q);
-      wgmma_keep(u);
-      wgmma_keep(mel);
-    }
+        for (int i = 0; i < kMelN / 2; ++i) mel_done[q][i] = mel[i];
   }
 
-  __syncthreads();  // both warpgroups are done with the ring: it now stages the tile's outputs
-  if (active) {
+  __syncthreads();  // every warpgroup is done with the ring: it now stages the tile's outputs
+#pragma unroll
+  for (int rd = 0; rd < kRounds; ++rd) {
+    if (!active_in(rd)) continue;
 #pragma unroll
     for (int j = 0; j < kMelN / 8; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int m = 8 * j + 2 * tig + (i & 1);
-        const int f = row + 8 * (i >> 1);
+        const int f = row_of(rd) + 8 * (i >> 1);
         if (m < n_mels) {
-          float v = mel[4 * j + i];
+          float v = rd == kRounds - 1 ? mel[4 * j + i] : mel_done[rd < kRounds - 1 ? rd : 0][4 * j + i];
           if (round_mel) v = round_bf16(v);
           const float y = (logf(v + log_offset) - mean) * inv_std;
           const int idx = layout_fm ? m * kTile + f : f * n_mels + m;
@@ -499,23 +540,31 @@ logmel_tc_kernel(const float* __restrict__ audio, const unsigned char* __restric
   }
 }
 
-template <int kMelN, int kParts>
+template <int kMelN, int kParts, int kTile>
 int launch(const void* audio, const void* w_img, const void* fb_img, void* out, int B, int S, int n_frames, int n_fft,
            int hop, int center, int n_halves, int n_passes, int n_mels, int out_bf16, int layout_fm,
            float log_offset, float mean, float inv_std, void* stream) {
-  const int smem = block_smem<kMelN, kParts>(n_fft, hop, n_halves);
+  const int smem = block_smem<kMelN, kParts, kTile>(n_fft, hop, n_halves);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err =
-      cudaFuncSetAttribute(logmel_tc_kernel<kMelN, kParts>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = cudaFuncSetAttribute(logmel_tc_kernel<kMelN, kParts, kTile>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks = static_cast<long long>((n_frames + kTile - 1) / kTile) * B;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(blocks));
-  logmel_tc_kernel<kMelN, kParts><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  logmel_tc_kernel<kMelN, kParts, kTile><<<grid, tile_threads(kTile), smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(audio), static_cast<const unsigned char*>(w_img),
       static_cast<const unsigned char*>(fb_img), out, S, n_frames, n_fft, hop, center ? n_fft / 2 : 0, n_halves,
       n_passes, n_mels, out_bf16, out_bf16, layout_fm, log_offset, mean, inv_std);
   return static_cast<int>(cudaGetLastError());
+}
+
+using Launch = decltype(&launch<40, 1, 128>);
+
+// the instance of a mel width and tile for the operands' parts (1, 2 or 3)
+template <int kMelN, int kTile>
+Launch instance(int parts) {
+  return parts == 3 ? launch<kMelN, 3, kTile> : parts == 2 ? launch<kMelN, 2, kTile> : launch<kMelN, 1, kTile>;
 }
 
 }  // namespace
@@ -527,23 +576,27 @@ int launch(const void* audio, const void* w_img, const void* fb_img, void* out, 
 // ("f32": W_hi, W_mid, W_lo, so n_halves x 3 x (n_fft / 16) steps); fb_img
 // the bf16 image of fb, (n_halves * 128, mel_n) (frontend_cuda.pack_fb_image),
 // for n_passes 3 fb_hi's image and then fb_lo's, for 6 fb_hi's, fb_mid's and
-// fb_lo's; mel_n 40 or 80 and at least n_mels; out (B, n_frames, n_mels)
+// fb_lo's; mel_n 40 or 80 and at least n_mels; frame_tile the frames a block
+// owns, 64, 128 or 256 at mel_n 40 and 128 at 80; out (B, n_frames, n_mels)
 // ("tm") or (B, n_mels, n_frames) ("fm"), float32 or bf16, the pre-log mel
 // rounded to bf16 first for bf16. All contiguous. Returns cudaGetLastError()
 // after the launch, the error of the shared-memory attribute call, or
-// cudaErrorInvalidValue for a geometry the kernel does not serve.
+// cudaErrorInvalidValue for a geometry or a (mel_n, frame_tile) the kernel
+// does not serve.
 extern "C" int howl_logmel_tc_forward(const void* audio, const void* w_img, const void* fb_img, void* out, int B,
                                       int S, int n_frames, int n_fft, int hop, int center, int n_halves,
-                                      int n_passes, int n_mels, int mel_n, int out_bf16, int layout_fm,
-                                      float log_offset, float mean, float inv_std, void* stream) {
+                                      int n_passes, int n_mels, int mel_n, int frame_tile, int out_bf16,
+                                      int layout_fm, float log_offset, float mean, float inv_std, void* stream) {
   if (B == 0 || n_frames == 0) return 0;
   if (n_fft < 16 || n_fft % 16 != 0 || hop < 2 || hop % 2 != 0 || n_mels < 8 || n_mels % 8 != 0 || n_mels > mel_n ||
       n_halves < 1 || n_passes < 1 || (n_passes > 3 && n_passes != 6))
     return static_cast<int>(cudaErrorInvalidValue);
   const int parts = n_passes == 6 ? 3 : n_passes == 3 ? 2 : 1;
-  decltype(&launch<40, 1>) fn = nullptr;
-  if (mel_n == 40) fn = parts == 3 ? launch<40, 3> : parts == 2 ? launch<40, 2> : launch<40, 1>;
-  if (mel_n == 80) fn = parts == 3 ? launch<80, 3> : parts == 2 ? launch<80, 2> : launch<80, 1>;
+  Launch fn = nullptr;
+  if (mel_n == 40 && frame_tile == 64) fn = instance<40, 64>(parts);
+  if (mel_n == 40 && frame_tile == 128) fn = instance<40, 128>(parts);
+  if (mel_n == 40 && frame_tile == 256) fn = instance<40, 256>(parts);
+  if (mel_n == 80 && frame_tile == 128) fn = instance<80, 128>(parts);
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return fn(audio, w_img, fb_img, out, B, S, n_frames, n_fft, hop, center, n_halves, n_passes, n_mels, out_bf16,
             layout_fm, log_offset, mean, inv_std, stream);

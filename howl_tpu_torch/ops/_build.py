@@ -42,15 +42,15 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 SIGNATURES = {
     # audio, w, fb, w_lo, fb_lo, out, B, S, n_frames, n_fft, hop, center,
     # n_bins_pad, n_mels, round_audio, round_power, round_mel, out_bf16,
-    # layout_fm, log_offset, mean, inv_std, stream
+    # layout_fm, log_offset, mean, inv_std, frame_tile, stream
     "howl_logmel_forward": (
-        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P,
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P,
     ),
     # audio, w_img, fb_img, out, B, S, n_frames, n_fft, hop, center, n_halves,
-    # n_passes, n_mels, mel_n, out_bf16, layout_fm, log_offset, mean, inv_std,
-    # stream
+    # n_passes, n_mels, mel_n, frame_tile, out_bf16, layout_fm, log_offset,
+    # mean, inv_std, stream
     "howl_logmel_tc_forward": (
-        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P,
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P,
     ),
     # x, w_img, w_scale, bn_scale, bn_shift, res, out, pre, B, T, F, C, tt, inv_s, s_a, is_bf16, stream
     "howl_int8_conv_forward": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P),

@@ -58,6 +58,15 @@ grade and the geometry alone (``frontend_route``), never by a failure:
            float32, so FMA on the rounded operands computes each pass).
 
 ``route=`` forces one of the two and raises where it cannot serve.
+
+Each kernel is compiled for a few frame tiles, the frames a block owns (the
+counterpart of the JAX kernel's ``fb_block``; its ``row_block`` has none,
+since a block here owns one clip): "tc" for 64, 128 and 256 frames at 40
+mels and 128 at 80 (``TC_TILES``), "fma" for 16, 32 and 64 (``FMA_TILES``).
+``frame_tile=None`` takes the default, 128 on "tc" and 32 on "fma". A
+frame's sums run in the same order whatever tile holds it, so the output
+does not depend on the tile. A tile that the route has no instance of, or
+whose block does not fit, raises before any launch (``route_and_tile``).
 """
 
 from __future__ import annotations
@@ -169,7 +178,11 @@ def frontend_split_bases(config: FrontendConfig, device: torch.device):
 
 # ---- the "tc" route's geometry and operand images (csrc/frontend_tc.cu) ----
 
-TC_TILE = 128  # frames a block owns
+TC_TILE = 128  # frames a block owns by default
+TC_TILES = {40: (64, 128, 256), 80: (128,)}  # the tiles compiled at each mel width
+FMA_TILE = 32  # the "fma" kernel's default tile
+FMA_TILES = (16, 32, 64)  # its compiled tiles
+FMA_CHUNK = 16  # rows of W its blocks stage at a time
 TC_HALF_BINS = 128  # bins of one N = 256 tile of W: [re | im]
 TC_STAGE_BYTES = 32768  # 64 rows of k of a tile
 TC_SLOTS = 3  # stages of the ring
@@ -187,15 +200,16 @@ TC_PARTS = {"bf16": 1, "bf16x2": 1, "bf16x3": 2, "f32": 3}  # the bf16 parts of 
 TC_PASSES = {"bf16": 1, "bf16x2": 2, "bf16x3": 3, "f32": 6}  # the kernel's n_passes, its name for the grade
 
 
-def tc_shared_bytes(config: FrontendConfig, grade: str = "bf16") -> int:
-    """Shared memory of one block of the "tc" kernel: the ring, the
-    filterbank's image, the tile's audio span in bf16, a full and an empty
-    barrier a slot and the filterbank's. "bf16x3" has a ring of
-    ``TC_SLOTS_X3`` slots and two of the rest: fb_hi and fb_lo, the span's
-    bf16 part and its remainder. "f32" has the same ring, fb_hi, fb_mid and
-    fb_lo, and the span once in float32."""
+def tc_shared_bytes(config: FrontendConfig, grade: str = "bf16", frame_tile: int = None) -> int:
+    """Shared memory of one block of the "tc" kernel with a tile of
+    ``frame_tile`` frames (``TC_TILE`` for None): the ring, the filterbank's
+    image, the tile's audio span in bf16, a full and an empty barrier a
+    slot and the filterbank's. "bf16x3" has a ring of ``TC_SLOTS_X3`` slots
+    and two of the rest: fb_hi and fb_lo, the span's bf16 part and its
+    remainder. "f32" has the same ring, fb_hi, fb_mid and fb_lo, and the
+    span once in float32. Only the span grows with the tile."""
     n_halves = -(-nyquist_crop_bins(config) // TC_HALF_BINS)
-    span = (TC_TILE - 1) * config.hop_length + config.n_fft
+    span = ((frame_tile or TC_TILE) - 1) * config.hop_length + config.n_fft
     fb = n_halves * TC_HALF_BINS * _tc_mel_width(config.n_mels) * 2
     parts = TC_PARTS[grade]
     slots = TC_SLOTS if parts == 1 else TC_SLOTS_X3
@@ -203,18 +217,59 @@ def tc_shared_bytes(config: FrontendConfig, grade: str = "bf16") -> int:
     return slots * TC_STAGE_BYTES + parts * fb + span_bytes + (2 * slots + 1) * 8
 
 
-def frontend_route(config: FrontendConfig, grade: str) -> str:
-    """The kernel that serves a geometry and grade on a CUDA tensor: "tc" or
-    "fma", by the rule in the module's docstring."""
+def fma_shared_bytes(config: FrontendConfig, grade: str = "bf16", frame_tile: int = None) -> int:
+    """Shared memory of one block of the "fma" kernel with a tile of
+    ``frame_tile`` frames (``FMA_TILE`` for None), in float32 words times 4:
+    the tile's span, FMA_CHUNK rows of W, the tile's power; "bf16x3" holds
+    two spans (hi, lo) and two of W's rows (W_hi's, W_lo's)."""
+    tile = frame_tile or FMA_TILE
+    nbp = _round_up(nyquist_crop_bins(config), 4)
+    parts = 2 if grade == "bf16x3" else 1
+    span = (tile - 1) * config.hop_length + config.n_fft
+    return 4 * (parts * _round_up(span, 4) + parts * FMA_CHUNK * 2 * nbp + tile * nbp)
+
+
+def _tc_mel_n(config: FrontendConfig):
+    """The mel width of the "tc" kernel that serves the geometry, shared
+    memory aside, or None: n_fft a multiple of 16, hop even, n_mels a
+    multiple of 8 and at most the widest compiled width."""
+    ok = (config.n_fft >= 16 and config.n_fft % 16 == 0 and config.hop_length >= 2 and config.hop_length % 2 == 0
+          and config.n_mels >= 8 and config.n_mels % 8 == 0)
+    return _tc_mel_width(config.n_mels) if ok else None
+
+
+def frontend_route(config: FrontendConfig, grade: str, frame_tile: int = None) -> str:
+    """The kernel that serves a geometry and grade on a CUDA tensor with a
+    tile of ``frame_tile`` frames (the default tile for None): "tc" where the
+    tensor-core kernel has that tile at the geometry's mel width and its
+    block fits, by the rule in the module's docstring, otherwise "fma"."""
     if grade not in GRADES:
         raise ValueError(f"unknown grade {grade!r}")
-    fits = (
-        config.n_fft >= 16 and config.n_fft % 16 == 0
-        and config.hop_length >= 2 and config.hop_length % 2 == 0
-        and config.n_mels >= 8 and config.n_mels % 8 == 0 and _tc_mel_width(config.n_mels) is not None
-        and tc_shared_bytes(config, grade) <= TC_MAX_SHARED
-    )
+    tile, mel_n = frame_tile or TC_TILE, _tc_mel_n(config)
+    fits = mel_n is not None and tile in TC_TILES[mel_n] and tc_shared_bytes(config, grade, tile) <= TC_MAX_SHARED
     return "tc" if fits else "fma"
+
+
+def route_and_tile(config: FrontendConfig, grade: str, frame_tile: int = None, route: str = None) -> tuple:
+    """(route, tile) of a launch: ``route`` if forced, else what
+    :func:`frontend_route` settles for the tile; ``frame_tile=None`` takes
+    the route's default tile. Raises ``ValueError`` before any launch for a
+    forced "tc" that cannot serve the geometry, grade and tile, for a tile
+    the route has no instance of, and for a block that does not fit a
+    block's shared memory (saying how many bytes it would take)."""
+    served = frontend_route(config, grade, frame_tile)  # raises on an unknown grade
+    route = route or served
+    mel_n = _tc_mel_n(config)
+    tiles = FMA_TILES if route == "fma" else TC_TILES.get(mel_n, ())
+    tile = frame_tile or (TC_TILE if route == "tc" else FMA_TILE)
+    if tile not in tiles:
+        raise ValueError(f"route={route!r} cannot serve grade {grade!r} with a {tile}-frame tile and {config}: "
+                         f"its tiles are {tiles} (see frontend_route)")
+    need = tc_shared_bytes(config, grade, tile) if route == "tc" else fma_shared_bytes(config, grade, tile)
+    if need > TC_MAX_SHARED:
+        raise ValueError(f"route={route!r} at grade {grade!r} with a {tile}-frame tile does not fit ({need} bytes "
+                         f"of shared memory, {TC_MAX_SHARED} a block) with {config}")
+    return route, tile
 
 
 def tc_tile_columns(n_bins: int) -> np.ndarray:
@@ -264,8 +319,17 @@ def unpack_fb_image(img: torch.Tensor, mel_n: int) -> torch.Tensor:
     return v.permute(0, 1, 4, 2, 3).contiguous().reshape(-1, mel_n)
 
 
+def frontend_bases_tc(config: FrontendConfig, grade: str, device: torch.device, frame_tile: int = None):
+    """The "tc" kernel's operands for a geometry and grade, :func:`_tc_images`;
+    raises where that kernel does not serve them with a tile of
+    ``frame_tile`` frames (the default tile for None)."""
+    if frontend_route(config, grade, frame_tile) != "tc":
+        raise ValueError(f"the tensor-core frontend kernel does not serve {config} at grade {grade!r}")
+    return _tc_images(config, grade, device)
+
+
 @functools.lru_cache(maxsize=32)
-def frontend_bases_tc(config: FrontendConfig, grade: str, device: torch.device):
+def _tc_images(config: FrontendConfig, grade: str, device: torch.device):
     """(W image, fb image, n_halves, n_passes, mel_n) on ``device`` for the
     "tc" kernel, built once per geometry and grade: bf16 W in tiles of 128
     bins (one pass for "bf16", hi then lo for "bf16x2" and "bf16x3", whose
@@ -274,9 +338,7 @@ def frontend_bases_tc(config: FrontendConfig, grade: str, device: torch.device):
     6 for its six products) and the bf16 filterbank ("bf16x3": fb_hi's
     image, then fb_lo's; "f32": fb_hi's, fb_mid's and fb_lo's), its bins
     padded to whole tiles and its mels to mel_n with zeros, both packed as
-    the kernel reads them."""
-    if frontend_route(config, grade) != "tc":
-        raise ValueError(f"the tensor-core frontend kernel does not serve {config} at grade {grade!r}")
+    the kernel reads them, whatever the tile."""
     n_bins = nyquist_crop_bins(config)
     cols = tc_tile_columns(n_bins)
     w, fb = _padded_bases(config, n_bins)
@@ -324,10 +386,15 @@ def log_mel_spectrogram_plain(
     precision=None,
     out_dtype=torch.float32,
     layout: str = "fm",
+    frame_tile: int = None,
 ) -> torch.Tensor:
-    """The plain PyTorch version of the kernel: same contract, any device."""
+    """The plain PyTorch version of the kernel: same contract, any device.
+    ``frame_tile`` is checked as a launch would check it with no route
+    forced (:func:`route_and_tile`); the output does not depend on it."""
     grade = frontend_grade(precision)
     audio = _check(audio, config, out_dtype, layout)
+    if frame_tile is not None:
+        route_and_tile(config, grade, frame_tile)
     b, num_samples = audio.shape
     hop, n_fft = config.hop_length, config.n_fft
     n_frames = config.num_frames(num_samples)
@@ -394,6 +461,7 @@ def log_mel_spectrogram_cuda(
     out_dtype=torch.float32,
     layout: str = "fm",
     route: str = None,
+    frame_tile: int = None,
 ) -> torch.Tensor:
     """(B, samples) float32 -> ZMUV'd log-mels, (B, n_mels, frames) for
     ``layout="fm"`` or (B, frames, n_mels) for ``"tm"``, in ``out_dtype``.
@@ -402,10 +470,13 @@ def log_mel_spectrogram_cuda(
     tensor it launches the kernel that :func:`frontend_route` names for the
     geometry and grade, ``howl_logmel_tc_forward`` ("tc") or
     ``howl_logmel_forward`` ("fma"), or raises. ``route`` forces one of the
-    two on a CUDA tensor and raises where that kernel cannot serve. The
-    kernels have no backward: audio that requires grad raises while grad
-    mode is on. ``launches`` counts every kernel launch, ``launches_tc``
-    those of the "tc" kernel.
+    two on a CUDA tensor and raises where that kernel cannot serve.
+    ``frame_tile`` picks the kernel's tile (None: the route's default); a
+    tile the route has no instance of or cannot hold raises before any
+    launch (:func:`route_and_tile`). The kernels have no backward: audio
+    that requires grad raises while grad mode is on. ``launches`` counts every kernel launch, ``launches_tc``
+    those of the "tc" kernel, ``launches_by_tile[route, tile]`` those of
+    each instance.
     """
     _build.refuse_grad("log_mel_spectrogram_cuda", audio)
     if route is not None and route not in ROUTES:
@@ -413,7 +484,8 @@ def log_mel_spectrogram_cuda(
     if audio.device.type == "cpu":
         if route is not None:
             raise ValueError(f"route={route!r} names a CUDA kernel: a CPU tensor takes the plain version")
-        return log_mel_spectrogram_plain(audio, config, zmuv_mean, zmuv_std, precision, out_dtype, layout)
+        return log_mel_spectrogram_plain(audio, config, zmuv_mean, zmuv_std, precision, out_dtype, layout,
+                                         frame_tile)
     if audio.device.type != "cuda":
         raise ValueError(f"log_mel_spectrogram_cuda takes CPU or CUDA tensors, got {audio.device}")
     grade = frontend_grade(precision)
@@ -421,10 +493,7 @@ def log_mel_spectrogram_cuda(
     if not audio.is_contiguous():
         raise ValueError("audio must be contiguous")
     b, num_samples = audio.shape
-    served = frontend_route(config, grade)
-    if route == "tc" and served != "tc":
-        raise ValueError(f"route='tc' cannot serve grade {grade!r} with {config}: see frontend_route")
-    route = route or served
+    route, tile = route_and_tile(config, grade, frame_tile, route)
     n_frames = config.num_frames(num_samples)
     n_mels = config.n_mels
     shape = (b, n_mels, n_frames) if layout == "fm" else (b, n_frames, n_mels)
@@ -434,11 +503,11 @@ def log_mel_spectrogram_cuda(
     lib = _build.kernel_library()
     with torch.cuda.device(audio.device):
         if route == "tc":
-            w_img, fb_img, n_halves, n_passes, mel_n = frontend_bases_tc(config, grade, audio.device)
+            w_img, fb_img, n_halves, n_passes, mel_n = frontend_bases_tc(config, grade, audio.device, tile)
             status = lib.howl_logmel_tc_forward(
                 audio.data_ptr(), w_img.data_ptr(), fb_img.data_ptr(), out.data_ptr(),
                 b, num_samples, n_frames, config.n_fft, config.hop_length, int(config.center),
-                n_halves, n_passes, n_mels, mel_n, out_bf16, int(layout == "fm"),
+                n_halves, n_passes, n_mels, mel_n, tile, out_bf16, int(layout == "fm"),
                 config.log_offset, mean, inv_std, stream,
             )
         else:
@@ -451,14 +520,17 @@ def log_mel_spectrogram_cuda(
                 None if w_lo is None else w_lo.data_ptr(), None if fb_lo is None else fb_lo.data_ptr(),
                 out.data_ptr(), b, num_samples, n_frames, config.n_fft, config.hop_length, int(config.center),
                 fb.shape[0], n_mels, rounds, rounds, out_bf16, out_bf16, int(layout == "fm"),
-                config.log_offset, mean, inv_std, stream,
+                config.log_offset, mean, inv_std, tile, stream,
             )
     _build.check_launch(status, f"log-mel ({route})")
     log_mel_spectrogram_cuda.launches += 1
     if route == "tc":
         log_mel_spectrogram_cuda.launches_tc += 1
+    by_tile = log_mel_spectrogram_cuda.launches_by_tile
+    by_tile[route, tile] = by_tile.get((route, tile), 0) + 1
     return out
 
 
 log_mel_spectrogram_cuda.launches = 0
 log_mel_spectrogram_cuda.launches_tc = 0
+log_mel_spectrogram_cuda.launches_by_tile = {}  # {(route, tile): launches}

@@ -123,10 +123,16 @@ def initialize_multihost(coordinator_address: str = None, num_processes: int = N
 
 def shard_batch(batch_arrays, group: DataGroup) -> tuple:
     """A rank's rows ``[r * B / N, (r + 1) * B / N)`` of each global (B,
-    ...) host array, as tensors on the rank's device."""
+    ...) host array, as tensors on the rank's device. An array whose B does
+    not divide by N raises ``ValueError`` before any rows are taken, as
+    JAX's ``shard_batch`` refuses to place it on the mesh."""
+    arrays = [np.asarray(x) for x in batch_arrays]
+    for x in arrays:
+        if x.ndim == 0 or x.shape[0] % group.size:
+            raise ValueError(f"shard_batch: an array of shape {x.shape} does not split into {group.size} ranks "
+                             f"of equal rows: its first dimension must divide by {group.size}")
     out = []
-    for x in batch_arrays:
-        x = np.asarray(x)
+    for x in arrays:
         local = x.shape[0] // group.size
         lo, hi, _ = group.rows(local)
         out.append(torch.from_numpy(np.ascontiguousarray(x[lo:hi])).to(group.device))

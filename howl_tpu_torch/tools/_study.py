@@ -1,5 +1,6 @@
 """What the measuring tools of this package share: their arguments, the rule
-for the device they run on, and the timing of a list of legs."""
+for the device they run on, the timing of a list of legs, and the frontend
+kernel's legs at one route and frame tile."""
 
 from __future__ import annotations
 
@@ -169,3 +170,35 @@ def study_main(run: Callable, doc: str, argv=None) -> dict:
         args.batch, args.clip_seconds, args.iters = CPU_SIZE
     torch.backends.cuda.matmul.allow_tf32 = False
     return run(args.batch, args.clip_seconds, args.iters, args.seed, dev)[0]
+
+
+def k1_refusal(cfg, grade: str, route: str, tile: int):
+    """Why the frontend kernel cannot run a grade at one route and frame
+    tile, reckoned before any launch ("does not fit (N bytes of shared
+    memory)"), or None."""
+    from howl_tpu_torch.ops.frontend_cuda import TC_MAX_SHARED, fma_shared_bytes, tc_shared_bytes
+
+    need = (tc_shared_bytes if route == "tc" else fma_shared_bytes)(cfg, grade, tile)
+    return f"does not fit ({need} bytes of shared memory)" if need > TC_MAX_SHARED else None
+
+
+def k1_leg(cfg, grade: str, route: str, tile: int, dev: torch.device, out_dtype=torch.bfloat16):
+    """``fn(audio)``: the frontend kernel at one grade, route and frame tile
+    (no ZMUV), as a JAX tool's leg calls ``log_mel_spectrogram_pallas`` at
+    one block geometry. On a card the route is forced; on the CPU the plain
+    version runs, which takes no route and checks the tile."""
+    from howl_tpu_torch.ops.frontend_cuda import log_mel_spectrogram_cuda
+
+    kw = {"route": route} if dev.type == "cuda" else {}
+    return lambda audio: log_mel_spectrogram_cuda(audio, cfg, 0.0, 1.0, precision=grade, out_dtype=out_dtype,
+                                                  frame_tile=tile, **kw)
+
+
+def study_audio(batch: int, clip_seconds: float, seed: int, dev: torch.device) -> torch.Tensor:
+    """The frontend tools' audio, as the JAX tools draw it: seeded numpy
+    normal noise times 0.1, (batch, clip_seconds * 16 kHz) float32."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    audio = rng.standard_normal((batch, int(clip_seconds * 16000))).astype(np.float32) * 0.1
+    return torch.from_numpy(audio).to(dev)

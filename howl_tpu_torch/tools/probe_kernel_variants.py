@@ -5,8 +5,8 @@ out, to see where the kernel's time goes.
     python -m howl_tpu_torch.tools.probe_kernel_variants --probe m2-wgmma [--source howl_tpu_torch/csrc/micro_gemm.cu]
     python -m howl_tpu_torch.tools.probe_kernel_variants --probe m3-wgmma [--source howl_tpu_torch/csrc/micro_poly.cu]
     python -m howl_tpu_torch.tools.probe_kernel_variants --probe int8-fused [--source howl_tpu_torch/csrc/int8_trunk_fused.cu]
-    python -m howl_tpu_torch.tools.probe_kernel_variants --probe k1-x3 [--source howl_tpu_torch/csrc/frontend_tc.cu]
-    python -m howl_tpu_torch.tools.probe_kernel_variants --probe k1-f32 [--source howl_tpu_torch/csrc/frontend_tc.cu]
+    python -m howl_tpu_torch.tools.probe_kernel_variants --probe k1-x3 [--source ...] [--baseline <another checkout>/howl_tpu_torch/csrc]
+    python -m howl_tpu_torch.tools.probe_kernel_variants --probe k1-f32 [--source ...] [--baseline <another checkout>/howl_tpu_torch/csrc]
     python -m howl_tpu_torch.tools.probe_kernel_variants --probe hbm-copy [--baseline <another checkout>/howl_tpu_torch/csrc]
     python -m howl_tpu_torch.tools.probe_kernel_variants --probe auto-copy [--baseline <another checkout>/howl_tpu_torch/csrc]
 
@@ -26,8 +26,11 @@ stops the probe before anything is built. ``--baseline DIR`` adds another
 checkout's copies of the sources (built on that checkout's headers) to the
 turns, as they are, and for ``hbm-copy`` also with its own loads-only and
 stores-only cuts, which match the two copy sources as they were before
-their stages were swept (one CTA a chunk, or a contiguous share). A probe
-whose function is one PyTorch call times that call in the same turns.
+their stages were swept (one CTA a chunk, or a contiguous share); for
+``k1-x3`` and ``k1-f32`` the baseline's K1 entry may take no frame tile
+(a checkout from before it was a parameter) and then runs its one tile
+against this checkout's default, 128 frames. A probe whose function is one
+PyTorch call times that call in the same turns.
 
 Probes:
   t1-wgmma     the trunk proto T1 on ``wgmma`` (``csrc/trunk_proto.cu``),
@@ -181,19 +184,20 @@ INT8_FUSED_EDITS = {
 
 K1_X3_EDITS = {
     "as it is": [],
-    "no x_lo products": [("        if (kX3 && j < stages_per_pass) {", "        if (kX3 && j < stages_per_pass && n_mels < 0) {")],
-    "no lo mel products": [("        mel_product(q, fb_s);             // p_lo @ fb_hi\n"
-                            "        mel_product(p, fb_s + fb_bytes);  // p_hi @ fb_lo",
-                            "        if (n_mels < 0) {\n          mel_product(q, fb_s);\n"
-                            "          mel_product(p, fb_s + fb_bytes);\n        }")],
+    "no x_lo products": [("          if (kX3 && j < stages_per_pass) {",
+                          "          if (kX3 && j < stages_per_pass && n_mels < 0) {")],
+    "no lo mel products": [("          mel_product(q, fb_s);             // p_lo @ fb_hi\n"
+                            "          mel_product(p, fb_s + fb_bytes);  // p_hi @ fb_lo",
+                            "          if (n_mels < 0) {\n            mel_product(q, fb_s);\n"
+                            "            mel_product(p, fb_s + fb_bytes);\n          }")],
     "no span remainder": [("          if (kX3)\n            reinterpret_cast<uint2*>(s_audio_lo)",
                            "          if (kX3 && n_mels < 0)\n            reinterpret_cast<uint2*>(s_audio_lo)")],
 }
 
-_F32_X_LO = "        if (kF32 && j < stages_per_pass) {  // a W_hi stage: x_lo against it"
-_F32_X_MID = "        if (kF32 && j < 2 * stages_per_pass) {  // a W_hi or W_mid stage: x_mid against it"
+_F32_X_LO = "          if (kF32 && j < stages_per_pass) {  // a W_hi stage: x_lo against it"
+_F32_X_MID = "          if (kF32 && j < 2 * stages_per_pass) {  // a W_hi or W_mid stage: x_mid against it"
 _F32_W_LO = "  const int w_passes = kParts > 1 ? kParts : n_passes;"
-_GROUP_WAIT = "          wgmma_commit();\n          wgmma_wait<0>();\n          wgmma_keep(a);"
+_GROUP_WAIT = "            wgmma_commit();\n            wgmma_wait<0>();\n            wgmma_keep(a);"
 
 
 def _unreached(line: str) -> tuple:
@@ -478,7 +482,7 @@ def _k1_runner(dev, grades: tuple):
     """The tensor-core frontend kernel at the serving batch, one case for
     each of ``grades``, each on its own images (``frontend_bases_tc``)."""
     from howl_tpu_torch.ops.frontend import FrontendConfig
-    from howl_tpu_torch.ops.frontend_cuda import frontend_bases_tc
+    from howl_tpu_torch.ops.frontend_cuda import TC_TILE, frontend_bases_tc
 
     cfg = FrontendConfig(n_mels=40)
     audio = torch.randn((512, 128000), generator=torch.Generator(device=dev).manual_seed(0), device=dev) * 0.1
@@ -487,7 +491,9 @@ def _k1_runner(dev, grades: tuple):
 
     def make(lib):
         fn = getattr(lib, "howl_logmel_tc_forward")
-        fn.argtypes, fn.restype = list(_build.SIGNATURES["howl_logmel_tc_forward"]), ctypes.c_int
+        argtypes = list(_build.SIGNATURES["howl_logmel_tc_forward"])
+        tiled = getattr(lib, "takes_frame_tile", True)  # a baseline whose entry has no tile runs its one tile
+        fn.argtypes, fn.restype = argtypes if tiled else argtypes[:14] + argtypes[15:], ctypes.c_int
 
         def call(grade):
             w_img, fb_img, n_halves, n_passes, mel_n = frontend_bases_tc(cfg, grade, dev)
@@ -495,7 +501,8 @@ def _k1_runner(dev, grades: tuple):
             def run():
                 status = fn(audio.data_ptr(), w_img.data_ptr(), fb_img.data_ptr(), out.data_ptr(), 512,
                             audio.shape[1], n_frames, cfg.n_fft, cfg.hop_length, 1, n_halves, n_passes, cfg.n_mels,
-                            mel_n, 1, 0, cfg.log_offset, -6.0, 0.25, torch.cuda.current_stream(dev).cuda_stream)
+                            mel_n, *((TC_TILE,) if tiled else ()), 1, 0, cfg.log_offset, -6.0, 0.25,
+                            torch.cuda.current_stream(dev).cuda_stream)
                 _build.check_launch(status, "probe")
             return run
         return [(grade, call(grade)) for grade in grades]
@@ -597,6 +604,8 @@ def main(argv=None) -> dict:
     with ThreadPoolExecutor(max_workers=len(texts)) as pool:
         built = {name: pool.submit(build_variant, t, name) for name, t in texts.items()}
         libs = {name: ctypes.CDLL(str(future.result())) for name, future in built.items()}
+    for name, lib in libs.items():  # whether K1's entry takes the frame tile (a checkout from before: no)
+        lib.takes_frame_tile = any("int frame_tile" in text for text in texts[name].values())
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     make = runner(dev)

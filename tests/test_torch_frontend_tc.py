@@ -393,15 +393,28 @@ def test_route_constants_are_the_cuda_sources():
     of the kernel's constants: they must be what the kernel is compiled with."""
     src = (_build.CSRC / "frontend_tc.cu").read_text()
     consts = {n: v for n, v in re.findall(r"^constexpr int (k\w+) = ([^;]+);", src, flags=re.M)}
-    assert int(consts["kTile"]) == fc.TC_TILE and int(consts["kHalfBins"]) == fc.TC_HALF_BINS
+    assert "kTile" not in consts and int(consts["kHalfBins"]) == fc.TC_HALF_BINS  # the tile is a template parameter
     assert int(consts["kSlots"]) == fc.TC_SLOTS and int(consts["kMaxSmem"]) == fc.TC_MAX_SHARED
     assert int(consts["kSlotsX3"]) == fc.TC_SLOTS_X3
     assert consts["kStageBytes"] == "kStageSteps * kStepBytes" and int(consts["kStageSteps"]) == 4
     assert consts["kStepBytes"] == "16 * 2 * kHalfBins * 2" and fc.TC_STAGE_BYTES == 4 * 16 * 2 * fc.TC_HALF_BINS * 2
-    # each mel width compiled for each count of the operands' parts: 1 ("bf16", "bf16x2"), 2 ("bf16x3"), 3 ("f32")
-    widths = re.findall(r"launch<(\d+), (\d)>", src)
-    assert sorted({int(n) for n, _ in widths}) == sorted(fc.TC_MEL_WIDTHS) and len(set(widths)) == 3 * len(fc.TC_MEL_WIDTHS)
-    assert {int(k) for _, k in widths} == set(fc.TC_PARTS.values()) == {1, 2, 3}
+    # the instances the entry point dispatches to: (mel width, tile), each for every count of the operands'
+    # parts, 1 ("bf16", "bf16x2"), 2 ("bf16x3"), 3 ("f32"); the default tile among them at every width
+    instances = re.findall(r"mel_n == (\d+) && frame_tile == (\d+)\) fn = instance<(\d+), (\d+)>\(parts\)", src)
+    assert all(m == m2 and t == t2 for m, t, m2, t2 in instances)
+    tiles = {}
+    for m, t, _, _ in instances:
+        tiles.setdefault(int(m), []).append(int(t))
+    assert {m: tuple(t) for m, t in tiles.items()} == fc.TC_TILES and sorted(tiles) == sorted(fc.TC_MEL_WIDTHS)
+    assert all(fc.TC_TILE in t for t in fc.TC_TILES.values())
+    parts = re.findall(r"launch<kMelN, (\d), kTile>", src)
+    assert sorted(map(int, parts)) == sorted(set(fc.TC_PARTS.values())) == [1, 2, 3]
+    # the span a tile reads: (tile - 1) * hop + n_fft samples, as tc_shared_bytes reckons it
+    assert "return (kTile - 1) * hop + n_fft;" in src
+    fma = (_build.CSRC / "frontend.cu").read_text()
+    assert re.findall(r"frame_tile == (\d+) \? launch<(\d+)>", fma) == [(str(t), str(t)) for t in fc.FMA_TILES]
+    assert fc.FMA_TILE in fc.FMA_TILES
+    assert int(re.search(r"^constexpr int kChunk = (\d+);", fma, flags=re.M).group(1)) == fc.FMA_CHUNK
     header = (_build.CSRC / "hopper_async.cuh").read_text()
     # the frontend's three product shapes (the header holds the trunk proto's, the stem fold's and M2's too)
     assert {40, 80, 256} <= {int(n) for n in re.findall(r"m64n(\d+)k16\.f32\.bf16\.bf16", header)}

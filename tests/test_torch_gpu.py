@@ -144,6 +144,72 @@ def test_frontend_kernel_across_tile_edges(cuda, n_frames, batch, route):
         _hold_frontend(cuda, audio, cfg, route, grade, out_dtype, layout)
 
 
+_TILE_INSTANCES = [("tc", 64), ("tc", 256), ("fma", 16), ("fma", 64)]  # beside the defaults, "tc" 128 and "fma" 32
+
+
+@pytest.mark.parametrize("n_frames", [1, 2, 63, 64, 65, 129, 255, 256, 257, 641])
+@pytest.mark.parametrize("route,tile", _TILE_INSTANCES)
+def test_frontend_tile_instances_are_the_default_tile_bit_for_bit(cuda, n_frames, route, tile):
+    """Every tile K1 is compiled for at 40 mels gives the route's default
+    tile's bits, in every grade it serves, at frame counts around its own and
+    the default's tiles (a frame's sums run in the same order whatever tile
+    holds it), and launches that instance; a grade it cannot hold raises
+    before a launch."""
+    from howl_tpu_torch.ops.frontend_cuda import route_and_tile
+
+    cfg = FrontendConfig(n_mels=40, center=n_frames > 1)
+    samples = (n_frames - 1) * cfg.hop_length + 57 if cfg.center else 600
+    audio = torch.randn((3, samples), generator=torch.Generator(device=cuda).manual_seed(n_frames), device=cuda) * 0.1
+    fn = log_mel_spectrogram_cuda
+    for grade in ("f32", "bf16x3", "bf16x2", "bf16"):
+        for out_dtype, layout in ((torch.float32, "tm"), (torch.bfloat16, "fm")):
+            kw = dict(precision=grade, out_dtype=out_dtype, layout=layout, route=route)
+            try:
+                route_and_tile(cfg, grade, tile, route)
+            except ValueError:
+                n = fn.launches
+                with pytest.raises(ValueError, match="does not fit"):
+                    fn(audio, cfg, -3.0, 2.5, frame_tile=tile, **kw)
+                assert fn.launches == n
+                continue
+            want = fn(audio, cfg, -3.0, 2.5, **kw)
+            n = fn.launches_by_tile.get((route, tile), 0)
+            got = fn(audio, cfg, -3.0, 2.5, frame_tile=tile, **kw)
+            torch.cuda.synchronize()
+            assert fn.launches_by_tile[route, tile] == n + 1
+            assert torch.equal(got, want), (grade, out_dtype, layout)
+
+
+@pytest.mark.parametrize("route,tile", _TILE_INSTANCES)
+def test_frontend_tile_instances_at_the_serving_batch(cuda, route, tile):
+    """512 clips of 8 s: bit for bit the default tile and within the
+    tolerance of the plain version, in "bf16" and "bf16x2" (every instance
+    holds them)."""
+    audio = torch.randn((512, 128000), generator=torch.Generator(device=cuda).manual_seed(5), device=cuda) * 0.1
+    cfg = FrontendConfig(n_mels=40)
+    for grade in ("bf16", "bf16x2"):
+        kw = dict(precision=grade, out_dtype=torch.bfloat16, layout="tm")
+        got = log_mel_spectrogram_cuda(audio, cfg, -3.0, 2.5, route=route, frame_tile=tile, **kw)
+        assert torch.equal(got, log_mel_spectrogram_cuda(audio, cfg, -3.0, 2.5, route=route, **kw))
+        want = log_mel_spectrogram_plain(audio, cfg, -3.0, 2.5, **kw)
+        assert float((got.float() - want.float()).abs().max()) <= 2e-2 / 2.5 + _bf16_ulp(want)
+
+
+def test_frontend_tile_that_does_not_fit_raises_before_a_launch(cuda):
+    audio = torch.randn((2, 16000), device=cuda)
+    cfg = FrontendConfig(n_mels=40)
+    fn = log_mel_spectrogram_cuda
+    n = fn.launches
+    for grade, route, tile in (("bf16x3", "tc", 256), ("f32", "tc", 256), ("bf16x3", "fma", 64)):
+        with pytest.raises(ValueError, match=r"does not fit \(\d+ bytes of shared memory"):
+            fn(audio, cfg, precision=grade, route=route, frame_tile=tile)
+    with pytest.raises(ValueError, match="128-frame tile"):
+        fn(audio, cfg, precision="bf16", route="fma", frame_tile=128)
+    with pytest.raises(ValueError, match="64-frame tile"):
+        fn(audio, FrontendConfig(n_mels=80), precision="bf16", route="tc", frame_tile=64)
+    assert fn.launches == n
+
+
 @pytest.mark.parametrize("route", ["tc", "fma"])
 def test_frontend_kernel_at_the_serving_batch(cuda, route):
     gen = torch.Generator(device=cuda).manual_seed(512)

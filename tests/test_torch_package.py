@@ -76,7 +76,10 @@ def test_imports_without_jax_or_flax():
                    # the exports, vision pretraining, the demo, profiling and scale-out
                    "ops.meyda", "utils.profiling", "training.run.pretrain", "training.run.export_honkling",
                    "training.run.generate_precise_dataset", "training.run.demo", "parallel.mesh",
-                   "parallel.data_parallel"):
+                   "parallel.data_parallel",
+                   # the last root tools
+                   "tools.sweep_frontend_blocks", "tools.bench_frontend_variants", "tools.bench_frontend_tail_1pass",
+                   "bench_train"):
         assert f"howl_tpu_torch.{module}" in names
 
 
@@ -87,6 +90,18 @@ def test_every_module_of_the_jax_package_has_its_counterpart():
     port_files = {p.relative_to(REPO / "howl_tpu_torch") for p in (REPO / "howl_tpu_torch").rglob("*.py")}
     assert sorted(str(p) for p in jax_files - port_files) == [
         "ops/augment_pallas.py", "ops/frontend_pallas.py", "ops/stem_pallas.py"]
+
+
+def test_every_root_tool_and_bench_train_has_its_counterpart():
+    """A file of the same name under howl_tpu_torch/tools/ for every root
+    ``tools/*.py`` but ``_path.py`` (a ``sys.path`` bootstrap that the
+    package import makes unnecessary), and ``howl_tpu_torch/bench_train.py``
+    for the root ``bench_train.py``."""
+    root_tools = {p.name for p in (REPO / "tools").glob("*.py")} - {"_path.py"}
+    port_tools = {p.name for p in (REPO / "howl_tpu_torch" / "tools").glob("*.py")}
+    assert sorted(root_tools - port_tools) == []
+    assert (REPO / "bench_train.py").is_file() and (REPO / "howl_tpu_torch" / "bench_train.py").is_file()
+    assert (REPO / "bench.py").is_file() and (REPO / "howl_tpu_torch" / "bench.py").is_file()
 
 
 @pytest.mark.parametrize("entry", ["pretrain", "export_honkling", "generate_precise_dataset", "demo"])
@@ -205,8 +220,9 @@ def test_ctypes_signatures_match_the_cuda_sources():
     # the tensor-core frontend takes the packed images and their shape in place of W, fb and the rounding flags
     assert entries["howl_logmel_tc_forward"] == [
         "const void* audio", "const void* w_img", "const void* fb_img", "void* out", "int B", "int S", "int n_frames",
-        "int n_fft", "int hop", "int center", "int n_halves", "int n_passes", "int n_mels", "int mel_n", "int out_bf16",
-        "int layout_fm", "float log_offset", "float mean", "float inv_std", "void* stream",
+        "int n_fft", "int hop", "int center", "int n_halves", "int n_passes", "int n_mels", "int mel_n",
+        "int frame_tile", "int out_bf16", "int layout_fm", "float log_offset", "float mean", "float inv_std",
+        "void* stream",
     ]
     # the tensor-core stem takes the packed tap image and has one pool
     assert entries["howl_res8_stem_tc_forward"] == [
@@ -232,6 +248,8 @@ def test_ctypes_signatures_match_the_cuda_sources():
     # the FMA frontend takes the three-pass grade's lo parts after W and fb (null for the other grades)
     assert entries["howl_logmel_forward"][:6] == [
         "const void* audio", "const void* w", "const void* fb", "const void* w_lo", "const void* fb_lo", "void* out"]
+    # both frontend kernels take the frames a block owns, the tile the host picks among the instances
+    assert entries["howl_logmel_forward"][-2:] == ["int frame_tile", "void* stream"]
     # the sweep's three block legs share one signature; the whole-array copy counts its bytes in 64 bits
     assert entries["howl_hbm_auto_read_forward"] == entries["howl_hbm_auto_copy_forward"] == [
         "const void* x", "void* out", "int rows", "int bn", "int is_bf16", "float s", "void* stream",

@@ -91,6 +91,25 @@ def test_make_mesh_lays_out_devices_and_raises_when_too_few(monkeypatch):
         make_mesh(data=2)  # the default takes the visible cards, and nothing falls back to the CPU
 
 
+def test_shard_batch_refuses_a_batch_that_does_not_divide_as_jax_does():
+    """F17: a (5, 3) batch over two ranks raises in JAX's ``shard_batch`` (the
+    device placement refuses it) and in the port's, before any rank takes
+    rows; a (4, 3) batch gives each rank its two rows."""
+    from howl_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from howl_tpu.parallel.mesh import shard_batch as jax_shard_batch
+    from howl_tpu_torch.parallel.mesh import DataGroup, shard_batch
+
+    odd = np.arange(15, dtype=np.float32).reshape(5, 3)
+    with pytest.raises(ValueError):
+        jax_shard_batch((odd,), jax_make_mesh(data=2, devices=jax.devices()[:2]))
+    for rank in range(2):
+        group = DataGroup(rank, 2, torch.device("cpu"))
+        with pytest.raises(ValueError, match=r"\(5, 3\).*2 ranks"):
+            shard_batch((odd[:4], odd), group)
+        (rows,) = shard_batch((odd[:4],), group)
+        assert torch.equal(rows, torch.from_numpy(odd[2 * rank : 2 * rank + 2]))
+
+
 def test_data_size_follows_jax_and_refuses_before_anything_is_written(tmp_path, monkeypatch):
     assert data_parallel.data_size(0, 16, torch.device("cpu")) == 1
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
