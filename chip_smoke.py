@@ -271,8 +271,9 @@ them. In order it:
      stitched counts, steps/s, accuracies, launch counts and the phase's seconds;
  17f. the exports, vision pretraining, the demo, profiling and scale-out on phase 17's trained res8: (a)
      ``utils.profiling.trace`` around one offline bf16 batch of 512 clips in a process of its own (``python3
-     chip_smoke.py --trace-batch WS DIR``: after an earlier profiler session in the same process the profiler
-     records copies but no kernel), whose trace must name K1's and K2's kernels; (b) K1 on the Meyda basis (22,050 Hz, f_max 8 kHz, 40 mels, the exact grade) against
+     chip_smoke.py --trace-batch WS DIR``, where no earlier session drops the first device records: F18, which
+     17g holds in this process), whose trace must name K1's and K2's kernels; (b) K1 on the Meyda basis (22,050 Hz,
+     f_max 8 kHz, 40 mels, the exact grade) against
      ``MeydaMelSpectrogram`` at rtol 1e-3 / atol 1e-4 in the exp domain; (c) ``export_honkling`` equal to the host's
      dump of the same weights; (d) K2 at 32 mel rows (``check_stem_32``: both routes in bf16 and "fma" in float32
      against ``res8_stem_plain``, bf16 timed in turns at 512 images), then ``pretrain`` on a 512-image
@@ -282,6 +283,16 @@ them. In order it:
      engine's, K1 and K2 once a hop a shard where the engine launches them; (g) ``train --num-devices 2`` (NCCL)
      against ``--num-devices 1`` where two cards are visible, otherwise a line saying it did not run. It prints the
      phase's seconds;
+ 17g. the seed sweep on a (seed, data) grid, on phase 17's corpora: ``eval_wake_word_detection.run -n 2
+     --sharded-seeds`` (2 epochs of 10 sweep steps) in one process, then through ``run(..., mesh=)`` on a (seed 2,
+     data 2) grid of four ranks sharing the card (gloo over CUDA tensors), printing the backend, each rank's K3
+     launches (one a sweep step over its rows) and K1 and K2 launches (one an evaluator batch of its seed's threshold
+     sweeps), and each seed's losses against the one-process sweep (first step within 1e-5, every epoch within 5e-3
+     relative, else the run fails) and whether the reports' counts are equal; on NCCL over four distinct cards where
+     four are visible, otherwise a line saying it did not run; then F18's check: after a profiler session of
+     60,000 launches, a plain session around 20 K1 launches (the control, its count printed) and two
+     ``utils.profiling.trace`` sessions around them, each of which must record all 20. It prints the phase's
+     seconds;
  18. K1's frame tiles and the last root tools (``drive_frontend_tiles_and_tools``): (a) every tile K1 is compiled
      for at 40 mels ("tc" 64, 128, 256; "fma" 16, 32, 64), in every grade the instance serves, float32 and bf16
      output, both layouts, bit for bit the route's default tile (128, 32) on 512 clips of 8 s and on 3 clips of
@@ -304,7 +315,7 @@ them. In order it:
      paths of phases 11b and 11c and K1's and K2's on phase 17d's harness, K3's also on each training run of
      phase 17b and on phase 17d's Trainer and seed sweep, K1's, K2's and K3's on phase 17e's stitched training and
      GSC runs, K1's and K2's on phase 17f's demo and sharded engines, K2's on its pretraining with its record at 32
-     mel rows), error and times
+     mel rows, K1's, K2's and K3's on each rank of phase 17g's grid), error and times
      beside its plain version's and its bound on this card (the larger of
      its bytes over 3.35 TB/s and its operations over the peak rate of
      their type, both counted from this run's shapes: what the function
@@ -3287,8 +3298,8 @@ def drive_exports_and_scaleout(dev, state_dict, zmuv: dict) -> dict:
     with entry_workdir() as tmp:
         tmp = Path(tmp)
         port_ws, _ = _serving_workspaces(tmp, state_dict, zmuv)
-        # (a) one offline batch under the profiler, in a process of its own: after an earlier phase's profiler
-        # session in this process the profiler records the copies but no kernel (seen in a whole run)
+        # (a) one offline batch under the profiler, in a process of its own, where no earlier session drops the
+        # first device records (F18; phase 17g holds ``trace`` in this process)
         proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--trace-batch", str(port_ws.resolve()),
                                str(tmp / "trace")], cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
                               timeout=600)
@@ -3415,6 +3426,143 @@ def drive_exports_and_scaleout(dev, state_dict, zmuv: dict) -> dict:
                   "(NCCL puts no two ranks on one card); two ranks ran on the CPU only (tests/test_torch_scaleout.py)")
     out["seconds"] = time.perf_counter() - t_phase
     print(f"17f exports, vision pretraining, the demo, profiling and scale-out: {out['seconds']:.1f} s")
+    return out
+
+
+# phase 17g: the harness's two-seed sweep in one process and on a (seed GRID_SEEDS, data GRID_DATA) grid, GRID_EPOCHS
+# epochs of ENTRY_STEPS sweep steps each; the first step's per-seed losses within GRID_FIRST_RTOL (the CPU grid test's
+# one-step tolerance), every epoch's within GRID_EPOCH_RTOL (item 12's gate)
+GRID_SEEDS, GRID_DATA, GRID_EPOCHS, GRID_FIRST_RTOL, GRID_EPOCH_RTOL = 2, 2, 2, 1e-5, 5e-3
+# F18's check: a profiler session of F18_LAUNCHES launches, then sessions around F18_LADDER K1 launches
+F18_LAUNCHES, F18_LADDER = 60000, 20
+
+
+def check_profiler_sessions(dev, out_dir) -> dict:
+    """F18: a ``torch.profiler`` session of ``F18_LAUNCHES`` one-element adds in this process, after which PyTorch's
+    profiler drops device records at the start of every later session; then a plain session around a ladder of
+    ``F18_LADDER`` K1 launches (each waited for, 2 ms apart), whose recorded K1 kernels are printed, the control;
+    then two ``utils.profiling.trace`` sessions around the same ladder, each of which must record every K1 launch
+    (its primer takes the dropped records; each prints how many of the primer's it lost). Returns the counts."""
+    import torch
+
+    from howl_tpu_torch.ops.frontend import FrontendConfig
+    from howl_tpu_torch.ops.frontend_cuda import log_mel_spectrogram_cuda
+    from howl_tpu_torch.utils.profiling import trace
+
+    audio = torch.randn((8, SAMPLE_RATE), generator=torch.Generator(device=dev).manual_seed(SEED), device=dev) * 0.1
+    cfg = FrontendConfig(n_mels=N_MELS)
+    cuda = torch.autograd.DeviceType.CUDA
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+
+    def ladder() -> None:
+        for _ in range(F18_LADDER):
+            log_mel_spectrogram_cuda(audio, cfg)
+            torch.cuda.synchronize()
+            time.sleep(0.002)
+
+    def k1_kernels(prof) -> int:
+        return sum(1 for e in prof.events() if e.device_type == cuda and e.name.split("::")[-1].startswith("logmel"))
+
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=activities):
+        x = torch.zeros(1, device=dev)
+        for _ in range(F18_LAUNCHES):
+            x.add_(1.0)
+        torch.cuda.synchronize()
+    long_s = time.perf_counter() - t0
+    with torch.profiler.profile(activities=activities) as prof:
+        ladder()
+    out = {"control": k1_kernels(prof), "trace": [], "lost_at_start": []}
+    print(f"17g F18: after a profiler session of {F18_LAUNCHES:,} launches in this process ({long_s:.1f} s), a plain "
+          f"session around {F18_LADDER} K1 launches recorded {out['control']} of them (the control)")
+    for session in range(2):
+        with trace(out_dir) as prof:
+            ladder()
+        out["trace"].append(k1_kernels(prof))
+        out["lost_at_start"].append(prof.lost_at_start)
+        print(f"17g F18: trace session {session + 1} of 2 recorded {out['trace'][-1]} of {F18_LADDER} K1 launches; "
+              f"the primer's launches lost at the session's start {prof.lost_at_start}; {prof.trace_path.name}, "
+              f"{prof.trace_path.stat().st_size} bytes")
+    if out["trace"] != [F18_LADDER] * 2:
+        raise AssertionError(f"17g F18: a trace session lost K1 launches: {out['trace']} of {F18_LADDER} each")
+    return out
+
+
+def drive_seed_grid(dev) -> dict:
+    """(17g) On phase 17's corpora (``entry_workdir``), res8 in float32: the harness's two-seed sweep,
+    ``eval_wake_word_detection.run -n 2 --sharded-seeds``, ``GRID_EPOCHS`` epochs of ``ENTRY_STEPS`` sweep steps, in
+    one process, then through ``run(..., mesh=)`` on a (seed 2, data 2) grid of four ranks that share ``dev`` (gloo
+    over CUDA tensors): each rank's K3 launches (one a sweep step over its rows) and K1 and K2 launches (one an
+    evaluator batch of its seed's threshold sweeps, every rank scoring batches), and each seed's losses against the
+    one-process sweep (the first step within ``GRID_FIRST_RTOL``, every epoch within ``GRID_EPOCH_RTOL``), the two
+    runs' report counts compared. Where four cards are visible the grid runs again on distinct cards over NCCL;
+    otherwise a line says it did not run. Then F18's check (``check_profiler_sessions``). Prints the phase's seconds
+    and the card's name and power limit; returns the launch counts."""
+    import os
+
+    import torch
+
+    from howl_tpu_torch.parallel.mesh import make_mesh, mesh_backend, visible_cards
+    from howl_tpu_torch.settings import SETTINGS
+    from howl_tpu_torch.training.run import eval_wake_word_detection as harness
+    from howl_tpu_torch.training.run import train
+
+    print(bench.card_line())
+    t_phase = time.perf_counter()
+    out = {}
+    meshes = [("shared", make_mesh(seed=GRID_SEEDS, data=GRID_DATA, devices=[dev] * (GRID_SEEDS * GRID_DATA)))]
+    cards = visible_cards()
+    if len(cards) >= GRID_SEEDS * GRID_DATA:
+        meshes.append(("distinct", make_mesh(seed=GRID_SEEDS, data=GRID_DATA, devices=cards)))
+    with entry_workdir() as tmp:
+        os.environ["NUM_EPOCHS"] = str(GRID_EPOCHS)
+        SETTINGS.reset()
+        argv = ["-i", "ww", "-n", str(GRID_SEEDS), "--sharded-seeds", "--steps-per-epoch", str(ENTRY_STEPS),
+                "--device", "cuda"]
+        t0 = time.perf_counter()
+        one = harness.run(argv + ["--workspace", "one"], train.LoopStats())
+        one_s = time.perf_counter() - t0
+        want = one["train"]
+        print(f"17g one process: {want['steps']} sweep steps of {GRID_SEEDS} seeds in {one_s:.1f} s; per-seed epoch "
+              f"losses {want['epoch_losses']}")
+        for tag, mesh in meshes:
+            _zero_launch_counts()
+            t0 = time.perf_counter()
+            got = harness.run(argv + ["--workspace", f"grid_{tag}"], train.LoopStats(), mesh=mesh)
+            torch.cuda.synchronize()
+            grid_s = time.perf_counter() - t0
+            record = got["train"]
+            shared = len(set(mesh.device_list())) < mesh.size
+            print(f"17g grid ({tag}): seed {GRID_SEEDS} x data {GRID_DATA} = {mesh.size} ranks on "
+                  f"{[str(d) for d in mesh.device_list()]}, backend {mesh_backend(mesh)}"
+                  + (f" over CUDA tensors: the ranks share {dev}" if shared else ": one card a rank")
+                  + f"; {record['steps']} sweep steps in {grid_s:.1f} s (with the ranks' start and the sweeps)")
+            for rank, counts in enumerate(record["ranks"]):
+                print(f"17g grid ({tag}) rank {rank} (seed {rank // GRID_DATA}, data {rank % GRID_DATA}): K3 "
+                      f"{counts['k3']} launches for {record['steps']} sweep steps; K1 {counts['k1']}, "
+                      f"K2 {counts['k2']} for {counts['eval_batches']} evaluator batches")
+                if counts["k3"] != record["steps"] or not counts["eval_batches"] or \
+                        (counts["k1"], counts["k2"]) != (counts["eval_batches"], counts["eval_batches"]):
+                    raise AssertionError(f"17g grid ({tag}) rank {rank}: launches {counts} for {record['steps']} steps")
+            first = np.abs(record["step_losses"][0] - want["step_losses"][0]) / np.abs(want["step_losses"][0])
+            epoch = np.abs(np.asarray(record["epoch_losses"]) - want["epoch_losses"]) / np.abs(want["epoch_losses"])
+            same_counts = got["per_seed"] == one["per_seed"]
+            print(f"17g grid ({tag}) against one process: first-step per-seed losses "
+                  f"{record['step_losses'][0].tolist()} vs {want['step_losses'][0].tolist()} (max rel "
+                  f"{first.max():.2e}); per-seed epoch losses "
+                  f"{record['epoch_losses']} (max rel {epoch.max():.2e}); every report count equal at every threshold: "
+                  f"{same_counts}")
+            if not (first.max() <= GRID_FIRST_RTOL and epoch.max() <= GRID_EPOCH_RTOL):
+                raise AssertionError(f"17g grid ({tag}): the per-seed losses are not the one-process sweep's "
+                                     f"(first step {first.max():.2e}, epochs {epoch.max():.2e})")
+            out[tag] = {"ranks": record["ranks"], "seconds": grid_s, "first_rel": float(first.max()),
+                        "epoch_rel": float(epoch.max()), "counts_equal": same_counts}
+        SETTINGS.reset()
+        if len(meshes) == 1:
+            print(f"17g grid (distinct): NCCL on four distinct cards did not run: this host shows {len(cards)} card(s)")
+        out["f18"] = check_profiler_sessions(dev, tmp / "f18")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"17g the seed sweep on a (seed, data) grid and F18: {out['seconds']:.1f} s")
     return out
 
 
@@ -4009,6 +4157,10 @@ def main() -> int:
     k2["launches_pretrain"] = scale["k2_pretrain"]
     k2["pretrain_32_rows"] = scale["stem_32"]
     lap("exports, pretraining, demo, profiling and scale-out")
+    grid = drive_seed_grid(dev)
+    for rec, key in ((k1, "k1"), (k2, "k2"), (k3, "k3")):
+        rec["launches_seed_grid"] = [counts[key] for counts in grid["shared"]["ranks"]]
+    lap("the seed sweep on a (seed, data) grid and F18")
     last_tools = drive_frontend_tiles_and_tools(dev)
     lap("K1's frame tiles and the last root tools")
     check_bench_record(bench.main(["--device", "cuda"]))

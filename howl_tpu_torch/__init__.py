@@ -26,3 +26,20 @@ bench (``python -m howl_tpu_torch.bench``) and the kernel studies
 """
 
 __version__ = "0.1.0"
+
+import os as _os
+from pathlib import Path as _Path
+
+
+def root_path() -> _Path:
+    """The repository root (the parent of the package), the JAX package's
+    ``root_path()``: the two packages sit side by side."""
+    return _Path(_os.path.dirname(_os.path.realpath(__file__))).parent
+
+
+def datasets_path() -> _Path:
+    return root_path() / "datasets"
+
+
+def workspaces_path() -> _Path:
+    return root_path() / "workspaces"

@@ -314,6 +314,70 @@ def reference_settings_to_dict(ref_data: dict) -> dict:
             for key, value in ref_data.items() if isinstance(value, dict)}
 
 
+def _reference_variables(name: str, state_dict: dict) -> dict:
+    """A reference state dict -> JAX-layout numpy variables through
+    :func:`state_dict_to_variables` (the port's names are the reference's);
+    a missing tensor raises ``ValueError``, as the JAX converters do."""
+    try:
+        return state_dict_to_variables(name, {k: torch.as_tensor(v) for k, v in state_dict.items()})
+    except KeyError as e:
+        raise ValueError(f"state_dict is missing {e.args[0]!r} — unexpected reference checkpoint layout "
+                         f"(keys: {sorted(state_dict)[:8]}...)") from e
+
+
+def res8_torch_state_to_variables(state_dict: dict) -> dict:
+    """A reference res8 state dict (conv0..conv6, bn1..bn6, output) -> the
+    JAX package's res8 variables, as numpy."""
+    return _reference_variables("res8", state_dict)
+
+
+def lstm_torch_state_to_variables(state_dict: dict) -> dict:
+    """A reference SimpleLstm or SequentialLstm state dict (one ``nn.LSTM``
+    and the ``dnn`` head) -> the JAX package's lstm variables."""
+    return _reference_variables("lstm", state_dict)
+
+
+def gru_torch_state_to_variables(state_dict: dict) -> dict:
+    """A reference SimpleGru state dict (conv encoder, GRU, ``dnn`` head) ->
+    the JAX package's gru variables."""
+    return _reference_variables("gru", state_dict)
+
+
+def las_torch_state_to_variables(state_dict: dict) -> dict:
+    """A reference LASClassifier state dict (conv encoder, one-layer biLSTM,
+    attention, head) -> the JAX package's las variables; a multi-layer
+    biLSTM raises ``NotImplementedError``."""
+    if "encoder.lstm_encoder.weight_ih_l1" in state_dict:
+        raise NotImplementedError("multi-layer LAS biLSTM checkpoints are not supported (the reference default is "
+                                  "num_layers=1)")
+    # the reference registers conv1 and conv2 twice, also as conv_encoder.0 and .4; JAX's reads encoder.conv1, .conv2
+    shared = {f"encoder.conv_encoder.{i}.{p}": f"encoder.conv{j}.{p}" for i, j in ((0, 1), (4, 2))
+              for p in ("weight", "bias")}
+    return _reference_variables("las", {**state_dict,
+                                        **{k: state_dict[v] for k, v in shared.items() if v in state_dict}})
+
+
+_FAMILY_CONVERTERS = {
+    "res8": res8_torch_state_to_variables,
+    "lstm": lstm_torch_state_to_variables,
+    "seq-lstm": lstm_torch_state_to_variables,
+    "gru": gru_torch_state_to_variables,
+    "las": las_torch_state_to_variables,
+}
+
+
+def torch_state_to_variables(model_name: str, state_dict: dict) -> dict:
+    """A reference (castorini/howl) state dict of ``model_name`` -> the JAX
+    package's variables tree as numpy, the families of
+    ``SUPPORTED_IMPORT_FAMILIES``; the others raise ``NotImplementedError``."""
+    converter = _FAMILY_CONVERTERS.get(model_name)
+    if converter is None:
+        raise NotImplementedError(f"torch checkpoint import is implemented for {SUPPORTED_IMPORT_FAMILIES}; got "
+                                  f"{model_name!r}. Other families can be retrained with "
+                                  "howl_tpu_torch.training.run.train on the same datasets and recipes.")
+    return converter(state_dict)
+
+
 def is_reference_workspace(path) -> bool:
     """True where ``path`` holds a reference workspace: its torch checkpoints,
     or an underscore-keyed ``settings.json``."""

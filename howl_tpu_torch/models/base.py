@@ -126,10 +126,11 @@ def use_data_group(model: nn.Module, group) -> None:
 def batch_moments(xf: torch.Tensor, group=None):
     """Per-channel mean and biased variance (E[x^2] - E[x]^2, clipped at 0)
     of float32 (B, C, H, W) ``xf``. With a data group (a
-    ``parallel.mesh.DataGroup`` of more than one rank) over the global
-    batch: each rank's sums of x and x^2 and its element count are
-    all-reduced in float32 by the differentiable all-reduce, so the
-    gradient through the statistics reaches every rank's rows."""
+    ``parallel.mesh.DataGroup`` of more than one rank; a seed's group of a
+    (seed, data) grid) over the global batch: each rank's sums of x and x^2
+    and its element count are all-reduced in float32 over the group by the
+    differentiable all-reduce, so the gradient through the statistics
+    reaches every rank's rows."""
     if group is None or group.size == 1:
         mean = xf.mean(dim=(0, 2, 3))
         return mean, torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
@@ -141,7 +142,8 @@ def batch_moments(xf: torch.Tensor, group=None):
     count = xf.new_full((1,), float(xf.numel() // c))
     with warnings.catch_warnings():  # newer PyTorch marks it deprecated; its replacement has no backward
         warnings.simplefilter("ignore", FutureWarning)
-        sums = all_reduce(torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)), count]))
+        sums = all_reduce(torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)), count]),
+                          group=group.pg if group.pg is not None else torch.distributed.group.WORLD)
     mean, sq = sums[:c] / sums[-1], sums[c : 2 * c] / sums[-1]
     return mean, torch.clamp(sq - mean * mean, min=0.0)
 

@@ -1,6 +1,8 @@
 """ctypes bindings of the native serving runtime, ``native/howl_native.cpp``
-(counterpart of ``howl_tpu/native/__init__.py``): the client's PCM ring and
-the multi-stream mux that feeds the batched live engines.
+(counterpart of ``howl_tpu/native/__init__.py``): the client's PCM ring,
+the multi-stream mux that feeds the batched live engines, and three host
+helpers: PCM int16 to float, an energy VAD's leading silence, and a 16-bit
+PCM WAV decoder.
 
 The C++ source is the repository's, shared with the JAX package; this
 package builds its own library from it, on first use, with the host's C++
@@ -79,6 +81,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "mux_pending": (i64, [vp, i64]),
         "mux_gather": (i64, [vp, f32p, i64, i8p]),
         "mux_gather_range": (i64, [vp, f32p, i64, i8p, i64, i64]),
+        "pcm_i16_to_f32": (None, [i16p, f32p, i64]),
+        "vad_leading_silence_ms": (i64, [f32p, i64, ctypes.c_int, ctypes.c_int, ctypes.c_float]),
+        "wav_decode_i16": (i64, [ctypes.POINTER(ctypes.c_uint8), i64, f32p, ctypes.POINTER(ctypes.c_int32),
+                                 ctypes.POINTER(ctypes.c_int32)]),
     }
     for name, (restype, argtypes) in signatures.items():
         fn = getattr(lib, name)
@@ -259,3 +265,51 @@ class NativeStreamMux:
         if getattr(self, "_lib", None) is not None and getattr(self, "_handle", None):
             self._lib.mux_destroy(self._handle)
             self._handle = None
+
+
+def pcm_int16_to_float(pcm: bytes) -> np.ndarray:
+    """Little-endian int16 PCM bytes -> float32 samples in [-1, 1)."""
+    arr = np.frombuffer(pcm, dtype="<i2")
+    lib = _ensure_built()
+    if lib is None:
+        return arr.astype(np.float32) / 32768.0
+    out = np.empty(len(arr), np.float32)
+    lib.pcm_i16_to_f32(_i16p(np.ascontiguousarray(arr)), _f32p(out), len(arr))
+    return out
+
+
+def leading_silence_ms(audio: np.ndarray, sample_rate: int = 16000, frame_ms: int = 30,
+                       threshold_db: float = -35.0) -> int:
+    """Milliseconds of leading frames whose RMS lies at or below
+    ``threshold_db``."""
+    lib = _ensure_built()
+    audio = np.ascontiguousarray(audio, np.float32)
+    if lib is None:
+        frame_len = int(frame_ms / 1000 * sample_rate)
+        ms = 0
+        for start in range(0, len(audio) - frame_len + 1, frame_len):
+            frame = audio[start : start + frame_len]
+            rms = float(np.sqrt(np.mean(frame**2) + 1e-12))
+            if 20 * np.log10(rms + 1e-12) > threshold_db:
+                break
+            ms += frame_ms
+        return ms
+    return int(lib.vad_leading_silence_ms(_f32p(audio), len(audio), sample_rate, frame_ms, threshold_db))
+
+
+def wav_decode(data: bytes):
+    """16-bit PCM WAV bytes -> (audio float32 (channels * frames,), sample
+    rate, channels); None where the library is unavailable or the input is
+    malformed."""
+    lib = _ensure_built()
+    if lib is None:
+        return None
+    buf = np.frombuffer(data, np.uint8)
+    u8p = buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+    sr, ch = ctypes.c_int32(0), ctypes.c_int32(0)
+    n = lib.wav_decode_i16(u8p, len(buf), None, ctypes.byref(sr), ctypes.byref(ch))
+    if n < 0:
+        return None
+    out = np.empty(n, np.float32)
+    lib.wav_decode_i16(u8p, len(buf), _f32p(out), ctypes.byref(sr), ctypes.byref(ch))
+    return out, int(sr.value), int(ch.value)

@@ -56,6 +56,15 @@ def _hann_window(n: int) -> np.ndarray:
     return (0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n) / n)).astype(np.float32)
 
 
+def dft_matrices(n_fft: int) -> tuple[np.ndarray, np.ndarray]:
+    """Real-DFT basis: (n_fft, n_freqs) cosine and sine matrices, float32, the
+    JAX package's bit for bit. ``|rfft(x)|^2 == (x @ C)^2 + (x @ S)^2``."""
+    n_freqs = n_fft // 2 + 1
+    t = np.arange(n_fft)[:, None] * np.arange(n_freqs)[None, :]
+    ang = 2.0 * np.pi * t / n_fft
+    return np.cos(ang).astype(np.float32), (-np.sin(ang)).astype(np.float32)
+
+
 def nyquist_crop_bins(config: "FrontendConfig") -> int:
     """Number of DFT bins the mel projection actually reads.
 

@@ -24,6 +24,11 @@ N ranks compute what one process computes on the global batch:
   group before AdamW (``average_gradients``: one all-reduce of the
   flattened gradients; the step updates its state in place, so it takes no
   DDP wrapper), and the logged loss is the global mean (``all_mean``).
+
+The N-seed sweep runs the same way on a (seed S, data D) grid of S * D
+ranks (``launch`` or ``run_ranks`` with a ``Mesh``; ``mesh.seed_group``):
+each rank's group is its seed's D ranks, and every collective below runs on
+the group it is given. Rank (s, 0) writes seed s's files.
 """
 
 from __future__ import annotations
@@ -38,7 +43,15 @@ from typing import Optional
 
 import torch
 
-from howl_tpu_torch.parallel.mesh import DEFAULT_TIMEOUT_S, DataGroup, initialize_multihost
+from howl_tpu_torch.parallel.mesh import (
+    DEFAULT_TIMEOUT_S,
+    DataGroup,
+    Mesh,
+    initialize_multihost,
+    mesh_backend,
+    seed_group,
+)
+from howl_tpu_torch.utils.logger import Logger
 
 _GROUP: Optional[DataGroup] = None
 TIMEOUT_S = DEFAULT_TIMEOUT_S  # the rendezvous and each collective; the launcher joins its ranks within it too
@@ -58,14 +71,21 @@ def free_port() -> int:
 
 @contextlib.contextmanager
 def joined(rank: Optional[int], size: Optional[int], device, address: Optional[str] = None,
-           timeout_s: Optional[float] = None):
+           timeout_s: Optional[float] = None, backend: Optional[str] = None, seeds: int = 1):
     """Join a group as ``rank`` of ``size`` (``address`` None: the
-    ``env://`` variables of ``torchrun``), yield its ``DataGroup`` and leave
-    it on exit."""
+    ``env://`` variables of ``torchrun``), yield its ``DataGroup`` (with
+    ``seeds`` > 1, this rank's seed's group of the grid) and leave it on
+    exit."""
     import torch.distributed as dist
 
     global _GROUP
-    group = initialize_multihost(address, size, rank, device=device, timeout_s=timeout_s or TIMEOUT_S)
+    group = initialize_multihost(address, size, rank, device=device, timeout_s=timeout_s or TIMEOUT_S,
+                                 backend=backend)
+    try:
+        group = seed_group(group, seeds)
+    except BaseException:
+        dist.destroy_process_group()
+        raise
     _GROUP = group
     try:
         yield group
@@ -101,12 +121,12 @@ def data_size(num_devices: int, batch_size: int, device: torch.device) -> int:
 
 
 def _worker(module: str, argv: list, rank: int, size: int, address: str, device: str, settings: dict,
-            timeout_s: float) -> None:
+            timeout_s: float, backend: Optional[str] = None, seeds: int = 1) -> None:
     from howl_tpu_torch.settings import SETTINGS
 
     try:
         SETTINGS.load_dict(settings)
-        with joined(rank, size, device, address, timeout_s):
+        with joined(rank, size, device, address, timeout_s, backend, seeds):
             importlib.import_module(module).run(argv)
     except BaseException:
         traceback.print_exc()
@@ -114,25 +134,37 @@ def _worker(module: str, argv: list, rank: int, size: int, address: str, device:
         os._exit(1)
 
 
-def launch(module: str, argv: list, size: int, device: torch.device, timeout_s: Optional[float] = None, **kwargs):
+def launch(module: str, argv: list, size: int, device: torch.device, timeout_s: Optional[float] = None,
+           mesh: Optional[Mesh] = None, **kwargs):
     """``module.run(argv, **kwargs)`` on ``size`` ranks: this process is
     rank 0 and returns its result; ranks 1..size-1 are spawned processes,
     joined within ``timeout_s`` (default ``TIMEOUT_S``) after rank 0 is
-    done. A rank that fails fails the launch."""
+    done. A rank that fails fails the launch. With a ``mesh`` the ranks
+    are its (seed, data) grid: rank r on the mesh's r-th device (seed-major),
+    its group its seed's (``mesh.seed_group``), over ``mesh.mesh_backend``'s
+    backend, which a log line names where ranks share a card."""
     import multiprocessing as mp
 
     from howl_tpu_torch.settings import SETTINGS
 
     timeout_s = timeout_s or TIMEOUT_S
+    devices, backend, seeds = [device.type] * size, None, 1
+    if mesh is not None:
+        size, seeds, backend = mesh.size, mesh.shape["seed"], mesh_backend(mesh)
+        devices = [str(d) for d in mesh.device_list()]
+        shared = [d for d in dict.fromkeys(devices) if devices.count(d) > 1 and d != "cpu"]
+        Logger.info(f"grid of {seeds} seeds x {mesh.shape['data']} ranks on {backend}"
+                    + (f": the ranks share {', '.join(shared)}, so gloo runs over CUDA tensors (NCCL puts no two "
+                       "ranks on one card)" if shared else ""))
     address = f"127.0.0.1:{free_port()}"
     ctx = mp.get_context("spawn")
     settings = SETTINGS.to_dict()
-    procs = [ctx.Process(target=_worker, args=(module, list(argv), r, size, address, device.type, settings, timeout_s),
-                         daemon=True) for r in range(1, size)]
+    procs = [ctx.Process(target=_worker, args=(module, list(argv), r, size, address, devices[r], settings, timeout_s,
+                                               backend, seeds), daemon=True) for r in range(1, size)]
     for p in procs:
         p.start()
     try:
-        with joined(0, size, device.type, address, timeout_s):
+        with joined(0, size, devices[0], address, timeout_s, backend, seeds):
             result = importlib.import_module(module).run(argv, **kwargs)
     finally:
         for p in procs:
@@ -146,13 +178,15 @@ def launch(module: str, argv: list, size: int, device: torch.device, timeout_s: 
     return result
 
 
-def run_ranks(module: str, argv: list, size: int, device: torch.device, **kwargs):
-    """Run ``module.run(argv)`` as a data group: join the torchrun group
-    this process belongs to, or ``launch`` ``size`` ranks."""
+def run_ranks(module: str, argv: list, size: int, device: torch.device, mesh: Optional[Mesh] = None, **kwargs):
+    """Run ``module.run(argv)`` as a data group, or with a ``mesh`` as its
+    (seed, data) grid: join the torchrun group this process belongs to
+    (its ``WORLD_SIZE`` ranks split over the mesh's seeds), or ``launch``
+    ``size`` ranks (the mesh's)."""
     if under_torchrun():
-        with joined(None, None, device.type):
+        with joined(None, None, device.type, seeds=mesh.shape["seed"] if mesh is not None else 1):
             return importlib.import_module(module).run(argv, **kwargs)
-    return launch(module, argv, size, device, **kwargs)
+    return launch(module, argv, size, device, mesh=mesh, **kwargs)
 
 
 # ---- the collectives of a step ----
@@ -182,7 +216,7 @@ def average_gradients(params, group: DataGroup) -> None:
     if not grads:
         return
     flat = torch.cat([g.reshape(-1).float() for g in grads])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=group.pg)
     flat /= group.size
     offset = 0
     for g in grads:
@@ -195,7 +229,7 @@ def all_mean(t: torch.Tensor, group: DataGroup) -> torch.Tensor:
     import torch.distributed as dist
 
     t = t.detach().float().clone()
-    dist.all_reduce(t)
+    dist.all_reduce(t, group=group.pg)
     return t / group.size
 
 
@@ -203,7 +237,7 @@ def all_sum(t: torch.Tensor, group: DataGroup) -> torch.Tensor:
     import torch.distributed as dist
 
     t = t.detach().clone()
-    dist.all_reduce(t)
+    dist.all_reduce(t, group=group.pg)
     return t
 
 
@@ -213,28 +247,47 @@ def gather_rows(t: torch.Tensor, group: DataGroup, dim: int = 0) -> torch.Tensor
     import torch.distributed as dist
 
     parts = [torch.empty_like(t) for _ in range(group.size)]
-    dist.all_gather(parts, t.contiguous())
+    dist.all_gather(parts, t.contiguous(), group=group.pg)
     return torch.cat(parts, dim=dim)
 
 
 def broadcast_object(obj, group: DataGroup):
-    """Rank 0's ``obj`` on every rank."""
+    """The group's rank 0's ``obj`` on every rank of the group."""
     import torch.distributed as dist
 
     box = [obj]
-    dist.broadcast_object_list(box, src=0)
+    dist.broadcast_object_list(box, src=group.root, group=group.pg)
     return box[0]
+
+
+def gather_objects(obj, group: DataGroup) -> list:
+    """Every rank's ``obj``, in the group's rank order, on every rank."""
+    import torch.distributed as dist
+
+    out = [None] * group.size
+    dist.all_gather_object(out, obj, group=group.pg)
+    return out
 
 
 def barrier(group: DataGroup) -> None:
     import torch.distributed as dist
 
-    if group.device.type == "cuda":
-        dist.barrier(device_ids=[group.device.index])
+    if dist.get_backend(group.pg) == "nccl":
+        dist.barrier(group=group.pg, device_ids=[group.device.index])
     else:
-        dist.barrier()
+        dist.barrier(group=group.pg)
+
+
+def kernel_launches() -> dict:
+    """This process's launch counts of the three kernels of the training
+    and evaluation paths (each wrapper's ``launches``): K1, K2, K3."""
+    from howl_tpu_torch.ops.augment_cuda import mix_noise_bank_cuda
+    from howl_tpu_torch.ops.frontend_cuda import log_mel_spectrogram_cuda
+    from howl_tpu_torch.ops.stem_cuda import res8_stem_cuda
+
+    return {"k1": log_mel_spectrogram_cuda.launches, "k2": res8_stem_cuda.launches, "k3": mix_noise_bank_cuda.launches}
 
 
 __all__ = ["DataGroup", "all_mean", "all_sum", "average_gradients", "barrier", "broadcast_object",
-           "current_group", "data_size", "free_port", "gather_rows", "joined", "launch",
-           "run_ranks", "take_rows", "under_torchrun"]
+           "current_group", "data_size", "free_port", "gather_objects", "gather_rows", "joined",
+           "kernel_launches", "launch", "run_ranks", "take_rows", "under_torchrun"]

@@ -5,20 +5,31 @@ The JAX package runs scale-out as one jitted program over a
 ``jax.sharding.Mesh`` with axes ``("seed", "data")``. PyTorch has no such
 program, so the port splits the two uses:
 
-* ``make_mesh`` returns a ``Mesh``: a (seed, data) array of torch devices
-  that one process drives. The live engines split their streams over it
-  (``shard_streams``, no collectives: each shard steps on its own device)
-  and the seed sweep places seed s on device ``s mod k``. By default it
+* ``make_mesh`` returns a ``Mesh``: a (seed, data) array of torch devices.
+  The live engines split their streams over it (``shard_streams``, no
+  collectives: each shard steps on its own device), and the seed sweep
+  lays its seeds out on it (``parallel/seed_sweep.py``). By default it
   takes every visible card once; an explicit ``devices=`` list may repeat
   a device, which is how one host exercises a split (``["cpu"] * 4`` in
-  the tests, ``[cuda:0, cuda:0]`` on a one-card machine).
-* Data parallelism runs one process a card (``torch.distributed``; NCCL on
-  cards, gloo only for the CPU). ``initialize_multihost`` joins such a
-  group and returns its ``DataGroup``; ``shard_batch`` takes a rank's rows
-  of a global batch and ``replicate`` makes every rank's weights rank 0's.
+  the tests, ``[cuda:0] * 4`` on a one-card machine).
+* Data parallelism runs one process a rank (``torch.distributed``).
+  ``initialize_multihost`` joins such a group and returns its
+  ``DataGroup``; ``shard_batch`` takes a rank's rows of a global batch and
+  ``replicate`` makes every rank's weights the group's rank 0's.
   ``parallel/data_parallel.py`` launches the ranks and holds the
   collectives of the train step (global BatchNorm statistics, the gradient
   average).
+* A (seed S, data D) grid runs S * D ranks, rank ``r = s * D + d`` at
+  coordinate (s, d) on the mesh's device ``[s, d]``: ``seed_group`` gives
+  each seed's D ranks a process group of their own, and every collective
+  that takes a ``DataGroup`` runs on it unchanged. NCCL runs on distinct
+  cards; where the ranks' devices repeat a card (NCCL puts no two ranks on
+  one card) or lie on the CPU the group runs gloo (``mesh_backend``), over
+  CUDA tensors on a card.
+
+JAX's ``batch_sharding`` and ``replicate_sharding`` have no counterpart: the
+port places a batch by rank (``shard_batch`` with a ``DataGroup``) and
+weights by broadcast (``replicate``), not by a sharding object.
 """
 
 from __future__ import annotations
@@ -83,42 +94,86 @@ def make_mesh(data: int = None, seed: int = 1, devices: Optional[Sequence] = Non
     return Mesh(arr)
 
 
+def mesh_backend(mesh: Mesh) -> str:
+    """The ``torch.distributed`` backend of a group of ranks on ``mesh``'s
+    devices, one a rank: NCCL on distinct cards, gloo on the CPU or where a
+    card repeats."""
+    devices = mesh.device_list()
+    if devices[0].type != "cuda" or len(set(devices)) < len(devices):
+        return "gloo"
+    return "nccl"
+
+
 class DataGroup(NamedTuple):
-    """One rank of the data-parallel process group (``torch.distributed``'s
-    default group): rank ``rank`` of ``size`` on ``device``."""
+    """One rank of a data-parallel group: rank ``rank`` of ``size`` on
+    ``device``. ``pg`` is its ``torch.distributed`` process group (None: the
+    default group of every rank). In a (seed, data) grid (``seed_group``)
+    the group is seed ``seed``'s ranks, one of ``seeds``, and ``root`` the
+    global rank of its rank 0."""
 
     rank: int
     size: int
     device: torch.device
+    pg: object = None
+    root: int = 0
+    seed: int = 0
+    seeds: int = 1
 
     def rows(self, local: int) -> tuple:
         """(lo, hi, total): this rank's rows of a global batch of
         ``local * size`` rows."""
         return self.rank * local, (self.rank + 1) * local, local * self.size
 
+    @property
+    def world(self) -> "DataGroup":
+        """Every rank of the grid (the default group), this rank in it."""
+        return DataGroup(self.root + self.rank, self.size * self.seeds, self.device)
+
 
 def initialize_multihost(coordinator_address: str = None, num_processes: int = None, process_id: int = None,
-                         device="cuda", timeout_s: float = DEFAULT_TIMEOUT_S) -> DataGroup:
+                         device="cuda", timeout_s: float = DEFAULT_TIMEOUT_S,
+                         backend: Optional[str] = None) -> DataGroup:
     """Join a data-parallel group: ``torch.distributed.init_process_group``
     over ``tcp://coordinator_address`` (or, without one, the ``env://``
-    variables ``torchrun`` sets), NCCL for a card and gloo for the CPU.
-    Rank r drives ``cuda:<LOCAL_RANK or r mod cards>`` on a card. A
-    rendezvous that does not complete in ``timeout_s`` raises."""
+    variables ``torchrun`` sets), by default NCCL for a card and gloo for
+    the CPU. Rank r drives ``device`` where it names a card's index, else
+    ``cuda:<LOCAL_RANK or r mod cards>``. A rendezvous that does not
+    complete in ``timeout_s`` raises."""
     import os
 
     import torch.distributed as dist
 
     device = torch.device(device)
-    backend = "nccl" if device.type == "cuda" else "gloo"
+    backend = backend or ("nccl" if device.type == "cuda" else "gloo")
     init = f"tcp://{coordinator_address}" if coordinator_address else "env://"
     kwargs = {k: v for k, v in (("world_size", num_processes), ("rank", process_id)) if v is not None}
     if device.type == "cuda":
-        local = int(os.environ.get("LOCAL_RANK", process_id if process_id is not None else 0))
-        device = torch.device("cuda", local % max(torch.cuda.device_count(), 1))
+        if device.index is None:
+            local = int(os.environ.get("LOCAL_RANK", process_id if process_id is not None else 0))
+            device = torch.device("cuda", local % max(torch.cuda.device_count(), 1))
         torch.cuda.set_device(device)
-        kwargs["device_id"] = device
+        if backend == "nccl":
+            kwargs["device_id"] = device
     dist.init_process_group(backend, init_method=init, timeout=datetime.timedelta(seconds=timeout_s), **kwargs)
     return DataGroup(dist.get_rank(), dist.get_world_size(), device)
+
+
+def seed_group(world: DataGroup, n_seeds: int) -> DataGroup:
+    """The (seed, data) grid over the ``world`` group's W ranks: rank ``s *
+    D + d`` of W = ``n_seeds`` * D is rank d of seed s's group, a process
+    group of its own (every rank creates every seed's, as
+    ``torch.distributed.new_group`` asks). Raises where W does not divide
+    by ``n_seeds``."""
+    import torch.distributed as dist
+
+    if n_seeds < 1 or world.size % n_seeds:
+        raise ValueError(f"a grid of {n_seeds} seeds does not divide {world.size} ranks")
+    if n_seeds == 1:
+        return world
+    d = world.size // n_seeds
+    groups = [dist.new_group(list(range(s * d, (s + 1) * d))) for s in range(n_seeds)]
+    s = world.rank // d
+    return DataGroup(world.rank % d, d, world.device, groups[s], s * d, s, n_seeds)
 
 
 def shard_batch(batch_arrays, group: DataGroup) -> tuple:
@@ -139,11 +194,13 @@ def shard_batch(batch_arrays, group: DataGroup) -> tuple:
     return tuple(out)
 
 
-def replicate(module: torch.nn.Module) -> torch.nn.Module:
-    """Every rank's parameters and buffers become rank 0's, in place."""
+def replicate(module: torch.nn.Module, group: Optional[DataGroup] = None) -> torch.nn.Module:
+    """Every rank's parameters and buffers become its group's rank 0's (the
+    default group's without one), in place."""
     import torch.distributed as dist
 
+    src, pg = (group.root, group.pg) if group is not None else (0, None)
     with torch.no_grad():
         for t in list(module.parameters()) + list(module.buffers()):
-            dist.broadcast(t.data, src=0)
+            dist.broadcast(t.data, src=src, group=pg)
     return module

@@ -22,14 +22,23 @@ computes exactly what the single-model step computes at key s, as under
   with a vmap rule for the stem kernel's autograd path, or grouped
   convolutions) is later work (ROADMAP, "Other device work").
 
-Across cards (a ``Mesh`` of k devices, ``parallel/mesh.py``), seed s lives
-on device ``s mod k`` in this one process: its train state, its batch
-(``shard_seed_batch(..., mesh=)``, one tensor a seed) and its generator.
-Each device mixes its seeds' noise in one K3 launch over those seeds'
-examples, and each seed's losses and weights are bit for bit its
-one-device numbers. The JAX package also splits each seed's batch over the
-mesh's ``data`` axis; that changes no number there, and the port does not
-reproduce it.
+The sweep lays its seeds out on the JAX harness's mesh, (seed S, data
+max(cards // S, 1)) (``sweep_mesh``).
+
+* With ``data`` 1 the sweep runs in this one process, seed s on the mesh's
+  device ``s mod k``: its train state, its batch (``shard_seed_batch(...,
+  mesh=)``, one tensor a seed) and its generator. Each device mixes its
+  seeds' noise in one K3 launch over those seeds' examples, and each seed's
+  losses and weights are bit for bit its one-device numbers.
+* With ``data`` D > 1 it runs on a (seed, data) grid of S * D ranks
+  (``parallel/data_parallel.py``), as JAX splits each seed's batch over
+  the mesh's ``data`` axis. Rank (s, d) trains seed s alone with a step
+  built on its seed's data group (``mesh.seed_group``): it draws seed s's
+  whole step from ``step_generator(key_s, step)``, as the data-parallel
+  step does for one model, takes rows ``[d * B / D, (d + 1) * B / D)``
+  (``shard_seed_batch(..., group=)``), launches K3 once a step over its
+  rows, and reduces the BatchNorm moments and the gradients over seed s's
+  D ranks; the logged loss is the seed's global mean.
 """
 
 from __future__ import annotations
@@ -41,18 +50,23 @@ import numpy as np
 import torch
 
 from howl_tpu_torch.ops.augment_cuda import mix_noise_bank_cuda
-from howl_tpu_torch.parallel.mesh import Mesh, make_mesh, visible_cards
+from howl_tpu_torch.parallel.mesh import DataGroup, Mesh, make_mesh, visible_cards
 from howl_tpu_torch.training.state import TrainState, create_train_state
-from howl_tpu_torch.training.step import NoiseBankTrainStep, draw_step, step_generator
+from howl_tpu_torch.training.step import NoiseBankTrainStep, _global_draws, step_generator
 
 
-def sweep_mesh(n_seeds: int, device) -> Mesh:
-    """The mesh a sweep of ``n_seeds`` spreads over: up to ``n_seeds``
-    visible cards for a CUDA ``device`` (the JAX harness's
-    ``make_mesh(seed=n_seeds, ...)``), the CPU alone for the CPU."""
+def sweep_mesh(n_seeds: int, device, cards: Optional[Sequence] = None) -> Mesh:
+    """The mesh a sweep of ``n_seeds`` lays out on ``cards`` (default: the
+    visible cards) for a CUDA ``device``, the CPU alone for the CPU: the
+    JAX harness's ``make_mesh(seed=S, data=max(k // S, 1))`` over k
+    devices. Where the seeds outnumber the devices, where JAX's mesh does
+    not fit, it is (k, 1): one process, seed s on device ``s mod k``."""
     device = torch.device(device)
-    devices = visible_cards()[:n_seeds] if device.type == "cuda" else [device]
-    return make_mesh(data=len(devices), devices=devices)
+    cards = [torch.device(c) for c in (visible_cards() if cards is None else cards)] if device.type == "cuda" \
+        else [device]
+    if n_seeds > len(cards):
+        return make_mesh(seed=len(cards), data=1, devices=cards)
+    return make_mesh(seed=n_seeds, data=len(cards) // n_seeds, devices=cards)
 
 
 def seed_devices(n_seeds: int, device="cuda", mesh=None) -> list:
@@ -89,13 +103,16 @@ class SeedSweepStep:
     the frame objective (None: whole windows), (audio_lengths,
     label_lengths) for CTC. ``draws``,
     one ``StepDraws`` a seed, replays given draws as the single step takes
-    them."""
+    them. A per-model step built on a data group (a seed's group of a
+    (seed, data) grid) makes each batch argument this rank's rows of the
+    seed's global batch and ``draws`` the global batch's."""
 
     def __init__(self, train_step: Callable):
         self.train_step = train_step
         banked = isinstance(train_step, NoiseBankTrainStep)
         self._inner = train_step.inner if banked else train_step
         self.cfg = self._inner.cfg
+        self.group: Optional[DataGroup] = self._inner.group
         self._banked = banked and self.cfg.augment is not None
 
     def __call__(self, states: List[TrainState], audio: torch.Tensor, labels: torch.Tensor, *rest,
@@ -108,8 +125,8 @@ class SeedSweepStep:
         devices = [audio[i].device for i in range(s)]
         gens = [step_generator(int(keys[i]), states[i].step, devices[i]) for i in range(s)]
         banks = [self.train_step.prepared_for(n, d) if self._banked else None for d in devices]
-        if draws is None:
-            draws = [draw_step(gen, self.cfg, b, n, bank) for gen, bank in zip(gens, banks)]
+        draws = [_global_draws(gen, self.cfg, b, n, bank, None if draws is None else draws[i], self.group)[0]
+                 for i, (gen, bank) in enumerate(zip(gens, banks))]
         audio, labels = [audio[i] for i in range(s)], [labels[i] for i in range(s)]
         if self._banked:
             # each device's seeds' rows in one launch; the per-seed steps then skip their own mix
@@ -141,11 +158,19 @@ def make_seed_sweep_step(train_step: Callable) -> SeedSweepStep:
     return SeedSweepStep(train_step)
 
 
-def shard_seed_batch(batch_arrays, device="cuda", mesh=None) -> tuple:
+def shard_seed_batch(batch_arrays, device="cuda", mesh=None, group: Optional[DataGroup] = None) -> tuple:
     """Place (S, B, ...) host arrays: stacked on ``device`` (or a mesh's
     one device), or with a mesh of several devices a list of S per-seed
-    tensors, seed s's on its device (``seed_devices``). The JAX package
-    splits them over the mesh's (seed, data) axes."""
+    tensors, seed s's on its device (``seed_devices``). With a data group
+    (a seed's group of a grid) the rank's rows ``[d * B / D, (d + 1) * B /
+    D)`` of each, stacked on the group's device; a B that does not divide
+    by D raises ``ValueError``. The JAX package splits them over the mesh's
+    (seed, data) axes."""
+    if group is not None:
+        from howl_tpu_torch.parallel.mesh import shard_batch
+
+        arrays = [np.moveaxis(np.asarray(x), 1, 0) for x in batch_arrays]  # (B, S, ...): rows first
+        return tuple(x.movedim(0, 1).contiguous() for x in shard_batch(arrays, group))
     if mesh is None or mesh.size == 1:
         device = mesh.device_list()[0] if mesh is not None else device
         return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(device) for x in batch_arrays)

@@ -8,11 +8,17 @@ The reference farms one training process per GPU (polling ``ps aux``) and
 re-runs a full eval per threshold. Here:
 
   * seeds train one after another through the entry point
-    (``training.run.train``), or with ``--sharded-seeds`` all at once
-    (``parallel/seed_sweep.py``: one sweep step trains every seed, with one
-    launch of the noise-bank mix kernel, K3, a card over its seeds'
-    examples; seed s on card s mod k of the visible cards); existing seed
-    workspaces are kept;
+    (``training.run.train``), or with ``--sharded-seeds`` all at once on
+    the JAX harness's (seed S, data max(cards // S, 1)) mesh
+    (``parallel/seed_sweep.py``): with ``data`` 1 one sweep step trains
+    every seed in this process, with one launch of the noise-bank mix
+    kernel, K3, a card over its seeds' examples (seed s on card s mod k);
+    with ``data`` D > 1 a grid of S * D ranks trains them, rank (s, d) on
+    rows d of seed s's batch, K3 once a rank a step, and each seed's
+    threshold sweep splits its rows over the seed's D ranks (K1 and K2
+    once a rank an evaluator batch). ``run(..., mesh=)`` takes an explicit
+    mesh, whose devices may repeat a card. Existing seed workspaces are
+    kept;
   * the threshold sweep scores every clip once through the offline engine
     (``hub.load_workspace_streaming_engine``; on the card the frontend
     kernel K1 and, for res8, the stem kernel K2, once an evaluator batch)
@@ -43,6 +49,7 @@ import torch
 
 from howl_tpu_torch.models import MODEL_REGISTRY
 from howl_tpu_torch.settings import SETTINGS
+from howl_tpu_torch.training.run.train import LoopStats
 from howl_tpu_torch.utils.args_utils import ArgumentParserBuilder, opt
 from howl_tpu_torch.utils.logger import Logger
 from howl_tpu_torch.utils.platform import resolve_device
@@ -60,13 +67,14 @@ def _percentiles(values: List[float]) -> dict:
 
 
 def sweep_workspace(workspace_path: Path, model_name: str, dataset_paths, thresholds, use_stitched: bool,
-                    device="cuda", stats=None):
+                    device="cuda", stats=None, group=None):
     """Evaluate one trained workspace over all eval sets at every threshold.
 
     Returns ({set_name: {threshold: (tp, tn, fp, fn)}}, {set_name: audio
     hours}), and writes the reference-format {threshold}_results.csv files.
     ``stats``, a ``training.run.train.LoopStats``, gains the evaluator's
-    batches, seconds and audio."""
+    batches, seconds and audio. With a data ``group`` each batch's rows are
+    split over its ranks and its rank 0 writes the files."""
     from howl_tpu_torch.data.dataset.dataset import DatasetSplit, DatasetType, WakeWordDataset
     from howl_tpu_torch.data.dataset.dataset_loader import RecursiveNoiseDatasetLoader, WakeWordDatasetLoader
     from howl_tpu_torch.hub import load_workspace_streaming_engine
@@ -74,7 +82,7 @@ def sweep_workspace(workspace_path: Path, model_name: str, dataset_paths, thresh
     from howl_tpu_torch.utils import hash_utils
 
     engine, ctx = load_workspace_streaming_engine(workspace_path, model_name, device=device)
-    evaluator = BatchedEvaluator(engine)
+    evaluator = BatchedEvaluator(engine, group=group)
 
     loader = WakeWordDatasetLoader()
     ds_kwargs = dict(sample_rate=SETTINGS.audio.sample_rate, mono=SETTINGS.audio.use_mono, frame_labeler=ctx.labeler)
@@ -124,7 +132,7 @@ def sweep_workspace(workspace_path: Path, model_name: str, dataset_paths, thresh
         stats.eval_audio_ms += sum(hours.values()) * 3.6e6
 
     # reference-format per-threshold csvs
-    for t in thresholds:
+    for t in thresholds if group is None or group.rank == 0 else ():
         with (Path(workspace_path) / f"{round(float(t), 2)}_results.csv").open("w") as f:
             for name in results:
                 tp, tn, fp, fn = results[name][float(t)]
@@ -183,6 +191,7 @@ class SeedTraining:
     opt_kwargs: dict
     make_batchifier: Callable
     mesh: object = None  # the seeds' devices (``parallel.seed_sweep.sweep_mesh``); None: all on ``device``
+    group: object = None  # a grid rank's seed group (``parallel.mesh.seed_group``): its rows of one seed's batch
 
     def create_states(self, seeds=None) -> list:
         """Fresh train states of ``seeds`` (default: all), seed s's from its
@@ -195,7 +204,8 @@ class SeedTraining:
     def batches(self):
         """The sweep's batches in step order, without end: (audio (S, B, n),
         labels, *lengths) on the device, seed s's drawn by its own batcher
-        (seed 1000 + s) from its own sampler (seed 2000 + s)."""
+        (seed 1000 + s) from its own sampler (seed 2000 + s); on a grid
+        rank the rank's rows of its seed's batch."""
         from howl_tpu_torch.parallel.seed_sweep import shard_seed_batch
 
         batchifiers = [self.make_batchifier(seed=1000 + s) for s in self.seeds]
@@ -207,12 +217,13 @@ class SeedTraining:
             fields = ("audio_data", "labels", "lengths") if self.use_frame else (
                 "audio_data", "labels", "audio_lengths", "label_lengths")
             yield shard_seed_batch([np.stack([getattr(b, f) for b in batches]) for f in fields], self.device,
-                                   self.mesh)
+                                   self.mesh, self.group)
 
 
-def seed_training(args, seeds, device, mesh=None) -> SeedTraining:
+def seed_training(args, seeds, device, mesh=None, group=None) -> SeedTraining:
     """The shared setup of :func:`train_seeds_sharded` on ``device`` (the
-    seeds spread over ``mesh`` when given): the
+    seeds spread over ``mesh`` when given; a grid rank's ``group`` trains
+    its one seed on its rows, with the grid's rank 0's ZMUV fit): the
     train splits of ``args.dataset_paths``, the noise bank, the ZMUV fit on
     128 clips, the model of ``args.model`` and its frame or CTC step."""
     from howl_tpu_torch.context import InferenceContext
@@ -286,6 +297,10 @@ def seed_training(args, seeds, device, mesh=None) -> SeedTraining:
          for i in rng.permutation(len(ww_train))[:128]),
         frontend_cfg,
     )
+    if group is not None:
+        from howl_tpu_torch.parallel import data_parallel
+
+        zmuv = data_parallel.broadcast_object(zmuv, group.world)
     step_cfg = StepConfig(
         frontend=frontend_cfg,
         zmuv_mean=zmuv.mean,
@@ -300,14 +315,15 @@ def seed_training(args, seeds, device, mesh=None) -> SeedTraining:
     batch_size = SETTINGS.training.batch_size
     steps_per_epoch = args.steps_per_epoch or max(len(ww_train) // batch_size, 1)
     bank = torch.from_numpy(noise_bank).to(device) if noise_bank is not None else None
-    train_step = (make_classification_train_step if use_frame else make_ctc_train_step)(model, step_cfg, bank)
+    train_step = (make_classification_train_step if use_frame else make_ctc_train_step)(model, step_cfg, bank,
+                                                                                        group=group)
     opt_kwargs = dict(learning_rate=SETTINGS.training.learning_rate, weight_decay=SETTINGS.training.weight_decay,
                       lr_decay=SETTINGS.training.lr_decay, steps_per_epoch=steps_per_epoch)
     return SeedTraining(list(seeds), device, use_frame, ww_train, zmuv, model, train_step, batch_size, steps_per_epoch,
-                        opt_kwargs, make_batchifier, mesh)
+                        opt_kwargs, make_batchifier, mesh, group)
 
 
-def train_seeds_sharded(args, base: Path, seeds) -> dict:
+def train_seeds_sharded(args, base: Path, seeds, mesh=None, group=None) -> dict:
     """Train all seeds of the wake-word model at once on the card, or across
     the visible cards, seed s on card s mod k (frame OR
     ctc objective, as the reference harness sweeps any objective by env vars,
@@ -315,19 +331,27 @@ def train_seeds_sharded(args, base: Path, seeds) -> dict:
     seed (``parallel/seed_sweep.py``), seed s at key s, then per-seed
     workspaces that the eval phase reads as it reads sequentially trained
     ones. The device is ``args.device`` (default
-    ``SETTINGS.training.device``). Returns {"step_losses": (steps, S) array,
-    "epoch_losses": per epoch the seeds' mean losses, "steps", "step_s": the
-    sweep steps' seconds until each loss was on the host, "prep_s": the
-    batches' seconds}."""
+    ``SETTINGS.training.device``) and the seeds lie on ``mesh`` (default
+    ``sweep_mesh``; its ``data`` axis must be 1 here). A grid rank (its
+    seed's ``group``) trains seed ``seeds[group.seed]`` on its rows and
+    rank (s, 0) writes its workspace; every rank returns every seed's
+    losses. Returns {"step_losses": (steps, S) array, "epoch_losses": per
+    epoch the seeds' mean losses, "steps", "step_s": the sweep steps'
+    seconds until each loss was on the host, "prep_s": the batches'
+    seconds}."""
     from howl_tpu_torch.ops.tf32 import exact_float32
+    from howl_tpu_torch.parallel import data_parallel
     from howl_tpu_torch.parallel.seed_sweep import make_seed_sweep_step, sweep_mesh
     from howl_tpu_torch.workspace import Workspace
 
     device = resolve_device(getattr(args, "device", None) or SETTINGS.training.device)
     seeds = list(seeds)
-    mesh = sweep_mesh(len(seeds), device)
-    setup = seed_training(args, seeds, device, mesh)
-    Logger.info(f"seed sweep: {len(seeds)} seeds on {mesh}")
+    if group is not None:
+        device, seeds, mesh = group.device, [seeds[group.seed]], None
+    elif mesh is None:
+        mesh = sweep_mesh(len(seeds), device)
+    setup = seed_training(args, seeds, device, mesh, group)
+    Logger.info(f"seed sweep: {len(seeds)} seeds on {mesh or group}")
     states = setup.create_states()
     sweep_step = make_seed_sweep_step(setup.train_step)
     batches = setup.batches()
@@ -351,11 +375,17 @@ def train_seeds_sharded(args, base: Path, seeds) -> dict:
     record["step_losses"] = np.stack(record["step_losses"]) if record["step_losses"] else np.zeros((0, len(seeds)))
 
     for idx, s in enumerate(seeds):
+        if group is not None and group.rank:
+            continue
         ws = Workspace(base / f"seed_{s}")
         ws.save_model(states[idx].model.state_dict(), best=True)
         ws.save_zmuv(setup.zmuv)
         ws.save_settings(SETTINGS)
         ws.write_args(args)
+    if group is not None:  # every seed's losses from its rank (s, 0), once its workspace is written
+        roots = data_parallel.gather_objects(record, group.world)[:: group.size]
+        record["step_losses"] = np.concatenate([r["step_losses"] for r in roots], axis=1)
+        record["epoch_losses"] = [sum(epochs, []) for epochs in zip(*(r["epoch_losses"] for r in roots))]
     return record
 
 
@@ -387,12 +417,20 @@ def _parser() -> ArgumentParserBuilder:
     return apb
 
 
-def run(args=None, stats=None) -> dict:
+def run(args=None, stats=None, mesh=None) -> dict:
     """Train the missing seeds, sweep every seed's workspace and write the
     reports. Returns {"per_seed", "hours", "thresholds", "train": the
     sweep's record (``train_seeds_sharded``) or None}. ``stats``, a
-    ``training.run.train.LoopStats``, gains the sweeps' evaluator batches."""
-    args = _parser().parser.parse_args(args)
+    ``training.run.train.LoopStats``, gains the sweeps' evaluator batches
+    (rank 0's on a grid). ``mesh`` (default ``sweep_mesh`` of the visible
+    cards) lays out ``--sharded-seeds``: a ``data`` axis over 1 runs the
+    (seed, data) grid, whose record also holds "ranks": each rank's kernel
+    launches (``data_parallel.kernel_launches``) and evaluator batches."""
+    from howl_tpu_torch.parallel import data_parallel
+    from howl_tpu_torch.parallel.seed_sweep import sweep_mesh
+
+    argv = list(sys.argv[1:] if args is None else args)
+    args = _parser().parser.parse_args(argv)
     device = resolve_device(args.device)
 
     base = Path(args.workspace)
@@ -403,12 +441,23 @@ def run(args=None, stats=None) -> dict:
 
     seed_workspaces = [base / f"seed_{s}" for s in range(args.num_models)]
     missing = [s for s in range(args.num_models) if not (seed_workspaces[s] / "model-best.pt").exists()]
+    group = data_parallel.current_group()
+    sharded = args.sharded_seeds and not args.skip_training and missing
+    if group is not None:  # a rank of the grid: rank 0's reading, before any rank writes
+        missing, device = data_parallel.broadcast_object(missing, group.world), group.device
+    elif sharded:
+        mesh = mesh if mesh is not None else sweep_mesh(len(missing), device)
+        if mesh.shape["data"] > 1 or data_parallel.under_torchrun():
+            return data_parallel.run_ranks("howl_tpu_torch.training.run.eval_wake_word_detection", argv, mesh.size,
+                                           device, mesh=mesh, stats=stats)
 
     train_record = None
-    if args.sharded_seeds and not args.skip_training and missing:
+    if group is not None:
+        train_record = train_seeds_sharded(args, base, missing, group=group)
+    elif sharded:
         # train ONLY the missing seeds (the sequential branch skips existing
         # workspaces the same way; retraining all would overwrite them)
-        train_record = train_seeds_sharded(args, base, missing)
+        train_record = train_seeds_sharded(args, base, missing, mesh=mesh)
     else:
         # sequential seeds, each through the entry point
         for seed in range(args.num_models):
@@ -429,14 +478,24 @@ def run(args=None, stats=None) -> dict:
             train_run(train_args)
 
     # ---- EVAL PHASE: one model pass per set, all thresholds ----
-    per_seed = []
-    hours = {}
-    for ws in seed_workspaces:
-        results, ws_hours = sweep_workspace(
-            ws, args.model, args.dataset_paths, thresholds, args.use_stitched_datasets, device=device, stats=stats
-        )
-        per_seed.append({name: {float(t): v for t, v in res.items()} for name, res in results.items()})
-        hours = ws_hours
+    # on a grid, workspace i is swept by seed group i mod S, its rows split over the group's ranks
+    swept = {}
+    eval_stats = stats if stats is not None else LoopStats()
+    for i, ws in enumerate(seed_workspaces):
+        if group is not None and i % group.seeds != group.seed:
+            continue
+        results, ws_hours = sweep_workspace(ws, args.model, args.dataset_paths, thresholds,
+                                            args.use_stitched_datasets, device=device, stats=eval_stats, group=group)
+        swept[i] = ({name: {float(t): v for t, v in res.items()} for name, res in results.items()}, ws_hours)
+    if group is not None:
+        ranks = data_parallel.gather_objects((swept, {**data_parallel.kernel_launches(),
+                                                      "eval_batches": eval_stats.eval_batches}), group.world)
+        swept = {i: v for rank_swept, _ in ranks for i, v in rank_swept.items()}
+        train_record["ranks"] = [counts for _, counts in ranks]
+    per_seed = [swept[i][0] for i in range(args.num_models)]
+    hours = swept[args.num_models - 1][1] if swept else {}
+    if group is not None and group.world.rank:
+        return {"per_seed": per_seed, "hours": hours, "thresholds": thresholds, "train": train_record}
 
     # ---- REPORT PHASE ----
     report_dir = base / "reports"

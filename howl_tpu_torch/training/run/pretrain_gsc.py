@@ -18,12 +18,16 @@ train sampler by the epoch, the eval samplers unshuffled, with the last
 partial batch padded and only its ``valid`` rows counted.
 
 ``--sharded-seeds N`` (N > 1) trains seeds 0..N-1 at once through
-``parallel/seed_sweep.py``, seed s on card s mod k of the visible cards:
-seed s starts from its own weights, draws
-its steps at key s (where JAX keys seed s by ``PRNGKey(s)``) and reads its
-own batches (sampler seed ``1000 * (s + 1) + epoch``); each seed's dev and
-test accuracy come back with their means, and each seed's weights go to
-``WS/seed_<s>/``.
+``parallel/seed_sweep.py`` on the JAX entry point's (seed N, data
+max(cards // N, 1)) mesh: with ``data`` 1 in this process, seed s on card
+s mod k of the visible cards; with ``data`` D > 1 on a grid of N * D ranks,
+rank (s, d) training seed s on rows d of its batches and scoring rows d of
+each eval batch (``run(..., mesh=)`` takes an explicit mesh, whose devices
+may repeat a card). Seed s starts from its own weights, draws its steps at
+key s (where JAX keys seed s by ``PRNGKey(s)``) and reads its own batches
+(sampler seed ``1000 * (s + 1) + epoch``); each seed's dev and test
+accuracy come back with their means, and each seed's weights go to
+``WS/seed_<s>/`` (from rank (s, 0) on a grid).
 
 The device is the card (``--device``, default ``SETTINGS.training.device``)
 unless given ``--device cpu``; without a card the run raises. The train step
@@ -128,15 +132,17 @@ def optimizer_settings(steps_per_epoch: int) -> dict:
                 lr_decay=SETTINGS.training.lr_decay, steps_per_epoch=steps_per_epoch)
 
 
-def seed_batches(train_ds, n_seeds: int, epoch: int, device, mesh=None) -> Iterator[tuple]:
+def seed_batches(train_ds, n_seeds: int, epoch: int, device, mesh=None, group=None) -> Iterator[tuple]:
     """One epoch of the sweep's batches: (audio (S, B, n), labels (S, B),
     lengths (S, B)) on ``device`` (seed s's on its mesh device with a
-    mesh), seed s's from its own shuffled sampler, seeded ``1000 * (s + 1) +
-    epoch`` (ref pretrain_gsc.py:89)."""
-    samplers = [iter(make_sampler(train_ds, True, True, seed=1000 * (s + 1) + epoch)) for s in range(n_seeds)]
+    mesh), seed s's from its own shuffled sampler, seeded ``1000 * (s + 1)
+    + epoch`` (ref pretrain_gsc.py:89); on a grid rank (its seed's
+    ``group``) its rows of seed ``group.seed``'s batches, (1, B / D, ...)."""
+    seeds = [group.seed] if group is not None else range(n_seeds)
+    samplers = [iter(make_sampler(train_ds, True, True, seed=1000 * (s + 1) + epoch)) for s in seeds]
     for batches in zip(*samplers):
         arrays = (np.stack([getattr(b, k) for b in batches]) for k in ("audio_data", "labels", "lengths"))
-        yield shard_seed_batch(tuple(arrays), device, mesh)
+        yield shard_seed_batch(tuple(arrays), device, mesh, group)
 
 
 def evaluate_accuracy(eval_step, states, sampler, prefix: str, device, stats: Optional[LoopStats] = None,
@@ -185,22 +191,29 @@ def evaluate_accuracy(eval_step, states, sampler, prefix: str, device, stats: Op
 
 
 def run_sharded_seeds(n_seeds: int, model, step_cfg, train_ds, dev_ds, test_ds, workspace, device, stats: LoopStats,
-                      exact: bool) -> dict:
-    """Train seeds 0..n_seeds-1 at once through the seed sweep, then each
-    seed's dev and test accuracy and its ``seed_<s>/`` checkpoint."""
+                      exact: bool, mesh=None, group=None) -> dict:
+    """Train seeds 0..n_seeds-1 at once through the seed sweep on ``mesh``
+    (its ``data`` axis 1), or on a grid rank (its seed's ``group``) seed
+    ``group.seed`` on the rank's rows, then each seed's dev and test
+    accuracy and its ``seed_<s>/`` checkpoint. On a grid ``stats`` holds
+    every seed's losses and this rank's steps and evaluator batches, and
+    the result also "ranks": each rank's kernel launches and evaluator
+    batches."""
     steps_per_epoch = max(len(train_ds) // SETTINGS.training.batch_size, 1)
-    seeds = list(range(n_seeds))
-    mesh = sweep_mesh(n_seeds, device)
-    Logger.info(f"seed sweep on {mesh}")
+    seeds = [group.seed] if group is not None else list(range(n_seeds))
+    Logger.info(f"seed sweep on {mesh or group}")
     states = create_seed_states(model, seeds, device=device, mesh=mesh, **optimizer_settings(steps_per_epoch))
-    sweep_step = make_seed_sweep_step(make_classification_train_step(model, step_cfg))
+    if group is not None:
+        replicate(states[0].model, group)
+    sweep_step = make_seed_sweep_step(make_classification_train_step(model, step_cfg, group=group))
     eval_step = make_classification_eval_step(model, step_cfg)
     keys = seeds  # seed s draws at key s, where JAX keys seed s by PRNGKey(s)
+    step_losses, epoch_losses = [], []
 
     for epoch_idx in range(SETTINGS.training.num_epochs):
         losses = []
         t0 = time.perf_counter()
-        for audio, labels, lengths in seed_batches(train_ds, n_seeds, epoch_idx, device, mesh):
+        for audio, labels, lengths in seed_batches(train_ds, n_seeds, epoch_idx, device, mesh, group):
             if device.type == "cuda":
                 torch.cuda.synchronize()
             t1 = time.perf_counter()
@@ -210,24 +223,40 @@ def run_sharded_seeds(n_seeds: int, model, step_cfg, train_ds, dev_ds, test_ds, 
             stats.prep_s += t1 - t0
             stats.step_s += time.perf_counter() - t1
             stats.steps += 1
-            stats.examples += n_seeds * SETTINGS.training.batch_size
-            stats.step_losses.append(losses[-1].tolist())
+            stats.examples += len(seeds) * SETTINGS.training.batch_size
+            step_losses.append(losses[-1].tolist())
             t0 = time.perf_counter()
-        mean_loss = np.mean(np.stack(losses), axis=0) if losses else np.full(n_seeds, np.nan)
-        stats.epoch_losses.append(mean_loss.tolist())
+        mean_loss = np.mean(np.stack(losses), axis=0) if losses else np.full(len(seeds), np.nan)
+        epoch_losses.append(mean_loss.tolist())
         Logger.info(f"epoch {epoch_idx}: per-seed loss={np.round(mean_loss, 4).tolist()}")
 
-    dev_accs = evaluate_accuracy(eval_step, states, make_sampler(dev_ds, False, False), "Dev", device, stats, exact)
-    test_accs = evaluate_accuracy(eval_step, states, make_sampler(test_ds, False, False), "Test", device, stats, exact)
-    for s, state in enumerate(states):
-        seed_ws = Workspace(workspace.path / f"seed_{s}", delete_existing=False)
-        seed_ws.increment_model(state.model.state_dict(), float(dev_accs[s]) / 10)
-    return {
+    samplers = (make_sampler(dev_ds, False, False), make_sampler(test_ds, False, False))
+    dev_accs, test_accs = (evaluate_accuracy(eval_step, states, sampler, prefix, device, stats, exact, group)
+                           for sampler, prefix in zip(samplers, ("Dev", "Test")))
+    for s, state, dev_acc in zip(seeds, states, dev_accs):
+        if group is None or group.rank == 0:
+            seed_ws = Workspace(workspace.path / f"seed_{s}", delete_existing=False)
+            seed_ws.increment_model(state.model.state_dict(), float(dev_acc) / 10)
+    ranks = None
+    if group is not None:  # every seed's numbers from its rank (s, 0), and each rank's counts
+        ranks = data_parallel.gather_objects(
+            ((step_losses, epoch_losses, dev_accs, test_accs),
+             {**data_parallel.kernel_launches(), "eval_batches": stats.eval_batches}), group.world)
+        roots = [numbers for numbers, _ in ranks[:: group.size]]
+        step_losses = [sum(per_seed, []) for per_seed in zip(*(r[0] for r in roots))]
+        epoch_losses = [sum(per_seed, []) for per_seed in zip(*(r[1] for r in roots))]
+        dev_accs, test_accs = np.concatenate([r[2] for r in roots]), np.concatenate([r[3] for r in roots])
+    stats.step_losses += step_losses
+    stats.epoch_losses += epoch_losses
+    out = {
         "dev_acc": float(dev_accs.mean()),
         "test_acc": float(test_accs.mean()),
         "per_seed_dev_acc": dev_accs.tolist(),
         "per_seed_test_acc": test_accs.tolist(),
     }
+    if ranks is not None:
+        out["ranks"] = [counts for _, counts in ranks]
+    return out
 
 
 def _parser() -> ArgumentParserBuilder:
@@ -275,48 +304,57 @@ def _parser() -> ArgumentParserBuilder:
     return apb
 
 
-def run(args=None, stats: Optional[LoopStats] = None) -> dict:
+def run(args=None, stats: Optional[LoopStats] = None, mesh=None) -> dict:
     """Train (or with ``--eval`` evaluate) and return the dev and test
     accuracies, as the JAX entry point does; with ``--sharded-seeds`` also
     each seed's. A ``LoopStats`` passed as ``stats`` is filled with where the
-    run spent its time and each step's loss."""
+    run spent its time and each step's loss. ``mesh`` (default
+    ``sweep_mesh`` of the visible cards) lays out ``--sharded-seeds``: a
+    ``data`` axis over 1 runs the (seed, data) grid."""
     argv = list(sys.argv[1:] if args is None else args)
     args = _parser().parser.parse_args(argv)
     device = ensure_platform(args.device)
     stats = stats if stats is not None else LoopStats()
     group = data_parallel.current_group()
-    if group is None and args.sharded_seeds <= 1:
+    sharded = args.sharded_seeds > 1 and not args.eval
+    if group is None and not sharded:
         n_data = data_parallel.data_size(args.num_devices, SETTINGS.training.batch_size, device)
         if n_data > 1 or data_parallel.under_torchrun():
             return data_parallel.run_ranks("howl_tpu_torch.training.run.pretrain_gsc", argv, n_data, device,
                                            stats=stats)
-    elif group is not None:
+    elif group is None:
+        mesh = mesh if mesh is not None else sweep_mesh(args.sharded_seeds, device)
+        if mesh.shape["data"] > 1 or data_parallel.under_torchrun():
+            return data_parallel.run_ranks("howl_tpu_torch.training.run.pretrain_gsc", argv, mesh.size, device,
+                                           mesh=mesh, stats=stats)
+    else:
         device = group.device
+    writer = group.world if group is not None else None  # the workspace's writer: rank 0 of every rank
 
-    workspace = open_workspace(Path(args.workspace), not args.eval, group)
+    workspace = open_workspace(Path(args.workspace), not args.eval, writer)
     set_random_seed(SETTINGS.training.seed)
     train_ds, dev_ds, test_ds = load_splits(args.silence_proportion)
     Logger.info(f"splits: train={len(train_ds)} dev={len(dev_ds)} test={len(test_ds)}")
     Logger.info(f"device: {device}")
 
     zmuv = workspace.load_zmuv() if workspace.writes else None
-    if group is not None:  # rank 0's reading, before any rank writes: every rank then fits, or not, alike
-        zmuv = data_parallel.broadcast_object(zmuv, group)
+    if writer is not None:  # rank 0's reading, before any rank writes: every rank then fits, or not, alike
+        zmuv = data_parallel.broadcast_object(zmuv, writer)
     if zmuv is None:
         zmuv = fit_zmuv(make_sampler(train_ds, True, True), FrontendConfig.from_settings(), device=device)
         workspace.save_zmuv(zmuv)
-        if group is not None:  # rank 0's fit on every rank, to the bit
-            zmuv = data_parallel.broadcast_object(zmuv, group)
+        if writer is not None:  # rank 0's fit on every rank, to the bit
+            zmuv = data_parallel.broadcast_object(zmuv, writer)
     step_cfg = step_config(args.model, zmuv, args.use_augment)
     compute_dtype = torch.bfloat16 if args.bf16 else None
     exact = is_float32(compute_dtype)  # TF32 off for float32 steps and eval batches, not for --bf16
     model = create_model(args.model, num_labels=args.num_labels, dtype=compute_dtype)
 
-    if args.sharded_seeds > 1 and not args.eval:
+    if sharded:
         workspace.write_args(args)
         workspace.save_settings(SETTINGS)
         return run_sharded_seeds(args.sharded_seeds, model, step_cfg, train_ds, dev_ds, test_ds, workspace, device,
-                                 stats, exact)
+                                 stats, exact, mesh, group)
 
     steps_per_epoch = max(len(train_ds) // SETTINGS.training.batch_size, 1)
     state = create_train_state(model, generator=torch.Generator().manual_seed(SETTINGS.training.seed), device=device,

@@ -267,6 +267,7 @@ def make_classification_train_step(model, cfg: StepConfig, noise_bank=None, grou
         return state, {"loss": _metric(loss, group), "accuracy": _metric(acc, group)}
 
     train_step.cfg = cfg
+    train_step.group = group
     if noise_bank is None:
         return train_step
     return NoiseBankTrainStep(train_step, noise_bank)
@@ -314,6 +315,7 @@ def make_ctc_train_step(model, cfg: StepConfig, noise_bank=None, group=None) -> 
         return state, {"loss": _metric(loss, group)}
 
     train_step.cfg = cfg
+    train_step.group = group
     if noise_bank is None:
         return train_step
     return NoiseBankTrainStep(train_step, noise_bank)

@@ -263,3 +263,22 @@ def test_trace_writes_a_chrome_trace_on_the_cpu(tmp_path):
     events = json.loads(files[0].read_text())["traceEvents"]
     assert any("aten::mm" in str(e.get("name")) for e in events)
     assert any("aten::mm" in e.key for e in prof.key_averages())
+
+
+def test_two_trace_sessions_in_one_process_write_their_own_files(tmp_path):
+    """F18's CPU half: two sessions one after the other in this process, each
+    around its own op, each write a trace file of their own that holds its
+    op and not the other's (the card's half, each session naming K1, is
+    ``tests/test_torch_gpu.py``'s)."""
+    from howl_tpu_torch.utils.profiling import trace
+
+    x = torch.randn(64, 64)
+    paths = []
+    for op, other in ((torch.mm, "aten::mul"), (torch.mul, "aten::mm")):
+        with trace(tmp_path / "tb", device="cpu") as prof:
+            op(x, x).sum()
+        names = {str(e.get("name")) for e in json.loads(prof.trace_path.read_text())["traceEvents"]}
+        assert f"aten::{op.__name__}" in names and other not in names
+        assert not hasattr(prof, "lost_at_start")  # no primer without the card
+        paths.append(prof.trace_path)
+    assert paths[0] != paths[1] and sorted((tmp_path / "tb").glob("*.json")) == sorted(paths)

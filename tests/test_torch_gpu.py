@@ -2104,3 +2104,76 @@ def test_online_engine_sharded_two_ways_on_one_card(cuda):
         np.testing.assert_array_equal(base.last_fired, sharded.last_fired)
         np.testing.assert_array_equal(base.last_labels, sharded.last_labels)
     torch.testing.assert_close(sharded.state.pred_ring, base.state.pred_ring, atol=1e-5, rtol=0)
+
+
+# ---- F18: profiler sessions in one process; the seed sweep on a (seed, data) grid of one card ----
+
+
+def test_profiler_two_sessions_after_a_long_one_both_name_k1(cuda, tmp_path):
+    """F18: after a profiler session of 60,000 launches in this process (after
+    which PyTorch's profiler drops a later session's first device record),
+    two ``utils.profiling.trace`` sessions one after the other, each around
+    one K1 launch, each record K1's kernel, in ``key_averages`` and in the
+    Chrome trace each writes to a file of its own; the primer took the
+    loss."""
+    from howl_tpu_torch.utils.profiling import PRIMER_LAUNCHES, trace
+
+    audio = torch.randn((8, 16000), generator=torch.Generator(device=cuda).manual_seed(0), device=cuda) * 0.1
+    cfg = FrontendConfig(n_mels=40)
+    log_mel_spectrogram_cuda(audio, cfg)
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities):
+        x = torch.zeros(16, device=cuda)
+        for _ in range(60000):
+            x.add_(1.0)
+        torch.cuda.synchronize()
+    paths = []
+    for _ in range(2):
+        with trace(tmp_path) as prof:
+            log_mel_spectrogram_cuda(audio, cfg)
+        names = [e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert any("logmel" in n for n in names), names
+        assert "logmel" in prof.trace_path.read_text()
+        assert 0 <= prof.lost_at_start < PRIMER_LAUNCHES
+        paths.append(prof.trace_path)
+    assert paths[0] != paths[1]
+
+
+def test_seed_grid_on_one_card_matches_the_one_process_sweep(cuda):
+    """One augmented sweep step of two seeds on a (seed 2, data 2) grid of
+    four ranks sharing the card over gloo: each rank launches K3 once over
+    its rows, and each seed's loss is the one-process sweep's on the card
+    within 1e-5 relative, its weights within ``tests/test_torch_scaleout.py``'s
+    tolerances (its ``_assert_state_close``, which this file cannot import)."""
+    import sys
+    from pathlib import Path
+
+    from howl_tpu_torch.compat import numpy_variables
+    from howl_tpu_torch.training.step import StepConfig
+
+    # the spawned ranks import the helper by this name, from the path the parent's interpreter holds (another
+    # installed package may be named ``tests``)
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch_scaleout as helpers
+
+    rng = np.random.default_rng(5)
+    variables = [numpy_variables("res8", 4, np.random.default_rng(s)) for s in (31, 32)]
+    audio = (rng.standard_normal((2, 8, 8000)) * 0.1).astype(np.float32)
+    labels = rng.integers(0, 4, (2, 8)).astype(np.int32)
+    bank = (rng.standard_normal((3, 9000)) * 0.05).astype(np.float32)
+    cfg = StepConfig(FrontendConfig(n_mels=40), 2.05, 1.0, augment=aug.AugmentConfig(), negative_label=3,
+                     use_deltas=False, replace_prob=0.3)
+    case = (cfg, audio, labels, bank, None)
+    before = mix_noise_bank_cuda.launches
+    one_losses, one_after = helpers.sweep_step(variables, *case, device=cuda)
+    assert mix_noise_bank_cuda.launches == before + 1  # both seeds' rows in one launch
+    grid = helpers.spawn_ranks(helpers.card_grid_rank, 4, variables, case)
+    for rank, ((losses, after), launches) in grid.items():
+        s = rank // 2
+        assert launches == 1
+        np.testing.assert_allclose(losses[0], one_losses[s], rtol=1e-5)
+        for k, want in one_after[s].items():
+            if k.endswith("num_batches_tracked"):
+                continue
+            tol = dict(rtol=2e-4, atol=1e-6) if k.startswith("bn") else dict(rtol=1e-3, atol=1e-5)
+            np.testing.assert_allclose(after[0][k], want, err_msg=k, **tol)

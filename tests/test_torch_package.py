@@ -92,6 +92,49 @@ def test_every_module_of_the_jax_package_has_its_counterpart():
         "ops/augment_pallas.py", "ops/frontend_pallas.py", "ops/stem_pallas.py"]
 
 
+# the public top-level names of howl_tpu that the port leaves out, each with its reason
+_NOT_PORTED = {
+    ("parallel/mesh.py", "batch_sharding"): "the port places a batch by rank (shard_batch with a DataGroup), "
+                                            "not by a sharding object",
+    ("parallel/mesh.py", "replicate_sharding"): "the port replicates weights by broadcast (replicate), not by a "
+                                                "sharding object",
+}
+
+
+def _top_level(path: Path, public_defs: bool) -> set:
+    """The module's public top-level defs and classes, or every top-level
+    name it binds (defs, classes, assignments, imports)."""
+    import ast
+
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif public_defs:
+            continue
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) else [node.target]
+            names.update(t.id for t in targets if isinstance(t, ast.Name))
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            names.update((a.asname or a.name).split(".")[0] for a in node.names)
+    return {n for n in names if not n.startswith("_")} if public_defs else names
+
+
+def test_every_public_function_and_class_of_the_jax_package_has_its_counterpart():
+    """Every public top-level def and class of a ``howl_tpu`` module is bound
+    at the top level of its port module (parsed with ``ast``), but the
+    listed exceptions, each with its reason."""
+    missing = set()
+    for path in (REPO / "howl_tpu").rglob("*.py"):
+        rel = path.relative_to(REPO / "howl_tpu")
+        port = REPO / "howl_tpu_torch" / rel
+        if not port.exists():  # the three Pallas files (the test above)
+            continue
+        missing |= {(str(rel), name) for name in _top_level(path, True) - _top_level(port, False)}
+    assert sorted(missing) == sorted(_NOT_PORTED)
+    assert all(reason for reason in _NOT_PORTED.values())
+
+
 def test_every_root_tool_and_bench_train_has_its_counterpart():
     """A file of the same name under howl_tpu_torch/tools/ for every root
     ``tools/*.py`` but ``_path.py`` (a ``sys.path`` bootstrap that the

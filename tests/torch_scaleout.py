@@ -1,14 +1,17 @@
-"""Workers of ``tests/test_torch_scaleout.py``: each runs in a spawned
-process and imports only torch and howl_tpu_torch (no jax). Every group
-joins on a free port with a rendezvous timeout, and ``spawn_ranks`` joins
-its processes within a limit, so a hung rendezvous fails its test."""
+"""Workers of ``tests/test_torch_scaleout.py`` and ``tests/test_torch_grid.py``:
+each runs in a spawned process and imports only torch and howl_tpu_torch (no
+jax). Every group joins on a free port with a rendezvous timeout, and
+``spawn_ranks`` joins its processes within a limit, so a hung rendezvous
+fails its test."""
 
+import os
 from pathlib import Path
 
 import numpy as np
 import torch
 
 TIMEOUT_S = 90.0
+SWEEP_KEY = 9  # seed s of a sweep steps at key SWEEP_KEY + s: both seeds' draws replace rows on both halves
 
 
 def _to_numpy(tree):
@@ -68,6 +71,77 @@ def dp_step_rank(rank, size, address, queue, variables, cfg, audio, labels, bank
     with data_parallel.joined(rank, size, "cpu", address, TIMEOUT_S) as group:
         out = port_step(variables, cfg, audio, labels, bank, draws, group)
     queue.put((rank, out))
+
+
+def sweep_step(variables: list, cfg, audio, labels, bank, draws, group=None, device="cpu"):
+    """One SGD step of the port's seed sweep on ``device`` from JAX-layout
+    ``variables`` (one a seed) on (S, B, n) ``audio`` and (S, B) ``labels``
+    with each seed's global ``draws`` (host, or None); with a grid rank's
+    seed group, seed ``group.seed`` on the rank's rows, on the group's
+    device. Returns ([loss a seed], [{name: numpy} of each seed's state
+    dict])."""
+    from howl_tpu_torch.models import create_model
+    from howl_tpu_torch.ops.tf32 import exact_float32
+    from howl_tpu_torch.parallel import create_seed_states, make_seed_sweep_step, shard_seed_batch
+    from howl_tpu_torch.training.step import make_classification_train_step
+
+    seeds = [group.seed] if group is not None else list(range(len(variables)))
+    device = group.device if group is not None else torch.device(device)
+    model = create_model("res8", num_labels=4)
+    states = create_seed_states(model, seeds, variables=[variables[s] for s in seeds], device=device,
+                                learning_rate=1e-2)
+    for state in states:
+        state.optimizer = torch.optim.SGD(state.model.parameters(), lr=1e-2)
+    step = make_seed_sweep_step(make_classification_train_step(
+        model, cfg, None if bank is None else torch.from_numpy(bank).to(device), group=group))
+    batch = shard_seed_batch((audio[seeds], labels[seeds]), device, group=group)
+    draws = None if draws is None else [_to_device(_to_torch(draws[s]), device) for s in seeds]
+    with exact_float32():  # float32 products without TF32 on a card, in every rank's process
+        _, metrics = step(states, *batch, None, [SWEEP_KEY + s for s in seeds], draws=draws)
+    return ([float(x) for x in metrics["loss"]],
+            [{k: v.float().cpu().numpy().copy() for k, v in state.model.state_dict().items()} for state in states])
+
+
+def _to_device(tree, device):
+    if torch.is_tensor(tree):
+        return tree.to(device)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_to_device(x, device) for x in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_device(x, device) for x in tree)
+    return tree
+
+
+def card_grid_rank(rank, size, address, queue, variables, case):
+    """A rank of a (seed 2, data size / 2) grid whose ranks share ``cuda:0``
+    over gloo: ``sweep_step`` on its rows and its K3 launches."""
+    from howl_tpu_torch.ops.augment_cuda import mix_noise_bank_cuda
+    from howl_tpu_torch.parallel import data_parallel
+
+    with data_parallel.joined(rank, size, "cuda:0", address, TIMEOUT_S, "gloo", seeds=2) as group:
+        out = sweep_step(variables, *case, group=group)
+        torch.cuda.synchronize()
+    queue.put((rank, (out, mix_noise_bank_cuda.launches)))
+
+
+def grid_rank(rank, size, address, queue, variables, cases, gsc_env, gsc_argv):
+    """A rank of a (seed 2, data size / 2) grid: ``sweep_step`` on its rows
+    for each case (cfg, audio, labels, bank, draws), then ``pretrain_gsc``
+    in the grid with ``gsc_env`` set. Puts (the steps, the run's result,
+    its step and epoch losses)."""
+    from howl_tpu_torch.parallel import data_parallel
+    from howl_tpu_torch.settings import SETTINGS
+    from howl_tpu_torch.training.run import pretrain_gsc
+    from howl_tpu_torch.training.run.train import LoopStats
+
+    torch.set_num_threads(1)
+    with data_parallel.joined(rank, size, "cpu", address, TIMEOUT_S, seeds=2) as group:
+        steps = [sweep_step(variables, *case, group=group) for case in cases]
+        os.environ.update(gsc_env)
+        SETTINGS.reset()
+        stats = LoopStats()
+        out = pretrain_gsc.run(gsc_argv, stats)
+    queue.put((rank, (steps, out, stats.step_losses, stats.epoch_losses)))
 
 
 def spawn_ranks(target, size: int, *args, timeout_s: float = TIMEOUT_S) -> dict:
